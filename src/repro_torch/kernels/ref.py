@@ -1,0 +1,35 @@
+"""Plain PyTorch versions of the port's kernels (the allclose targets).
+
+They compute in float32 and take float32 or bfloat16 tables. The kernel
+wrappers send CPU tensors here; on the card only the tests and
+``chip_smoke.py`` call them, to hold each kernel against its plain version.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def gather_scores_ref(w, b, h, ids):
+    """Sampled-head scores: w: (C,K), b: (C,), h: (T,K), ids: (T,n) ->
+    (T,n) fp32."""
+    rows = w[ids]                                  # (T,n,K)
+    return (torch.einsum("tnk,tk->tn", rows.float(), h.float())
+            + b[ids].float())
+
+
+def tree_logprob_all_ref(w, b, x):
+    """Dense per-leaf tree log-probs. w: (n_nodes,k), b: (n_nodes,),
+    x: (B,k) -> (B, C_pad) over leaves in natural order."""
+    n_nodes = b.shape[0]
+    depth = (n_nodes + 1).bit_length() - 1
+    bsz = x.shape[0]
+    x = x.float()
+    logp = torch.zeros((bsz, 1), dtype=torch.float32, device=x.device)
+    for level in range(depth):
+        lo, n_lvl = (1 << level) - 1, 1 << level
+        z = x @ w[lo:lo + n_lvl].float().T + b[lo:lo + n_lvl].float()
+        children = torch.stack([logp + F.logsigmoid(-z),
+                                logp + F.logsigmoid(z)], dim=-1)
+        logp = children.reshape(bsz, 2 * n_lvl)
+    return logp
