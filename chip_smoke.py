@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's prediction path on one NVIDIA card.
+"""Drives the PyTorch port's prediction and training paths on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
@@ -7,19 +7,29 @@ Phases, each fatal on failure:
   1. report the card (nvidia-smi name and power limit) and the TF32 switches;
   2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
   3. hold each kernel against its plain PyTorch version at the shapes of the
-     main path (full ``xc_linear`` width), time both, and check the path on a
-     small input against the port's CPU run;
-  4. the main path at full ``xc_linear`` width (C = 217,240, K = 512,
+     main paths (full ``xc_linear`` width; ``sampled_head_loss`` for all 7
+     kinds, both table dtypes, reg/softcap off and on), time both, and check
+     the prediction path on a small input against the port's CPU run;
+  4. the prediction path at full ``xc_linear`` width (C = 217,240, K = 512,
      k = 16, depth 18): 4 request batches of 256 queries through dense Eq. 5
      prediction and tree-beam top-k, launch counters reset just before and
      read just after; exhaustive beam against dense top-5 on 4 queries;
-  5. print the ``kernels`` JSON line and, last, the device line.
+  5. the training path at full ``xc_linear`` width: ``train_linear_head``
+     (adversarial_ns, 1 negative, batch 256, sparse Adagrad), counters reset
+     just before and read just after; ms per step, its device time by
+     kernel and layer, the idle share and the wait at ``torch.unique``'s
+     sync; kernel against plain version on one step's candidates and over 5
+     steps; ms per step at C = 2,097,152;
+  6. the paper's pipeline at small size on the card (fit, train adversarial
+     and uniform, predict), with the system test's three assertions;
+  7. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -32,8 +42,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import device as device_lib  # noqa: E402
 from repro_torch.configs import xc_linear  # noqa: E402
-from repro_torch.core import heads, tree as tree_lib  # noqa: E402
+from repro_torch.core import heads, tree as tree_lib, tree_fit, xc_train  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels.sampled_loss import SAMPLED_KINDS  # noqa: E402
+from repro_torch.optim import OptimizerConfig, apply_updates, init_opt_state  # noqa: E402
+from repro_torch.optim.sparse import accumulate_rows  # noqa: E402
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -46,7 +60,15 @@ TOPK = 5
 GATHER_TOL = dict(atol=1e-5, rtol=1e-5)   # one K-term float32 dot, two orders
 TREE_TOL = dict(atol=1e-4, rtol=1e-5)     # depth-term sums, two log_sigmoid forms
 SCORE_TOL = dict(atol=1e-4, rtol=1e-5)    # beam scores against dense Eq. 5 scores
+LOSS_TOL = dict(atol=1e-5, rtol=1e-5)     # losses, coefficients, scores; dh against its terms
+PARAM_TOL = 1e-4                          # params after 5 Adagrad steps, kernel against plain
 TIMING_ITERS = 20
+
+TRAIN_EXAMPLES = 65_536          # Gaussian features, zipf labels
+TRAIN_STEPS = 300
+WIDE_SHAPE = (2048, 17)          # (T, m) of the second timed sampled_head_loss shape
+BIG_C = 2_097_152                # the step-cost-independent-of-C figure
+BIG_STEPS = 100
 
 
 def check(ok: bool, what: str) -> None:
@@ -145,6 +167,78 @@ def check_tree(dev, gen, flush, cfg):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
 
 
+def dh_close(got, want, coeff, w, ids) -> bool:
+    """dh within LOSS_TOL of the magnitude of its terms, sum_j |coeff_j| |w_j|
+    (an OVE coefficient reaches (C-1)/n)."""
+    scale = torch.einsum("tn,tnk->tk", coeff.abs(), w[ids].float().abs())
+    return bool(((got - want).abs() <= LOSS_TOL["atol"] + LOSS_TOL["rtol"] * scale).all())
+
+
+def sampled_inputs(dev, gen, c, kdim, t, m):
+    h = torch.randn((t, kdim), generator=gen, device=dev)
+    ids = torch.randint(0, c, (t, m), generator=gen, device=dev)
+    ids[::8, 1] = ids[::8, 0]                    # accidental hits
+    lp = -torch.rand((t, m), generator=gen, device=dev) - 12.0
+    return h, ids, lp
+
+
+def check_sampled_loss(dev, gen, flush, cfg):
+    """Every kind, both table dtypes, reg/softcap off and on, at the training
+    shape (T = 256, m = 2) and at T = 2048, m = 17; kernel and plain version
+    timed at both shapes for the main path's kind."""
+    c, kdim = cfg.num_labels, cfg.feature_dim
+    w32 = 0.05 * torch.randn((c, kdim), generator=gen, device=dev)
+    b32 = 0.1 * torch.randn((c,), generator=gen, device=dev)
+    shapes = {"main": (256, 1 + cfg.n_neg), "wide": WIDE_SHAPE}
+    errs, timed = {}, {}
+    for shape_name, (t, m) in shapes.items():
+        h, ids, lp = sampled_inputs(dev, gen, c, kdim, t, m)
+        rows = torch.unique(ids).numel()
+        for dtype in (torch.float32, torch.bfloat16):
+            w, b = w32.to(dtype), b32.to(dtype)
+            for kind in SAMPLED_KINDS:
+                for reg, softcap in ((0.0, 0.0), (cfg.head_reg, 25.0)):
+                    kw = dict(kind=kind, num_labels=c, reg=reg, softcap=softcap)
+                    got = ops.sampled_head_loss(w, b, h, ids, lp, **kw)
+                    want = ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw)
+                    torch.cuda.synchronize()
+                    what = f"sampled_head_loss {kind} {str(dtype)[6:]} reg={reg} softcap={softcap} T={t} m={m}"
+                    for name, g, wn in zip(("loss", "coeff", "xi"), got, want):
+                        check(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
+                        check(close(g, wn, LOSS_TOL), f"{what}: {name} disagrees")
+                    check(dh_close(got[3], want[3], want[1], w, ids), f"{what}: dh disagrees")
+                    err = max(float((g - wn).abs().max()) for g, wn in zip(got[:3], want[:3]))
+                    dh_err = float((got[3] - want[3]).abs().max())
+                    errs[(shape_name, str(dtype)[6:], kind, reg)] = (err, dh_err)
+            # Time the main path's kind (adversarial_ns, reg 1e-3, no softcap).
+            kw = dict(kind="adversarial_ns", num_labels=c, reg=cfg.head_reg)
+            elt = w.element_size()
+            n_bytes = (rows * (kdim + 1) * elt + t * kdim * 4 + t * m * (8 + 4)
+                       + t * 4 + 2 * t * m * 4 + t * kdim * 4)
+            bound, by = bound_ms(n_bytes, t * m * 4 * kdim)
+            ms = time_ms(lambda: ops.sampled_head_loss(w, b, h, ids, lp, **kw), flush)
+            plain = time_ms(lambda: ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw), flush)
+            print(f"sampled_head_loss {str(dtype)[6:]} T={t} m={m} K={kdim} C={c}: kernel "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}, "
+                  f"{n_bytes / 1e6:.2f} MB, {rows} distinct rows)")
+            timed[(shape_name, str(dtype)[6:])] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                                       bound_by=by, megabytes=n_bytes / 1e6)
+    by_kind = {}
+    for (shape_name, dt, kind, reg), (err, dh_err) in errs.items():
+        key = f"{shape_name}/{dt}/{kind}"
+        prev = by_kind.get(key, (0.0, 0.0))
+        by_kind[key] = (max(prev[0], err), max(prev[1], dh_err))
+    print(json.dumps({"sampled_head_loss_max_abs_err": {
+        k: {"loss_coeff_xi": e, "dh": d} for k, (e, d) in by_kind.items()}}))
+    print(json.dumps({"sampled_head_loss_timing": {
+        f"{k[0]}/{k[1]}": v for k, v in timed.items()}}))
+    main = dict(timed[("main", "float32")])
+    main["max_abs_err"] = max(max(e) for (sh, dt, kind, _), e in errs.items()
+                              if (sh, dt, kind) == ("main", "float32", "adversarial_ns"))
+    del main["megabytes"]
+    return main
+
+
 def check_small_against_cpu(dev, seed):
     """The whole path at the reduced config on the card and on the CPU."""
     cfg = xc_linear.reduced()
@@ -239,6 +333,246 @@ def main_path(dev, seed, cfg):
     return launches
 
 
+def zipf_labels(dev, gen, c, n, a=1.3):
+    """n labels with P(rank r) ~ r^-a over a random permutation of C labels."""
+    cdf = torch.cumsum(torch.arange(1, c + 1, device=dev, dtype=torch.float64) ** -a, 0)
+    u = torch.rand((n,), generator=gen, device=dev, dtype=torch.float64) * cdf[-1]
+    rank = torch.searchsorted(cdf, u).clamp(max=c - 1)
+    return torch.randperm(c, generator=gen, device=dev)[rank]
+
+
+def zipf_training_data(dev, gen, c, kdim, kg, n=TRAIN_EXAMPLES):
+    """Gaussian features, their random projection to k dims, zipf labels."""
+    x = torch.randn((n, kdim), generator=gen, device=dev)
+    xg = x @ (torch.randn((kdim, kg), generator=gen, device=dev) / kdim ** 0.5)
+    return x, xg, zipf_labels(dev, gen, c, n)
+
+
+class Timer:
+    """``train_linear_head`` callback: host time of every 10th step, after
+    a synchronize."""
+
+    def __init__(self):
+        self.marks = []
+
+    def __call__(self, step, params):
+        torch.cuda.synchronize()
+        self.marks.append((step, time.perf_counter()))
+
+    def ms_per_step(self) -> float:
+        (s0, t0), (s1, t1) = self.marks[0], self.marks[-1]
+        return 1e3 * (t1 - t0) / (s1 - s0)
+
+
+def ms_per_train_step(hcfg, gen, data, lr, steps, seed):
+    timer = Timer()
+    params = xc_train.train_linear_head(hcfg, gen, *data, lr=lr, steps=steps, seed=seed,
+                                        callback=timer, device=data[0].device)
+    torch.cuda.synchronize()
+    return timer.ms_per_step(), params
+
+
+@contextlib.contextmanager
+def plain_sampled_loss():
+    """Within the block the port's sparse loss runs the plain version of
+    ``sampled_head_loss`` on the card instead of the kernel."""
+    kernel = ops.sampled_head_loss
+    ops.sampled_head_loss = ref.sampled_head_loss_ref
+    try:
+        yield
+    finally:
+        ops.sampled_head_loss = kernel
+
+
+def train_path(dev, seed, cfg):
+    """Training at full xc_linear width; counters around train_linear_head."""
+    c, kdim, kg = cfg.num_labels, cfg.feature_dim, cfg.gen_feature_dim
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    data = zipf_training_data(dev, gen, c, kdim, kg)
+    tree = tree_lib.init_tree(gen, c, kg, scale=1.0, device=dev)
+    hgen = heads.make_tree_generator(tree)
+    hcfg = heads.HeadConfig(num_labels=c, kind="adversarial_ns", n_neg=cfg.n_neg,
+                            reg=cfg.head_reg)
+    lr = cfg.learning_rate
+    xc_train.train_linear_head(hcfg, hgen, *data, lr=lr, steps=10, seed=seed,
+                               device=dev)                                  # warm-up
+    torch.cuda.synchronize()
+
+    ops.sampled_head_loss.launches = 0
+    ops.gather_scores.launches = 0
+    ops.tree_logprob_all.launches = 0
+    t0 = time.perf_counter()
+    ms_step, params = ms_per_train_step(hcfg, hgen, data, lr, TRAIN_STEPS, seed)
+    wall_s = time.perf_counter() - t0
+    launches = {"sampled_head_loss": ops.sampled_head_loss.launches,
+                "gather_scores": ops.gather_scores.launches,
+                "tree_logprob_all": ops.tree_logprob_all.launches}
+    check(launches["sampled_head_loss"] == TRAIN_STEPS,
+          f"training launched sampled_head_loss {launches['sampled_head_loss']} times "
+          f"in {TRAIN_STEPS} steps")
+    check(bool(torch.isfinite(params.w).all() and torch.isfinite(params.b).all()),
+          "trained parameters are not finite")
+
+    # One more step's candidates: the loss is finite, the kernel agrees with
+    # the plain version, and 5 steps through each give the same parameters.
+    x, xg, y = data
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    batches = []
+    for _ in range(5):
+        idx = torch.randint(0, x.shape[0], (256,), generator=g, device=dev)
+        ids, slot_logp, _ = heads._sample_candidates(hcfg, hgen, xg[idx], y[idx], g)
+        batches.append((x[idx], ids, slot_logp))
+    h0, ids0, lp0 = batches[0]
+    loss, _, _, _ = heads.sparse_candidate_loss(hcfg, params, h0, ids0, lp0)
+    check(bool(torch.isfinite(loss)), "training loss is not finite")
+    kw = dict(kind=hcfg.kind, num_labels=c, reg=hcfg.reg)
+    got = ops.sampled_head_loss(params.w, params.b, h0, ids0, lp0, **kw)
+    want = ref.sampled_head_loss_ref(params.w, params.b, h0, ids0, lp0, **kw)
+    check(close(got[1], want[1], LOSS_TOL), "trained step: coefficients disagree")
+    check(dh_close(got[3], want[3], want[1], params.w, ids0), "trained step: dh disagrees")
+    opt_cfg = OptimizerConfig(name="adagrad", learning_rate=lr, eps=1e-8)
+    runs = []
+    for plain in (False, True):
+        p = heads.HeadParams(params.w.clone(), params.b.clone())
+        state = init_opt_state(opt_cfg, p)
+        with plain_sampled_loss() if plain else contextlib.nullcontext():
+            for h, ids, lp in batches:
+                _, _, grads, _ = heads.sparse_candidate_loss(hcfg, p, h, ids, lp)
+                p, state, _ = apply_updates(opt_cfg, p, grads, state)
+        runs.append(p)
+    step_err = max(float((a - b_).abs().max()) for a, b_ in zip(*runs))
+    check(step_err <= PARAM_TOL, f"5 steps: kernel and plain parameters differ by {step_err}")
+    del runs
+
+    layers, sync = step_layers(hcfg, hgen, params, data, lr, seed)
+    torch.cuda.synchronize()
+    big_ms = big_c_ms_per_step(dev, seed, cfg, data)
+    print(json.dumps({"train_path": {
+        "num_labels": c, "steps": TRAIN_STEPS, "batch": 256, "n_neg": cfg.n_neg,
+        "kind": hcfg.kind, "reg": hcfg.reg, "lr": lr, "ms_per_step": ms_step,
+        "wall_s": wall_s, "launches": launches, "loss": float(loss),
+        "kernel_vs_plain_5_steps_max_param_diff": step_err,
+        "ms_per_step_at_c_2097152": big_ms,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}}))
+    print(json.dumps({"train_step_layers": layers}))
+    print(json.dumps({"unique_sync": sync}))
+    return launches
+
+
+def step_layers(hcfg, hgen, params, data, lr, seed, reps: int = 20):
+    """Host and device ms of one training step and of each of its layers:
+    sampling (tree walk for the negatives and the positive's log-prob), the
+    kernel, dedupe (unique + index_add) and the row update. Each layer is
+    run ``reps`` times on the same inputs; device time from torch.profiler.
+    Also the host's wait at torch.unique's synchronize."""
+    x, xg, y = data
+    g = torch.Generator(device=x.device).manual_seed(seed + 4)
+    opt_cfg = OptimizerConfig(name="adagrad", learning_rate=lr, eps=1e-8)
+    p = heads.HeadParams(params.w.clone(), params.b.clone())
+    state = init_opt_state(opt_cfg, p)
+    idx = torch.randint(0, x.shape[0], (256,), generator=g, device=x.device)
+    xb, xgb, yb = x[idx], xg[idx], y[idx]
+    ids, lp, _ = heads._sample_candidates(hcfg, hgen, xgb, yb, g)
+    m = ids.shape[-1]
+    kw = dict(kind=hcfg.kind, num_labels=hcfg.num_labels, reg=hcfg.reg)
+    _, coeff, _, _ = ops.sampled_head_loss(p.w, p.b, xb, ids, lp, **kw)
+    hrep = xb[:, None, :].expand(-1, m, -1).reshape(-1, xb.shape[-1])
+    grads = accumulate_rows(ids.reshape(-1), coeff.reshape(-1), hrep, hcfg.num_labels)
+
+    def step():
+        i = torch.randint(0, x.shape[0], (256,), generator=g, device=x.device)
+        _, _, gr, _ = heads.sparse_head_loss(hcfg, p, hgen, x[i], xg[i], y[i], g)
+        apply_updates(opt_cfg, p, gr, state)
+
+    layers = {
+        "step": step,
+        "sampling": lambda: heads._sample_candidates(hcfg, hgen, xgb, yb, g),
+        "kernel": lambda: ops.sampled_head_loss(p.w, p.b, xb, ids, lp, **kw),
+        "dedupe": lambda: accumulate_rows(ids.reshape(-1), coeff.reshape(-1), hrep,
+                                          hcfg.num_labels),
+        "row_update": lambda: apply_updates(opt_cfg, p, grads, state),
+    }
+    out = {}
+    for name, fn in layers.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        host = 1e3 * (time.perf_counter() - t0) / reps
+        prof = device_time_by_op(lambda: [fn() for _ in range(reps)], top=6)
+        out[name] = {"host_ms": host, "device_ms": prof["device_ms"] / reps,
+                     "kernels": prof["kernels"] / reps,
+                     "idle_share": 1.0 - prof["device_ms"] / reps / host,
+                     "top_ms": [[k, v / reps] for k, v in prof["top_ms"]]}
+
+    # torch.unique's synchronize: host time of the dedupe right behind the
+    # sampling and the kernel (queued device work) and on an idle device.
+    waits = []
+    for queued in (True, False):
+        total = 0.0
+        for _ in range(reps):
+            cand, slp, _ = heads._sample_candidates(hcfg, hgen, xgb, yb, g)
+            _, cf, _, _ = ops.sampled_head_loss(p.w, p.b, xb, cand, slp, **kw)
+            if not queued:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.unique(cand.reshape(-1), return_inverse=True)
+            total += time.perf_counter() - t0
+        waits.append(1e3 * total / reps)
+    sync = {"unique_host_ms_behind_queued_work": waits[0],
+            "unique_host_ms_on_idle_device": waits[1],
+            "wait_ms": waits[0] - waits[1]}
+    return out, sync
+
+
+def big_c_ms_per_step(dev, seed, cfg, data, c=BIG_C):
+    """ms per training step at C = 2,097,152 labels (same data, labels
+    redrawn), the figure for the paper's claim that the step cost does not
+    depend on C. Printed, not gated."""
+    x, xg, _ = data
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    y = zipf_labels(dev, gen, c, x.shape[0])
+    tree = tree_lib.init_tree(gen, c, cfg.gen_feature_dim, scale=1.0, device=dev)
+    hcfg = heads.HeadConfig(num_labels=c, kind="adversarial_ns", n_neg=cfg.n_neg,
+                            reg=cfg.head_reg)
+    ms, params = ms_per_train_step(hcfg, heads.make_tree_generator(tree), (x, xg, y),
+                                   cfg.learning_rate, BIG_STEPS, seed)
+    check(bool(torch.isfinite(params.w).all()), f"C={c}: trained parameters are not finite")
+    print(f"train C={c}: {ms:.3f} ms per step over {BIG_STEPS} steps")
+    return ms
+
+
+def pipeline_small(dev, seed):
+    """The paper's pipeline on the card at the system test's size: fit the
+    tree (numpy oracle), train adversarial and uniform heads, predict."""
+    c, kdim, kg = 256, 32, 8
+    spec = synthetic.ClusteredXCSpec(num_labels=c, feature_dim=kdim, seed=seed)
+    x, y, x_te, y_te = synthetic.make_clustered_xc(spec, 6000, 1500)
+    proj, mean = tree_fit.pca_projection(x, kg)
+    xg, xg_te = (x - mean) @ proj, (x_te - mean) @ proj
+    tree = tree_fit.fit_tree(xg, y, c, config=tree_fit.FitConfig(reg=0.1, seed=seed),
+                             device=dev)
+    test = [torch.as_tensor(a, device=dev) for a in (x_te, xg_te.astype("float32"), y_te)]
+    accs = {}
+    for kind, gen in [("adversarial_ns", heads.make_tree_generator(tree)),
+                      ("uniform_ns", heads.Generator())]:
+        hcfg = heads.HeadConfig(num_labels=c, kind=kind, n_neg=1, reg=1e-4)
+        params = xc_train.train_linear_head(hcfg, gen, x, xg, y, lr=0.1, steps=150,
+                                            seed=seed, device=dev)
+        accs[kind] = float(heads.predictive_accuracy(hcfg, params, gen, *test))
+        if kind == "adversarial_ns":
+            biased = heads.HeadConfig(num_labels=c, kind=kind, debias=False)
+            accs["adversarial_ns_biased"] = float(
+                heads.predictive_accuracy(biased, params, gen, *test))
+    print(json.dumps({"pipeline_small": {"num_labels": c, "steps": 150, "accuracy": accs}}))
+    check(accs["adversarial_ns"] > accs["adversarial_ns_biased"] + 0.05,
+          "pipeline: Eq. 5 debiasing does not improve accuracy by 0.05")
+    check(accs["adversarial_ns"] > accs["uniform_ns"], "pipeline: adversarial does not beat uniform")
+    check(accs["adversarial_ns"] > 0.3, "pipeline: adversarial accuracy is not above 0.3")
+
+
 def device_time_by_op(fn, top: int = 8) -> dict:
     """Device time of one warm call of ``fn`` by kernel (torch.profiler):
     the total, the kernels' count, and the ``top`` kernels by time."""
@@ -286,16 +620,21 @@ def main() -> int:
     torch.cuda.synchronize()
     gather = check_gather(dev, gen, flush, cfg)
     tree = check_tree(dev, gen, flush, cfg)
+    sampled = check_sampled_loss(dev, gen, flush, cfg)
     del flush
     check_small_against_cpu(dev, args.seed)
 
     launches = main_path(dev, args.seed, cfg)
+    launches.update(sampled_head_loss=train_path(dev, args.seed, cfg)["sampled_head_loss"])
+    pipeline_small(dev, args.seed)
     src = "src/repro_torch/kernels/csrc"
     kernels = [
         dict(name="gather_scores", route="cuda", source=f"{src}/gather_scores.cu",
              replaces="src/repro/kernels/gather_scores.py:44", **gather),
         dict(name="tree_logprob_all", route="cuda", source=f"{src}/tree_logprob.cu",
              replaces="src/repro/kernels/tree_logprob.py:69", **tree),
+        dict(name="sampled_head_loss", route="cuda", source=f"{src}/sampled_loss.cu",
+             replaces="src/repro/kernels/sampled_loss.py:162", **sampled),
     ]
     for k in kernels:
         k.update(launches=launches[k["name"]], library_ms=None,

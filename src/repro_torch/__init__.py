@@ -11,7 +11,15 @@ functions on tensors follow their inputs' device. Randomness comes from an
 explicit ``torch.Generator`` or from uniforms passed in.
 
 Slice 1 is prediction with Eq. 5 bias removal: :mod:`repro_torch.core.tree`,
-the prediction half of :mod:`repro_torch.core.heads` and
+the prediction half of :mod:`repro_torch.core.heads`, the log-probs of
 :mod:`repro_torch.core.samplers`, and the hand-written CUDA kernels
 ``gather_scores`` and ``tree_logprob_all`` in :mod:`repro_torch.kernels`.
+
+Slice 2 is training, steps 1–2 of the paper's pipeline:
+:mod:`repro_torch.data.synthetic`, the tree fit of
+:mod:`repro_torch.core.tree_fit`, the samplers' draws, the training losses
+of :mod:`repro_torch.core.heads` (dense under autograd, and sparse through
+the hand-written CUDA kernel ``sampled_head_loss``),
+:mod:`repro_torch.optim` (``SparseRows``, Adagrad and SGD with in-place row
+updates) and :mod:`repro_torch.core.xc_train`.
 """

@@ -15,6 +15,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core.heads import Generator, HeadParams
 from repro_torch.core.tree import Tree
+from repro_torch.optim.optimizers import OptState
 
 
 def _tensor(a, dtype, dev) -> torch.Tensor:
@@ -47,3 +48,14 @@ def generator_from_numpy(tree: Optional[Sequence] = None, freq_log=None,
         tree=None if tree is None else tree_from_numpy(*tree, device=dev),
         freq_log=None if freq_log is None else _tensor(freq_log, torch.float32, dev),
         freq_cdf=None if freq_cdf is None else _tensor(freq_cdf, torch.float32, dev))
+
+
+def opt_state_from_numpy(step, nu: Optional[Sequence] = None,
+                         device="cuda") -> OptState:
+    """:class:`~repro_torch.optim.OptState` from the JAX package's Adagrad
+    (or SGD) ``OptState`` of a head: ``step``, and the ``nu`` accumulators
+    of ``w`` and ``b`` as (nu_w, nu_b), or None for SGD."""
+    dev = device_lib.resolve(device)
+    return OptState(step=int(np.asarray(step)), mu=None,
+                    nu=None if nu is None else HeadParams(
+                        *(_tensor(a, torch.float32, dev) for a in nu)))

@@ -1,7 +1,16 @@
-"""Negative-sampling proposals, the prediction half of ``NegativeSampler``.
+"""Negative-sampling proposals: the ``NegativeSampler`` protocol.
 
-Prediction needs a proposal's log-probabilities, for Eq. 5 debiasing:
+Every sampler implements three methods:
 
+  sample(generator, x_gen, shape, u=None) -> (ids, log_pn)
+      Draw proposal labels with the given shape (= batch_shape + (n_neg,));
+      ``x_gen`` is the conditioning feature with shape batch_shape + (k,)
+      (conditional samplers broadcast it over the trailing draw axis).
+      The randomness comes from the ``torch.Generator`` (drawn on its own
+      device, then moved to the sampler's), or from uniforms in [0, 1)
+      passed as ``u``, so that a test can hand the JAX package and the port
+      the same numbers. ``log_pn`` is the exact log proposal probability of
+      each draw (Eq. 5 debiasing, the NCE / sampled-softmax corrections).
   log_prob(x_gen, y) -> log p_n(y|x)
       Proposal log-probability of given labels.
   log_prob_all(x_gen) -> (..., C)
@@ -9,18 +18,21 @@ Prediction needs a proposal's log-probabilities, for Eq. 5 debiasing:
 
 Implementations:
 
-  TreeSampler     — the paper's adversarial tree, O(k log C) per label.
-  UniformSampler  — uniform over labels.
-  UnigramSampler  — empirical label frequencies. ``freq_log`` keeps 1e-12
-                    smoothing so debiasing an observed label stays finite;
-                    ``freq_cdf`` is built from the unsmoothed counts.
+  TreeSampler     — the paper's adversarial tree, O(k log C) per draw;
+                    ``u`` holds one uniform per level, shape + (depth,).
+  UniformSampler  — uniform over labels, O(1); ``u`` has ``shape``.
+  UnigramSampler  — empirical label frequencies via inverse CDF, O(log C);
+                    ``u`` has ``shape``. ``freq_log`` keeps 1e-12 smoothing
+                    so debiasing an observed label stays finite;
+                    ``freq_cdf`` is built from the unsmoothed counts, so a
+                    count-0 label is never drawn.
 
-Drawing negatives (``sample``) belongs to training and is not ported yet.
+The LSH and RFF proposals come with the head-math slice.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Protocol, Tuple
+from typing import NamedTuple, Optional, Protocol, Tuple
 
 import torch
 
@@ -30,6 +42,11 @@ from repro_torch.core import tree as tree_lib
 
 class NegativeSampler(Protocol):
     """Structural protocol — see the module docstring for the contract."""
+
+    def sample(self, generator: Optional[torch.Generator], x_gen: torch.Tensor,
+               shape: Tuple[int, ...], u: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        ...
 
     def log_prob(self, x_gen: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         ...
@@ -51,9 +68,13 @@ def _align(x_gen: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
 
 
 class TreeSampler(NamedTuple):
-    """The paper's adversarial proposal: the balanced probabilistic tree
-    (§3)."""
+    """The paper's adversarial proposal: ancestral sampling down the
+    balanced probabilistic tree, O(k log C) per draw (§3)."""
     tree: tree_lib.Tree
+
+    def sample(self, generator, x_gen, shape, u=None):
+        return tree_lib.sample(self.tree, _align(x_gen, shape),
+                               generator=generator, u=u)
 
     def log_prob(self, x_gen, y):
         return tree_lib.log_prob(self.tree, _align(x_gen, y.shape), y)
@@ -65,6 +86,19 @@ class TreeSampler(NamedTuple):
 class UniformSampler(NamedTuple):
     """Uniform over the C real labels (baseline i)."""
     num_labels: int
+
+    def sample(self, generator, x_gen, shape, u=None):
+        shape = tuple(shape)
+        c = self.num_labels
+        if u is None:
+            if generator is None:
+                raise ValueError("sample needs a generator or the uniforms u")
+            ids = torch.randint(0, c, shape, generator=generator,
+                                device=generator.device).to(x_gen.device)
+        else:
+            ids = (u.to(x_gen.device).double() * c).long().clamp(max=c - 1)
+        return ids, torch.full(shape, -math.log(c), dtype=torch.float32,
+                               device=x_gen.device)
 
     def log_prob(self, x_gen, y):
         return torch.full(y.shape, -math.log(self.num_labels),
@@ -86,6 +120,20 @@ class UnigramSampler(NamedTuple):
     """
     freq_log: torch.Tensor   # (C,) smoothed log-frequencies (debiasing)
     freq_cdf: torch.Tensor   # (C,) unsmoothed inclusive CDF (sampling)
+
+    def sample(self, generator, x_gen, shape, u=None):
+        if u is None:
+            if generator is None:
+                raise ValueError("sample needs a generator or the uniforms u")
+            u = torch.rand(tuple(shape), generator=generator,
+                           device=generator.device)
+        # right=True: a draw on a boundary belongs to the bucket above it,
+        # and a count-0 label (an empty interval) is never drawn.
+        ids = torch.searchsorted(self.freq_cdf,
+                                 u.to(self.freq_cdf.device, torch.float32),
+                                 right=True)
+        ids = ids.clamp(0, self.freq_cdf.shape[0] - 1)
+        return ids, self.freq_log[ids]
 
     def log_prob(self, x_gen, y):
         return self.freq_log[y]

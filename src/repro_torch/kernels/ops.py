@@ -7,6 +7,7 @@ Each keeps a plain integer count of kernel launches in its ``launches``
 attribute.
 """
 from repro_torch.kernels.gather_scores import gather_scores
+from repro_torch.kernels.sampled_loss import sampled_head_loss
 from repro_torch.kernels.tree_logprob import tree_logprob_all
 
-__all__ = ["gather_scores", "tree_logprob_all"]
+__all__ = ["gather_scores", "sampled_head_loss", "tree_logprob_all"]

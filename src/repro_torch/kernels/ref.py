@@ -18,6 +18,26 @@ def gather_scores_ref(w, b, h, ids):
             + b[ids].float())
 
 
+def sampled_head_loss_ref(w, b, h, ids, slot_logp, *, kind: str,
+                          num_labels: int, reg: float = 0.0,
+                          softcap: float = 0.0, mask_accidental: bool = True):
+    """The fused sampled-loss chain, unfused: gather (materializes the
+    (T, m, K) rows), einsum, per-token loss and coefficients, a second
+    gather for dh. Same contract as ``ops.sampled_head_loss``: (loss_vec
+    (T,), coeff (T,m), xi (T,m), dh (T,K)) float32; slot 0 is the
+    positive."""
+    from repro_torch.kernels.sampled_loss import loss_and_coeffs
+
+    scores = gather_scores_ref(w, b, h, ids)
+    acc_hit = ids == ids[:, :1]
+    acc_hit[:, 0] = False
+    loss, coeff, xi = loss_and_coeffs(
+        scores, slot_logp, acc_hit, kind=kind, num_labels=num_labels,
+        reg=reg, softcap=softcap, mask_accidental=mask_accidental)
+    dh = torch.einsum("tn,tnk->tk", coeff, w[ids].float())
+    return loss, coeff, xi, dh
+
+
 def tree_logprob_all_ref(w, b, x):
     """Dense per-leaf tree log-probs. w: (n_nodes,k), b: (n_nodes,),
     x: (B,k) -> (B, C_pad) over leaves in natural order."""

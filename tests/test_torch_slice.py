@@ -25,6 +25,8 @@ from repro_torch import convert
 from repro_torch.core import heads as theads
 from repro_torch.core import samplers as tsamplers
 from repro_torch.core import tree as ttree
+from repro_torch.core import tree_fit as tfit
+from repro_torch.core import xc_train as txc
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-4, rtol=1e-5)
@@ -124,7 +126,8 @@ def test_port_imports_neither_jax_nor_repro():
 
 @pytest.mark.parametrize("entry", ["init_head_params", "init_tree",
                                    "unigram_from_counts", "tree_from_numpy",
-                                   "head_params_from_numpy"])
+                                   "head_params_from_numpy", "train_linear_head",
+                                   "fit_tree", "opt_state_from_numpy"])
 def test_card_default_raises_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -135,6 +138,12 @@ def test_card_default_raises_without_cuda(monkeypatch, entry):
             np.zeros((3, 2)), np.zeros(3), np.arange(4), np.arange(4)),
         "head_params_from_numpy": lambda: convert.head_params_from_numpy(
             np.zeros((4, 3)), np.zeros(4)),
+        "train_linear_head": lambda: txc.train_linear_head(
+            theads.HeadConfig(num_labels=4, kind="uniform_ns"), theads.Generator(),
+            np.zeros((8, 3)), np.zeros((8, 2)), np.zeros(8, np.int64), lr=0.1, steps=1),
+        "fit_tree": lambda: tfit.fit_tree(np.zeros((8, 2)), np.arange(8) % 4, 4),
+        "opt_state_from_numpy": lambda: convert.opt_state_from_numpy(
+            0, (np.zeros((4, 3)), np.zeros(4))),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
