@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's prediction and training paths on one NVIDIA card.
+"""Drives the PyTorch port's prediction, training and generator-fitting paths on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
@@ -8,8 +8,10 @@ Phases, each fatal on failure:
   2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
   3. hold each kernel against its plain PyTorch version at the shapes of the
      main paths (full ``xc_linear`` width; ``sampled_head_loss`` for all 7
-     kinds, both table dtypes, reg/softcap off and on), time both, and check
-     the prediction path on a small input against the port's CPU run;
+     kinds, both table dtypes, reg/softcap off and on; ``segment_stats`` at
+     the generator fit's shapes over N = 524,288 points, bit-exact across two
+     calls), time both, and check the prediction path on a small input
+     against the port's CPU run;
   4. the prediction path at full ``xc_linear`` width (C = 217,240, K = 512,
      k = 16, depth 18): 4 request batches of 256 queries through dense Eq. 5
      prediction and tree-beam top-k, launch counters reset just before and
@@ -22,7 +24,15 @@ Phases, each fatal on failure:
      steps; ms per step at C = 2,097,152;
   6. the paper's pipeline at small size on the card (fit, train adversarial
      and uniform, predict), with the system test's three assertions;
-  7. print the ``kernels`` JSON line and, last, the device line.
+  7. the generator-fitting path at full ``xc_linear`` width: the
+     level-parallel fit (C = 217,240, depth 18, k = 16, lambda_n = 0.1) on
+     524,288 clustered points, counters reset just before and read just
+     after; wall time, time per level, profiles of levels 2 and 17 (the
+     share of ``segment_stats``, the idle share), the tree's invariants and
+     its held-out log-likelihood against uniform; a warm refit on drifted
+     features, run twice and bit-equal; at C = 1,024 the fit against the
+     numpy oracle, and at C = 4,096 the sharded fit serial against threaded;
+  8. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
 """
@@ -34,16 +44,19 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import device as device_lib  # noqa: E402
+from repro_torch import device as device_lib, genfit  # noqa: E402
 from repro_torch.configs import xc_linear  # noqa: E402
 from repro_torch.core import heads, tree as tree_lib, tree_fit, xc_train  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.genfit import levels as genfit_levels  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels.sampled_loss import SAMPLED_KINDS  # noqa: E402
 from repro_torch.optim import OptimizerConfig, apply_updates, init_opt_state  # noqa: E402
@@ -69,6 +82,22 @@ TRAIN_STEPS = 300
 WIDE_SHAPE = (2048, 17)          # (T, m) of the second timed sampled_head_loss shape
 BIG_C = 2_097_152                # the step-cost-independent-of-C figure
 BIG_STEPS = 100
+
+SEG_POINTS = 524_288             # the fit's points: 2 per padded leaf of xc_linear
+SEG_TOL = 1e-4                   # of the segment's sum of |vals| (+ the same absolute)
+SEG_SHAPES = [                   # (name, D, S, ids, vals dtype), the fit's reductions
+    ("hessian_level0", 289, 1, "uniform", torch.float32),
+    ("hessian_level12", 289, 4096, "uniform", torch.float32),
+    ("hessian_level17", 289, 131_072, "uniform", torch.float32),
+    ("gradient_level17", 17, 131_072, "uniform", torch.float32),
+    ("delta_labels", 1, 262_144, "zipf", torch.float32),
+    ("gradient_level17_bf16", 17, 131_072, "uniform", torch.bfloat16),
+    ("gradient_level12_out_of_range", 17, 4096, "out_of_range", torch.float32),
+]
+SEG_MAIN = "hessian_level17"     # the shape of the kernels line
+FIT_POINTS = SEG_POINTS
+FIT_HELD_OUT = 16_384
+FIT_PROFILE_LEVELS = (2, 17)     # levels profiled by kernel: a shallow one, the widest
 
 
 def check(ok: bool, what: str) -> None:
@@ -237,6 +266,70 @@ def check_sampled_loss(dev, gen, flush, cfg):
                               if (sh, dt, kind) == ("main", "float32", "adversarial_ns"))
     del main["megabytes"]
     return main
+
+
+def segment_inputs(dev, gen, d, s, ids, dtype, n=SEG_POINTS):
+    """vals (N, D) and ids (N,) int64: uniform over [0, S), zipf(1.3) over a
+    random permutation of S labels, or uniform with a tenth of the ids
+    outside [0, S) (negative or >= S)."""
+    vals = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+    if ids == "zipf":
+        seg = zipf_labels(dev, gen, s, n)
+    else:
+        seg = torch.randint(0, s, (n,), generator=gen, device=dev)
+    if ids == "out_of_range":
+        bad = torch.rand((n,), generator=gen, device=dev) < 0.1
+        wild = torch.tensor([-3, -1, s, s + 7], device=dev)
+        seg = torch.where(bad, wild[torch.randint(0, 4, (n,), generator=gen, device=dev)], seg)
+    return vals, seg
+
+
+def check_segment_stats(dev, gen, flush):
+    """The generator fit's reductions: kernel against plain version (within
+    SEG_TOL of each segment's sum of |vals|: float32 sums of up to 5e5 terms
+    in two orders, the plain version's atomics in no fixed order), two calls
+    bit-equal, and the times of the kernel, the plain version, one
+    ``index_add_`` on the in-range ids (atomics, so not deterministic) and
+    the stable sort of the ids that the kernel's wrapper runs."""
+    rows = {}
+    for name, d, s, ids, dtype in SEG_SHAPES:
+        vals, seg = segment_inputs(dev, gen, d, s, ids, dtype)
+        got = ops.segment_stats(vals, seg, s)
+        again = ops.segment_stats(vals, seg, s)
+        want = ref.segment_stats_ref(vals, seg, s)
+        keep = (seg >= 0) & (seg < s)
+        seg_in, vals_in = seg[keep], vals[keep].float()
+        exact = torch.zeros((s, d), dtype=torch.float64, device=dev).index_add_(
+            0, seg_in, vals_in.double())
+        scale = ref.segment_stats_ref(vals.abs(), seg, s)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        err64 = float((got.double() - exact).abs().max())
+        what = f"segment_stats {name} (N={SEG_POINTS}, D={d}, S={s}, {ids}, {str(dtype)[6:]})"
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite sums")
+        check(bool(((got - want).abs() <= SEG_TOL * (scale + 1.0)).all()),
+              f"{what}: kernel disagrees with the plain version")
+        check(torch.equal(got, again), f"{what}: two calls differ")
+        del got, again, want, exact, scale
+        keys = torch.where(keep, seg, s).int()
+        n_bytes = SEG_POINTS * (d * vals.element_size() + 8) + s * d * 4
+        bound, by = bound_ms(n_bytes, SEG_POINTS * d)
+        ms = time_ms(lambda: ops.segment_stats(vals, seg, s), flush)
+        plain = time_ms(lambda: ref.segment_stats_ref(vals, seg, s), flush)
+        library = time_ms(lambda: torch.zeros((s, d), device=dev).index_add_(0, seg_in, vals_in),
+                          flush)
+        sort = time_ms(lambda: torch.sort(keys, stable=True), flush)
+        rows[name] = dict(d=d, s=s, ids=ids, dtype=str(dtype)[6:], max_abs_err=err,
+                          max_abs_err_vs_float64=err64, ms=ms, plain_ms=plain,
+                          library_ms=library, sort_ms=sort, bound_ms=bound, bound_by=by)
+        print(f"{what}: max_abs_err={err:.3e} (vs float64 {err64:.3e}), kernel {ms:.4f} ms "
+              f"(of which the id sort {sort:.4f}), plain {plain:.4f} ms, index_add_ "
+              f"{library:.4f} ms (atomics: not deterministic), bound {bound:.4f} ms ({by})")
+        del vals, seg, seg_in, vals_in, keys
+    print(json.dumps({"segment_stats": rows}))
+    main = dict(rows[SEG_MAIN])
+    return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")}
 
 
 def check_small_against_cpu(dev, seed):
@@ -573,22 +666,187 @@ def pipeline_small(dev, seed):
     check(accs["adversarial_ns"] > 0.3, "pipeline: adversarial accuracy is not above 0.3")
 
 
+def profile_by_kernel(fn):
+    """Device ms by kernel name and the kernels' count of one call of ``fn``
+    (torch.profiler), and the call's host ms."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return by_name, len(kernels), host_ms
+
+
 def device_time_by_op(fn, top: int = 8) -> dict:
     """Device time of one warm call of ``fn`` by kernel (torch.profiler):
     the total, the kernels' count, and the ``top`` kernels by time."""
     fn()
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    by_name, n_kernels, _ = profile_by_kernel(fn)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return {"device_ms": sum(by_name.values()), "kernels": len(kernels),
+    return {"device_ms": sum(by_name.values()), "kernels": n_kernels,
             "top_ms": [[name[:60], ms] for name, ms in ranked]}
+
+
+SEGMENT_KERNELS = ("keys_kernel", "offsets_kernel", "chunk_sums_kernel", "partials_kernel")
+
+
+def check_tree_invariants(tree, c, x, what):
+    """tests/test_genfit.py's invariants: the leaf<->label bijection, real
+    mass ~ 1 on 64 queries, path log-probs equal to the dense ones."""
+    dev = tree.w.device
+    l2l = tree.label_to_leaf
+    check(torch.unique(l2l).numel() == c, f"{what}: label->leaf is not injective")
+    check(torch.equal(tree.leaf_to_label[l2l], torch.arange(c, device=dev)),
+          f"{what}: leaf_to_label does not invert label_to_leaf")
+    xs = torch.as_tensor(x[:64], device=dev)
+    mass = tree_lib.prob_mass_real(tree, xs)
+    check(bool(((mass - 1.0).abs() <= 1e-4).all()), f"{what}: real mass is not 1")
+    y = torch.arange(32, device=dev) % c
+    lp = tree_lib.log_prob(tree, xs[:32], y)
+    lp_all = tree_lib.log_prob_all(tree, xs[:32]).gather(1, y[:, None])[:, 0]
+    check(close(lp, lp_all, dict(atol=1e-4, rtol=1e-4)),
+          f"{what}: path log-probs differ from the dense ones")
+    return float((mass - 1.0).abs().max())
+
+
+def genfit_path(dev, seed, cfg):
+    """The level-parallel fit at full xc_linear width; counters around it."""
+    c, kg = cfg.num_labels, cfg.gen_feature_dim
+    t0 = time.perf_counter()
+    spec = synthetic.ClusteredXCSpec(num_labels=c, feature_dim=kg, seed=seed)
+    x, y, x_te, y_te = synthetic.make_clustered_xc(spec, FIT_POINTS, FIT_HELD_OUT)
+    data_s = time.perf_counter() - t0
+    fcfg = tree_fit.FitConfig(reg=cfg.gen_reg, seed=seed)
+
+    # Time each level (the level ends on the host anyway) and keep the inputs
+    # and output of the profiled levels to replay them.
+    run_level = genfit_levels._run_level
+    level_s, kept = [], {}
+
+    def timed_level(pieces, *args):
+        level = pieces.nseg.bit_length() - 1
+        t = time.perf_counter()
+        out = run_level(pieces, *args)
+        torch.cuda.synchronize()
+        level_s.append(time.perf_counter() - t)
+        if level in FIT_PROFILE_LEVELS:
+            kept[level] = dict(args=(pieces, *args), out=out)
+        return out
+
+    genfit_levels._run_level = timed_level
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kernel in (ops.segment_stats, ops.tree_logprob_all, ops.gather_scores,
+                       ops.sampled_head_loss):
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        tree = genfit.fit_tree_levelwise(x, y, c, config=fcfg, device=dev)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {"segment_stats": ops.segment_stats.launches,
+                    "tree_logprob_all": ops.tree_logprob_all.launches,
+                    "gather_scores": ops.gather_scores.launches,
+                    "sampled_head_loss": ops.sampled_head_loss.launches}
+    finally:
+        genfit_levels._run_level = run_level
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches["segment_stats"] > 0, "the fit never launched segment_stats")
+    depth = tree_lib.padded_size(c).bit_length() - 1
+    check(len(level_s) == tree.depth == depth, f"the fit ran {len(level_s)} levels, not {depth}")
+    mass_err = check_tree_invariants(tree, c, x_te, "full-width fit")
+    ll = tree_fit.tree_log_likelihood(tree, x_te, y_te)
+    uniform = -float(np.log(c))
+    check(ll > uniform + 0.5, f"held-out log-likelihood {ll:.4f} does not beat uniform "
+                              f"{uniform:.4f} by 0.5")
+
+    # The profiled levels again under the profiler: device time by kernel,
+    # the share of segment_stats (its own kernels and the id sort), the idle
+    # share against the level's host time in the fit, and a bit-equal replay.
+    profiles = {}
+    for level, run in sorted(kept.items()):
+        by_name, n_kernels, prof_host_ms = profile_by_kernel(lambda: run.update(
+            replay=run_level(*run["args"])))
+        for a, b in zip(run["out"], run["replay"]):
+            check(torch.equal(a, b), f"level {level} replayed to other bits")
+        device_ms = sum(by_name.values())
+        seg_ms = sum(v for k, v in by_name.items() if any(n in k for n in SEGMENT_KERNELS))
+        sort_ms = sum(v for k, v in by_name.items() if "adix" in k)
+        host_ms = 1e3 * level_s[level]
+        profiles[level] = {
+            "host_ms": host_ms, "profiled_host_ms": prof_host_ms, "device_ms": device_ms,
+            "kernels": n_kernels, "segment_stats_device_ms": seg_ms,
+            "segment_stats_sort_device_ms": sort_ms,
+            "segment_stats_share": (seg_ms + sort_ms) / device_ms,
+            "idle_share": 1.0 - device_ms / host_ms,
+            "top_ms": [[k[:60], v] for k, v in
+                       sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]}
+    del kept
+
+    # Warm refit on drifted features, twice, bit-equal.
+    rng = np.random.default_rng(seed + 9)
+    x2 = x + 0.3 * rng.standard_normal(x.shape).astype(np.float32)
+    x2_te = x_te + 0.3 * rng.standard_normal(x_te.shape).astype(np.float32)
+    refits, refit_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        refits.append(genfit.refit_params(tree, x2, y, c, config=fcfg, device=dev))
+        torch.cuda.synchronize()
+        refit_s.append(time.perf_counter() - t0)
+    for name in ("w", "b"):
+        check(torch.equal(getattr(refits[0], name), getattr(refits[1], name)),
+              f"refit_params gave other bits on the second run ({name})")
+    check_tree_invariants(refits[0], c, x2_te, "refit")
+    ll_stale = tree_fit.tree_log_likelihood(tree, x2_te, y_te)
+    ll_refit = tree_fit.tree_log_likelihood(refits[0], x2_te, y_te)
+    print(json.dumps({"genfit_path": {
+        "num_labels": c, "depth": tree.depth, "k": kg, "reg": fcfg.reg, "points": FIT_POINTS,
+        "held_out": FIT_HELD_OUT, "data_s": data_s, "fit_s": fit_s, "level_s": level_s,
+        "launches": launches, "peak_mem_gib": peak_gib,
+        "held_out_ll": ll, "uniform_ll": uniform, "real_mass_max_err": mass_err,
+        "level_profiles": profiles, "refit_s": refit_s, "refit_bit_equal": True,
+        "drifted_held_out_ll_stale": ll_stale, "drifted_held_out_ll_refit": ll_refit}}))
+    return launches
+
+
+def small_fits(dev, seed):
+    """At C = 1,024 the level-parallel fit against the numpy oracle (held-out
+    log-likelihood within tests/test_genfit.py's 5% + 0.02); at C = 4,096 the
+    sharded fit serial and threaded, bit-equal."""
+    fcfg = tree_fit.FitConfig(reg=0.1, seed=seed)
+    spec = synthetic.ClusteredXCSpec(num_labels=1024, feature_dim=16, seed=seed)
+    x, y, x_te, y_te = synthetic.make_clustered_xc(spec, 8192, 2048)
+    ll_seq = tree_fit.tree_log_likelihood(
+        tree_fit.fit_tree(x, y, 1024, config=fcfg, device=dev), x_te, y_te)
+    t0 = time.perf_counter()
+    tree = genfit.fit_tree_levelwise(x, y, 1024, config=fcfg, device=dev)
+    torch.cuda.synchronize()
+    lvl_s = time.perf_counter() - t0
+    ll_lvl = tree_fit.tree_log_likelihood(tree, x_te, y_te)
+    check_tree_invariants(tree, 1024, x_te, "C=1024 fit")
+    check(abs(ll_lvl - ll_seq) <= 0.05 * abs(ll_seq) + 0.02,
+          f"C=1024: levelwise {ll_lvl:.4f} against the oracle's {ll_seq:.4f}")
+    spec = synthetic.ClusteredXCSpec(num_labels=4096, feature_dim=16, seed=seed)
+    x, y, _, _ = synthetic.make_clustered_xc(spec, 16_384, 0)
+    t0 = time.perf_counter()
+    serial = genfit.fit_tree_sharded(x, y, 4096, config=fcfg, split_depth=2, device=dev)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(2) as ex:
+        threaded = genfit.fit_tree_sharded(x, y, 4096, config=fcfg, split_depth=2,
+                                           executor=ex, device=dev)
+    for name in ("w", "b", "label_to_leaf", "leaf_to_label"):
+        check(torch.equal(getattr(serial, name), getattr(threaded, name)),
+              f"C=4096: sharded serial and threaded fits differ ({name})")
+    print(json.dumps({"small_fits": {
+        "c1024_ll_levelwise": ll_lvl, "c1024_ll_oracle": ll_seq, "c1024_levelwise_s": lvl_s,
+        "c4096_sharded_serial_s": serial_s, "c4096_serial_equals_threaded": True}}))
 
 
 def main() -> int:
@@ -621,12 +879,15 @@ def main() -> int:
     gather = check_gather(dev, gen, flush, cfg)
     tree = check_tree(dev, gen, flush, cfg)
     sampled = check_sampled_loss(dev, gen, flush, cfg)
+    segment = check_segment_stats(dev, gen, flush)
     del flush
     check_small_against_cpu(dev, args.seed)
 
     launches = main_path(dev, args.seed, cfg)
     launches.update(sampled_head_loss=train_path(dev, args.seed, cfg)["sampled_head_loss"])
     pipeline_small(dev, args.seed)
+    launches.update(segment_stats=genfit_path(dev, args.seed, cfg)["segment_stats"])
+    small_fits(dev, args.seed)
     src = "src/repro_torch/kernels/csrc"
     kernels = [
         dict(name="gather_scores", route="cuda", source=f"{src}/gather_scores.cu",
@@ -635,10 +896,12 @@ def main() -> int:
              replaces="src/repro/kernels/tree_logprob.py:69", **tree),
         dict(name="sampled_head_loss", route="cuda", source=f"{src}/sampled_loss.cu",
              replaces="src/repro/kernels/sampled_loss.py:162", **sampled),
+        dict(name="segment_stats", route="cuda", source=f"{src}/segment_scores.cu",
+             replaces="src/repro/kernels/segment_scores.py:51", **segment),
     ]
     for k in kernels:
-        k.update(launches=launches[k["name"]], library_ms=None,
-                 max_err=k["max_abs_err"], kernel_ms=k["ms"])
+        k.setdefault("library_ms", None)
+        k.update(launches=launches[k["name"]], max_err=k["max_abs_err"], kernel_ms=k["ms"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,4 +22,9 @@ of :mod:`repro_torch.core.heads` (dense under autograd, and sparse through
 the hand-written CUDA kernel ``sampled_head_loss``),
 :mod:`repro_torch.optim` (``SparseRows``, Adagrad and SGD with in-place row
 updates) and :mod:`repro_torch.core.xc_train`.
+
+Slice 3 fits the generator at the paper's size: :mod:`repro_torch.genfit`
+(level-parallel, warm-refit and subtree-sharded fitting, deterministic bit
+for bit) with :mod:`repro_torch.parallel`, its segment sums in the
+hand-written CUDA kernel ``segment_stats``.
 """

@@ -8,6 +8,8 @@ attribute.
 """
 from repro_torch.kernels.gather_scores import gather_scores
 from repro_torch.kernels.sampled_loss import sampled_head_loss
+from repro_torch.kernels.segment_scores import segment_stats
 from repro_torch.kernels.tree_logprob import tree_logprob_all
 
-__all__ = ["gather_scores", "sampled_head_loss", "tree_logprob_all"]
+__all__ = ["gather_scores", "sampled_head_loss", "segment_stats",
+           "tree_logprob_all"]

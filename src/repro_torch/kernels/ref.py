@@ -38,6 +38,18 @@ def sampled_head_loss_ref(w, b, h, ids, slot_logp, *, kind: str,
     return loss, coeff, xi, dh
 
 
+def segment_stats_ref(vals, seg, num_segments: int):
+    """Segment-summed statistics: vals (N,D), seg (N,) int -> (num_segments,
+    D) float32. Rows whose id lies outside [0, num_segments), negatives
+    included, are dropped, as ``jax.ops.segment_sum`` drops them. On the CPU
+    ``index_add_`` adds the rows in order; on the card it uses atomics, whose
+    order varies between runs."""
+    out = torch.zeros((num_segments, vals.shape[1]), dtype=torch.float32,
+                      device=vals.device)
+    keep = (seg >= 0) & (seg < num_segments)
+    return out.index_add_(0, seg[keep], vals[keep].float())
+
+
 def tree_logprob_all_ref(w, b, x):
     """Dense per-leaf tree log-probs. w: (n_nodes,k), b: (n_nodes,),
     x: (B,k) -> (B, C_pad) over leaves in natural order."""
