@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's prediction, training and generator-fitting paths on one NVIDIA card.
+"""Drives the PyTorch port's prediction, training, generator-fitting and LM-serving paths on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
@@ -32,7 +32,20 @@ Phases, each fatal on failure:
      its held-out log-likelihood against uniform; a warm refit on drifted
      features, run twice and bit-equal; at C = 1,024 the fit against the
      numpy oracle, and at C = 4,096 the sharded fit serial against threaded;
-  8. print the ``kernels`` JSON line and, last, the device line.
+  8. ``flash_attention`` against its plain version on four shapes (h2o-danube
+     prefill and decode, gemma2's softcap geometry, a ragged float32 case),
+     two calls bit-equal; kernel, plain and ``scaled_dot_product_attention``
+     times (phase 3's kernel checks run before it);
+  9. the LM-serving path at full h2o-danube-3-4b width (24 layers, d 3840,
+     32 query heads over 8 KV heads, hd 120, window 4,096, vocab 32,000):
+     the lock-step launcher serves 4 requests of 4,608 prompt tokens and 32
+     greedy tokens through dense Eq. 5 scoring and again through beam 64,
+     counters reset just before and read just after each; prefill and
+     per-token ms, the device time by kernel and idle share of one decode
+     step, peak memory; prefill plus decode through the cache against the
+     plain version's cache-free forward over the 4,640 cached tokens
+     (hiddens and dense Eq. 5 scores of every decode step);
+ 10. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
 """
@@ -52,8 +65,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import device as device_lib, genfit  # noqa: E402
+from repro_torch import configs, device as device_lib, genfit  # noqa: E402
 from repro_torch.configs import xc_linear  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import lm_head, transformer  # noqa: E402
+from repro_torch.train import make_prefill, make_serve_step  # noqa: E402
 from repro_torch.core import heads, tree as tree_lib, tree_fit, xc_train  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.genfit import levels as genfit_levels  # noqa: E402
@@ -65,6 +81,7 @@ from repro_torch.optim.sparse import accumulate_rows  # noqa: E402
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12         # bfloat16 tensor cores, dense
 
 BATCH = 256                      # queries in one request batch
 N_BATCHES = 4
@@ -98,6 +115,31 @@ SEG_MAIN = "hessian_level17"     # the shape of the kernels line
 FIT_POINTS = SEG_POINTS
 FIT_HELD_OUT = 16_384
 FIT_PROFILE_LEVELS = (2, 17)     # levels profiled by kernel: a shallow one, the widest
+
+# flash_attention's shapes: (name, B, H, KV, Sq, Skv, hd, causal, window, softcap, dtype)
+ATTN_SHAPES = [
+    ("danube_prefill", 1, 32, 8, 4608, 4608, 120, True, 4096, 0.0, torch.bfloat16),
+    ("danube_decode", 4, 32, 8, 1, 4640, 120, True, 4096, 0.0, torch.bfloat16),
+    ("gemma2_softcap", 1, 32, 16, 2048, 2048, 128, True, 4096, 50.0, torch.bfloat16),
+    ("ragged_fp32", 2, 4, 2, 37, 101, 80, False, 0, 0.0, torch.float32),
+]
+ATTN_MAIN = "danube_prefill"     # the shape of the kernels line
+ATTN_F32_TOL = dict(atol=1e-5, rtol=1e-5)
+# bfloat16: one bf16 ulp of the output's scale. Kernel and plain version both
+# compute in float32 and round once, so they differ by at most one rounding:
+# |got - want| <= 2^-8 * max|want| + 2^-7 * |want|.
+SERVE_ARCH = "h2o-danube-3-4b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_BEAM = 4, 4608, 32, 64
+ATTN_BLOCK = 512                 # query rows per block of the plain forward's attention
+# Kernel path (prefill + decode through the bf16 cache) against the plain
+# version's cache-free forward, both in bfloat16 with the same bf16 weights:
+# the two differ in float32 summation order inside attention and in the
+# matmuls' shapes (4 decode rows against 4,640), so bf16 roundings differ
+# and drift through 24 layers. Held to 2^-5 of the reference's RMS (about
+# four bf16 roundings of relative error; one fp8 e4m3 rounding, 2^-4, fails
+# it), over the hiddens (after the final RMSNorm, unit scale) and over the
+# dense Eq. 5 scores of the real labels.
+SERVE_REL_RMS_TOL = 2.0 ** -5
 
 
 def check(ok: bool, what: str) -> None:
@@ -466,15 +508,17 @@ def ms_per_train_step(hcfg, gen, data, lr, steps, seed):
 
 
 @contextlib.contextmanager
-def plain_sampled_loss():
-    """Within the block the port's sparse loss runs the plain version of
-    ``sampled_head_loss`` on the card instead of the kernel."""
-    kernel = ops.sampled_head_loss
-    ops.sampled_head_loss = ref.sampled_head_loss_ref
+def swapped(module, **fns):
+    """Within the block ``module.<name>`` is ``fns[name]``: the port's paths
+    run the plain versions of the kernels on the card, or a recorder."""
+    saved = {name: getattr(module, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(module, name, fn)
     try:
         yield
     finally:
-        ops.sampled_head_loss = kernel
+        for name, fn in saved.items():
+            setattr(module, name, fn)
 
 
 def train_path(dev, seed, cfg):
@@ -528,7 +572,8 @@ def train_path(dev, seed, cfg):
     for plain in (False, True):
         p = heads.HeadParams(params.w.clone(), params.b.clone())
         state = init_opt_state(opt_cfg, p)
-        with plain_sampled_loss() if plain else contextlib.nullcontext():
+        with (swapped(ops, sampled_head_loss=ref.sampled_head_loss_ref) if plain
+              else contextlib.nullcontext()):
             for h, ids, lp in batches:
                 _, _, grads, _ = heads.sparse_candidate_loss(hcfg, p, h, ids, lp)
                 p, state, _ = apply_updates(opt_cfg, p, grads, state)
@@ -849,6 +894,266 @@ def small_fits(dev, seed):
         "c4096_sharded_serial_s": serial_s, "c4096_serial_equals_threaded": True}}))
 
 
+def band_pairs(sq, skv, causal, window) -> tuple:
+    """(query, key) pairs inside the causal/window band, and the number of
+    keys that some query sees, for end-aligned query positions."""
+    pos = torch.arange(sq, dtype=torch.int64) + (skv - sq)
+    lo = (pos - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(pos)
+    hi = pos.clamp(max=skv - 1) if causal else torch.full_like(pos, skv - 1)
+    count = (hi - lo + 1).clamp(min=0)
+    seen = int(hi.max() - lo.min() + 1) if bool((count > 0).any()) else 0
+    return int(count.sum()), seen
+
+
+def attn_close(got, want) -> bool:
+    if want.dtype == torch.bfloat16:
+        g, w = got.float(), want.float()
+        return bool(((g - w).abs() <= 2.0 ** -8 * float(w.abs().max())
+                     + 2.0 ** -7 * w.abs()).all())
+    return close(got, want, ATTN_F32_TOL)
+
+
+def check_flash_attention(dev, gen, flush):
+    """The kernel against its plain version on the four shapes, two calls
+    bit-equal; kernel, plain and library (scaled_dot_product_attention with
+    a boolean band mask, GQA; not where there is a softcap) times. Bound: q,
+    k, v of the keys some query sees and the output moved once, against
+    4*hd operations per (query, key) pair in the band at the peak of the
+    inputs' type (bf16 tensor cores, float32 outside them)."""
+    import torch.nn.functional as F
+    rows = {}
+    for name, b, h, kv, sq, skv, hd, causal, window, softcap, dtype in ATTN_SHAPES:
+        q = torch.randn((b, h, sq, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, kv, skv, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, kv, skv, hd), generator=gen, device=dev).to(dtype)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = ops.flash_attention(q, k, v, **kw)
+        again = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        what = (f"flash_attention {name} (B={b} H={h} KV={kv} Sq={sq} Skv={skv} hd={hd} "
+                f"causal={causal} window={window} softcap={softcap} {str(dtype)[6:]})")
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+        check(attn_close(got, want), f"{what}: kernel disagrees with the plain version "
+                                     f"(max abs err {err:.3e})")
+        check(torch.equal(got, again), f"{what}: two calls differ")
+        del got, again, want
+        pairs, seen = band_pairs(sq, skv, causal, window)
+        elt = q.element_size()
+        n_bytes = 2 * q.numel() * elt + 2 * b * kv * seen * hd * k.element_size()
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        n_flop = 4 * hd * b * h * pairs
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / peak
+        bound, by = 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), flush)
+        plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), flush)
+        library = None
+        if not softcap:
+            pos = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+            delta = pos - torch.arange(skv, device=dev)[None, :]
+            band = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+            if causal:
+                band &= delta >= 0
+            if window > 0:
+                band &= delta < window
+            library = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, enable_gqa=True), flush)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=library,
+                          bound_ms=bound, bound_by=by, flop=n_flop, bytes=n_bytes,
+                          tflop_per_s=n_flop / ms / 1e9)
+        print(f"{what}: max_abs_err={err:.3e}, kernel {ms:.4f} ms "
+              f"({n_flop / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
+              f"sdpa {library if library is None else round(library, 4)} ms, "
+              f"bound {bound:.4f} ms ({by})")
+        del q, k, v
+    print(json.dumps({"flash_attention": rows}))
+    main = rows[ATTN_MAIN]
+    return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")}
+
+
+def blocked_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
+    """The plain version over query blocks of ATTN_BLOCK rows, each against
+    the keys its band can reach, so the (H, rows, keys) logits fit. End
+    alignment keeps every row's absolute position. Causal only: the model's
+    attention is."""
+    check(causal, "the blocked plain attention is causal only")
+    sq, skv = q.shape[2], k.shape[2]
+    off = skv - sq
+    outs = []
+    for i0 in range(0, sq, ATTN_BLOCK):
+        i1 = min(sq, i0 + ATTN_BLOCK)
+        k_lo = max(0, off + i0 - window + 1) if window > 0 else 0
+        k_hi = off + i1
+        outs.append(ref.flash_attention_ref(q[:, :, i0:i1], k[:, :, k_lo:k_hi],
+                                            v[:, :, k_lo:k_hi], causal=True,
+                                            window=window, softcap=softcap, scale=scale))
+    return torch.cat(outs, dim=2)
+
+
+def rel_rms(got, want) -> float:
+    g, w = got.float(), want.float()
+    return float((g - w).pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
+
+
+def serve_path(dev, seed):
+    """The lock-step launcher at full h2o-danube-3-4b width, dense and beam;
+    counters around each run; the kernel path against the plain forward."""
+    cfg = configs.get_config(SERVE_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    params = transformer.cast_params(transformer.init_params(gen, cfg, device=dev), cfg)
+    state = lm_head.default_head_state(gen, cfg, "adversarial_ns", device=dev)
+    hcfg = lm_head.head_config(cfg, "adversarial_ns")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30   # float32 weights, then bf16
+    torch.cuda.reset_peak_memory_stats()
+    kernels = ("flash_attention", "tree_logprob_all", "gather_scores")
+
+    def lockstep(beam, prompt_len=SERVE_PROMPT, gen_len=SERVE_GEN):
+        args = serve.parse_args(["--lockstep", "--full", "--arch", SERVE_ARCH,
+                                 "--batch", str(SERVE_BATCH), "--prompt-len", str(prompt_len),
+                                 "--gen", str(gen_len), "--topk-beam", str(beam),
+                                 "--seed", str(seed)])
+        return serve.run_lockstep(args, cfg, params, state, hcfg, dev)
+
+    paths = {}
+    for path, beam in (("dense", 0), ("beam", SERVE_BEAM)):
+        lockstep(beam, prompt_len=64, gen_len=2)                     # warm-up
+        rec = {"h": [], "scores": [], "topk": []}
+        forward, scores_fn, topk_fn = (transformer.forward, lm_head.lm_predictive_scores,
+                                       lm_head.lm_predictive_topk)
+
+        def rec_forward(*a, **kw):
+            out = forward(*a, **kw)
+            rec["h"].append(out[0])
+            return out
+
+        def rec_scores(*a, **kw):
+            rec["scores"].append(scores_fn(*a, **kw))
+            return rec["scores"][-1]
+
+        def rec_topk(*a, **kw):
+            rec["topk"].append(topk_fn(*a, **kw))
+            return rec["topk"][-1]
+
+        torch.cuda.synchronize()
+        for name in kernels:
+            getattr(ops, name).launches = 0
+        with swapped(transformer, forward=rec_forward), \
+                swapped(lm_head, lm_predictive_scores=rec_scores, lm_predictive_topk=rec_topk):
+            run = lockstep(beam)
+        launches = {name: getattr(ops, name).launches for name in kernels}
+        want_flash = cfg.num_layers * (1 + SERVE_GEN)
+        check(launches["flash_attention"] == want_flash,
+              f"{path}: flash_attention launched {launches['flash_attention']} times, "
+              f"not {want_flash}")
+        check(launches["tree_logprob_all" if beam == 0 else "gather_scores"] == SERVE_GEN,
+              f"{path}: the Eq. 5 kernel did not launch once per decode step: {launches}")
+        check(run["tokens"].shape == (SERVE_BATCH, SERVE_GEN), f"{path}: token shape")
+        check(bool(((run["tokens"] >= 0) & (run["tokens"] < cfg.vocab_size)).all()),
+              f"{path}: a token outside the vocabulary")
+        check(len(rec["h"]) == 1 + SERVE_GEN, f"{path}: {len(rec['h'])} forwards")
+        for h in rec["h"]:
+            check(bool(torch.isfinite(h).all()), f"{path}: non-finite hiddens")
+        # One decode step at the last position, profiled by kernel.
+        step = make_serve_step(cfg, hcfg, topk_beam=beam)
+        last = SERVE_PROMPT + SERVE_GEN - 1
+        by_name, n_kernels, host_ms = profile_by_kernel(
+            lambda: step(params, state, run["token"], run["cache"], last))
+        device_ms = sum(by_name.values())
+        flash_ms = sum(v for k, v in by_name.items() if "flash_attention" in k)
+        paths[path] = dict(
+            beam=beam, prefill_ms=run["prefill_ms"], decode_ms=run["decode_ms"],
+            ms_per_token=run["decode_ms"] / run["steps"], launches=launches,
+            decode_step_profile=dict(
+                host_ms=host_ms, device_ms=device_ms, kernels=n_kernels,
+                idle_share=1.0 - device_ms / host_ms, flash_attention_device_ms=flash_ms,
+                top_ms=[[k[:60], v] for k, v in
+                        sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]))
+        paths[path]["_rec"], paths[path]["_run"] = rec, run
+        del run["cache"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # One prefill of the same 4 prompts, profiled by kernel.
+    prompts = paths["dense"]["_run"]["prompts"]
+    cache = transformer.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT, device=dev)
+    by_name, n_kernels, host_ms = profile_by_kernel(
+        lambda: make_prefill(cfg)(params, prompts, cache))
+    device_ms = sum(by_name.values())
+    prefill_profile = dict(
+        host_ms=host_ms, device_ms=device_ms, kernels=n_kernels,
+        idle_share=1.0 - device_ms / host_ms,
+        flash_attention_device_ms=sum(v for k, v in by_name.items() if "flash_attention" in k),
+        top_ms=[[k[:60], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]])
+    del cache
+
+    # Beam: each step's top score is the dense Eq. 5 score of its label,
+    # from the same hidden.
+    beam_rec = paths["beam"].pop("_rec")
+    paths["beam"].pop("_run")
+    head = heads.HeadParams(**params["head"])
+    for h, (top, labels) in zip(beam_rec["h"][1:], beam_rec["topk"]):
+        dense = lm_head.lm_predictive_scores(cfg, hcfg, head, state, h[:, -1])
+        check(close(top[:, 0], dense.gather(1, labels)[:, 0], SCORE_TOL),
+              "beam: top scores differ from the dense Eq. 5 scores at their labels")
+        check(bool((top[:, 0] <= dense.max(-1).values + SCORE_TOL["atol"]).all()),
+              "beam: top-1 beats the dense maximum")
+    del beam_rec
+
+    # Dense: request 0 through prefill + decode against the plain version's
+    # cache-free forward over the 4,640 tokens the cache holds.
+    rec, run = paths["dense"].pop("_rec"), paths["dense"].pop("_run")
+    fed = torch.cat([run["prompts"][0], run["prompts"][0, -1:],
+                     torch.as_tensor(run["tokens"][0, :-1], device=dev)])
+    t0 = time.perf_counter()
+    with swapped(ops, flash_attention=blocked_attention_ref,
+                 tree_logprob_all=ref.tree_logprob_all_ref):
+        plain_h, _, _ = transformer.forward(params, cfg, fed[None])
+        plain_scores = lm_head.lm_predictive_scores(cfg, hcfg, head, state,
+                                                    plain_h[0, SERVE_PROMPT:])
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    kernel_h_prompt = rec["h"][0][0]
+    kernel_h_decode = torch.stack([h[0, -1] for h in rec["h"][1:]])
+    kernel_scores = torch.stack([s[0] for s in rec["scores"]])
+    real = slice(0, cfg.vocab_size)
+    errs = {
+        "prefill_hidden_rel_rms": rel_rms(kernel_h_prompt, plain_h[0, :SERVE_PROMPT]),
+        "decode_hidden_rel_rms": rel_rms(kernel_h_decode, plain_h[0, SERVE_PROMPT:]),
+        "decode_scores_rel_rms": rel_rms(kernel_scores[:, real], plain_scores[:, real]),
+        "prefill_hidden_max_abs_err": float((kernel_h_prompt.float()
+                                             - plain_h[0, :SERVE_PROMPT].float()).abs().max()),
+        "decode_hidden_max_abs_err": float((kernel_h_decode.float()
+                                            - plain_h[0, SERVE_PROMPT:].float()).abs().max()),
+        "decode_scores_max_abs_err": float((kernel_scores[:, real]
+                                            - plain_scores[:, real]).abs().max()),
+        "plain_scores_std": float(plain_scores[:, real].std()),
+        "argmax_agreement": float((kernel_scores[:, real].argmax(-1)
+                                   == plain_scores[:, real].argmax(-1)).float().mean()),
+    }
+    for key in ("prefill_hidden_rel_rms", "decode_hidden_rel_rms", "decode_scores_rel_rms"):
+        check(errs[key] <= SERVE_REL_RMS_TOL,
+              f"serving: kernel path against the plain forward, {key} = {errs[key]:.3e} "
+              f"> {SERVE_REL_RMS_TOL:.3e}")
+    launches = {name: sum(p["launches"][name] for p in paths.values()) for name in kernels}
+    print(json.dumps({"serve_path": {
+        "arch": SERVE_ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+        "window": cfg.window_size, "vocab": cfg.vocab_size, "batch": SERVE_BATCH,
+        "prompt_len": SERVE_PROMPT, "gen": SERVE_GEN, "params_b": cfg.param_count() / 1e9,
+        "setup_s": setup_s, "setup_peak_mem_gib": setup_peak_gib, "paths": paths,
+        "prefill_profile": prefill_profile,
+        "serving_peak_mem_gib": peak_gib,
+        "plain_forward_s": plain_s, "kernel_vs_plain": errs,
+        "rel_rms_tol": SERVE_REL_RMS_TOL}}))
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -880,6 +1185,7 @@ def main() -> int:
     tree = check_tree(dev, gen, flush, cfg)
     sampled = check_sampled_loss(dev, gen, flush, cfg)
     segment = check_segment_stats(dev, gen, flush)
+    attention = check_flash_attention(dev, gen, flush)
     del flush
     check_small_against_cpu(dev, args.seed)
 
@@ -888,6 +1194,7 @@ def main() -> int:
     pipeline_small(dev, args.seed)
     launches.update(segment_stats=genfit_path(dev, args.seed, cfg)["segment_stats"])
     small_fits(dev, args.seed)
+    launches.update(flash_attention=serve_path(dev, args.seed)["flash_attention"])
     src = "src/repro_torch/kernels/csrc"
     kernels = [
         dict(name="gather_scores", route="cuda", source=f"{src}/gather_scores.cu",
@@ -898,6 +1205,8 @@ def main() -> int:
              replaces="src/repro/kernels/sampled_loss.py:162", **sampled),
         dict(name="segment_stats", route="cuda", source=f"{src}/segment_scores.cu",
              replaces="src/repro/kernels/segment_scores.py:51", **segment),
+        dict(name="flash_attention", route="cuda", source=f"{src}/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:82", **attention),
     ]
     for k in kernels:
         k.setdefault("library_ms", None)

@@ -27,4 +27,11 @@ Slice 3 fits the generator at the paper's size: :mod:`repro_torch.genfit`
 (level-parallel, warm-refit and subtree-sharded fitting, deterministic bit
 for bit) with :mod:`repro_torch.parallel`, its segment sums in the
 hand-written CUDA kernel ``segment_stats``.
+
+Slice 4 serves an LM lock-step: :mod:`repro_torch.configs` (the attention
+configs without experts), :mod:`repro_torch.models` (layers, the decoder
+stack with a contiguous KV cache, the serving half of the LM head),
+:mod:`repro_torch.train.step` (``make_prefill``, ``make_serve_step``) and
+:mod:`repro_torch.launch.serve`, with attention in the hand-written CUDA
+kernel ``flash_attention``.
 """

@@ -7,7 +7,7 @@ and are cast with ``dtype=``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -15,6 +15,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core.heads import Generator, HeadParams
 from repro_torch.core.tree import Tree
+from repro_torch.models.lm_head import LMHeadState
 from repro_torch.optim.optimizers import OptState
 
 
@@ -59,3 +60,35 @@ def opt_state_from_numpy(step, nu: Optional[Sequence] = None,
     return OptState(step=int(np.asarray(step)), mu=None,
                     nu=None if nu is None else HeadParams(
                         *(_tensor(a, torch.float32, dev) for a in nu)))
+
+
+def lm_params_from_numpy(params: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The port's LM parameters from the JAX package's ``init_params`` tree
+    with every leaf as numpy (``jax.tree.map(np.asarray, params)``), float32.
+    The reference stacks the layers on a leading L axis for its scan; they
+    are unstacked into the port's list of per-layer dicts."""
+    dev = device_lib.resolve(device)
+
+    def tree(node, layer=None):
+        if isinstance(node, dict):
+            return {k: tree(v, layer) for k, v in node.items()}
+        return _tensor(node if layer is None else np.asarray(node)[layer],
+                       torch.float32, dev)
+
+    stacked = params["layers"]
+    first = stacked
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return {"embed": tree(params["embed"]),
+            "layers": [tree(stacked, i) for i in range(np.shape(first)[0])],
+            "final_norm": tree(params["final_norm"]),
+            "head": tree(params["head"])}
+
+
+def lm_head_state_from_numpy(proj, tree: Sequence, device="cuda") -> LMHeadState:
+    """:class:`~repro_torch.models.lm_head.LMHeadState` from the JAX
+    package's ``proj`` (d_model, k) and the four tree arrays in the JAX
+    ``Tree`` field order (w, b, label_to_leaf, leaf_to_label)."""
+    dev = device_lib.resolve(device)
+    return LMHeadState(gen=Generator(tree=tree_from_numpy(*tree, device=dev)),
+                       proj=_tensor(proj, torch.float32, dev))

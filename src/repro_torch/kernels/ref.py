@@ -6,8 +6,41 @@ wrappers send CPU tensors here; on the card only the tests and
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, scale: float | None = None):
+    """q: (B,H,Sq,hd); k,v: (B,KV,Skv,hd) with H % KV == 0. Returns
+    (B,H,Sq,hd) in q.dtype, computed in float32.
+
+    Positions are aligned at the END: q position i corresponds to absolute
+    position (Skv - Sq + i) — the decode/prefill convention. Query head j
+    reads KV head j // (H / KV). Masked logits are -1e30, so a row with no
+    visible key averages V over all keys. Materializes (B,H,Sq,Skv).
+    """
+    sq, hd = q.shape[2], q.shape[3]
+    skv, groups = k.shape[2], q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kf = k.float().repeat_interleave(groups, dim=1)
+    vf = v.float().repeat_interleave(groups, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    q_pos = torch.arange(sq, device=q.device) + (skv - sq)
+    k_pos = torch.arange(skv, device=q.device)
+    delta = q_pos[:, None] - k_pos[None, :]
+    valid = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= delta >= 0
+    if window > 0:
+        valid &= delta < window
+    logits = torch.where(valid, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
 
 
 def gather_scores_ref(w, b, h, ids):

@@ -27,6 +27,9 @@ from repro_torch.core import samplers as tsamplers
 from repro_torch.core import tree as ttree
 from repro_torch.core import tree_fit as tfit
 from repro_torch.core import xc_train as txc
+from repro_torch.configs import reduced_config
+from repro_torch.models import lm_head as tlm_head
+from repro_torch.models import transformer as ttransformer
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-4, rtol=1e-5)
@@ -127,7 +130,9 @@ def test_port_imports_neither_jax_nor_repro():
 @pytest.mark.parametrize("entry", ["init_head_params", "init_tree",
                                    "unigram_from_counts", "tree_from_numpy",
                                    "head_params_from_numpy", "train_linear_head",
-                                   "fit_tree", "opt_state_from_numpy"])
+                                   "fit_tree", "opt_state_from_numpy", "init_params",
+                                   "init_cache", "default_head_state",
+                                   "lm_params_from_numpy"])
 def test_card_default_raises_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -144,6 +149,14 @@ def test_card_default_raises_without_cuda(monkeypatch, entry):
         "fit_tree": lambda: tfit.fit_tree(np.zeros((8, 2)), np.arange(8) % 4, 4),
         "opt_state_from_numpy": lambda: convert.opt_state_from_numpy(
             0, (np.zeros((4, 3)), np.zeros(4))),
+        "init_params": lambda: ttransformer.init_params(
+            torch.Generator(), reduced_config("stablelm-3b")),
+        "init_cache": lambda: ttransformer.init_cache(reduced_config("stablelm-3b"), 1, 4),
+        "default_head_state": lambda: tlm_head.default_head_state(
+            torch.Generator(), reduced_config("stablelm-3b"), "adversarial_ns"),
+        "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
+            {"embed": np.zeros((8, 4)), "layers": [], "final_norm": {"scale": np.zeros(4)},
+             "head": {"w": np.zeros((8, 4)), "b": np.zeros(8)}}),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
