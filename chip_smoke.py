@@ -33,8 +33,9 @@ Phases, each fatal on failure:
      features, run twice and bit-equal; at C = 1,024 the fit against the
      numpy oracle, and at C = 4,096 the sharded fit serial against threaded;
   8. ``flash_attention`` against its plain version on four shapes (h2o-danube
-     prefill and decode, gemma2's softcap geometry, a ragged float32 case),
-     two calls bit-equal; kernel, plain and ``scaled_dot_product_attention``
+     prefill and decode at B = 4, gemma2's softcap geometry, each laid out
+     and scaled as the model calls it; a ragged float32 case), within one
+     bf16 ulp of each output row and 2^-11 relative RMS, two calls bit-equal; kernel, plain and ``scaled_dot_product_attention``
      times (phase 3's kernel checks run before it);
   9. the LM-serving path at full h2o-danube-3-4b width (24 layers, d 3840,
      32 query heads over 8 KV heads, hd 120, window 4,096, vocab 32,000):
@@ -42,9 +43,9 @@ Phases, each fatal on failure:
      greedy tokens through dense Eq. 5 scoring and again through beam 64,
      counters reset just before and read just after each; prefill and
      per-token ms, the device time by kernel and idle share of one decode
-     step, peak memory; prefill plus decode through the cache against the
-     plain version's cache-free forward over the 4,640 cached tokens
-     (hiddens and dense Eq. 5 scores of every decode step);
+     step, peak memory; prefill plus decode of all 4 requests through the
+     cache against the plain version's cache-free forward over the 4,640
+     cached tokens (hiddens and dense Eq. 5 scores of every decode step);
  10. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
@@ -116,18 +117,29 @@ FIT_POINTS = SEG_POINTS
 FIT_HELD_OUT = 16_384
 FIT_PROFILE_LEVELS = (2, 17)     # levels profiled by kernel: a shallow one, the widest
 
-# flash_attention's shapes: (name, B, H, KV, Sq, Skv, hd, causal, window, softcap, dtype)
+# flash_attention's shapes: (name, B, H, KV, Sq, Skv, hd, causal, window,
+# softcap, dtype, cache length). A shape with a cache length is called as
+# the model calls the kernel: q a (B, Sq, H, hd) projection scaled by
+# 1/sqrt(hd) in its dtype and permuted, k and v a (B, cache length, KV, hd)
+# cache sliced to Skv and permuted, scale=1.0. Cache length 0: contiguous
+# (B, H, S, hd) tensors and the default scale.
 ATTN_SHAPES = [
-    ("danube_prefill", 1, 32, 8, 4608, 4608, 120, True, 4096, 0.0, torch.bfloat16),
-    ("danube_decode", 4, 32, 8, 1, 4640, 120, True, 4096, 0.0, torch.bfloat16),
-    ("gemma2_softcap", 1, 32, 16, 2048, 2048, 128, True, 4096, 50.0, torch.bfloat16),
-    ("ragged_fp32", 2, 4, 2, 37, 101, 80, False, 0, 0.0, torch.float32),
+    ("danube_prefill", 4, 32, 8, 4608, 4608, 120, True, 4096, 0.0, torch.bfloat16, 4640),
+    ("danube_decode", 4, 32, 8, 1, 4640, 120, True, 4096, 0.0, torch.bfloat16, 4640),
+    ("gemma2_softcap", 1, 32, 16, 2048, 2048, 128, True, 4096, 50.0, torch.bfloat16, 2080),
+    ("ragged_fp32", 2, 4, 2, 37, 101, 80, False, 0, 0.0, torch.float32, 0),
 ]
 ATTN_MAIN = "danube_prefill"     # the shape of the kernels line
 ATTN_F32_TOL = dict(atol=1e-5, rtol=1e-5)
-# bfloat16: one bf16 ulp of the output's scale. Kernel and plain version both
-# compute in float32 and round once, so they differ by at most one rounding:
-# |got - want| <= 2^-8 * max|want| + 2^-7 * |want|.
+# bfloat16: kernel and plain version both compute in float32 and round once
+# to bfloat16, so an output differs by at most one rounding of its own value
+# plus their float32 difference, which is far below a bf16 ulp of its row:
+# |got - want| <= 2^-8 * max|want over the (b, h, i) row| + 2^-7 * |want|.
+# The two float32 results differ by ~2^-20 relative, so only a few outputs
+# in 2^12 straddle a rounding boundary: over the whole output the relative
+# RMS difference is held to 2^-11. Rounding P to bf16 before P.V (what the
+# reference model does, and neither kernel) reads about 2^-9 there.
+ATTN_BF16_ROW_ULP, ATTN_BF16_REL, ATTN_BF16_REL_RMS = 2.0 ** -8, 2.0 ** -7, 2.0 ** -11
 SERVE_ARCH = "h2o-danube-3-4b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_BEAM = 4, 4608, 32, 64
 ATTN_BLOCK = 512                 # query rows per block of the plain forward's attention
@@ -905,12 +917,39 @@ def band_pairs(sq, skv, causal, window) -> tuple:
     return int(count.sum()), seen
 
 
-def attn_close(got, want) -> bool:
+def attn_errors(got, want) -> dict:
+    """The largest error, the largest ratio of an error to its bound (bf16:
+    the per-row ulp bound; float32: ``ATTN_F32_TOL``) and the relative RMS
+    difference over the whole output."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
     if want.dtype == torch.bfloat16:
-        g, w = got.float(), want.float()
-        return bool(((g - w).abs() <= 2.0 ** -8 * float(w.abs().max())
-                     + 2.0 ** -7 * w.abs()).all())
-    return close(got, want, ATTN_F32_TOL)
+        bound = (ATTN_BF16_ROW_ULP * w.abs().amax(dim=-1, keepdim=True)
+                 + ATTN_BF16_REL * w.abs())
+    else:
+        bound = ATTN_F32_TOL["atol"] + ATTN_F32_TOL["rtol"] * w.abs()
+    return dict(max_abs_err=float(err.max()), worst_ratio=float((err / bound).max()),
+                rel_rms=rel_rms(g, w))
+
+
+def attn_close(errs: dict, dtype) -> bool:
+    return errs["worst_ratio"] <= 1.0 and (dtype != torch.bfloat16
+                                           or errs["rel_rms"] <= ATTN_BF16_REL_RMS)
+
+
+def attn_inputs(dev, gen, b, h, kv, sq, skv, hd, dtype, cache_len):
+    """q (B, H, Sq, hd), k, v (B, KV, Skv, hd) and the scale to pass; with a
+    cache length, laid out and scaled as the model passes them."""
+    if not cache_len:
+        return (torch.randn((b, h, sq, hd), generator=gen, device=dev).to(dtype),
+                torch.randn((b, kv, skv, hd), generator=gen, device=dev).to(dtype),
+                torch.randn((b, kv, skv, hd), generator=gen, device=dev).to(dtype), None)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dtype)
+    q = q * torch.tensor(hd ** -0.5).to(dtype).item()
+    cache_k = torch.randn((b, cache_len, kv, hd), generator=gen, device=dev).to(dtype)
+    cache_v = torch.randn((b, cache_len, kv, hd), generator=gen, device=dev).to(dtype)
+    return (q.transpose(1, 2), cache_k[:, :skv].transpose(1, 2),
+            cache_v[:, :skv].transpose(1, 2), 1.0)
 
 
 def check_flash_attention(dev, gen, flush):
@@ -922,21 +961,22 @@ def check_flash_attention(dev, gen, flush):
     inputs' type (bf16 tensor cores, float32 outside them)."""
     import torch.nn.functional as F
     rows = {}
-    for name, b, h, kv, sq, skv, hd, causal, window, softcap, dtype in ATTN_SHAPES:
-        q = torch.randn((b, h, sq, hd), generator=gen, device=dev).to(dtype)
-        k = torch.randn((b, kv, skv, hd), generator=gen, device=dev).to(dtype)
-        v = torch.randn((b, kv, skv, hd), generator=gen, device=dev).to(dtype)
-        kw = dict(causal=causal, window=window, softcap=softcap)
+    for name, b, h, kv, sq, skv, hd, causal, window, softcap, dtype, cache_len in ATTN_SHAPES:
+        q, k, v, scale = attn_inputs(dev, gen, b, h, kv, sq, skv, hd, dtype, cache_len)
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
         got = ops.flash_attention(q, k, v, **kw)
         again = ops.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
+        layout = f"model layout, cache {cache_len}" if cache_len else "contiguous"
         what = (f"flash_attention {name} (B={b} H={h} KV={kv} Sq={sq} Skv={skv} hd={hd} "
-                f"causal={causal} window={window} softcap={softcap} {str(dtype)[6:]})")
-        err = float((got.float() - want.float()).abs().max())
+                f"causal={causal} window={window} softcap={softcap} {str(dtype)[6:]}, "
+                f"{layout})")
+        errs = attn_errors(got, want)
+        err = errs["max_abs_err"]
         check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
-        check(attn_close(got, want), f"{what}: kernel disagrees with the plain version "
-                                     f"(max abs err {err:.3e})")
+        check(attn_close(errs, dtype), f"{what}: kernel disagrees with the plain version "
+                                       f"({errs})")
         check(torch.equal(got, again), f"{what}: two calls differ")
         del got, again, want
         pairs, seen = band_pairs(sq, skv, causal, window)
@@ -958,11 +998,13 @@ def check_flash_attention(dev, gen, flush):
             if window > 0:
                 band &= delta < window
             library = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=band, enable_gqa=True), flush)
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=library,
+                q, k, v, attn_mask=band, scale=scale, enable_gqa=True), flush)
+        rows[name] = dict(max_abs_err=err, worst_ratio=errs["worst_ratio"],
+                          rel_rms=errs["rel_rms"], ms=ms, plain_ms=plain, library_ms=library,
                           bound_ms=bound, bound_by=by, flop=n_flop, bytes=n_bytes,
                           tflop_per_s=n_flop / ms / 1e9)
-        print(f"{what}: max_abs_err={err:.3e}, kernel {ms:.4f} ms "
+        print(f"{what}: max_abs_err={err:.3e} (worst error/bound {errs['worst_ratio']:.3f}, "
+              f"rel RMS {errs['rel_rms']:.3e}), kernel {ms:.4f} ms "
               f"({n_flop / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
               f"sdpa {library if library is None else round(library, 4)} ms, "
               f"bound {bound:.4f} ms ({by})")
@@ -1105,36 +1147,39 @@ def serve_path(dev, seed):
               "beam: top-1 beats the dense maximum")
     del beam_rec
 
-    # Dense: request 0 through prefill + decode against the plain version's
-    # cache-free forward over the 4,640 tokens the cache holds.
+    # Dense: the 4 requests through prefill + decode against the plain
+    # version's cache-free forward over the 4,640 tokens the cache holds.
     rec, run = paths["dense"].pop("_rec"), paths["dense"].pop("_run")
-    fed = torch.cat([run["prompts"][0], run["prompts"][0, -1:],
-                     torch.as_tensor(run["tokens"][0, :-1], device=dev)])
+    fed = torch.cat([run["prompts"], run["prompts"][:, -1:],
+                     torch.as_tensor(run["tokens"][:, :-1], device=dev)], dim=1)
     t0 = time.perf_counter()
     with swapped(ops, flash_attention=blocked_attention_ref,
                  tree_logprob_all=ref.tree_logprob_all_ref):
-        plain_h, _, _ = transformer.forward(params, cfg, fed[None])
-        plain_scores = lm_head.lm_predictive_scores(cfg, hcfg, head, state,
-                                                    plain_h[0, SERVE_PROMPT:])
+        plain_h, _, _ = transformer.forward(params, cfg, fed)
+        plain_scores = lm_head.lm_predictive_scores(
+            cfg, hcfg, head, state, plain_h[:, SERVE_PROMPT:].reshape(-1, cfg.d_model))
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    kernel_h_prompt = rec["h"][0][0]
-    kernel_h_decode = torch.stack([h[0, -1] for h in rec["h"][1:]])
-    kernel_scores = torch.stack([s[0] for s in rec["scores"]])
+    plain_h_prompt, plain_h_decode = plain_h[:, :SERVE_PROMPT], plain_h[:, SERVE_PROMPT:]
+    kernel_h_prompt = rec["h"][0]
+    kernel_h_decode = torch.stack([h[:, -1] for h in rec["h"][1:]], dim=1)
+    kernel_scores = torch.stack(rec["scores"], dim=1).reshape(-1, plain_scores.shape[-1])
     real = slice(0, cfg.vocab_size)
+    kernel_scores, plain_scores = kernel_scores[:, real], plain_scores[:, real]
     errs = {
-        "prefill_hidden_rel_rms": rel_rms(kernel_h_prompt, plain_h[0, :SERVE_PROMPT]),
-        "decode_hidden_rel_rms": rel_rms(kernel_h_decode, plain_h[0, SERVE_PROMPT:]),
-        "decode_scores_rel_rms": rel_rms(kernel_scores[:, real], plain_scores[:, real]),
+        "prefill_hidden_rel_rms": rel_rms(kernel_h_prompt, plain_h_prompt),
+        "decode_hidden_rel_rms": rel_rms(kernel_h_decode, plain_h_decode),
+        "decode_scores_rel_rms": rel_rms(kernel_scores, plain_scores),
+        "prefill_hidden_rel_rms_by_request": [
+            rel_rms(kernel_h_prompt[i], plain_h_prompt[i]) for i in range(SERVE_BATCH)],
         "prefill_hidden_max_abs_err": float((kernel_h_prompt.float()
-                                             - plain_h[0, :SERVE_PROMPT].float()).abs().max()),
+                                             - plain_h_prompt.float()).abs().max()),
         "decode_hidden_max_abs_err": float((kernel_h_decode.float()
-                                            - plain_h[0, SERVE_PROMPT:].float()).abs().max()),
-        "decode_scores_max_abs_err": float((kernel_scores[:, real]
-                                            - plain_scores[:, real]).abs().max()),
-        "plain_scores_std": float(plain_scores[:, real].std()),
-        "argmax_agreement": float((kernel_scores[:, real].argmax(-1)
-                                   == plain_scores[:, real].argmax(-1)).float().mean()),
+                                            - plain_h_decode.float()).abs().max()),
+        "decode_scores_max_abs_err": float((kernel_scores - plain_scores).abs().max()),
+        "plain_scores_std": float(plain_scores.std()),
+        "argmax_agreement": float((kernel_scores.argmax(-1)
+                                   == plain_scores.argmax(-1)).float().mean()),
     }
     for key in ("prefill_hidden_rel_rms", "decode_hidden_rel_rms", "decode_scores_rel_rms"):
         check(errs[key] <= SERVE_REL_RMS_TOL,

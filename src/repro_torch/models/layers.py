@@ -1,4 +1,4 @@
-"""Core layers: RMSNorm, (M-)RoPE, GQA attention (SWA / softcap), SwiGLU.
+"""Core layers: RMSNorm, RoPE, GQA attention (SWA / softcap), SwiGLU.
 
 Parameter-dict style, as the JAX package's ``repro.models.layers``: each
 layer is an ``init_*`` returning a dict of tensors under the reference's key
@@ -48,7 +48,7 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (standard + M-RoPE sections, qwen2-vl style)
+# Rotary embeddings
 # ---------------------------------------------------------------------------
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -57,28 +57,13 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
                             / half))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-               sections: Tuple[int, ...] = ()) -> torch.Tensor:
-    """x: (B, S, H, hd). positions: (B, S) or (n_sections, B, S) for M-RoPE.
-    Computed in float32 and cast back to x's dtype.
-
-    M-RoPE (qwen2-vl): the rotary half-dims are split into `sections`
-    (temporal/height/width), each rotated by its own position stream. With
-    identical streams this reduces exactly to standard RoPE.
-    """
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd). positions: (B, S). Computed in float32 and cast
+    back to x's dtype. The reference's M-RoPE sections (qwen2-vl) wait for
+    the vision slice (ROADMAP item 9)."""
     half = x.shape[-1] // 2
     inv_freq = rope_frequencies(x.shape[-1], theta, device=x.device)    # (half,)
-    if positions.dim() == 2:
-        angles = positions.float()[..., None] * inv_freq      # (B, S, half)
-    else:
-        sections = sections or (half,)
-        if sum(sections) != half:
-            raise ValueError(f"rope sections {sections} do not sum to {half}")
-        # The section of each half-dim, built on the host: a device-side
-        # repeat_interleave would wait for the device to learn its size.
-        sec_id = torch.repeat_interleave(torch.arange(len(sections)),
-                                         torch.tensor(sections)).to(x.device)
-        angles = positions[sec_id].float().permute(1, 2, 0) * inv_freq
+    angles = positions.float()[..., None] * inv_freq          # (B, S, half)
     cos = torch.cos(angles)[:, :, None, :]                    # (B,S,1,half)
     sin = torch.sin(angles)[:, :, None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
@@ -151,8 +136,8 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     q = _project(x, params["wq"], cdt)
     k = _project(x, params["wk"], cdt)
     v = _project(x, params["wv"], cdt)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
 
     if kv_cache is None:
         k_all, v_all = k, v

@@ -184,10 +184,17 @@ def test_wrapper_rejects_bad_operands(bad):
 # ---------------------------------------------------------------------------
 
 def _card_close(got, want):
+    """bfloat16: kernel and plain version both compute in float32 and round
+    once, so each output is within one bf16 ulp of its (b, h, i) row's scale
+    plus one rounding of its own value, and over the whole output the
+    relative RMS difference stays under 2^-11 (a few outputs in 2^12
+    straddle a rounding boundary). float32: ``F32_TOL``."""
     if want.dtype == torch.bfloat16:
         g, w = got.float(), want.float()
-        scale = float(w.abs().max())
-        return bool(((g - w).abs() <= 2.0 ** -8 * scale + 2.0 ** -7 * w.abs()).all())
+        row = w.abs().amax(dim=-1, keepdim=True)
+        rel_rms = float((g - w).pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
+        return (bool(((g - w).abs() <= 2.0 ** -8 * row + 2.0 ** -7 * w.abs()).all())
+                and rel_rms <= 2.0 ** -11)
     return bool(((got - want).abs() <= F32_TOL["atol"] + F32_TOL["rtol"] * want.abs()).all())
 
 
