@@ -32,16 +32,20 @@ Phases, each fatal on failure:
      its held-out log-likelihood against uniform; a warm refit on drifted
      features, run twice and bit-equal; at C = 1,024 the fit against the
      numpy oracle, and at C = 4,096 the sharded fit serial against threaded;
-  8. ``flash_attention`` against its plain version on four shapes (h2o-danube
-     prefill and decode at B = 4, gemma2's softcap geometry, each laid out
-     and scaled as the model calls it; a ragged float32 case), within one
-     bf16 ulp of each output row and 2^-11 relative RMS, two calls bit-equal; kernel, plain and ``scaled_dot_product_attention``
+  8. ``flash_attention`` against its plain version on five shapes (h2o-danube
+     prefill and decode at B = 4, gemma2's softcap geometry, stablelm-3b's
+     prefill, each laid out and scaled as the model calls it; a ragged
+     float32 case), within one bf16 ulp of each output row and 2^-11
+     relative RMS, two calls bit-equal, the kernel each shape took (the
+     tensor-core kernel for the three bf16 prefills, the FMA kernel for
+     decode and float32); kernel, plain and ``scaled_dot_product_attention``
      times (phase 3's kernel checks run before it);
   9. the LM-serving path at full h2o-danube-3-4b width (24 layers, d 3840,
      32 query heads over 8 KV heads, hd 120, window 4,096, vocab 32,000):
      the lock-step launcher serves 4 requests of 4,608 prompt tokens and 32
      greedy tokens through dense Eq. 5 scoring and again through beam 64,
-     counters reset just before and read just after each; prefill and
+     counters reset just before and read just after each (prefill on the
+     tensor-core kernel, decode on the FMA kernel); prefill and
      per-token ms, the device time by kernel and idle share of one decode
      step, peak memory; prefill plus decode of all 4 requests through the
      cache against the plain version's cache-free forward over the 4,640
@@ -128,17 +132,26 @@ ATTN_SHAPES = [
     ("danube_decode", 4, 32, 8, 1, 4640, 120, True, 4096, 0.0, torch.bfloat16, 4640),
     ("gemma2_softcap", 1, 32, 16, 2048, 2048, 128, True, 4096, 50.0, torch.bfloat16, 2080),
     ("ragged_fp32", 2, 4, 2, 37, 101, 80, False, 0, 0.0, torch.float32, 0),
+    ("stablelm_prefill", 1, 32, 32, 2048, 2048, 80, True, 0, 0.0, torch.bfloat16, 2080),
 ]
 ATTN_MAIN = "danube_prefill"     # the shape of the kernels line
+# The shapes that take the tensor-core kernel (bf16, more than 16 packed
+# rows, hd <= 128); the others take the FMA kernel.
+ATTN_TENSOR_CORE = {"danube_prefill", "gemma2_softcap", "stablelm_prefill"}
 ATTN_F32_TOL = dict(atol=1e-5, rtol=1e-5)
-# bfloat16: kernel and plain version both compute in float32 and round once
-# to bfloat16, so an output differs by at most one rounding of its own value
-# plus their float32 difference, which is far below a bf16 ulp of its row:
+# bfloat16: kernel and plain version both keep float32 precision until the
+# output and round once to bfloat16, so an output differs by at most one
+# rounding of its own value plus their float32 difference, which is far
+# below a bf16 ulp of its row:
 # |got - want| <= 2^-8 * max|want over the (b, h, i) row| + 2^-7 * |want|.
-# The two float32 results differ by ~2^-20 relative, so only a few outputs
-# in 2^12 straddle a rounding boundary: over the whole output the relative
-# RMS difference is held to 2^-11. Rounding P to bf16 before P.V (what the
-# reference model does, and neither kernel) reads about 2^-9 there.
+# The FMA kernel computes in float32 throughout (~2^-20 relative from the
+# plain version). The tensor-core kernel multiplies bf16 q, k, v, whose
+# products are exact in float32 and are summed in float32, and splits P into
+# bf16 hi + lo parts for P.V, so P keeps ~2^-17 of its value: its float32
+# result differs by ~2^-17 relative. Either way only a small share of the
+# outputs straddle a rounding boundary: over the whole output the relative
+# RMS difference is held to 2^-11. Rounding P to bf16 once before P.V (what
+# the reference model does, and neither kernel) reads about 2^-9 there.
 ATTN_BF16_ROW_ULP, ATTN_BF16_REL, ATTN_BF16_REL_RMS = 2.0 ** -8, 2.0 ** -7, 2.0 ** -11
 SERVE_ARCH = "h2o-danube-3-4b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_BEAM = 4, 4608, 32, 64
@@ -953,7 +966,7 @@ def attn_inputs(dev, gen, b, h, kv, sq, skv, hd, dtype, cache_len):
 
 
 def check_flash_attention(dev, gen, flush):
-    """The kernel against its plain version on the four shapes, two calls
+    """The kernel against its plain version on the five shapes, two calls
     bit-equal; kernel, plain and library (scaled_dot_product_attention with
     a boolean band mask, GQA; not where there is a softcap) times. Bound: q,
     k, v of the keys some query sees and the output moved once, against
@@ -964,14 +977,19 @@ def check_flash_attention(dev, gen, flush):
     for name, b, h, kv, sq, skv, hd, causal, window, softcap, dtype, cache_len in ATTN_SHAPES:
         q, k, v, scale = attn_inputs(dev, gen, b, h, kv, sq, skv, hd, dtype, cache_len)
         kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        tensor_cores = ops.flash_attention.tensor_core_launches
         got = ops.flash_attention(q, k, v, **kw)
+        path = ("tensor_cores" if ops.flash_attention.tensor_core_launches > tensor_cores
+                else "fma")
         again = ops.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         layout = f"model layout, cache {cache_len}" if cache_len else "contiguous"
         what = (f"flash_attention {name} (B={b} H={h} KV={kv} Sq={sq} Skv={skv} hd={hd} "
                 f"causal={causal} window={window} softcap={softcap} {str(dtype)[6:]}, "
-                f"{layout})")
+                f"{layout}; {path} kernel)")
+        check(path == ("tensor_cores" if name in ATTN_TENSOR_CORE else "fma"),
+              f"{what}: took the wrong kernel")
         errs = attn_errors(got, want)
         err = errs["max_abs_err"]
         check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
@@ -999,7 +1017,7 @@ def check_flash_attention(dev, gen, flush):
                 band &= delta < window
             library = time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=band, scale=scale, enable_gqa=True), flush)
-        rows[name] = dict(max_abs_err=err, worst_ratio=errs["worst_ratio"],
+        rows[name] = dict(path=path, max_abs_err=err, worst_ratio=errs["worst_ratio"],
                           rel_rms=errs["rel_rms"], ms=ms, plain_ms=plain, library_ms=library,
                           bound_ms=bound, bound_by=by, flop=n_flop, bytes=n_bytes,
                           tflop_per_s=n_flop / ms / 1e9)
@@ -1086,14 +1104,20 @@ def serve_path(dev, seed):
         torch.cuda.synchronize()
         for name in kernels:
             getattr(ops, name).launches = 0
+        ops.flash_attention.tensor_core_launches = ops.flash_attention.fma_launches = 0
         with swapped(transformer, forward=rec_forward), \
                 swapped(lm_head, lm_predictive_scores=rec_scores, lm_predictive_topk=rec_topk):
             run = lockstep(beam)
         launches = {name: getattr(ops, name).launches for name in kernels}
+        by_path = dict(tensor_cores=ops.flash_attention.tensor_core_launches,
+                       fma=ops.flash_attention.fma_launches)
         want_flash = cfg.num_layers * (1 + SERVE_GEN)
         check(launches["flash_attention"] == want_flash,
               f"{path}: flash_attention launched {launches['flash_attention']} times, "
               f"not {want_flash}")
+        check(by_path == dict(tensor_cores=cfg.num_layers, fma=cfg.num_layers * SERVE_GEN),
+              f"{path}: prefill's flash_attention launches not all on the tensor-core "
+              f"kernel, or decode's not all on the FMA kernel: {by_path}")
         check(launches["tree_logprob_all" if beam == 0 else "gather_scores"] == SERVE_GEN,
               f"{path}: the Eq. 5 kernel did not launch once per decode step: {launches}")
         check(run["tokens"].shape == (SERVE_BATCH, SERVE_GEN), f"{path}: token shape")
@@ -1112,6 +1136,7 @@ def serve_path(dev, seed):
         paths[path] = dict(
             beam=beam, prefill_ms=run["prefill_ms"], decode_ms=run["decode_ms"],
             ms_per_token=run["decode_ms"] / run["steps"], launches=launches,
+            flash_attention_launches_by_kernel=by_path,
             decode_step_profile=dict(
                 host_ms=host_ms, device_ms=device_ms, kernels=n_kernels,
                 idle_share=1.0 - device_ms / host_ms, flash_attention_device_ms=flash_ms,

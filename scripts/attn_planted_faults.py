@@ -8,13 +8,15 @@ Run from the root of a checkout, on a machine with one NVIDIA card:
 For each fault below the script copies ``src/`` and ``chip_smoke.py`` into a
 temporary directory, edits the copy's ``flash_attention.cu`` (the checkout is
 never touched), builds it there and, in a child process, holds the copy's
-kernel against the plain version on chip_smoke.py's three bf16 shapes with
-chip_smoke.py's own inputs and error measures. "none" is the unedited kernel:
+kernel against the plain version on chip_smoke.py's four bf16 shapes with
+chip_smoke.py's own inputs and error measures. The faults are planted in the
+tensor-core kernel, which the three bf16 prefill shapes take; the decode
+shape takes the FMA kernel and is a control. "none" is the unedited kernel:
 the largest error a sound kernel shows. Prints one JSON line per fault and
 shape: the largest error, the largest ratio of an error to its per-row bound
 (> 1 fails), the relative RMS difference (> 2^-11 fails) and whether
 chip_smoke.py would pass it. Exits non-zero if the sound kernel fails at a
-shape or a planted fault passes at every shape.
+shape or a planted fault passes at a shape where it must fail.
 """
 from __future__ import annotations
 
@@ -29,22 +31,25 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 KERNEL = Path("src/repro_torch/kernels/csrc/flash_attention.cu")
 
-# name: (text in flash_attention.cu, its replacement)
+# name: ((text in flash_attention.cu, its replacement), the shapes where the
+# check must fail); all in the tensor-core kernel.
 FAULTS = {
-    "none": None,
-    # P rounded to bf16 before P.V, as the reference model does.
-    "p_rounded_to_bf16": (
-        "Ps[(ty * RQ + i) * L::PLD + tx + kTx * j] = s[i][j];",
-        "Ps[(ty * RQ + i) * L::PLD + tx + kTx * j] ="
-        " __bfloat162float(__float2bfloat16(s[i][j]));"),
+    "none": (None, ()),
+    # P_lo dropped: P rounded to bf16 once before P.V, as the reference
+    # model does.
+    "p_lo_dropped": (
+        ("const __nv_bfloat162 residual = __floats2bfloat162_rn(x - hf.x, y - hf.y);",
+         "const __nv_bfloat162 residual = __floats2bfloat162_rn(0.f, 0.f);"),
+        ("danube_prefill", "gemma2_softcap")),
     # The window's first visited key one KV tile (64 keys) too late.
     "window_start_one_tile_late": (
-        "k_begin = max((int64_t)0, qa_lo - p.window + 1);",
-        "k_begin = max((int64_t)0, qa_lo - p.window + 1 + kBK);"),
+        ("if (p.window > 0) kv_lo = max((int64_t)0, first_q - p.window + 1);",
+         "if (p.window > 0) kv_lo = max((int64_t)0, first_q - p.window + 1 + BK);"),
+        ("danube_prefill",)),
     # The window one key wider than asked.
     "window_one_key_wider": (
-        "(p.window <= 0 || delta < p.window)",
-        "(p.window <= 0 || delta <= p.window)"),
+        ("(p.window <= 0 || dq < p.window)", "(p.window <= 0 || dq <= p.window)"),
+        ("danube_prefill",)),
 }
 
 
@@ -77,8 +82,8 @@ def main() -> int:
     if args.child:
         return child(args.seed)
     ok = True
-    for fault, edit in FAULTS.items():
-        passes = []
+    for fault, (edit, must_fail) in FAULTS.items():
+        passes = {}
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copytree(ROOT / "src", Path(tmp) / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
@@ -101,10 +106,11 @@ def main() -> int:
             for line in out.stdout.splitlines():
                 row = json.loads(line)
                 print(json.dumps(dict(fault=fault, **row)))
-                passes.append(row["passes"])
+                passes[row["shape"]] = row["passes"]
         # A window fault leaves a shape whose window spans all its keys as it
-        # was, so a fault need only fail somewhere.
-        ok &= all(passes) if edit is None else not all(passes)
+        # was, and every fault leaves the decode shape (FMA kernel) as it was.
+        ok &= (all(passes.values()) if edit is None
+               else not any(passes[shape] for shape in must_fail))
     return 0 if ok else 1
 
 

@@ -11,12 +11,25 @@
 // state stays in registers. What bounds it on the H100: prefill at
 // h2o-danube-3-4b's shapes (Sq = Skv = 4,608, hd = 120, window 4,096) does
 // ~4*hd operations per (query, key) pair in the band and is bound by
-// arithmetic (989 TFLOP/s bf16 tensor-core peak; this kernel uses float32
-// FMAs, so its own ceiling is the 67 TFLOP/s of float32); decode (Sq = 1)
-// reads the whole K/V cache once per step and is bound by its bytes.
+// arithmetic (989 TFLOP/s bf16 tensor-core peak); decode (Sq = 1) reads the
+// whole K/V cache once per step and is bound by its bytes.
 //
-// Design (right and simple first; tensor cores, TMA and warp specialisation
-// are later work):
+// Two kernels; the wrapper (flash_attention.py: tensor_core_path) picks one
+// from the operands alone and passes its choice, which the entry point
+// checks:
+// - flash_attention_tc_kernel (namespace tc, below) when q, k and v are all
+//   bf16, a (b, kv head) has more than 16 packed rows (Sq * G > 16), hd <=
+//   128 with hd % 8 == 0, every base pointer and (b, h, s) stride is 16-byte
+//   aligned, and the KV range is not split: bf16 prefill, on tensor cores
+//   (mma.sync m16n8k16 fed by cp.async; P as bf16 hi + lo). Its own ceiling
+//   is the tensor cores' rate; the hi + lo split and hd's padding to a
+//   multiple of 16 make its MMA work ~1.6x the 4*hd operations per pair that
+//   the bound counts.
+// - flash_attention_kernel for every other call (decode, float32, hd > 128,
+//   split-KV): float32 FMAs over tiles staged in shared memory, so its own
+//   ceiling is the 67 TFLOP/s of float32; decode is bound by its bytes.
+//
+// Design of the FMA kernel (right and simple first):
 // - GQA without expanding K/V: a block serves one (b, kv head) and packs the
 //   G = H / KV query heads of that group as rows, row r = i * G + g, so each
 //   K/V tile staged in shared memory serves all G heads, and decode (Sq = 1)
@@ -49,6 +62,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -422,20 +436,367 @@ int dispatch(const Params& p, cudaStream_t stream) {
                   : launch<TQ, TKV, 256, 4>(p, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// The tensor-core path: bf16 q, k, v with more than 16 packed rows (prefill).
+//
+// A block takes BQ = 128 packed rows of one (b, kv head), 16 rows per warp
+// (8 warps), and walks the KV tiles of its band, 64 keys each. Per tile:
+//   S = Q K^T   mma.sync m16n8k16 (bf16 in, float32 accumulate): each product
+//               of two bf16 values is exact in float32, so S differs from the
+//               plain version only in summation order;
+//   softmax     scale, softcap, the causal / window masks and the online
+//               update on the accumulator fragments, each a separate pass
+//               (softcap only if asked, masks only on the band's edge
+//               tiles); a row's max and sum go across the 4 threads of a
+//               quad; exponentials by ex2.approx;
+//   O += P V    P stays in registers (two adjacent m16n8 accumulator tiles
+//               are one m16n8k16 A fragment), split as P = P_hi + P_lo, both
+//               bf16, two MMAs into one float32 accumulator: the residual is
+//               ~2^-17 of P where P rounded to bf16 once (2^-9) fails the
+//               2^-11 relative-RMS check; V's B fragments by ldmatrix.trans.
+// Q is staged once with cp.async and kept in registers as A fragments. K and
+// V tiles go through a 2-stage ring of 16-byte cp.async.cg copies; the
+// src-size operand zero-fills hd up to HDP (a multiple of 16) and every key
+// at or past Skv. Shared rows are padded by 16 bytes, so the 8 rows an
+// ldmatrix reads fall in 8 distinct bank groups. The last row tiles, which
+// see the most keys under a causal mask, are scheduled first. At hd 128 a
+// thread holds 64 (O) + 32 (S) + 32 (Q) accumulator and fragment registers;
+// ptxas gives it 255 with no spills, so one 8-warp block fits an SM.
+// (Tried at h2o-danube's prefill and no faster: 4 warps of 16 rows, 4 warps
+// of 32 rows over 32-key tiles, Q read from shared memory every tile.) No
+// atomics: two calls give the same bits.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int BQ = 128;      // packed rows a block, 16 a warp
+constexpr int BK = 64;       // keys a KV tile
+constexpr int kThreads = BQ / 16 * 32;
+constexpr int kJ = BK / 8;   // 8-key tiles of S
+constexpr int kPad = 8;      // bf16 of padding at the end of a shared row
+constexpr int kStages = 2;   // K/V tiles in flight
+constexpr float kLog2e = 1.4426950408889634f;
+
+// HDP: hd padded to a multiple of 16.
+template <int HDP>
+struct Tile {
+  static constexpr int LD = HDP + kPad;          // shared row stride (bf16)
+  static constexpr int kChunks = HDP / 8;        // 16-byte copies per row
+  static constexpr int kKT = HDP / 16;           // k-steps of Q K^T
+  static constexpr int kNT = HDP / 8;            // 8-column tiles of O
+  static constexpr int kQCopies = BQ * kChunks / kThreads;
+  static constexpr int kKVCopies = (BK * kChunks + kThreads - 1) / kThreads;
+  static constexpr int kStage = 2 * BK * LD;     // a K tile and a V tile
+  static constexpr size_t smem_bytes =
+      ((size_t)BQ * LD + (size_t)kStages * kStage) * sizeof(bf16);
+  static_assert(HDP % 16 == 0 && BQ * kChunks % kThreads == 0, "tile shape");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes from src, or 16 zero bytes where !ok (src is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 float32.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  uint32_t u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
+}
+
+// (x, y) = hi + lo: hi rounded to bf16, lo the residual rounded to bf16.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 residual = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = as_u32(h);
+  lo = as_u32(residual);
+}
+
+// 2^x to a few float32 ulps, results below 2^-126 flushed to 0: only P's
+// weights that are below 2^-126 in the plain version too vanish.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// grid = (ceil(Sq * G / BQ), B * KV), the last row tile first (it has the
+// most keys); block = kThreads; dynamic shared memory = Tile::smem_bytes:
+// Q, then the K/V ring. Warp w owns rows 16 w .. 16 w + 15 of the tile.
+// Lane l holds, of each 16 x 8 fragment, rows l / 4 and l / 4 + 8 and
+// columns 2 (l % 4) and 2 (l % 4) + 1.
+template <int HDP>
+__global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Params p) {
+  using T = Tile<HDP>;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* const qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* const ring = qs + BQ * T::LD;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = p.H / p.KV;
+  const int64_t R = (int64_t)p.Sq * G;
+  const int64_t r0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * BQ;
+  const int b = blockIdx.y / p.KV;
+  const int kvh = blockIdx.y % p.KV;
+  const int64_t off = (int64_t)p.Skv - p.Sq;  // row i sits at off + i
+
+  const bf16* __restrict__ qb = (const bf16*)p.q + b * p.q_sb;
+  const bf16* __restrict__ kb = (const bf16*)p.k + b * p.k_sb + kvh * p.k_sh;
+  const bf16* __restrict__ vb = (const bf16*)p.v + b * p.v_sb + kvh * p.v_sh;
+
+  // The keys the block's rows can see, in whole tiles from kv_lo.
+  const int64_t first_q = r0 / G + off;
+  const int64_t last_q = (min(r0 + BQ, R) - 1) / G + off;
+  int64_t kv_lo = 0, kv_hi = p.Skv;
+  if (!(p.causal && first_q < 0)) {  // else some row sees no key: visit all
+    if (p.causal) kv_hi = min((int64_t)p.Skv, last_q + 1);
+    if (p.window > 0) kv_lo = max((int64_t)0, first_q - p.window + 1);
+  }
+  const int n_tiles = (int)((kv_hi - kv_lo + BK - 1) / BK);
+
+  auto load_kv = [&](int64_t k0, int stage) {
+    bf16* ks = ring + stage * T::kStage;
+    bf16* vs = ks + BK * T::LD;
+#pragma unroll
+    for (int u = 0; u < T::kKVCopies; ++u) {
+      const int c = tid + u * kThreads;
+      if (c >= BK * T::kChunks) break;
+      const int row = c / T::kChunks, col = c % T::kChunks * 8;
+      const int64_t key = k0 + row;
+      const bool ok = key < p.Skv && col < p.hd;
+      cp_async16(smem_addr(ks + row * T::LD + col), ok ? kb + key * p.k_ss + col : kb, ok);
+      cp_async16(smem_addr(vs + row * T::LD + col), ok ? vb + key * p.v_ss + col : vb, ok);
+    }
+  };
+
+  // Q and the first K/V tile.
+#pragma unroll
+  for (int u = 0; u < T::kQCopies; ++u) {
+    const int c = tid + u * kThreads;
+    const int row = c / T::kChunks, col = c % T::kChunks * 8;
+    const int64_t r = r0 + row;
+    const bool ok = r < R && col < p.hd;
+    const bf16* src =
+        ok ? qb + (int64_t)(kvh * G + (int)(r % G)) * p.q_sh + (r / G) * p.q_ss + col : qb;
+    cp_async16(smem_addr(qs + row * T::LD + col), src, ok);
+  }
+  if (n_tiles > 0) load_kv(kv_lo, 0);
+  cp_async_commit();
+
+  // Q's A fragments, one per k-step, kept in registers.
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[T::kKT][4];
+  {
+    const bf16* qrow = qs + (warp * 16 + (lane & 15)) * T::LD + (lane >> 4) * 8;
+#pragma unroll
+    for (int kt = 0; kt < T::kKT; ++kt) ldmatrix_x4(qf[kt], smem_addr(qrow + kt * 16));
+  }
+
+  const int quad_row = lane >> 2, quad_col = 2 * (lane & 3);
+  const int64_t row0 = r0 + warp * 16 + quad_row;  // this thread's rows: row0, row0 + 8
+  const int64_t qpos[2] = {row0 / G + off, (row0 + 8) / G + off};
+  float o[T::kNT][4];
+#pragma unroll
+  for (int j = 0; j < T::kNT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};  // l: this thread's part
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int64_t k0 = kv_lo + (int64_t)it * BK;
+    __syncthreads();  // every warp is done with the stage about to refill
+    if (it + 1 < n_tiles) load_kv(k0 + BK, (it + 1) % kStages);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies are done
+    __syncthreads();     // ... for every thread
+    const bf16* ks = ring + (it % kStages) * T::kStage;
+    const bf16* vs = ks + BK * T::LD;
+
+    // S = Q K^T; K's B fragments by ldmatrix, two 8-key tiles at a time.
+    float s[kJ][4];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    const bf16* krow =
+        ks + ((lane & 7) + ((lane >> 4) << 3)) * T::LD + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kt = 0; kt < T::kKT; ++kt)
+#pragma unroll
+      for (int jp = 0; jp < kJ / 2; ++jp) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, smem_addr(krow + jp * 16 * T::LD + kt * 16));
+        mma(s[2 * jp], qf[kt], kf[0], kf[1]);
+        mma(s[2 * jp + 1], qf[kt], kf[2], kf[3]);
+      }
+
+    // Scale, softcap, mask (tiles on the band's edge only), online softmax;
+    // each a separate pass, so a call without softcap or mask skips it.
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= p.scale;
+    if (p.softcap > 0.f) {
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = p.softcap * tanhf(s[j][e] / p.softcap);
+    }
+    const bool inside = k0 + BK <= p.Skv && (!p.causal || k0 + BK - 1 <= first_q) &&
+                        (p.window <= 0 || last_q - k0 < p.window);
+    if (!inside) {
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int64_t key = k0 + 8 * j + quad_col + (e & 1);
+          const int64_t dq = qpos[e >> 1] - key;
+          const bool seen = (!p.causal || dq >= 0) && (p.window <= 0 || dq < p.window);
+          s[j][e] = key < p.Skv ? (seen ? s[j][e] : kMasked) : -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      const float m_new = fmaxf(m[h], quad_max(mx));  // >= -1e30: finite
+      const float alpha = exp2_approx((m[h] - m_new) * kLog2e);
+      m[h] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[j][e] = exp2_approx((s[j][e] - m_new) * kLog2e);  // a key past Skv: 0
+          sum += s[j][e];
+        }
+      l[h] = alpha * l[h] + sum;
+#pragma unroll
+      for (int j = 0; j < T::kNT; ++j) {
+        o[j][2 * h] *= alpha;
+        o[j][2 * h + 1] *= alpha;
+      }
+    }
+
+    // O += (P_hi + P_lo) V, 16 keys a step; V's B fragments by
+    // ldmatrix.trans, two 8-column tiles at a time.
+    const bf16* vrow = vs + (lane & 15) * T::LD + (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int jp = 0; jp < T::kNT / 2; ++jp) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, smem_addr(vrow + kk * 16 * T::LD + jp * 16));
+        mma(o[2 * jp], ph, vf[0], vf[1]);
+        mma(o[2 * jp + 1], ph, vf[2], vf[3]);
+        mma(o[2 * jp], pl, vf[0], vf[1]);
+        mma(o[2 * jp + 1], pl, vf[2], vf[3]);
+      }
+    }
+  }
+
+  // Finalise as acc / max(l, 1e-30), rounded once to bf16, through out's
+  // strides (q's).
+  bf16* ob = (bf16*)p.out + b * p.o_sb;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = row0 + 8 * h;
+    const float denom = fmaxf(quad_sum(l[h]), 1e-30f);
+    if (r >= R) continue;
+    bf16* orow = ob + (int64_t)(kvh * G + (int)(r % G)) * p.o_sh + (r / G) * p.o_ss;
+#pragma unroll
+    for (int j = 0; j < T::kNT; ++j) {
+      const int d = 8 * j + quad_col;
+      if (d < p.hd)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+            __floats2bfloat162_rn(o[j][2 * h] / denom, o[j][2 * h + 1] / denom);
+    }
+  }
+}
+
+template <int HDP>
+int launch(const Params& p, cudaStream_t stream) {
+  using T = Tile<HDP>;
+  auto kernel = flash_attention_tc_kernel<HDP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t rows = (int64_t)p.Sq * (p.H / p.KV);
+  const dim3 grid((unsigned)((rows + BQ - 1) / BQ), (unsigned)(p.B * p.KV));
+  kernel<<<grid, kThreads, T::smem_bytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// hd padded to the next of 32, 64, 80, 96, 128.
+int dispatch(const Params& p, cudaStream_t stream) {
+  if (p.hd <= 32) return launch<32>(p, stream);
+  if (p.hd <= 64) return launch<64>(p, stream);
+  if (p.hd <= 80) return launch<80>(p, stream);
+  if (p.hd <= 96) return launch<96>(p, stream);
+  return launch<128>(p, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Strides are in elements; dtype
 // codes: 0 = float32, 1 = bfloat16. n_split > 1 needs part_ml (B * KV *
 // n_split * Sq * G * 2 floats) and part_acc (the same rows x hd floats).
-// Returns cudaGetLastError() after the launches (0 when accepted).
+// tensor_cores = 1 takes the tensor-core kernel, and is refused unless the
+// operands meet its rule (see the top of this file). Returns
+// cudaGetLastError() after the launches (0 when accepted).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, int64_t q_sb,
     int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
     int64_t o_ss, int64_t B, int64_t H, int64_t KV, int64_t Sq, int64_t Skv,
     int64_t hd, float scale, int causal, int64_t window, float softcap,
-    int q_dtype, int kv_dtype, int n_split, void* part_ml, void* part_acc,
-    void* stream) {
+    int q_dtype, int kv_dtype, int n_split, int tensor_cores, void* part_ml,
+    void* part_acc, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (H <= 0 || KV <= 0 || H % KV != 0 || Skv <= 0 || hd <= 0 || hd > 256 ||
       n_split < 1 || n_split > 65535 ||
@@ -447,6 +808,15 @@ extern "C" int flash_attention_fwd(
                  (int)hd, scale, causal, window, softcap, n_split,
                  (float*)part_ml, (float*)part_acc};
   cudaStream_t s = (cudaStream_t)stream;
+  if (tensor_cores) {
+    const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0 &&
+                         (q_sb | q_sh | q_ss | k_sb | k_sh | k_ss | v_sb | v_sh | v_ss | o_sb |
+                          o_sh | o_ss) % 8 == 0;
+    if (q_dtype != 1 || kv_dtype != 1 || Sq * (H / KV) <= kTx || hd > 128 || hd % 8 != 0 ||
+        !aligned || n_split != 1)
+      return (int)cudaErrorInvalidValue;
+    return tc::dispatch(p, s);
+  }
   if (q_dtype == 0 && kv_dtype == 0) return dispatch<float, float>(p, s);
   if (q_dtype == 1 && kv_dtype == 1)
     return dispatch<__nv_bfloat16, __nv_bfloat16>(p, s);

@@ -6,21 +6,39 @@ TPU kernel whose grid walks the KV blocks of one (b*h, q block) in order with
 the running max, sum and accumulator in VMEM scratch. On the H100 prefill at
 h2o-danube-3-4b's shapes (Sq = Skv = 4,608, hd = 120, window 4,096) is bound
 by arithmetic (about 4*hd operations per (query, key) pair in the band) and
-decode (Sq = 1) by the bytes of the K/V cache, read once per step. The CUDA
-kernel (``csrc/flash_attention.cu``) gives one block a tile of query rows of
-one (b, kv head), with the G = H / KV query heads of the group packed as rows
-so that K/V are never expanded and decode still fills a tile; the block loops
-over only the KV tiles that meet its causal/window band, masks the ragged
-edges, keeps the running state in registers and computes in float32 FMAs
-over tiles staged in shared memory. Where those blocks are too few to fill
-the card (decode: B * KV of them), each tile's KV range is split over
-several blocks and a second kernel merges their partial softmax states in
-a fixed order (split-KV), so the result is deterministic. It takes any Sq, Skv and hd <= 256 and
-any strides over (b, h, s) with the last dimension contiguous, so the model
-passes its (B, S, KV, hd) cache slices as permuted views without copying.
+decode (Sq = 1) by the bytes of the K/V cache, read once per step.
+
+``csrc/flash_attention.cu`` holds two kernels. Both give one block a tile of
+query rows of one (b, kv head), with the G = H / KV query heads of the group
+packed as rows so that K/V are never expanded and decode still fills a tile;
+both loop over only the KV tiles that meet the block's causal/window band,
+mask the ragged edges and keep the running state in registers.
+:func:`tensor_core_path` picks one from the operands alone:
+
+- the tensor-core kernel takes bf16 q, k and v with more than 16 packed rows
+  (``Sq * G > 16``: prefill), ``hd <= 128`` and ``hd % 8 == 0``, 16-byte
+  aligned pointers and (b, h, s) strides, and an unsplit KV range. It runs
+  Q Kᵀ and P V on ``mma.sync`` m16n8k16 (bf16 in, float32 accumulate), fed
+  by a ``cp.async`` ring, with P split into bf16 hi + lo parts so that P V
+  keeps ~2^-17 of P's precision. It is bound by the tensor cores' rate; its
+  MMA work is ~1.6x the operations the bound counts (hd padded to a
+  multiple of 16, two MMAs for P V).
+- the FMA kernel takes every other call (decode, float32, hd > 128,
+  split-KV) and computes in float32 FMAs over tiles staged in shared
+  memory, so prefill in it is bound by the 67 TFLOP/s of float32 and decode
+  by the cache's bytes. Where its blocks are too few to fill the card
+  (decode: B * KV of them), each tile's KV range is split over several
+  blocks and a second kernel merges their partial softmax states in a fixed
+  order (split-KV).
+
+Neither uses atomics: two calls give the same bits. The wrapper takes any
+Sq, Skv and hd <= 256 and any strides over (b, h, s) with the last
+dimension contiguous, so the model passes its (B, S, KV, hd) cache slices as
+permuted views without copying.
 
 CPU tensors go to the plain version (:func:`..ref.flash_attention_ref`);
-CUDA tensors launch the kernel or raise.
+CUDA tensors launch a kernel or raise. ``flash_attention.launches`` counts
+launches; ``tensor_core_launches`` and ``fma_launches`` split it by kernel.
 """
 from __future__ import annotations
 
@@ -35,6 +53,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+TENSOR_CORE_MAX_HEAD_DIM = 128
 # The kernel's tile: 16 packed rows (query rows x the G heads of a KV head)
 # when a (b, kv head) has at most 16, else 64; KV tiles of 64 keys.
 _FEW_ROWS, _BQ_FEW, _BQ, _BK = 16, 16, 64, 64
@@ -47,8 +66,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 18
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int64, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -69,6 +88,21 @@ def n_splits(b, h, kv, sq, skv, causal, window, sm_count) -> int:
         band = min(skv, window + bq // (h // kv))
     tiles = -(-band // _BK)
     return max(1, min(-(-2 * sm_count // blocks), tiles // _MIN_TILES_PER_SPLIT))
+
+
+def tensor_core_path(q, k, v, split: int) -> bool:
+    """Whether a call takes the tensor-core kernel: q, k and v all bf16,
+    more than 16 packed rows (``Sq * G > 16``, so decode keeps the FMA
+    kernel), ``hd <= 128`` with ``hd % 8 == 0``, every base pointer and
+    (b, h, s) stride 16-byte aligned, and ``split`` (:func:`n_splits`) 1.
+    The output takes q's strides, or dense ones, which are multiples of hd."""
+    _, h, sq, hd = q.shape
+    return (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and sq * (h // k.shape[1]) > _FEW_ROWS
+            and hd <= TENSOR_CORE_MAX_HEAD_DIM and hd % 8 == 0
+            and all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+                    for t in (q, k, v))
+            and split == 1)
 
 
 def _check(q, k, v) -> None:
@@ -116,6 +150,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return out
     lib = _lib()
     split = n_splits(b, h, kv, sq, skv, causal, window, _sm_count(q.device.index))
+    tensor_cores = tensor_core_path(q, k, v, split)
     part_ml = part_acc = None
     if split > 1:
         slots = b * kv * split * sq * (h // kv)
@@ -127,12 +162,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             b, h, kv, sq, skv, hd, scale, int(causal), window, softcap,
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], split,
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], split, int(tensor_cores),
             None if part_ml is None else part_ml.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(), stream)
     build.check_launch(lib, "flash_attention", code)
     flash_attention.launches += 1
+    if tensor_cores:
+        flash_attention.tensor_core_launches += 1
+    else:
+        flash_attention.fma_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tensor_core_launches = 0
+flash_attention.fma_launches = 0

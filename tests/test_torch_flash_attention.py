@@ -14,9 +14,15 @@ is rounded once).
 The ``test_cuda_*`` tests need an NVIDIA card and skip elsewhere; they do not
 import JAX. On a card, from the root of a checkout:
     PYTHONPATH=src python -m pytest -q -p no:cacheprovider --noconftest -k cuda tests/test_torch_flash_attention.py
-There the kernel is held against the plain version within float32 1e-5, and
-in bfloat16 within one bfloat16 ulp of the output's scale (2^-8 of the
-largest |output| plus 2^-7 relative): both compute in float32 and round once.
+There the kernels are held against the plain version within float32 1e-5,
+and in bfloat16 within one bfloat16 ulp of each output row's scale (2^-8 of
+the row's largest |output| plus 2^-7 relative) and 2^-11 relative RMS over
+the output: both compute in float32 (the tensor-core kernel multiplies bf16
+values exactly and keeps P as bf16 hi + lo, ~2^-17 of P) and round once.
+On the CPU, ``tensor_core_path`` (which kernel a call takes) is checked
+case by case, and an emulation of the tensor-core kernel's P V numerics
+shows why P is split: hi + lo meets the 2^-11 bound, P rounded to bf16 once
+does not.
 """
 import zlib
 
@@ -26,6 +32,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import tensor_core_path
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -179,6 +186,114 @@ def test_wrapper_rejects_bad_operands(bad):
         ops.flash_attention(q, k, v)
 
 
+def _layout(kind, b, h, kv, sq, skv, hd, dtype=torch.bfloat16):
+    """q, k, v as a call passes them: "contiguous" (B, heads, S, hd) tensors,
+    or "model" (the model's (B, S, heads, hd) projection and a (B, S + 32,
+    KV, hd) cache sliced to Skv, permuted)."""
+    if kind == "contiguous":
+        return (torch.zeros((b, h, sq, hd), dtype=dtype),
+                torch.zeros((b, kv, skv, hd), dtype=dtype),
+                torch.zeros((b, kv, skv, hd), dtype=dtype))
+    cache = torch.zeros((2, b, skv + 32, kv, hd), dtype=dtype)
+    q = torch.zeros((b, sq, h, hd), dtype=dtype).transpose(1, 2)
+    return q, cache[0, :, :skv].transpose(1, 2), cache[1, :, :skv].transpose(1, 2)
+
+
+# (name, layout, B, H, KV, Sq, Skv, hd, dtype, split, tensor-core path?)
+PATH_CASES = [
+    ("danube_prefill", "model", 1, 32, 8, 300, 300, 120, torch.bfloat16, 1, True),
+    ("stablelm_prefill", "model", 1, 32, 32, 70, 70, 80, torch.bfloat16, 1, True),
+    ("gemma2_chunk_after_cache", "model", 1, 32, 16, 9, 100, 128, torch.bfloat16, 1, True),
+    ("contiguous_hd_64", "contiguous", 2, 4, 4, 300, 300, 64, torch.bfloat16, 1, True),
+    ("packed_rows_17", "contiguous", 1, 1, 1, 17, 17, 64, torch.bfloat16, 1, True),
+    ("packed_rows_16", "contiguous", 1, 4, 1, 4, 40, 64, torch.bfloat16, 1, False),
+    ("danube_decode", "model", 4, 32, 8, 1, 1000, 120, torch.bfloat16, 1, False),
+    ("float32_prefill", "contiguous", 1, 4, 2, 300, 300, 64, torch.float32, 1, False),
+    ("hd_136", "contiguous", 1, 4, 2, 300, 300, 136, torch.bfloat16, 1, False),
+    ("hd_not_multiple_of_8", "contiguous", 1, 4, 2, 300, 300, 36, torch.bfloat16, 1, False),
+    ("split_kv", "contiguous", 1, 4, 2, 300, 300, 64, torch.bfloat16, 2, False),
+]
+
+
+@pytest.mark.parametrize("case", PATH_CASES, ids=[c[0] for c in PATH_CASES])
+def test_tensor_core_path(case):
+    """Which kernel a CUDA call takes, read from the operands alone."""
+    name, kind, b, h, kv, sq, skv, hd, dtype, split, want = case
+    q, k, v = _layout(kind, b, h, kv, sq, skv, hd, dtype)
+    assert tensor_core_path(q, k, v, split) is want
+
+
+@pytest.mark.parametrize("bad", ["q_pointer", "k_pointer", "q_stride", "v_stride",
+                                 "mixed_dtypes"])
+def test_tensor_core_path_needs_aligned_bf16_operands(bad):
+    """A bf16 prefill that meets the rule but for one operand's 16-byte
+    alignment or dtype takes the FMA kernel."""
+    q, k, v = _layout("model", 1, 8, 2, 100, 100, 64)
+    assert tensor_core_path(q, k, v, 1)
+    if bad == "q_pointer":      # base pointer 2 bytes past an aligned one
+        q = torch.zeros(q.numel() + 1, dtype=q.dtype)[1:].view(q.shape)
+    elif bad == "k_pointer":
+        k = torch.zeros(k.numel() + 1, dtype=k.dtype)[1:].view(k.shape)
+    elif bad == "q_stride":     # rows of 8 * 64 + 4 elements: a 1,032-byte stride
+        q = torch.zeros((1, 100, 8 * 64 + 4), dtype=q.dtype)[..., :8 * 64]
+        q = q.view(1, 100, 8, 64).transpose(1, 2)
+    elif bad == "v_stride":
+        v = torch.zeros((1, 100, 2, 68), dtype=v.dtype)[..., :64].transpose(1, 2)
+    else:
+        v = v.float()
+    assert not tensor_core_path(q, k, v, 1)
+
+
+def _tc_emulation(q, k, v, *, split_p, window=0, block=64):
+    """The tensor-core kernel's numerics on the CPU, causal, scale 1: bf16
+    q, k, v; S in float32 (exact bf16 products); an online softmax over KV
+    tiles of ``block`` keys in float32; P V with P rounded to bf16 (hi) and,
+    with ``split_p``, its residual rounded to bf16 (lo), each product exact,
+    summed in float32; finalised as acc / l and rounded once to bf16."""
+    b, h, sq, hd = q.shape
+    g = h // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    qpos = torch.arange(sq) + (k.shape[2] - sq)
+    m = torch.full((b, h, sq, 1), -1e30)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, hd))
+    for k0 in range(0, k.shape[2], block):
+        s = q.float() @ kf[:, :, k0:k0 + block].transpose(-1, -2)
+        delta = qpos[:, None] - torch.arange(k0, k0 + s.shape[-1])[None, :]
+        seen = (delta >= 0) & ((delta < window) if window else True)
+        s = torch.where(seen, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, :, k0:k0 + block]
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + block]
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+@pytest.mark.parametrize("split_p", [True, False], ids=["p_hi_plus_lo", "p_rounded_once"])
+def test_tensor_core_p_split_meets_bf16_bound(split_p):
+    """P V with P as bf16 hi + lo stays within the card check's 2^-11
+    relative RMS of the plain version (both bf16 outputs); P rounded to
+    bf16 once does not. q scaled by 1/sqrt(hd) in bf16, as the model calls
+    the kernel."""
+    rng = np.random.default_rng(16)
+    b, h, kv, s, hd, window = 1, 8, 2, 256, 64, 96
+    q = torch.from_numpy(rng.standard_normal((b, h, s, hd), dtype=np.float32))
+    q = (q.bfloat16() * torch.tensor(hd ** -0.5).bfloat16())
+    k, v = (torch.from_numpy(rng.standard_normal((b, kv, s, hd), dtype=np.float32)).bfloat16()
+            for _ in range(2))
+    got = _tc_emulation(q, k, v, split_p=split_p, window=window).float()
+    want = tref.flash_attention_ref(q, k, v, window=window, scale=1.0).float()
+    rel_rms = float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+    assert (rel_rms <= 2.0 ** -11) is split_p, rel_rms
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel against its plain version (card only).
 # ---------------------------------------------------------------------------
@@ -215,6 +330,23 @@ CARD_CASES = [
     ("split_danube_decode_full", 4, 32, 8, 1, 4640, 120, True, 4096, 0.0,
      "bfloat16", "bfloat16"),
     ("split_few_rows_full_attention", 1, 4, 4, 3, 3000, 64, True, 0, 0.0, "float32", "float32"),
+    # The tensor-core kernel (bf16, more than 16 packed rows, hd <= 128):
+    # hd 64 / 80 / 120 / 128 / 40 and 8 (padded), G = 1 / 2 / 4 / 8, packed
+    # rows not a multiple of the 64-row tile, a window edge inside a KV
+    # tile, a chunk after a cache, rows with no visible key, softcap; each
+    # with enough blocks that the KV range is not split.
+    ("tc_hd64_g1", 2, 4, 4, 300, 300, 64, True, 0, 0.0, "bfloat16", "bfloat16"),
+    ("tc_hd80_g2_not_causal", 3, 8, 4, 1000, 1000, 80, False, 0, 0.0, "bfloat16", "bfloat16"),
+    ("tc_hd120_g4_window_mid_tile", 1, 8, 2, 1000, 1000, 120, True, 100, 0.0,
+     "bfloat16", "bfloat16"),
+    ("tc_hd128_g8", 1, 16, 2, 300, 300, 128, True, 0, 0.0, "bfloat16", "bfloat16"),
+    ("tc_hd40_g2", 1, 4, 2, 77, 77, 40, True, 0, 0.0, "bfloat16", "bfloat16"),
+    ("tc_chunk_after_cache", 4, 32, 8, 200, 1100, 120, True, 512, 0.0, "bfloat16", "bfloat16"),
+    ("tc_no_visible_key", 1, 4, 2, 300, 100, 64, True, 0, 0.0, "bfloat16", "bfloat16"),
+    ("tc_softcap_window", 1, 8, 4, 300, 300, 128, True, 64, 50.0, "bfloat16", "bfloat16"),
+    ("tc_not_causal_window", 1, 4, 1, 150, 150, 64, False, 33, 0.0, "bfloat16", "bfloat16"),
+    ("tc_hd8_g8_fewer_keys_than_a_tile", 1, 8, 1, 3, 40, 8, True, 0, 0.0, "bfloat16", "bfloat16"),
+    ("tc_window_1", 1, 4, 2, 100, 100, 32, True, 1, 0.0, "bfloat16", "bfloat16"),
 ]
 
 
@@ -225,9 +357,13 @@ def test_cuda_kernel_matches_plain(cuda, case):
     q = torch.from_numpy(q).to(cuda, getattr(torch, qdt))
     k, v = (torch.from_numpy(a).to(cuda, getattr(torch, kvdt)) for a in (k, v))
     kw = dict(causal=causal, window=window, softcap=softcap)
+    before = ops.flash_attention.tensor_core_launches
     got = ops.flash_attention(q, k, v, **kw)
     want = tref.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
+    tensor_cores = name.startswith("tc_") or name in ("danube_prefill_small", "gemma2_softcap",
+                                                      "chunk_after_cache")
+    assert ops.flash_attention.tensor_core_launches == before + tensor_cores
     assert got.dtype == q.dtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
     assert _card_close(got, want), float((got.float() - want.float()).abs().max())
@@ -253,6 +389,30 @@ def test_cuda_strided_cache_views_and_replay(cuda):
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 2
     assert got.stride() == qv.stride()
+    assert torch.equal(got, again)
+    assert _card_close(got, want)
+
+
+def test_cuda_model_layout_takes_tensor_cores(cuda):
+    """h2o-danube's prefill as the model calls the kernel: q a (B, S, H, hd)
+    projection scaled in bf16 (7,680-byte rows) and a (B, S_max, KV, hd)
+    cache (1,920-byte rows) sliced and permuted, scale 1. Both calls go
+    through the tensor-core kernel, give the same bits and keep q's layout."""
+    b, s_max, kv, h, hd, s = 2, 640, 8, 32, 120, 600
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cache_k = torch.randn((b, s_max, kv, hd), generator=gen, device=cuda).bfloat16()
+    cache_v = torch.randn((b, s_max, kv, hd), generator=gen, device=cuda).bfloat16()
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda).bfloat16()
+    q = (q * torch.tensor(hd ** -0.5).bfloat16().item()).transpose(1, 2)
+    k, v = cache_k[:, :s].transpose(1, 2), cache_v[:, :s].transpose(1, 2)
+    tc, fma = ops.flash_attention.tensor_core_launches, ops.flash_attention.fma_launches
+    got = ops.flash_attention(q, k, v, window=256, scale=1.0)
+    again = ops.flash_attention(q, k, v, window=256, scale=1.0)
+    want = tref.flash_attention_ref(q, k, v, window=256, scale=1.0)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.tensor_core_launches == tc + 2
+    assert ops.flash_attention.fma_launches == fma
+    assert got.stride() == q.stride()
     assert torch.equal(got, again)
     assert _card_close(got, want)
 
