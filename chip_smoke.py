@@ -9,9 +9,10 @@ Phases, each fatal on failure:
   3. hold each kernel against its plain PyTorch version at the shapes of the
      main paths (full ``xc_linear`` width; ``sampled_head_loss`` for all 7
      kinds, both table dtypes, reg/softcap off and on; ``segment_stats`` at
-     the generator fit's shapes over N = 524,288 points, bit-exact across two
-     calls), time both, and check the prediction path on a small input
-     against the port's CPU run;
+     the generator fit's 8 shapes over N = 524,288 points, bit-exact across
+     two calls with one plan and a call that sorts its own ids; the plan and
+     a call with it timed apart), time both, and check the prediction path
+     on a small input against the port's CPU run;
   4. the prediction path at full ``xc_linear`` width (C = 217,240, K = 512,
      k = 16, depth 18): 4 request batches of 256 queries through dense Eq. 5
      prediction and tree-beam top-k, launch counters reset just before and
@@ -27,25 +28,27 @@ Phases, each fatal on failure:
   7. the generator-fitting path at full ``xc_linear`` width: the
      level-parallel fit (C = 217,240, depth 18, k = 16, lambda_n = 0.1) on
      524,288 clustered points, counters reset just before and read just
-     after; wall time, time per level, profiles of levels 2 and 17 (the
-     share of ``segment_stats``, the idle share), the tree's invariants and
+     after, one ``segment_plan`` per Newton solve and one for the labels;
+     wall time, time per level, profiles of levels 2 and 17 (the share of
+     ``segment_stats``'s calls and plans, the idle share), the tree's invariants and
      its held-out log-likelihood against uniform; a warm refit on drifted
      features, run twice and bit-equal; at C = 1,024 the fit against the
      numpy oracle, and at C = 4,096 the sharded fit serial against threaded;
-  8. ``flash_attention`` against its plain version on five shapes (h2o-danube
-     prefill and decode at B = 4, gemma2's softcap geometry, stablelm-3b's
-     prefill, each laid out and scaled as the model calls it; a ragged
-     float32 case), within one bf16 ulp of each output row and 2^-11
-     relative RMS, two calls bit-equal, the kernel each shape took (the
-     tensor-core kernel for the three bf16 prefills, the FMA kernel for
-     decode and float32); kernel, plain and ``scaled_dot_product_attention``
-     times (phase 3's kernel checks run before it);
+  8. ``flash_attention`` against its plain version on seven shapes
+     (h2o-danube prefill and decode at B = 4, gemma2's softcap geometry
+     and decode, stablelm-3b's prefill and decode, each laid out and scaled
+     as the model calls it; a ragged float32 case), within one bf16 ulp of
+     each output row and 2^-11 relative RMS, two calls bit-equal, the kernel
+     each shape took (the tensor-core kernel for the three bf16 prefills,
+     the decode kernel for the three decodes, the FMA kernel for float32);
+     kernel, plain and ``scaled_dot_product_attention`` times (phase 3's
+     kernel checks run before it);
   9. the LM-serving path at full h2o-danube-3-4b width (24 layers, d 3840,
      32 query heads over 8 KV heads, hd 120, window 4,096, vocab 32,000):
      the lock-step launcher serves 4 requests of 4,608 prompt tokens and 32
      greedy tokens through dense Eq. 5 scoring and again through beam 64,
      counters reset just before and read just after each (prefill on the
-     tensor-core kernel, decode on the FMA kernel); prefill and
+     tensor-core kernel, decode on the decode kernel); prefill and
      per-token ms, the device time by kernel and idle share of one decode
      step, peak memory; prefill plus decode of all 4 requests through the
      cache against the plain version's cache-free forward over the 4,640
@@ -112,6 +115,7 @@ SEG_SHAPES = [                   # (name, D, S, ids, vals dtype), the fit's redu
     ("hessian_level12", 289, 4096, "uniform", torch.float32),
     ("hessian_level17", 289, 131_072, "uniform", torch.float32),
     ("gradient_level17", 17, 131_072, "uniform", torch.float32),
+    ("armijo_level17", 10, 131_072, "uniform", torch.float32),
     ("delta_labels", 1, 262_144, "zipf", torch.float32),
     ("gradient_level17_bf16", 17, 131_072, "uniform", torch.bfloat16),
     ("gradient_level12_out_of_range", 17, 4096, "out_of_range", torch.float32),
@@ -133,11 +137,16 @@ ATTN_SHAPES = [
     ("gemma2_softcap", 1, 32, 16, 2048, 2048, 128, True, 4096, 50.0, torch.bfloat16, 2080),
     ("ragged_fp32", 2, 4, 2, 37, 101, 80, False, 0, 0.0, torch.float32, 0),
     ("stablelm_prefill", 1, 32, 32, 2048, 2048, 80, True, 0, 0.0, torch.bfloat16, 2080),
+    ("gemma2_decode", 4, 32, 16, 1, 2080, 128, True, 4096, 50.0, torch.bfloat16, 2080),
+    ("stablelm_decode", 4, 32, 32, 1, 2080, 80, True, 0, 0.0, torch.bfloat16, 2080),
 ]
 ATTN_MAIN = "danube_prefill"     # the shape of the kernels line
-# The shapes that take the tensor-core kernel (bf16, more than 16 packed
-# rows, hd <= 128); the others take the FMA kernel.
-ATTN_TENSOR_CORE = {"danube_prefill", "gemma2_softcap", "stablelm_prefill"}
+# The kernel each shape takes: the tensor-core kernel (bf16, more than 16
+# packed rows, hd <= 128), the decode kernel (bf16, at most 16 packed rows)
+# or the FMA kernel (float32).
+ATTN_KERNEL = {"danube_prefill": "tensor_cores", "gemma2_softcap": "tensor_cores",
+               "stablelm_prefill": "tensor_cores", "danube_decode": "decode",
+               "gemma2_decode": "decode", "stablelm_decode": "decode", "ragged_fp32": "fma"}
 ATTN_F32_TOL = dict(atol=1e-5, rtol=1e-5)
 # bfloat16: kernel and plain version both keep float32 precision until the
 # output and round once to bfloat16, so an output differs by at most one
@@ -355,14 +364,18 @@ def check_segment_stats(dev, gen, flush):
     """The generator fit's reductions: kernel against plain version (within
     SEG_TOL of each segment's sum of |vals|: float32 sums of up to 5e5 terms
     in two orders, the plain version's atomics in no fixed order), two calls
-    bit-equal, and the times of the kernel, the plain version, one
-    ``index_add_`` on the in-range ids (atomics, so not deterministic) and
-    the stable sort of the ids that the kernel's wrapper runs."""
+    with one plan and a call that builds its own bit-equal, and the times of
+    the plan (the ids' sort, once per Newton solve in the fit), of a call
+    with the plan (what the fit's other calls of a solve cost), of the plain
+    version, and of one ``index_add_`` on the in-range ids (atomics, so not
+    deterministic)."""
     rows = {}
     for name, d, s, ids, dtype in SEG_SHAPES:
         vals, seg = segment_inputs(dev, gen, d, s, ids, dtype)
-        got = ops.segment_stats(vals, seg, s)
-        again = ops.segment_stats(vals, seg, s)
+        plan = ops.segment_plan(seg, s)
+        got = ops.segment_stats(vals, seg, s, plan=plan)
+        again = ops.segment_stats(vals, seg, s, plan=plan)
+        fresh = ops.segment_stats(vals, seg, s)
         want = ref.segment_stats_ref(vals, seg, s)
         keep = (seg >= 0) & (seg < s)
         seg_in, vals_in = seg[keep], vals[keep].float()
@@ -377,22 +390,27 @@ def check_segment_stats(dev, gen, flush):
         check(bool(((got - want).abs() <= SEG_TOL * (scale + 1.0)).all()),
               f"{what}: kernel disagrees with the plain version")
         check(torch.equal(got, again), f"{what}: two calls differ")
-        del got, again, want, exact, scale
-        keys = torch.where(keep, seg, s).int()
+        check(torch.equal(got, fresh), f"{what}: a call with a reused plan differs from one "
+                                       f"that builds its own")
+        del got, again, fresh, want, exact, scale
         n_bytes = SEG_POINTS * (d * vals.element_size() + 8) + s * d * 4
         bound, by = bound_ms(n_bytes, SEG_POINTS * d)
-        ms = time_ms(lambda: ops.segment_stats(vals, seg, s), flush)
+        plan_ms = time_ms(lambda: ops.segment_plan(seg, s), flush)
+        ms = time_ms(lambda: ops.segment_stats(vals, seg, s, plan=plan), flush)
+        both = time_ms(lambda: ops.segment_stats(vals, seg, s), flush)
         plain = time_ms(lambda: ref.segment_stats_ref(vals, seg, s), flush)
         library = time_ms(lambda: torch.zeros((s, d), device=dev).index_add_(0, seg_in, vals_in),
                           flush)
-        sort = time_ms(lambda: torch.sort(keys, stable=True), flush)
         rows[name] = dict(d=d, s=s, ids=ids, dtype=str(dtype)[6:], max_abs_err=err,
-                          max_abs_err_vs_float64=err64, ms=ms, plain_ms=plain,
-                          library_ms=library, sort_ms=sort, bound_ms=bound, bound_by=by)
-        print(f"{what}: max_abs_err={err:.3e} (vs float64 {err64:.3e}), kernel {ms:.4f} ms "
-              f"(of which the id sort {sort:.4f}), plain {plain:.4f} ms, index_add_ "
-              f"{library:.4f} ms (atomics: not deterministic), bound {bound:.4f} ms ({by})")
-        del vals, seg, seg_in, vals_in, keys
+                          max_abs_err_vs_float64=err64, ms=ms, plan_ms=plan_ms,
+                          plan_and_call_ms=both, plain_ms=plain, library_ms=library,
+                          bound_ms=bound, bound_by=by, long_segments=plan.n_long,
+                          chunks=plan.n_chunks)
+        print(f"{what}: max_abs_err={err:.3e} (vs float64 {err64:.3e}), plan {plan_ms:.4f} ms, "
+              f"call with the plan {ms:.4f} ms, plan + call {both:.4f} ms, plain "
+              f"{plain:.4f} ms, index_add_ {library:.4f} ms (atomics: not deterministic), "
+              f"bound {bound:.4f} ms ({by}); {plan.n_long} long segments")
+        del vals, seg, seg_in, vals_in, plan
     print(json.dumps({"segment_stats": rows}))
     main = dict(rows[SEG_MAIN])
     return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -736,20 +754,43 @@ def pipeline_small(dev, seed):
     check(accs["adversarial_ns"] > 0.3, "pipeline: adversarial accuracy is not above 0.3")
 
 
-def profile_by_kernel(fn):
+def profile_by_kernel(fn, ranges=()):
     """Device ms by kernel name and the kernels' count of one call of ``fn``
-    (torch.profiler), and the call's host ms."""
+    (torch.profiler), the call's host ms, and, for each ``record_function``
+    range named in ``ranges``, the device ms by kernel name of the kernels
+    launched inside it (the innermost named range counts)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         host_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    # Device-side events, less the GPU spans of the named ranges themselves.
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.name not in ranges]
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return by_name, len(kernels), host_ms
+    inside: dict = {name: {} for name in ranges}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        owner = e
+        while owner is not None and owner.name not in inside:
+            owner = owner.cpu_parent
+        if owner is not None:
+            for k in e.kernels:
+                inside[owner.name][k.name] = inside[owner.name].get(k.name, 0.0) + k.duration / 1e3
+    return by_name, len(kernels), host_ms, inside
+
+
+def in_range(name, fn):
+    """``fn`` run inside a ``record_function`` range called ``name``."""
+    def call(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return call
 
 
 def device_time_by_op(fn, top: int = 8) -> dict:
@@ -757,13 +798,15 @@ def device_time_by_op(fn, top: int = 8) -> dict:
     the total, the kernels' count, and the ``top`` kernels by time."""
     fn()
     torch.cuda.synchronize()
-    by_name, n_kernels, _ = profile_by_kernel(fn)
+    by_name, n_kernels, _, _ = profile_by_kernel(fn)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"device_ms": sum(by_name.values()), "kernels": n_kernels,
             "top_ms": [[name[:60], ms] for name, ms in ranked]}
 
 
-SEGMENT_KERNELS = ("keys_kernel", "offsets_kernel", "chunk_sums_kernel", "partials_kernel")
+# The kernels of csrc/segment_scores.cu: a plan's, and a call's.
+SEGMENT_PLAN_KERNELS = ("keys_kernel", "offsets_kernel")
+SEGMENT_KERNELS = ("segments_kernel", "chunks_kernel", "long_kernel")
 
 
 def check_tree_invariants(tree, c, x, what):
@@ -809,13 +852,23 @@ def genfit_path(dev, seed, cfg):
             kept[level] = dict(args=(pieces, *args), out=out)
         return out
 
+    # Count the Newton solves: each should sort its ids once, and the fit
+    # its labels once.
+    run_newton, solves = genfit_levels.run_newton, []
+
+    def counted_newton(*args, **kwargs):
+        solves.append(1)
+        return run_newton(*args, **kwargs)
+
     genfit_levels._run_level = timed_level
+    genfit_levels.run_newton = counted_newton
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for kernel in (ops.segment_stats, ops.tree_logprob_all, ops.gather_scores,
                        ops.sampled_head_loss):
             kernel.launches = 0
+        ops.segment_stats.plans = 0
         t0 = time.perf_counter()
         tree = genfit.fit_tree_levelwise(x, y, c, config=fcfg, device=dev)
         torch.cuda.synchronize()
@@ -824,10 +877,14 @@ def genfit_path(dev, seed, cfg):
                     "tree_logprob_all": ops.tree_logprob_all.launches,
                     "gather_scores": ops.gather_scores.launches,
                     "sampled_head_loss": ops.sampled_head_loss.launches}
+        plans = ops.segment_stats.plans
     finally:
         genfit_levels._run_level = run_level
+        genfit_levels.run_newton = run_newton
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     check(launches["segment_stats"] > 0, "the fit never launched segment_stats")
+    check(plans == len(solves) + 1, f"the fit built {plans} segment plans for "
+                                    f"{len(solves)} Newton solves and one label set")
     depth = tree_lib.padded_size(c).bit_length() - 1
     check(len(level_s) == tree.depth == depth, f"the fit ran {len(level_s)} levels, not {depth}")
     mass_err = check_tree_invariants(tree, c, x_te, "full-width fit")
@@ -837,23 +894,37 @@ def genfit_path(dev, seed, cfg):
                               f"{uniform:.4f} by 0.5")
 
     # The profiled levels again under the profiler: device time by kernel,
-    # the share of segment_stats (its own kernels and the id sort), the idle
-    # share against the level's host time in the fit, and a bit-equal replay.
+    # the share of segment_stats: its calls' kernels (by name) and its plans'
+    # (the plan's own kernels by name, and the torch.sort and the chunk
+    # table's torch ops inside a record_function range around
+    # ops.segment_plan, so the discrete step's and finalize's own argsorts do
+    # not count), the idle share against the level's host time in the fit,
+    # and a bit-equal replay.
     profiles = {}
     for level, run in sorted(kept.items()):
-        by_name, n_kernels, prof_host_ms = profile_by_kernel(lambda: run.update(
-            replay=run_level(*run["args"])))
+        lvl_plans, lvl_calls = ops.segment_stats.plans, ops.segment_stats.launches
+        with swapped(ops, segment_plan=in_range("segment_plan", ops.segment_plan)):
+            by_name, n_kernels, prof_host_ms, inside = profile_by_kernel(
+                lambda: run.update(replay=run_level(*run["args"])), ranges=("segment_plan",))
+        lvl_plans = ops.segment_stats.plans - lvl_plans
+        lvl_calls = ops.segment_stats.launches - lvl_calls
         for a, b in zip(run["out"], run["replay"]):
             check(torch.equal(a, b), f"level {level} replayed to other bits")
         device_ms = sum(by_name.values())
-        seg_ms = sum(v for k, v in by_name.items() if any(n in k for n in SEGMENT_KERNELS))
-        sort_ms = sum(v for k, v in by_name.items() if "adix" in k)
+        named = lambda names: sum(v for k, v in by_name.items()             # noqa: E731
+                                  if any(n in k for n in names))
+        calls_ms = named(SEGMENT_KERNELS)
+        plan_torch = {k: v for k, v in inside["segment_plan"].items()
+                      if not any(n in k for n in SEGMENT_PLAN_KERNELS)}
+        plan_ms = named(SEGMENT_PLAN_KERNELS) + sum(plan_torch.values())
+        sort_ms = sum(v for k, v in plan_torch.items() if "adix" in k)
         host_ms = 1e3 * level_s[level]
         profiles[level] = {
             "host_ms": host_ms, "profiled_host_ms": prof_host_ms, "device_ms": device_ms,
-            "kernels": n_kernels, "segment_stats_device_ms": seg_ms,
-            "segment_stats_sort_device_ms": sort_ms,
-            "segment_stats_share": (seg_ms + sort_ms) / device_ms,
+            "kernels": n_kernels, "segment_stats_calls": lvl_calls, "segment_plans": lvl_plans,
+            "segment_stats_device_ms": calls_ms, "segment_plan_device_ms": plan_ms,
+            "segment_plan_sort_device_ms": sort_ms,
+            "segment_stats_share": (calls_ms + plan_ms) / device_ms,
             "idle_share": 1.0 - device_ms / host_ms,
             "top_ms": [[k[:60], v] for k, v in
                        sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]}
@@ -878,7 +949,8 @@ def genfit_path(dev, seed, cfg):
     print(json.dumps({"genfit_path": {
         "num_labels": c, "depth": tree.depth, "k": kg, "reg": fcfg.reg, "points": FIT_POINTS,
         "held_out": FIT_HELD_OUT, "data_s": data_s, "fit_s": fit_s, "level_s": level_s,
-        "launches": launches, "peak_mem_gib": peak_gib,
+        "launches": launches, "segment_plans": plans, "newton_solves": len(solves),
+        "peak_mem_gib": peak_gib,
         "held_out_ll": ll, "uniform_ll": uniform, "real_mass_max_err": mass_err,
         "level_profiles": profiles, "refit_s": refit_s, "refit_bit_equal": True,
         "drifted_held_out_ll_stale": ll_stale, "drifted_held_out_ll_refit": ll_refit}}))
@@ -977,10 +1049,10 @@ def check_flash_attention(dev, gen, flush):
     for name, b, h, kv, sq, skv, hd, causal, window, softcap, dtype, cache_len in ATTN_SHAPES:
         q, k, v, scale = attn_inputs(dev, gen, b, h, kv, sq, skv, hd, dtype, cache_len)
         kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-        tensor_cores = ops.flash_attention.tensor_core_launches
+        before = attn_launches_by_kernel()
         got = ops.flash_attention(q, k, v, **kw)
-        path = ("tensor_cores" if ops.flash_attention.tensor_core_launches > tensor_cores
-                else "fma")
+        path = [name for name, n in attn_launches_by_kernel().items() if n > before[name]]
+        path = path[0] if len(path) == 1 else str(path)
         again = ops.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -988,8 +1060,7 @@ def check_flash_attention(dev, gen, flush):
         what = (f"flash_attention {name} (B={b} H={h} KV={kv} Sq={sq} Skv={skv} hd={hd} "
                 f"causal={causal} window={window} softcap={softcap} {str(dtype)[6:]}, "
                 f"{layout}; {path} kernel)")
-        check(path == ("tensor_cores" if name in ATTN_TENSOR_CORE else "fma"),
-              f"{what}: took the wrong kernel")
+        check(path == ATTN_KERNEL[name], f"{what}: took the wrong kernel")
         errs = attn_errors(got, want)
         err = errs["max_abs_err"]
         check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
@@ -1031,6 +1102,12 @@ def check_flash_attention(dev, gen, flush):
     main = rows[ATTN_MAIN]
     return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                                  "bound_by")}
+
+
+def attn_launches_by_kernel() -> dict:
+    fa = ops.flash_attention
+    return dict(decode=fa.decode_launches, tensor_cores=fa.tensor_core_launches,
+                fma=fa.fma_launches)
 
 
 def blocked_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
@@ -1104,20 +1181,21 @@ def serve_path(dev, seed):
         torch.cuda.synchronize()
         for name in kernels:
             getattr(ops, name).launches = 0
-        ops.flash_attention.tensor_core_launches = ops.flash_attention.fma_launches = 0
+        ops.flash_attention.decode_launches = ops.flash_attention.fma_launches = 0
+        ops.flash_attention.tensor_core_launches = 0
         with swapped(transformer, forward=rec_forward), \
                 swapped(lm_head, lm_predictive_scores=rec_scores, lm_predictive_topk=rec_topk):
             run = lockstep(beam)
         launches = {name: getattr(ops, name).launches for name in kernels}
-        by_path = dict(tensor_cores=ops.flash_attention.tensor_core_launches,
-                       fma=ops.flash_attention.fma_launches)
+        by_path = attn_launches_by_kernel()
         want_flash = cfg.num_layers * (1 + SERVE_GEN)
         check(launches["flash_attention"] == want_flash,
               f"{path}: flash_attention launched {launches['flash_attention']} times, "
               f"not {want_flash}")
-        check(by_path == dict(tensor_cores=cfg.num_layers, fma=cfg.num_layers * SERVE_GEN),
+        check(by_path == dict(decode=cfg.num_layers * SERVE_GEN, tensor_cores=cfg.num_layers,
+                              fma=0),
               f"{path}: prefill's flash_attention launches not all on the tensor-core "
-              f"kernel, or decode's not all on the FMA kernel: {by_path}")
+              f"kernel, or decode's not all on the decode kernel: {by_path}")
         check(launches["tree_logprob_all" if beam == 0 else "gather_scores"] == SERVE_GEN,
               f"{path}: the Eq. 5 kernel did not launch once per decode step: {launches}")
         check(run["tokens"].shape == (SERVE_BATCH, SERVE_GEN), f"{path}: token shape")
@@ -1129,10 +1207,11 @@ def serve_path(dev, seed):
         # One decode step at the last position, profiled by kernel.
         step = make_serve_step(cfg, hcfg, topk_beam=beam)
         last = SERVE_PROMPT + SERVE_GEN - 1
-        by_name, n_kernels, host_ms = profile_by_kernel(
+        by_name, n_kernels, host_ms, _ = profile_by_kernel(
             lambda: step(params, state, run["token"], run["cache"], last))
         device_ms = sum(by_name.values())
         flash_ms = sum(v for k, v in by_name.items() if "flash_attention" in k)
+        combine_ms = sum(v for k, v in by_name.items() if "combine_kernel" in k)
         paths[path] = dict(
             beam=beam, prefill_ms=run["prefill_ms"], decode_ms=run["decode_ms"],
             ms_per_token=run["decode_ms"] / run["steps"], launches=launches,
@@ -1140,6 +1219,7 @@ def serve_path(dev, seed):
             decode_step_profile=dict(
                 host_ms=host_ms, device_ms=device_ms, kernels=n_kernels,
                 idle_share=1.0 - device_ms / host_ms, flash_attention_device_ms=flash_ms,
+                flash_attention_combine_device_ms=combine_ms,
                 top_ms=[[k[:60], v] for k, v in
                         sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]))
         paths[path]["_rec"], paths[path]["_run"] = rec, run
@@ -1149,7 +1229,7 @@ def serve_path(dev, seed):
     # One prefill of the same 4 prompts, profiled by kernel.
     prompts = paths["dense"]["_run"]["prompts"]
     cache = transformer.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT, device=dev)
-    by_name, n_kernels, host_ms = profile_by_kernel(
+    by_name, n_kernels, host_ms, _ = profile_by_kernel(
         lambda: make_prefill(cfg)(params, prompts, cache))
     device_ms = sum(by_name.values())
     prefill_profile = dict(

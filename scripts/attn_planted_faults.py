@@ -8,11 +8,12 @@ Run from the root of a checkout, on a machine with one NVIDIA card:
 For each fault below the script copies ``src/`` and ``chip_smoke.py`` into a
 temporary directory, edits the copy's ``flash_attention.cu`` (the checkout is
 never touched), builds it there and, in a child process, holds the copy's
-kernel against the plain version on chip_smoke.py's four bf16 shapes with
-chip_smoke.py's own inputs and error measures. The faults are planted in the
-tensor-core kernel, which the three bf16 prefill shapes take; the decode
-shape takes the FMA kernel and is a control. "none" is the unedited kernel:
-the largest error a sound kernel shows. Prints one JSON line per fault and
+kernel against the plain version on chip_smoke.py's six bf16 shapes with
+chip_smoke.py's own inputs and error measures. Three faults are planted in
+the tensor-core kernel, which the three bf16 prefill shapes take, and three
+in the decode kernel, which the three decode shapes take; each kernel's
+shapes are the other's control. "none" is the unedited kernel: the largest
+error a sound kernel shows. Prints one JSON line per fault and
 shape: the largest error, the largest ratio of an error to its per-row bound
 (> 1 fails), the relative RMS difference (> 2^-11 fails) and whether
 chip_smoke.py would pass it. Exits non-zero if the sound kernel fails at a
@@ -31,8 +32,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 KERNEL = Path("src/repro_torch/kernels/csrc/flash_attention.cu")
 
+DECODE_SHAPES = ("danube_decode", "gemma2_decode", "stablelm_decode")
+
 # name: ((text in flash_attention.cu, its replacement), the shapes where the
-# check must fail); all in the tensor-core kernel.
+# check must fail); the first three in the tensor-core kernel, the others in
+# the decode kernel.
 FAULTS = {
     "none": (None, ()),
     # P_lo dropped: P rounded to bf16 once before P.V, as the reference
@@ -50,6 +54,23 @@ FAULTS = {
     "window_one_key_wider": (
         ("(p.window <= 0 || dq < p.window)", "(p.window <= 0 || dq <= p.window)"),
         ("danube_prefill",)),
+    # The decode kernel drops the last key of each split of the band.
+    "decode_last_key_of_a_split_dropped": (
+        ("const int64_t kz_end = min(k_end, kz_begin + per);",
+         "const int64_t kz_end = min(k_end, kz_begin + per) - 1;"),
+        DECODE_SHAPES),
+    # The decode kernel's window one key wider than asked (the band's first
+    # key, for the range it visits and the per-row mask alike).
+    "decode_window_one_key_wider": (
+        ("return p.window > 0 ? qa - p.window + 1 : 0;",
+         "return p.window > 0 ? qa - p.window : 0;"),
+        ("danube_decode",)),
+    # The decode kernel rounds P to bf16 before P.V, as the reference model
+    # does.
+    "decode_p_rounded_to_bf16": (
+        ("const float pw = s[u][r];",
+         "const float pw = __bfloat162float(__float2bfloat16(s[u][r]));"),
+        DECODE_SHAPES),
 }
 
 
@@ -107,8 +128,8 @@ def main() -> int:
                 row = json.loads(line)
                 print(json.dumps(dict(fault=fault, **row)))
                 passes[row["shape"]] = row["passes"]
-        # A window fault leaves a shape whose window spans all its keys as it
-        # was, and every fault leaves the decode shape (FMA kernel) as it was.
+        # A fault leaves the other kernel's shapes as they were, and a window
+        # fault a shape whose window spans all its keys.
         ok &= (all(passes.values()) if edit is None
                else not any(passes[shape] for shape in must_fail))
     return 0 if ok else 1

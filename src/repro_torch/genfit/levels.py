@@ -15,8 +15,10 @@ It is the port of ``repro.genfit.levels``, step for step:
   (Eq. 9), the Newton gradient and Hessian (Eq. 8), the per-node objective
   and the Armijo grid are sums over points keyed by node (or label). Every
   one goes through ``ops.segment_stats``, the hand-written CUDA kernel on the
-  card, which adds in a fixed order, so a fit replays bit for bit. Sums over
-  slots cover contiguous ranges of a level's nodes and are
+  card, which adds in a fixed order, so a fit replays bit for bit. The ids
+  are sorted once per Newton solve (nodes) and once per fit (labels) by
+  ``ops.segment_plan``, and every sum of the solve or fit reuses the plan.
+  Sums over slots cover contiguous ranges of a level's nodes and are
   ``view(nseg, m, ...).sum(1)``; integer counts use ``index_add_`` on int32.
 * **Balanced split as a rank rule.** Stable sorts of slots by ``(node, −Δ)``
   reproduce the reference's rule: top half goes right, padding sinks left and
@@ -100,9 +102,9 @@ def batched_inv_psd(a: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nki,nkj->nij", linv, linv)          # (LLᵀ)⁻¹
 
 
-def _seg_sum1(vals: torch.Tensor, seg: torch.Tensor, nseg: int) -> torch.Tensor:
+def _seg_sum1(vals: torch.Tensor, seg: torch.Tensor, nseg: int, plan=None) -> torch.Tensor:
     """Segment sum of one value per point."""
-    return ops.segment_stats(vals[:, None], seg, nseg)[:, 0]
+    return ops.segment_stats(vals[:, None], seg, nseg, plan=plan)[:, 0]
 
 
 def _count(seg: torch.Tensor, mask: torch.Tensor, nseg: int) -> torch.Tensor:
@@ -128,28 +130,31 @@ def make_newton_pieces(nseg: int, d: int, reg: float, newton_tol: float, device)
     drives them from the host. The per-point logit ``z = xb·θ[seg]`` is
     carried across iterations, the Armijo grid is evaluated from one ``dz``
     pass, and ``outer`` is the (N, d²) table of ``xb⊗xb``, built once.
+    ``plan`` is ``ops.segment_plan(seg, nseg)``, built once per solve.
     """
     eye = torch.eye(d, dtype=torch.float32, device=device)
     tgrid = 0.5 ** torch.arange(_LS_GRID, dtype=torch.float32, device=device)
 
-    def newton_start(theta, xb, zeta, wgt, seg, frozen):
+    def newton_start(theta, xb, zeta, wgt, seg, frozen, plan=None):
         z = (xb * theta[seg]).sum(-1)
-        per = _seg_sum1(wgt * F.logsigmoid(zeta * z), seg, nseg)
+        per = _seg_sum1(wgt * F.logsigmoid(zeta * z), seg, nseg, plan)
         obj = per - reg * (theta * theta).sum(-1)
         active = ~frozen
         return z, obj, active, active.any()
 
-    def refactor(z, outer, zeta, wgt, seg):
+    def refactor(z, outer, zeta, wgt, seg, plan=None):
         s = torch.sigmoid(torch.clamp(zeta * z, -60.0, 60.0))
         hcoef = wgt * s * (1.0 - s)
-        hess = (ops.segment_stats(hcoef[:, None] * outer, seg, nseg).reshape(nseg, d, d)
+        hess = (ops.segment_stats(hcoef[:, None] * outer, seg, nseg, plan=plan)
+                .reshape(nseg, d, d)
                 + (2.0 * reg + 1e-10) * eye)
         return batched_inv_psd(hess)
 
-    def newton_iter(theta, z, obj, active, inv, xb, zeta, wgt, seg):
+    def newton_iter(theta, z, obj, active, inv, xb, zeta, wgt, seg, plan=None):
         s = torch.sigmoid(torch.clamp(zeta * z, -60.0, 60.0))
         gcoef = wgt * zeta * (1.0 - s)
-        grad = ops.segment_stats(gcoef[:, None] * xb, seg, nseg) - 2.0 * reg * theta
+        grad = (ops.segment_stats(gcoef[:, None] * xb, seg, nseg, plan=plan)
+                - 2.0 * reg * theta)
         direction = torch.einsum("nij,nj->ni", inv, grad)
         slope = (grad * direction).sum(-1)
         act = active & torch.isfinite(slope) & (slope > 0.0)
@@ -158,7 +163,7 @@ def make_newton_pieces(nseg: int, d: int, reg: float, newton_tol: float, device)
         dz = (xb * direction[seg]).sum(-1)                       # (N,)
         zc = z[:, None] + tgrid[None, :] * dz[:, None]           # (N, T)
         per = ops.segment_stats(wgt[:, None] * F.logsigmoid(zeta[:, None] * zc),
-                                seg, nseg)                       # (nseg, T)
+                                seg, nseg, plan=plan)            # (nseg, T)
         # |θ + t·d|² expanded into three per-node scalars.
         th_sq = (theta * theta).sum(-1)
         th_d = (theta * direction).sum(-1)
@@ -233,10 +238,10 @@ class _LevelPieces:
         return torch.where(trivial[:, None], 0.0, theta0)
 
     def discrete(self, theta, split, split_prev, frozen, xb, y, wgt, perm,
-                 slot_of_label, node_of_point, is_pad_slot):
+                 slot_of_label, node_of_point, is_pad_slot, y_plan=None):
         # Δ_y = Σ_{x∈D_y} (w·x + b) (Eq. 9); the top half goes right.
         z = (xb * theta[node_of_point]).sum(-1)
-        delta = _seg_sum1(wgt * z, y, self.c_pad)
+        delta = _seg_sum1(wgt * z, y, self.c_pad, y_plan)
         delta_slot = torch.where(is_pad_slot, -torch.inf, delta[perm])
         o1 = torch.argsort(-delta_slot, stable=True)
         order = o1[torch.argsort(self.node_of_slot[o1], stable=True)]
@@ -294,7 +299,9 @@ def run_newton(newton_pieces, theta, frozen, xb, outer, zeta, wgt, seg,
 
     ``subsample_target > 0`` stride-samples the active points to about
     ``subsample_target`` per node, weights scaled by the stride (the
-    intermediate solves of shallow levels, never the polish).
+    intermediate solves of shallow levels, never the polish). The solve's
+    points and their nodes stay fixed, so their ids are sorted once
+    (``ops.segment_plan``) for every segment sum of the solve.
     """
     newton_start, refactor, newton_iter = newton_pieces
     n_total = seg_host.shape[0]
@@ -311,22 +318,25 @@ def run_newton(newton_pieces, theta, frozen, xb, outer, zeta, wgt, seg,
         packed = _compact(n_total, idx, xb, outer, zeta, wgt, seg)
     xb_a, outer_a, zeta_a, wgt_a, seg_a = (
         packed if packed is not None else (xb, outer, zeta, wgt, seg))
-    z, obj, active, any_active = newton_start(theta, xb_a, zeta_a, wgt_a, seg_a, frozen)
+    plan = ops.segment_plan(seg_a, int(frozen.shape[0]))
+    z, obj, active, any_active = newton_start(theta, xb_a, zeta_a, wgt_a, seg_a, frozen,
+                                              plan)
     it = 0
     inv = None
     while bool(any_active) and it < max_newton:
         if it % _HESS_EVERY == 0:
-            inv = refactor(z, outer_a, zeta_a, wgt_a, seg_a)
+            inv = refactor(z, outer_a, zeta_a, wgt_a, seg_a, plan)
         theta, z, obj, active, any_active = newton_iter(
-            theta, z, obj, active, inv, xb_a, zeta_a, wgt_a, seg_a)
+            theta, z, obj, active, inv, xb_a, zeta_a, wgt_a, seg_a, plan)
         it += 1
     return theta
 
 
 def _run_level(pieces: _LevelPieces, xb, outer, y, wgt, s_lab, perm, slot_of_label,
-               num_labels: int, v0, v_restart, cfg: FitConfig):
+               num_labels: int, v0, v_restart, cfg: FitConfig, y_plan=None):
     """Host-driven alternation for one level: discrete re-partition, then
-    batched Newton until every node retires (early exit on the host)."""
+    batched Newton until every node retires (early exit on the host).
+    ``y_plan`` is ``ops.segment_plan(y, c_pad)``, built once per fit."""
     aux = pieces.prep(y, wgt, perm, slot_of_label, num_labels)
     theta = pieces.init_theta(s_lab, perm, aux["trivial"], v0, v_restart)
     split, frozen = aux["split0"], aux["trivial"]
@@ -337,7 +347,7 @@ def _run_level(pieces: _LevelPieces, xb, outer, y, wgt, s_lab, perm, slot_of_lab
     for _ in range(cfg.max_alternations):
         new_split, frozen, zeta, all_frozen = pieces.discrete(
             theta, split, split_prev, frozen, xb, y, wgt, perm, slot_of_label, seg,
-            aux["is_pad_slot"])
+            aux["is_pad_slot"], y_plan)
         split_prev, split = split, new_split
         if bool(all_frozen):
             break
@@ -393,8 +403,10 @@ def _fit_levels(x, y, wgt, num_labels: int, c_pad: int, cfg: FitConfig,
     k = x.shape[1]
     rng = np.random.default_rng(cfg.seed)
     xb, outer, yj, wj = _point_tensors(x, y, wgt, device)
-    # Per-label weighted feature sums: level-independent, computed once.
-    s_lab = ops.segment_stats(xb[:, :k] * wj[:, None], yj, c_pad)
+    # The labels never change within a fit: one plan serves the per-label
+    # sums, computed once, and every discrete step's Δ.
+    y_plan = ops.segment_plan(yj, c_pad)
+    s_lab = ops.segment_stats(xb[:, :k] * wj[:, None], yj, c_pad, plan=y_plan)
     perm = torch.arange(c_pad, device=device)
     slot_of_label = torch.arange(c_pad, device=device)
 
@@ -408,7 +420,7 @@ def _fit_levels(x, y, wgt, num_labels: int, c_pad: int, cfg: FitConfig,
             rng.standard_normal((n_lvl, k)).astype(np.float32)).to(device)
         theta, perm, slot_of_label = _run_level(
             pieces, xb, outer, yj, wj, s_lab, perm, slot_of_label, num_labels, v0,
-            v_restart, cfg)
+            v_restart, cfg, y_plan)
         th = theta.cpu().numpy()
         w_all[n_lvl - 1:2 * n_lvl - 1] = th[:, :k]
         b_all[n_lvl - 1:2 * n_lvl - 1] = th[:, k]

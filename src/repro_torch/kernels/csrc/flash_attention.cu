@@ -14,9 +14,15 @@
 // arithmetic (989 TFLOP/s bf16 tensor-core peak); decode (Sq = 1) reads the
 // whole K/V cache once per step and is bound by its bytes.
 //
-// Two kernels; the wrapper (flash_attention.py: tensor_core_path) picks one
-// from the operands alone and passes its choice, which the entry point
-// checks:
+// Three kernels; the wrapper (flash_attention.py: decode_path,
+// tensor_core_path) picks one from the operands alone and passes its
+// choice, which the entry point checks:
+// - flash_attention_decode_kernel (namespace dec, below) when q, k and v
+//   are all bf16, a (b, kv head) has at most 16 packed rows (Sq * G <= 16:
+//   decode), hd % 8 == 0 and every base pointer and (b, h, s) stride is
+//   16-byte aligned: each lane streams 16-byte slices of the K and V rows
+//   into registers, split-KV over enough blocks to fill the card; its
+//   ceiling is the cache's bytes.
 // - flash_attention_tc_kernel (namespace tc, below) when q, k and v are all
 //   bf16, a (b, kv head) has more than 16 packed rows (Sq * G > 16), hd <=
 //   128 with hd % 8 == 0, every base pointer and (b, h, s) stride is 16-byte
@@ -25,9 +31,10 @@
 //   is the tensor cores' rate; the hi + lo split and hd's padding to a
 //   multiple of 16 make its MMA work ~1.6x the 4*hd operations per pair that
 //   the bound counts.
-// - flash_attention_kernel for every other call (decode, float32, hd > 128,
-//   split-KV): float32 FMAs over tiles staged in shared memory, so its own
-//   ceiling is the 67 TFLOP/s of float32; decode is bound by its bytes.
+// - flash_attention_kernel for every other call (float32, hd > 128 in
+//   prefill, a bf16 call the other two refuse, split-KV prefill): float32
+//   FMAs over tiles staged in shared memory, so its own ceiling is the 67
+//   TFLOP/s of float32; decode in it is bound by its bytes.
 //
 // Design of the FMA kernel (right and simple first):
 // - GQA without expanding K/V: a block serves one (b, kv head) and packs the
@@ -398,6 +405,17 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(const Params p) {
   o[d] = from_float<TQ>(num / fmaxf(denom, 1e-30f));
 }
 
+// combine_kernel over every output value, after a split kernel's launch.
+template <typename TQ>
+int launch_combine(const Params& p, cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t total = (int64_t)p.B * p.H * p.Sq * p.hd;
+  combine_kernel<TQ><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
+                       stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <typename TQ, typename TKV, int HDP, int RQ>
 int launch(const Params& p, cudaStream_t stream) {
   using L = Layout<HDP, RQ>;
@@ -410,13 +428,7 @@ int launch(const Params& p, cudaStream_t stream) {
   const dim3 grid((unsigned)((rows + L::BQ - 1) / L::BQ),
                   (unsigned)(p.B * p.KV), (unsigned)p.n_split);
   kernel<<<grid, kThreads, smem, stream>>>(p);
-  if (p.n_split > 1) {
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const int64_t total = (int64_t)p.B * p.KV * rows * p.hd;
-    combine_kernel<TQ><<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0,
-                         stream>>>(p);
-  }
+  if (p.n_split > 1) return launch_combine<TQ>(p, stream);
   return (int)cudaGetLastError();
 }
 
@@ -781,21 +793,339 @@ int dispatch(const Params& p, cudaStream_t stream) {
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// The decode path: bf16 q, k and v with at most 16 packed rows (Sq * G <=
+// 16), hd % 8 == 0 (hd <= 256), 16-byte aligned pointers and (b, h, s)
+// strides. Decode reads each K/V byte once and does ~4 * hd operations per
+// (query, key) pair on at most 16 rows, so the cache's bytes bound it.
+//
+// A block takes up to RB packed rows of one (b, kv head) and one split of
+// their band (n_split blocks share a band; combine_kernel merges their
+// states in a fixed order). Its 4 warps are cut into lane groups of LPK
+// lanes, LPK the power of two at or above hd / 8: lane v of a group owns
+// the 8 values [8v, 8v + 8) of hd, and a group takes U keys a step. A lane
+// loads its 16 bytes of each of its keys' K and V rows straight into
+// registers (__ldg of a uint4: a row of hd 120 is 15 such loads, one a
+// lane), all 2U loads before any is used. The group's q rows, scaled, sit
+// in registers as float32. A logit is the group's 8-value dot products
+// added by an xor-shuffle tree (every lane of the group gets the same
+// bits); softcap, the online softmax (in log2 units, by exp2) and P V are
+// float32 (P is not rounded), each lane keeping RB x 8 accumulators. Keys
+// are visited only inside the band of the block's rows; a key outside a
+// row's own band is masked to -1e30 as in the other kernels, and a step
+// whose keys every row sees skips the mask. At the end the groups' states
+// are merged through shared memory in group order. No atomics: two calls
+// give the same bits.
+//
+// At h2o-danube decode the kernel is bound by its instructions more than by
+// the cache's bytes: with its loads removed it takes most of its time
+// (PERF.md, PR 17). Staging K and V through a cp.async ring, finishing each
+// logit on one lane (a reduce-scatter), and one row a thread with K and V
+// read from shared memory were each no faster there.
+// ---------------------------------------------------------------------------
+namespace dec {
+
+using bf16 = __nv_bfloat16;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+
+template <int LPK, int RB>
+struct Cfg {
+  static constexpr int kGroups = kWarps * (32 / LPK);   // lane groups a block
+  static constexpr int U = RB <= 2 ? 8 : RB == 4 ? 4 : 2;   // keys a group loads at once
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A query at absolute position qa sees keys [band_begin, band_end).
+__device__ __forceinline__ int64_t band_begin(int64_t qa, const Params& p) {
+  return p.window > 0 ? qa - p.window + 1 : 0;
+}
+__device__ __forceinline__ int64_t band_end(int64_t qa, const Params& p) {
+  return p.causal ? qa + 1 : p.Skv;
+}
+
+__device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// grid = (ceil(Sq * G / RB), B * KV, n_split); block = 128 threads; dynamic
+// shared memory = kGroups * RB * (hd + 2) + 2 * RB floats (the merge).
+template <int LPK, int RB>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_decode_kernel(const Params p) {
+  using C = Cfg<LPK, RB>;
+  constexpr int U = C::U;
+  constexpr int kGroupsPerWarp = 32 / LPK;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int grp = warp * kGroupsPerWarp + lane / LPK;
+  const int vec = lane % LPK;
+  const bool has_vec = vec < p.hd / 8;
+  const int G = p.H / p.KV;
+  const int64_t R = (int64_t)p.Sq * G;
+  const int64_t r0 = (int64_t)blockIdx.x * RB;
+  const int b = blockIdx.y / p.KV;
+  const int kvh = blockIdx.y % p.KV;
+  const int64_t off = (int64_t)p.Skv - p.Sq;   // row i sits at off + i
+
+  // The rows' q slices, scaled, and each row's own band.
+  float q[RB][8];
+  int lo[RB], hi[RB];   // within [0, Skv]
+  const bf16* qb = (const bf16*)p.q + b * p.q_sb;
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    const int64_t row = min(r0 + r, R - 1);
+    const int64_t qa = row / G + off;
+    lo[r] = (int)max((int64_t)0, band_begin(qa, p));
+    hi[r] = (int)min((int64_t)p.Skv, max((int64_t)0, band_end(qa, p)));
+#pragma unroll
+    for (int e = 0; e < 8; ++e) q[r][e] = 0.f;
+    if (r0 + r < R && has_vec) {
+      const int g = (int)(row % G);
+      float f[8];
+      unpack8(__ldg(reinterpret_cast<const uint4*>(
+                  qb + (int64_t)(kvh * G + g) * p.q_sh + (row / G) * p.q_ss + 8 * vec)),
+              f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) q[r][e] = f[e] * p.scale;
+    }
+  }
+
+  // The keys the block's rows see (all of them if some row sees none),
+  // then this block's split of them.
+  const int64_t r_last = min(r0 + RB, R) - 1;
+  const int64_t qa_lo = r0 / G + off, qa_hi = r_last / G + off;
+  int64_t k_begin = 0, k_end = p.Skv;
+  if (!(p.causal && qa_lo < 0)) {
+    k_begin = max((int64_t)0, band_begin(qa_lo, p));
+    k_end = min((int64_t)p.Skv, band_end(qa_hi, p));
+  }
+  const int64_t per = (k_end - k_begin + p.n_split - 1) / p.n_split;
+  const int64_t kz_begin = k_begin + (int64_t)blockIdx.z * per;
+  const int64_t kz_end = min(k_end, kz_begin + per);
+  // Keys every row sees: a step inside them needs no mask.
+  int all_lo = 0, all_hi = (int)kz_end;
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    all_lo = max(all_lo, lo[r]);
+    all_hi = min(all_hi, hi[r]);
+  }
+
+  float m[RB], l[RB], acc[RB][8];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    m[r] = kMasked;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+  }
+  const bf16* kb = (const bf16*)p.k + b * p.k_sb + kvh * p.k_sh + 8 * vec;
+  const bf16* vb = (const bf16*)p.v + b * p.v_sb + kvh * p.v_sh + 8 * vec;
+
+  // The warp steps together (its shuffles need every lane); group g of the
+  // warp takes keys k0 .. k0 + U - 1 of each step.
+  for (int64_t w0 = kz_begin + (int64_t)warp * kGroupsPerWarp * U; w0 < kz_end;
+       w0 += (int64_t)C::kGroups * U) {
+    const int k0 = (int)w0 + (lane / LPK) * U;
+    uint4 kr[U], vr[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int key = k0 + u;
+      if (key < kz_end && has_vec) {
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + (int64_t)key * p.k_ss));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + (int64_t)key * p.v_ss));
+      } else {
+        kr[u] = make_uint4(0u, 0u, 0u, 0u);
+        vr[u] = kr[u];
+      }
+    }
+    float s[U][RB];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[8];
+      unpack8(kr[u], kf);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d = fmaf(q[r][e], kf[e], d);
+        s[u][r] = d;
+      }
+    }
+#pragma unroll
+    for (int o = LPK / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int r = 0; r < RB; ++r) s[u][r] += __shfl_xor_sync(0xffffffffu, s[u][r], o);
+
+    // Softcap, then the logits in log2 units (m, the running max, too);
+    // the mask only where a key of the step lies outside some row's band
+    // or past the split.
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        float x = s[u][r];
+        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
+        s[u][r] = x * kLog2e;
+      }
+    if (!(k0 >= all_lo && k0 + U <= all_hi)) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const int key = k0 + u;
+          const bool seen = key >= lo[r] && key < hi[r];
+          s[u][r] = key < kz_end ? (seen ? s[u][r] : kMasked) : -INFINITY;
+        }
+    }
+    // Online softmax update, P V.
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][r]);
+      const float m_new = fmaxf(m[r], mx);   // >= -1e30: finite
+      const float alpha = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u][r] = exp2f(s[u][r] - m_new);    // a key past the split gives 0
+        sum += s[u][r];
+      }
+      l[r] = alpha * l[r] + sum;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[r][e] *= alpha;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[8];
+      unpack8(vr[u], vf);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float pw = s[u][r];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[r][e] = fmaf(pw, vf[e], acc[r][e]);
+      }
+    }
+  }
+
+  // Merge the groups' states in group order: M = max m_g, weights
+  // 2^(m_g - M) (m in log2 units), L = sum w_g l_g, A = sum w_g acc_g.
+  float* s_acc = smem;                                 // kGroups x RB x hd
+  float* s_w = s_acc + (int64_t)C::kGroups * RB * p.hd;  // kGroups x RB: m, then weight
+  float* s_l = s_w + C::kGroups * RB;                  // kGroups x RB
+  float* s_ml = s_l + C::kGroups * RB;                 // RB x (M, L)
+  if (has_vec)
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s_acc[(grp * RB + r) * p.hd + 8 * vec + e] = acc[r][e];
+  if (vec == 0)
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      s_w[grp * RB + r] = m[r];
+      s_l[grp * RB + r] = l[r];
+    }
+  __syncthreads();
+  if (threadIdx.x < RB) {
+    const int r = threadIdx.x;
+    float M = kMasked, L = 0.f;
+    for (int g = 0; g < C::kGroups; ++g) M = fmaxf(M, s_w[g * RB + r]);
+    for (int g = 0; g < C::kGroups; ++g) {
+      const float w = exp2f(s_w[g * RB + r] - M);
+      s_w[g * RB + r] = w;
+      L += w * s_l[g * RB + r];
+    }
+    s_ml[2 * r] = M;
+    s_ml[2 * r + 1] = L;
+  }
+  __syncthreads();
+  bf16* ob = (bf16*)p.out + b * p.o_sb;
+  for (int idx = threadIdx.x; idx < RB * p.hd; idx += kThreads) {
+    const int r = idx / p.hd, d = idx % p.hd;
+    const int64_t row = r0 + r;
+    if (row >= R) continue;
+    float a = 0.f;
+    for (int g = 0; g < C::kGroups; ++g)
+      a = fmaf(s_w[g * RB + r], s_acc[(g * RB + r) * p.hd + d], a);
+    if (p.n_split > 1) {   // this split's state, for combine_kernel
+      const int64_t slot = ((int64_t)blockIdx.y * p.n_split + blockIdx.z) * R + row;
+      if (d == 0) {   // combine_kernel takes the max in natural units
+        p.part_ml[2 * slot] = s_ml[2 * r] * kLn2;
+        p.part_ml[2 * slot + 1] = s_ml[2 * r + 1];
+      }
+      p.part_acc[slot * p.hd + d] = a;
+    } else {
+      bf16* orow = ob + (int64_t)(kvh * G + (int)(row % G)) * p.o_sh + (row / G) * p.o_ss;
+      orow[d] = __float2bfloat16(a / fmaxf(s_ml[2 * r + 1], 1e-30f));
+    }
+  }
+}
+
+template <int LPK, int RB>
+int launch(const Params& p, cudaStream_t stream) {
+  using C = Cfg<LPK, RB>;
+  const size_t smem = ((size_t)C::kGroups * RB * (p.hd + 2) + 2 * RB) * sizeof(float);
+  auto kernel = flash_attention_decode_kernel<LPK, RB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t rows = (int64_t)p.Sq * (p.H / p.KV);
+  const dim3 grid((unsigned)((rows + RB - 1) / RB), (unsigned)(p.B * p.KV),
+                  (unsigned)p.n_split);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  if (p.n_split > 1) return launch_combine<bf16>(p, stream);
+  return (int)cudaGetLastError();
+}
+
+// RB: the packed rows (at most 16) rounded up to 1, 2, 4 or 8 (16 rows take
+// two blocks); LPK: hd / 8 rounded up to 4, 8, 16 or 32.
+template <int RB>
+int dispatch_lanes(const Params& p, cudaStream_t stream) {
+  const int vecs = p.hd / 8;
+  if (vecs <= 4) return launch<4, RB>(p, stream);
+  if (vecs <= 8) return launch<8, RB>(p, stream);
+  if (vecs <= 16) return launch<16, RB>(p, stream);
+  return launch<32, RB>(p, stream);
+}
+
+int dispatch(const Params& p, cudaStream_t stream) {
+  const int64_t rows = (int64_t)p.Sq * (p.H / p.KV);
+  if (rows <= 1) return dispatch_lanes<1>(p, stream);
+  if (rows <= 2) return dispatch_lanes<2>(p, stream);
+  if (rows <= 4) return dispatch_lanes<4>(p, stream);
+  return dispatch_lanes<8>(p, stream);
+}
+
+}  // namespace dec
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Strides are in elements; dtype
 // codes: 0 = float32, 1 = bfloat16. n_split > 1 needs part_ml (B * KV *
 // n_split * Sq * G * 2 floats) and part_acc (the same rows x hd floats).
-// tensor_cores = 1 takes the tensor-core kernel, and is refused unless the
-// operands meet its rule (see the top of this file). Returns
-// cudaGetLastError() after the launches (0 when accepted).
+// kernel: 0 = the FMA kernel, 1 = the tensor-core kernel, 2 = the decode
+// kernel; 1 and 2 are refused unless the operands meet their rule (see the
+// top of this file). Returns cudaGetLastError() after the launches (0 when
+// accepted).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, int64_t q_sb,
     int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
     int64_t o_ss, int64_t B, int64_t H, int64_t KV, int64_t Sq, int64_t Skv,
     int64_t hd, float scale, int causal, int64_t window, float softcap,
-    int q_dtype, int kv_dtype, int n_split, int tensor_cores, void* part_ml,
+    int q_dtype, int kv_dtype, int n_split, int kernel, void* part_ml,
     void* part_acc, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (H <= 0 || KV <= 0 || H % KV != 0 || Skv <= 0 || hd <= 0 || hd > 256 ||
@@ -808,15 +1138,22 @@ extern "C" int flash_attention_fwd(
                  (int)hd, scale, causal, window, softcap, n_split,
                  (float*)part_ml, (float*)part_acc};
   cudaStream_t s = (cudaStream_t)stream;
-  if (tensor_cores) {
-    const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0 &&
-                         (q_sb | q_sh | q_ss | k_sb | k_sh | k_ss | v_sb | v_sh | v_ss | o_sb |
-                          o_sh | o_ss) % 8 == 0;
-    if (q_dtype != 1 || kv_dtype != 1 || Sq * (H / KV) <= kTx || hd > 128 || hd % 8 != 0 ||
-        !aligned || n_split != 1)
+  const bool bf16_aligned =
+      q_dtype == 1 && kv_dtype == 1 && hd % 8 == 0 &&
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0 &&
+      (q_sb | q_sh | q_ss | k_sb | k_sh | k_ss | v_sb | v_sh | v_ss | o_sb | o_sh | o_ss) %
+              8 == 0;
+  const int64_t rows = Sq * (H / KV);
+  if (kernel == 1) {
+    if (!bf16_aligned || rows <= kTx || hd > 128 || n_split != 1)
       return (int)cudaErrorInvalidValue;
     return tc::dispatch(p, s);
   }
+  if (kernel == 2) {
+    if (!bf16_aligned || rows > kTx) return (int)cudaErrorInvalidValue;
+    return dec::dispatch(p, s);
+  }
+  if (kernel != 0) return (int)cudaErrorInvalidValue;
   if (q_dtype == 0 && kv_dtype == 0) return dispatch<float, float>(p, s);
   if (q_dtype == 1 && kv_dtype == 1)
     return dispatch<__nv_bfloat16, __nv_bfloat16>(p, s);

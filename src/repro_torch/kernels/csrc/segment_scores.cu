@@ -11,35 +11,40 @@
 // device memory bytes bound the work.
 //
 // The fit promises bit-exact replay, so the sums must not depend on timing:
-// no float atomics. The wrapper stable-sorts the row ids (torch.sort), which
-// keeps the rows of a segment in their original order. Then:
-//   1. offsets_kernel: off[s] = first sorted position with id >= s
-//      (a binary search per segment; off[S] counts the kept rows);
-//   2. chunk_sums_kernel: a segment's rows are cut into chunks of kChunk
-//      rows, counted from the segment's own first row; one warp sums each
-//      chunk row by row in order. A warp owns a window of kChunk sorted
-//      positions and sums every chunk that starts inside it. Rows are staged
-//      through shared memory by flat cooperative loads, so every lane loads
-//      whatever D is (one column or 289). A segment of one chunk is written
-//      to out directly; a longer segment's chunk partials go to two slots of
-//      the window: `tail` for the segment's first chunk, `head` for a later
-//      one (a window holds at most one of each). A warp loads the ids and
-//      bounds of 32 positions at once, and issues all its loads of up to 32
-//      staged values before it stores any, so each lane keeps up to 32 loads
-//      in flight;
-//   3. segments_kernel: one warp per segment writes zeros for an empty
-//      one; a segment of Q > 1 chunks adds its partials in 8 fixed parts,
-//      part p taking partials p, p + 8, p + 16, ... in order, and then the 8
-//      part sums in part order. A segment of more than kLongChunks chunks
-//      (a skewed one) is listed instead (an integer atomic counter), and
-//   4. long_segments_kernel gives each listed segment a block, whose 8 warps
-//      take its 8 parts for 32 columns. The arithmetic is the same either
-//      way, and partials appended at the end only add to the parts they
-//      join.
-// A segment's sum so depends only on its own rows in their order: appended
-// zero-weight rows, other segments, N and S do not change it. A segment that
-// holds every row (S = 1) or a quarter of them (a zipf head label) is spread
-// over N / kChunk warps, not serialised on one.
+// no float atomics. The work is split in two.
+//
+// A plan, built once per set of ids (segment_keys, then torch.sort in the
+// wrapper, then segment_offsets, then a few torch ops for the long
+// segments' chunk table): the kept rows' original indices in stably sorted
+// order (perm), the first sorted position of each segment (off), and the
+// chunks of kChunk rows of every segment longer than kChunk, counted from
+// the segment's own first row. The fit's ids stay fixed through a Newton
+// solve (and its labels through a whole fit), so one plan serves every
+// call of the solve.
+//
+// A call with a plan (segment_stats_f32 / _bf16) launches:
+//   1. segments_kernel: every segment of at most kChunk rows, empty ones
+//      included, is summed straight into out; a segment's rows are added
+//      one by one in their original order at each column;
+//   2. only when the plan has long segments: chunks_kernel sums each chunk
+//      the same way into a partial, and
+//   3. long_kernel adds a long segment's partials: lane l of a warp takes
+//      partials l, l + 32, ... in order, then a fixed shuffle tree adds the
+//      32 lane sums.
+// How threads map to the work keeps every lane busy at the fit's widths
+// (D = 1, 10, 16, 17 and 289): at D <= 32 a thread owns one (segment,
+// column) and consecutive threads own consecutive output values, so one
+// warp spans several segments; at larger D a warp owns a segment and a lane
+// up to NC columns lane, lane + 32, ..., so each row read is 128 bytes a
+// warp. A thread loads U rows (U * NC values) before it adds any, through
+// the plan's perm, so several loads are in flight a lane.
+//
+// A segment's sum so depends only on its own rows and their order: other
+// segments, N and S do not change it, and zero rows appended after its last
+// row only add zeros (a short segment that grows long sums the same rows in
+// the same order into its first chunk, and the other partials and lanes of
+// the tree are zeros). A segment that holds every row (S = 1, level 0) or a
+// quarter of them (a zipf head label) is spread over N / kChunk chunks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,12 +53,9 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int64_t kChunk = 256;   // rows of one chunk, and of one window
-constexpr int kSumWarps = 4;      // warps of a chunk_sums block
-constexpr int kStage = 1024;      // floats a warp stages at a time
-constexpr int kPerLane = kStage / kWarp;   // staged values a lane loads
-constexpr int kParts = 8;         // fixed split of a segment's partials
-constexpr int64_t kLongChunks = 32;   // more chunks: a block per segment
+constexpr int kChunk = 256;      // rows of a chunk; a longer segment is long
+constexpr int kThreads = 256;    // threads of a summing block
+constexpr int kFlatMaxD = 32;    // up to this D a thread owns one (segment, column)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -71,7 +73,7 @@ __global__ void keys_kernel(const Id* __restrict__ seg,
 
 // off[s] for s in [0, S]: the first sorted position whose id is >= s.
 __global__ void offsets_kernel(const int32_t* __restrict__ keys,
-                               int64_t* __restrict__ off, int64_t N,
+                               int32_t* __restrict__ off, int64_t N,
                                int64_t S) {
   const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (s > S) return;
@@ -80,242 +82,166 @@ __global__ void offsets_kernel(const int32_t* __restrict__ keys,
     const int64_t mid = (lo + hi) >> 1;
     if ((int64_t)keys[mid] < s) lo = mid + 1; else hi = mid;
   }
-  off[s] = lo;
+  off[s] = (int32_t)lo;
 }
 
-// grid = (ceil(n_win / kSumWarps), column tiles of kWarp * NC columns).
-// A lane owns columns lane, lane + 32, ... of the tile. The warp of window w
-// walks the sorted positions from the first chunk start at or after w's
-// start to the first chunk start at or after its end, 32 positions (a batch)
-// at a time: lane l loads position l's id, row and segment bounds at once,
-// so a run of small segments costs three dependent loads per batch, not per
-// chunk. Then the batch's rows are staged and added, row by row in order,
-// into the open chunk, which is written out when the next chunk starts.
-template <typename T, int NC>
-__global__ void __launch_bounds__(kSumWarps * kWarp)
-chunk_sums_kernel(const T* __restrict__ vals, const int32_t* __restrict__ keys,
-                  const int64_t* __restrict__ perm,
-                  const int64_t* __restrict__ off, float* __restrict__ out,
-                  float* __restrict__ head, float* __restrict__ tail,
-                  int64_t D, int64_t S, int64_t n_win) {
-  constexpr int kCols = kWarp * NC;
-  constexpr int kRows = kStage / kCols;             // rows staged at a time
-  constexpr int kBatch = (kWarp / kRows) * kRows;   // positions loaded at once
-  __shared__ float stage[kSumWarps][kStage];
-  __shared__ int64_t row_at[kSumWarps][kWarp];
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int64_t w = (int64_t)blockIdx.x * kSumWarps + warp;
-  if (w >= n_win) return;
-  const int64_t nv = off[S];              // kept rows, all sorted first
-  const int64_t wbeg = w * kChunk;
-  if (wbeg >= nv) return;
-  const int64_t wend = min(wbeg + kChunk, nv);
-  const int64_t col0 = (int64_t)blockIdx.y * kCols;
-  const unsigned tw = (unsigned)min((int64_t)kCols, D - col0);
-  float* st = stage[warp];
-  int64_t* rows_at = row_at[warp];
-
-  // The first chunk start at or after wbeg: inside the segment of wbeg, or
-  // the start of the next segment.
-  int64_t b;
-  {
-    const int32_t s = keys[wbeg];
-    const int64_t sb = off[s], se = off[s + 1];
-    b = sb + (wbeg - sb + kChunk - 1) / kChunk * kChunk;
-    if (b > se) b = se;
+// The thread's unit of work: item (a segment or a chunk) and its first
+// column. NC == 0: a thread per (item, column), consecutive threads on
+// consecutive output values. NC > 0: a warp per (item, tile of 32 * NC
+// columns), lane l owning columns l, l + 32, ... of the tile.
+template <int NC>
+__device__ __forceinline__ bool unit_of(int64_t n_items, int64_t D,
+                                        int64_t& item, int64_t& col) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (NC == 0) {
+    item = t / D;
+    col = t - item * D;
+  } else {
+    const int64_t w = t / kWarp, tiles = (D + kWarp * NC - 1) / (kWarp * NC);
+    item = w / tiles;
+    col = (w - item * tiles) * kWarp * NC + (t % kWarp);
   }
-  float acc[NC];
+  return item < n_items;
+}
+
+// acc[j] = sum over sorted positions p in [beg, end), in order, of
+// vals[perm[p], col + 32 j]: ((0 + v_beg) + v_beg+1) + ... . U rows are
+// loaded before any is added.
+template <typename T, int NC, int U>
+__device__ __forceinline__ void sum_rows(const T* __restrict__ vals,
+                                         const int32_t* __restrict__ perm,
+                                         int64_t D, int beg, int end,
+                                         int64_t col, float (&acc)[NC > 0 ? NC : 1]) {
+  constexpr int W = NC > 0 ? NC : 1;
 #pragma unroll
-  for (int j = 0; j < NC; ++j) acc[j] = 0.f;
-  int64_t c_start = -1, c_sb = 0, c_se = 0;   // the open chunk
-  int32_t c_s = 0;
-  auto flush = [&]() {
-    float* dst = (c_se - c_sb <= kChunk) ? out + (int64_t)c_s * D
-                                         : (c_start == c_sb ? tail : head) + w * D;
+  for (int j = 0; j < W; ++j) acc[j] = 0.f;
+  for (int p = beg; p < end; p += U) {
+    int64_t at[U];
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const unsigned col = lane + kWarp * j;
-      if (col < tw) dst[col0 + col] = acc[j];
-      acc[j] = 0.f;
-    }
-  };
-  while (b < nv) {
-    const int brows = (int)min((int64_t)kBatch, nv - b);
-    const int64_t p = b + lane;
-    const bool in = lane < brows;
-    const int32_t k = in ? keys[p] : 0;
-    const int64_t row = in ? perm[p] : 0;
-    const int64_t sb = in ? off[k] : 0;
-    const int64_t se = in ? off[k + 1] : 0;
-    const bool starts = in && (p - sb) % kChunk == 0;
-    // A chunk start at or after wend belongs to the next window.
-    const unsigned stop = __ballot_sync(kFull, starts && p >= wend);
-    const int rows_here = stop ? __ffs(stop) - 1 : brows;
-    rows_at[lane] = row * D + col0;
-    __syncwarp();
-    for (int g = 0; g < rows_here; g += kRows) {
-      const int rows = min(kRows, rows_here - g);
-      const unsigned total = (unsigned)rows * tw;
-      const int64_t* at = rows_at + g;
-      float v[kPerLane];
+    for (int u = 0; u < U; ++u)
+      at[u] = p + u < end ? (int64_t)__ldg(perm + p + u) * D : -1;
+    float v[U][W];
 #pragma unroll
-      for (int u = 0; u < kPerLane; ++u) {
-        const unsigned e = lane + kWarp * u;
-        if (e < total) {
-          const unsigned r = e / tw;
-          v[u] = to_float(vals[at[r] + (e - r * tw)]);
-        }
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        const int64_t c = col + kWarp * j;
+        v[u][j] = (at[u] >= 0 && c < D) ? to_float(__ldg(vals + at[u] + c)) : 0.f;
       }
 #pragma unroll
-      for (int u = 0; u < kPerLane; ++u) {
-        const unsigned e = lane + kWarp * u;
-        if (e < total) {
-          const unsigned r = e / tw;
-          st[r * kCols + (e - r * tw)] = v[u];
-        }
-      }
-      __syncwarp();
-      for (int r = 0; r < rows; ++r) {
-        if (__shfl_sync(kFull, (int)starts, g + r)) {
-          if (c_start >= 0) flush();
-          c_start = b + g + r;
-          c_s = __shfl_sync(kFull, k, g + r);
-          c_sb = __shfl_sync(kFull, sb, g + r);
-          c_se = __shfl_sync(kFull, se, g + r);
-        }
+    for (int u = 0; u < U; ++u)
+      if (p + u < end)
 #pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const unsigned col = lane + kWarp * j;
-          if (col < tw) acc[j] += st[r * kCols + col];
-        }
-      }
-      __syncwarp();
-    }
-    if (stop || brows < kBatch) break;
-    b += kBatch;
+        for (int j = 0; j < W; ++j) acc[j] += v[u][j];
   }
-  if (c_start >= 0) flush();
 }
 
-// Part p of the Q partials of a segment whose first chunk lies in window w0:
-// partials p, p + kParts, ... in order, where partial 0 is tail[w0] and
-// partial q > 0 is head[w0 + q].
-__device__ __forceinline__ float part_sum(const float* __restrict__ head,
-                                          const float* __restrict__ tail,
-                                          int64_t w0, int p, int64_t Q,
-                                          int64_t D, int64_t col) {
-  float a = 0.f;
-#pragma unroll 4
-  for (int64_t q = p; q < Q; q += kParts)
-    a += q == 0 ? tail[w0 * D + col] : head[(w0 + q) * D + col];
-  return a;
-}
-
-// grid = ceil(S / 8): warp w takes segment 8 * blockIdx.x + w. longs[0]
-// counts the listed long segments, longs[1 + j] holds them.
-__global__ void __launch_bounds__(kParts * kWarp)
-segments_kernel(const int64_t* __restrict__ off,
-                const float* __restrict__ head, const float* __restrict__ tail,
-                float* __restrict__ out, int64_t* __restrict__ longs,
+// Every segment of at most kChunk rows, straight into out (zeros for an
+// empty one); a longer segment is left to long_kernel.
+template <typename T, int NC, int U>
+__global__ void __launch_bounds__(kThreads)
+segments_kernel(const T* __restrict__ vals, const int32_t* __restrict__ perm,
+                const int32_t* __restrict__ off, float* __restrict__ out,
                 int64_t D, int64_t S) {
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int64_t s = (int64_t)blockIdx.x * kParts + warp;
-  if (s >= S) return;
-  const int64_t sb = off[s], cnt = off[s + 1] - sb;
-  if (cnt == 0) {
-    for (int64_t col = lane; col < D; col += kWarp) out[s * D + col] = 0.f;
-    return;
-  }
-  if (cnt <= kChunk) return;              // written by chunk_sums_kernel
-  const int64_t q = (cnt + kChunk - 1) / kChunk, w0 = sb / kChunk;
-  if (q > kLongChunks) {
-    if (lane == 0)
-      longs[1 + atomicAdd(reinterpret_cast<unsigned long long*>(longs), 1ull)] = s;
-    return;
-  }
-  for (int64_t col = lane; col < D; col += kWarp) {
-    float t = part_sum(head, tail, w0, 0, q, D, col);
-    for (int p = 1; p < kParts; ++p) t += part_sum(head, tail, w0, p, q, D, col);
-    out[s * D + col] = t;
-  }
-}
-
-// grid = (listed segments at most, ceil(D / 32)): block j sums listed
-// segment j for 32 columns, its 8 warps taking the 8 parts.
-__global__ void __launch_bounds__(kParts * kWarp)
-long_segments_kernel(const int64_t* __restrict__ off,
-                     const float* __restrict__ head,
-                     const float* __restrict__ tail, float* __restrict__ out,
-                     const int64_t* __restrict__ longs, int64_t D) {
-  __shared__ float part[kParts][kWarp];
-  if ((int64_t)blockIdx.x >= longs[0]) return;
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int64_t s = longs[1 + blockIdx.x];
-  const int64_t sb = off[s], cnt = off[s + 1] - sb;
-  const int64_t q = (cnt + kChunk - 1) / kChunk, w0 = sb / kChunk;
-  const int64_t col = (int64_t)blockIdx.y * kWarp + lane;
-  part[warp][lane] = col < D ? part_sum(head, tail, w0, warp, q, D, col) : 0.f;
-  __syncthreads();
-  if (warp == 0 && col < D) {
-    float t = part[0][lane];
+  int64_t s, col;
+  if (!unit_of<NC>(S, D, s, col)) return;
+  const int beg = __ldg(off + s), end = __ldg(off + s + 1);
+  if (end - beg > kChunk) return;
+  float acc[NC > 0 ? NC : 1];
+  sum_rows<T, NC, U>(vals, perm, D, beg, end, col, acc);
 #pragma unroll
-    for (int p = 1; p < kParts; ++p) t += part[p][lane];
-    out[s * D + col] = t;
-  }
+  for (int j = 0; j < (NC > 0 ? NC : 1); ++j)
+    if (col + kWarp * j < D) out[s * D + col + kWarp * j] = acc[j];
 }
 
-template <typename T, int NC>
-cudaError_t launch_sums(const T* vals, const int32_t* keys,
-                        const int64_t* perm, const int64_t* off, float* out,
-                        float* head, float* tail, int64_t D, int64_t S,
-                        int64_t n_win, cudaStream_t stream) {
-  const dim3 grid((unsigned)((n_win + kSumWarps - 1) / kSumWarps),
-                  (unsigned)((D + kWarp * NC - 1) / (kWarp * NC)));
-  chunk_sums_kernel<T, NC><<<grid, kSumWarps * kWarp, 0, stream>>>(
-      vals, keys, perm, off, out, head, tail, D, S, n_win);
-  return cudaGetLastError();
+// Chunk c = sorted positions [chunks[2c], chunks[2c + 1]) into part[c].
+template <typename T, int NC, int U>
+__global__ void __launch_bounds__(kThreads)
+chunks_kernel(const T* __restrict__ vals, const int32_t* __restrict__ perm,
+              const int32_t* __restrict__ chunks, float* __restrict__ part,
+              int64_t D, int64_t n_chunks) {
+  int64_t c, col;
+  if (!unit_of<NC>(n_chunks, D, c, col)) return;
+  float acc[NC > 0 ? NC : 1];
+  sum_rows<T, NC, U>(vals, perm, D, __ldg(chunks + 2 * c), __ldg(chunks + 2 * c + 1),
+                     col, acc);
+#pragma unroll
+  for (int j = 0; j < (NC > 0 ? NC : 1); ++j)
+    if (col + kWarp * j < D) part[c * D + col + kWarp * j] = acc[j];
 }
 
-template <typename T>
-int launch(const void* vals, const void* keys, const void* perm, void* off,
-           void* out, void* head, void* tail, void* longs, int64_t N,
-           int64_t D, int64_t S, void* stream_ptr) {
-  if (N == 0 || D == 0 || S == 0) return 0;
-  const cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int32_t* k = (const int32_t*)keys;
-  const int64_t* p = (const int64_t*)perm;
-  int64_t* o = (int64_t*)off;
-  offsets_kernel<<<(unsigned)((S + 1 + 255) / 256), 256, 0, stream>>>(k, o, N,
-                                                                      S);
+// A warp per (long segment i, column): lane l adds the segment's partials
+// l, l + 32, ... in order, then a fixed tree adds the 32 lane sums.
+__global__ void __launch_bounds__(kThreads)
+long_kernel(const float* __restrict__ part, const int32_t* __restrict__ long_seg,
+            const int32_t* __restrict__ long_first, float* __restrict__ out,
+            int64_t D, int64_t n_long) {
+  const int64_t w = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int64_t i = w / D, col = w - (w / D) * D;
+  if (i >= n_long) return;   // a whole warp: w is the same on every lane
+  const int first = __ldg(long_first + i), last = __ldg(long_first + i + 1);
+  float a = 0.f;
+  for (int q = first + lane; q < last; q += kWarp) a += part[(int64_t)q * D + col];
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) a += __shfl_down_sync(kFull, a, off);
+  if (lane == 0) out[(int64_t)__ldg(long_seg + i) * D + col] = a;
+}
+
+// Blocks of kThreads over n_units units of `per` threads each; false if
+// the grid would be too large.
+bool grid_for(int64_t n_units, int64_t per, unsigned& blocks) {
+  const int64_t b = (n_units * per + kThreads - 1) / kThreads;
+  if (b >= (int64_t)1 << 31) return false;
+  blocks = (unsigned)b;
+  return true;
+}
+
+template <typename T, int NC, int U>
+int launch_sums(const T* vals, const int32_t* perm, const int32_t* off,
+                const int32_t* chunks, const int32_t* long_seg,
+                const int32_t* long_first, float* part, float* out, int64_t D,
+                int64_t S, int64_t n_chunks, int64_t n_long,
+                cudaStream_t stream) {
+  // Threads a unit takes: one (NC == 0: a unit is one column) or a warp
+  // per tile of 32 * NC columns.
+  constexpr int kCols = kWarp * (NC > 0 ? NC : 1);
+  const int64_t per = NC == 0 ? D : kWarp * ((D + kCols - 1) / kCols);
+  unsigned blocks;
+  if (!grid_for(S, per, blocks)) return (int)cudaErrorInvalidConfiguration;
+  segments_kernel<T, NC, U><<<blocks, kThreads, 0, stream>>>(vals, perm, off, out, D, S);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int64_t n_win = (N + kChunk - 1) / kChunk;
-  const int64_t cols = (D + kWarp - 1) / kWarp;
-  const T* v = (const T*)vals;
-  float *ou = (float*)out, *hd = (float*)head, *tl = (float*)tail;
-  if (cols <= 1)
-    err = launch_sums<T, 1>(v, k, p, o, ou, hd, tl, D, S, n_win, stream);
-  else if (cols <= 2)
-    err = launch_sums<T, 2>(v, k, p, o, ou, hd, tl, D, S, n_win, stream);
-  else if (cols <= 4)
-    err = launch_sums<T, 4>(v, k, p, o, ou, hd, tl, D, S, n_win, stream);
-  else
-    err = launch_sums<T, 10>(v, k, p, o, ou, hd, tl, D, S, n_win, stream);
-  if (err != cudaSuccess) return (int)err;
-  int64_t* lg = (int64_t*)longs;
-  err = cudaMemsetAsync(lg, 0, sizeof(int64_t), stream);
-  if (err != cudaSuccess) return (int)err;
-  segments_kernel<<<(unsigned)((S + kParts - 1) / kParts), kParts * kWarp, 0,
-                    stream>>>(o, hd, tl, ou, lg, D, S);
+  if (err != cudaSuccess || n_long == 0) return (int)err;
+  if (!grid_for(n_chunks, per, blocks)) return (int)cudaErrorInvalidConfiguration;
+  chunks_kernel<T, NC, U><<<blocks, kThreads, 0, stream>>>(vals, perm, chunks, part, D,
+                                                           n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(n_win / kLongChunks + 1), (unsigned)cols);
-  long_segments_kernel<<<grid, kParts * kWarp, 0, stream>>>(o, hd, tl, ou, lg,
-                                                            D);
+  if (!grid_for(n_long * D, kWarp, blocks)) return (int)cudaErrorInvalidConfiguration;
+  long_kernel<<<blocks, kThreads, 0, stream>>>(part, long_seg, long_first, out, D, n_long);
   return (int)cudaGetLastError();
+}
+
+// D <= 32: a thread per output value, 8 rows in flight; wider: a warp per
+// segment and up to 32 * NC columns, NC * U values in flight a lane.
+template <typename T>
+int launch(const void* vals, const void* perm, const void* off, const void* chunks,
+           const void* long_seg, const void* long_first, void* part, void* out,
+           int64_t D, int64_t S, int64_t n_chunks, int64_t n_long, void* stream_ptr) {
+  if (D == 0 || S == 0) return 0;
+  const cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const T* v = (const T*)vals;
+  const int32_t *pm = (const int32_t*)perm, *of = (const int32_t*)off,
+                *ch = (const int32_t*)chunks, *ls = (const int32_t*)long_seg,
+                *lf = (const int32_t*)long_first;
+  float *pt = (float*)part, *ou = (float*)out;
+  if (D <= kFlatMaxD)
+    return launch_sums<T, 0, 8>(v, pm, of, ch, ls, lf, pt, ou, D, S, n_chunks, n_long, stream);
+  if (D <= 2 * kWarp)
+    return launch_sums<T, 2, 8>(v, pm, of, ch, ls, lf, pt, ou, D, S, n_chunks, n_long, stream);
+  if (D <= 4 * kWarp)
+    return launch_sums<T, 4, 4>(v, pm, of, ch, ls, lf, pt, ou, D, S, n_chunks, n_long, stream);
+  return launch_sums<T, 10, 2>(v, pm, of, ch, ls, lf, pt, ou, D, S, n_chunks, n_long, stream);
 }
 
 }  // namespace
@@ -323,7 +249,8 @@ int launch(const void* vals, const void* keys, const void* perm, void* off,
 // Plain C entry points, loaded with ctypes. Each returns cudaGetLastError()
 // after its launches (0 when they were accepted).
 
-// keys[i] = seg[i] where 0 <= seg[i] < S, else S (the dropped rows sort last).
+// The plan's first step: keys[i] = seg[i] where 0 <= seg[i] < S, else S
+// (the dropped rows sort last).
 extern "C" int segment_keys(const void* seg, int seg_is_int64, void* keys,
                             int64_t N, int64_t S, void* stream) {
   if (N == 0) return 0;
@@ -337,31 +264,40 @@ extern "C" int segment_keys(const void* seg, int seg_is_int64, void* keys,
   return (int)cudaGetLastError();
 }
 
-// keys: the stably sorted keys (N,); perm: their original row indices;
-// off: (S + 1,) int64 scratch; head, tail: (n_win, D) float32 scratch with
-// n_win = ceil(N / chunk_rows); longs: (n_win / long_chunks + 2,) int64
-// scratch; out: (S, D) float32.
-extern "C" int segment_stats_f32(const void* vals, const void* keys,
-                                 const void* perm, void* off, void* out,
-                                 void* head, void* tail, void* longs,
-                                 int64_t N, int64_t D, int64_t S,
-                                 void* stream) {
-  return launch<float>(vals, keys, perm, off, out, head, tail, longs, N, D, S,
-                       stream);
+// The plan's third step, after the stable sort: off (S + 1,) int32 from the
+// sorted keys (N,); off[S] counts the kept rows.
+extern "C" int segment_offsets(const void* keys, void* off, int64_t N,
+                               int64_t S, void* stream) {
+  offsets_kernel<<<(unsigned)((S + 1 + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)keys, (int32_t*)off, N, S);
+  return (int)cudaGetLastError();
 }
 
-extern "C" int segment_stats_bf16(const void* vals, const void* keys,
-                                  const void* perm, void* off, void* out,
-                                  void* head, void* tail, void* longs,
-                                  int64_t N, int64_t D, int64_t S,
-                                  void* stream) {
-  return launch<__nv_bfloat16>(vals, keys, perm, off, out, head, tail, longs,
-                               N, D, S, stream);
+// A call with a plan. perm: (kept rows,) int32 original row indices in
+// sorted order; off: (S + 1,) int32; chunks: (n_chunks, 2) int32 sorted
+// [begin, end) of the long segments' chunks, in segment order; long_seg:
+// (n_long,) int32 the long segments; long_first: (n_long + 1,) int32 each
+// long segment's first chunk; part: (n_chunks, D) float32 scratch; out:
+// (S, D) float32, every value written.
+extern "C" int segment_stats_f32(const void* vals, const void* perm, const void* off,
+                                 const void* chunks, const void* long_seg,
+                                 const void* long_first, void* part, void* out,
+                                 int64_t D, int64_t S, int64_t n_chunks,
+                                 int64_t n_long, void* stream) {
+  return launch<float>(vals, perm, off, chunks, long_seg, long_first, part, out, D, S,
+                       n_chunks, n_long, stream);
+}
+
+extern "C" int segment_stats_bf16(const void* vals, const void* perm, const void* off,
+                                  const void* chunks, const void* long_seg,
+                                  const void* long_first, void* part, void* out,
+                                  int64_t D, int64_t S, int64_t n_chunks,
+                                  int64_t n_long, void* stream) {
+  return launch<__nv_bfloat16>(vals, perm, off, chunks, long_seg, long_first, part, out,
+                               D, S, n_chunks, n_long, stream);
 }
 
 extern "C" int64_t segment_stats_chunk_rows() { return kChunk; }
-
-extern "C" int64_t segment_stats_long_chunks() { return kLongChunks; }
 
 extern "C" const char* segment_stats_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -8,12 +8,22 @@ h2o-danube-3-4b's shapes (Sq = Skv = 4,608, hd = 120, window 4,096) is bound
 by arithmetic (about 4*hd operations per (query, key) pair in the band) and
 decode (Sq = 1) by the bytes of the K/V cache, read once per step.
 
-``csrc/flash_attention.cu`` holds two kernels. Both give one block a tile of
+``csrc/flash_attention.cu`` holds three kernels. Each gives one block
 query rows of one (b, kv head), with the G = H / KV query heads of the group
-packed as rows so that K/V are never expanded and decode still fills a tile;
-both loop over only the KV tiles that meet the block's causal/window band,
-mask the ragged edges and keep the running state in registers.
-:func:`tensor_core_path` picks one from the operands alone:
+packed as rows so that K/V are never expanded and decode still fills a
+block; each visits only the keys of the block's causal/window band, masks
+the ragged edges and keeps the running state in registers.
+:func:`decode_path` and :func:`tensor_core_path` pick one from the operands
+alone:
+
+- the decode kernel takes bf16 q, k and v with at most 16 packed rows
+  (``Sq * G <= 16``: decode), ``hd % 8 == 0`` and 16-byte aligned pointers
+  and (b, h, s) strides. Lane groups of a block each take a few keys a
+  step and load their K and V rows 16 bytes a lane straight into
+  registers, compute logits, the online softmax and P V in float32, and
+  merge in a fixed order; the KV range is split over enough blocks to fill
+  the card (:func:`decode_splits`). The cache's bytes bound it, though at
+  h2o-danube's decode its instructions take longer.
 
 - the tensor-core kernel takes bf16 q, k and v with more than 16 packed rows
   (``Sq * G > 16``: prefill), ``hd <= 128`` and ``hd % 8 == 0``, 16-byte
@@ -23,13 +33,13 @@ mask the ragged edges and keep the running state in registers.
   keeps ~2^-17 of P's precision. It is bound by the tensor cores' rate; its
   MMA work is ~1.6x the operations the bound counts (hd padded to a
   multiple of 16, two MMAs for P V).
-- the FMA kernel takes every other call (decode, float32, hd > 128,
-  split-KV) and computes in float32 FMAs over tiles staged in shared
-  memory, so prefill in it is bound by the 67 TFLOP/s of float32 and decode
-  by the cache's bytes. Where its blocks are too few to fill the card
-  (decode: B * KV of them), each tile's KV range is split over several
-  blocks and a second kernel merges their partial softmax states in a fixed
-  order (split-KV).
+- the FMA kernel takes every other call (float32, hd > 128 in prefill, bf16
+  operands the other two refuse) and computes in float32 FMAs over tiles
+  staged in shared memory, so prefill in it is bound by the 67 TFLOP/s of
+  float32 and decode by the cache's bytes. Where its blocks are too few to
+  fill the card, each tile's KV range is split over several blocks and a
+  second kernel merges their partial softmax states in a fixed order
+  (split-KV), as it does for the decode kernel.
 
 Neither uses atomics: two calls give the same bits. The wrapper takes any
 Sq, Skv and hd <= 256 and any strides over (b, h, s) with the last
@@ -38,7 +48,8 @@ permuted views without copying.
 
 CPU tensors go to the plain version (:func:`..ref.flash_attention_ref`);
 CUDA tensors launch a kernel or raise. ``flash_attention.launches`` counts
-launches; ``tensor_core_launches`` and ``fma_launches`` split it by kernel.
+launches; ``decode_launches``, ``tensor_core_launches`` and ``fma_launches``
+split it by kernel.
 """
 from __future__ import annotations
 
@@ -58,6 +69,11 @@ TENSOR_CORE_MAX_HEAD_DIM = 128
 # when a (b, kv head) has at most 16, else 64; KV tiles of 64 keys.
 _FEW_ROWS, _BQ_FEW, _BQ, _BK = 16, 16, 64, 64
 _MIN_TILES_PER_SPLIT = 4
+# The decode kernel: a block per (b, kv head) and split of the KV range,
+# split so that every SM gets about this many blocks in one wave, each
+# split at least this many keys long.
+_DECODE_BLOCKS_PER_SM, _DECODE_MIN_KEYS = 3, 256
+_FMA, _TENSOR_CORES, _DECODE = 0, 1, 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,19 +106,42 @@ def n_splits(b, h, kv, sq, skv, causal, window, sm_count) -> int:
     return max(1, min(-(-2 * sm_count // blocks), tiles // _MIN_TILES_PER_SPLIT))
 
 
+def decode_splits(b, h, kv, sq, skv, causal, window, sm_count) -> int:
+    """How many blocks of the decode kernel share each row group's KV range:
+    about ``_DECODE_BLOCKS_PER_SM`` blocks per SM in all, each split at
+    least ``_DECODE_MIN_KEYS`` keys of the band."""
+    blocks = b * kv
+    band = skv
+    if causal and window > 0 and sq <= skv:
+        band = min(skv, window + sq - 1)
+    return max(1, min(_DECODE_BLOCKS_PER_SM * sm_count // blocks, band // _DECODE_MIN_KEYS))
+
+
+def _bf16_aligned(q, k, v) -> bool:
+    """q, k and v all bf16, hd % 8 == 0, every base pointer and (b, h, s)
+    stride 16-byte aligned. The output takes q's strides, or dense ones,
+    which are multiples of hd."""
+    return (q.dtype == k.dtype == v.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+                    for t in (q, k, v)))
+
+
+def decode_path(q, k, v) -> bool:
+    """Whether a call takes the decode kernel: q, k and v all bf16, at most
+    16 packed rows (``Sq * G <= 16``), ``hd % 8 == 0`` (hd <= 256), every
+    base pointer and (b, h, s) stride 16-byte aligned."""
+    _, h, sq, _ = q.shape
+    return sq * (h // k.shape[1]) <= _FEW_ROWS and _bf16_aligned(q, k, v)
+
+
 def tensor_core_path(q, k, v, split: int) -> bool:
     """Whether a call takes the tensor-core kernel: q, k and v all bf16,
-    more than 16 packed rows (``Sq * G > 16``, so decode keeps the FMA
+    more than 16 packed rows (``Sq * G > 16``, so decode takes the decode
     kernel), ``hd <= 128`` with ``hd % 8 == 0``, every base pointer and
-    (b, h, s) stride 16-byte aligned, and ``split`` (:func:`n_splits`) 1.
-    The output takes q's strides, or dense ones, which are multiples of hd."""
+    (b, h, s) stride 16-byte aligned, and ``split`` (:func:`n_splits`) 1."""
     _, h, sq, hd = q.shape
-    return (q.dtype == k.dtype == v.dtype == torch.bfloat16
-            and sq * (h // k.shape[1]) > _FEW_ROWS
-            and hd <= TENSOR_CORE_MAX_HEAD_DIM and hd % 8 == 0
-            and all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
-                    for t in (q, k, v))
-            and split == 1)
+    return (sq * (h // k.shape[1]) > _FEW_ROWS and hd <= TENSOR_CORE_MAX_HEAD_DIM
+            and _bf16_aligned(q, k, v) and split == 1)
 
 
 def _check(q, k, v) -> None:
@@ -149,8 +188,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if out.numel() == 0:
         return out
     lib = _lib()
-    split = n_splits(b, h, kv, sq, skv, causal, window, _sm_count(q.device.index))
-    tensor_cores = tensor_core_path(q, k, v, split)
+    sms = _sm_count(q.device.index)
+    if decode_path(q, k, v):
+        kernel, split = _DECODE, decode_splits(b, h, kv, sq, skv, causal, window, sms)
+    else:
+        split = n_splits(b, h, kv, sq, skv, causal, window, sms)
+        kernel = _TENSOR_CORES if tensor_core_path(q, k, v, split) else _FMA
     part_ml = part_acc = None
     if split > 1:
         slots = b * kv * split * sq * (h // kv)
@@ -162,12 +205,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             b, h, kv, sq, skv, hd, scale, int(causal), window, softcap,
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], split, int(tensor_cores),
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], split, kernel,
             None if part_ml is None else part_ml.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(), stream)
     build.check_launch(lib, "flash_attention", code)
     flash_attention.launches += 1
-    if tensor_cores:
+    if kernel == _DECODE:
+        flash_attention.decode_launches += 1
+    elif kernel == _TENSOR_CORES:
         flash_attention.tensor_core_launches += 1
     else:
         flash_attention.fma_launches += 1
@@ -175,5 +220,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+flash_attention.decode_launches = 0
 flash_attention.tensor_core_launches = 0
 flash_attention.fma_launches = 0

@@ -19,10 +19,12 @@ and in bfloat16 within one bfloat16 ulp of each output row's scale (2^-8 of
 the row's largest |output| plus 2^-7 relative) and 2^-11 relative RMS over
 the output: both compute in float32 (the tensor-core kernel multiplies bf16
 values exactly and keeps P as bf16 hi + lo, ~2^-17 of P) and round once.
-On the CPU, ``tensor_core_path`` (which kernel a call takes) is checked
-case by case, and an emulation of the tensor-core kernel's P V numerics
-shows why P is split: hi + lo meets the 2^-11 bound, P rounded to bf16 once
-does not.
+On the CPU, ``decode_path`` and ``tensor_core_path`` (which kernel a call
+takes) and ``decode_splits`` are checked case by case, and an emulation of
+the tensor-core kernel's P V numerics shows why P is split: hi + lo meets
+the 2^-11 bound, P rounded to bf16 once does not. On a card the decode
+kernel (bf16, at most 16 packed rows) is held the same way over G = 1, 2,
+4 and 8, hd 8 to 256, softcap, windows, ragged Skv and split KV ranges.
 """
 import zlib
 
@@ -32,7 +34,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import tensor_core_path
+from repro_torch.kernels.flash_attention import decode_path, decode_splits, tensor_core_path
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -244,6 +246,63 @@ def test_tensor_core_path_needs_aligned_bf16_operands(bad):
     assert not tensor_core_path(q, k, v, 1)
 
 
+# (name, layout, B, H, KV, Sq, Skv, hd, dtype, decode path?)
+DECODE_PATH_CASES = [
+    ("danube_decode", "model", 4, 32, 8, 1, 1000, 120, torch.bfloat16, True),
+    ("gemma2_decode", "model", 4, 32, 16, 1, 1000, 128, torch.bfloat16, True),
+    ("stablelm_decode", "model", 4, 32, 32, 1, 1000, 80, torch.bfloat16, True),
+    ("packed_rows_16", "contiguous", 1, 4, 1, 4, 40, 64, torch.bfloat16, True),
+    ("hd_256", "contiguous", 1, 4, 2, 1, 300, 256, torch.bfloat16, True),
+    ("hd_8", "contiguous", 1, 8, 4, 1, 5, 8, torch.bfloat16, True),
+    ("packed_rows_17", "contiguous", 1, 1, 1, 17, 17, 64, torch.bfloat16, False),
+    ("danube_prefill", "model", 1, 32, 8, 300, 300, 120, torch.bfloat16, False),
+    ("float32_decode", "model", 4, 32, 8, 1, 1000, 120, torch.float32, False),
+    ("hd_not_multiple_of_8", "contiguous", 1, 4, 2, 1, 300, 36, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_PATH_CASES, ids=[c[0] for c in DECODE_PATH_CASES])
+def test_decode_path(case):
+    """Which calls the decode kernel takes, read from the operands alone; no
+    call meets both its rule and the tensor-core kernel's."""
+    name, kind, b, h, kv, sq, skv, hd, dtype, want = case
+    q, k, v = _layout(kind, b, h, kv, sq, skv, hd, dtype)
+    assert decode_path(q, k, v) is want
+    assert not (decode_path(q, k, v) and tensor_core_path(q, k, v, 1))
+
+
+@pytest.mark.parametrize("bad", ["q_pointer", "k_pointer", "q_stride", "v_stride",
+                                 "mixed_dtypes"])
+def test_decode_path_needs_aligned_bf16_operands(bad):
+    """h2o-danube decode in the model's layout takes the decode kernel, but
+    not with one operand 2 bytes off 16-byte alignment or of another dtype."""
+    q, k, v = _layout("model", 2, 32, 8, 1, 500, 120)
+    assert decode_path(q, k, v)
+    if bad == "q_pointer":
+        q = torch.zeros(q.numel() + 1, dtype=q.dtype)[1:].view(q.shape)
+    elif bad == "k_pointer":
+        k = torch.zeros(k.numel() + 1, dtype=k.dtype)[1:].view(k.shape)
+    elif bad == "q_stride":     # rows of 32 * 120 + 4 elements
+        q = torch.zeros((2, 1, 32 * 120 + 4), dtype=q.dtype)[..., :32 * 120]
+        q = q.view(2, 1, 32, 120).transpose(1, 2)
+    elif bad == "v_stride":
+        v = torch.zeros((2, 500, 8, 124), dtype=v.dtype)[..., :120].transpose(1, 2)
+    else:
+        k = k.float()
+    assert not decode_path(q, k, v)
+
+
+def test_decode_split_counts():
+    """The decode kernel's KV range is split so that 132 SMs get about 3
+    blocks each in one wave, every split at least 256 keys of the band."""
+    assert decode_splits(4, 32, 8, 1, 4640, True, 4096, 132) == 12      # (b): 384 blocks
+    assert decode_splits(4, 32, 16, 1, 2080, True, 4096, 132) == 6      # gemma2 decode
+    assert decode_splits(4, 32, 32, 1, 2080, True, 0, 132) == 3         # stablelm decode
+    assert decode_splits(4, 32, 8, 1, 1037, True, 512, 132) == 2        # the band is short
+    assert decode_splits(1, 4, 1, 4, 300, True, 0, 132) == 1            # 16 rows, 300 keys
+    assert decode_splits(64, 32, 8, 1, 4640, True, 4096, 132) == 1      # blocks enough
+
+
 def _tc_emulation(q, k, v, *, split_p, window=0, block=64):
     """The tensor-core kernel's numerics on the CPU, causal, scale 1: bf16
     q, k, v; S in float32 (exact bf16 products); an online softmax over KV
@@ -431,3 +490,55 @@ def test_cuda_rejects_head_dim_over_256(cuda):
     q = torch.zeros((1, 1, 2, 264), device=cuda)
     with pytest.raises(ValueError, match="hd <= 256"):
         ops.flash_attention(q, q, q)
+
+
+# (name, B, H, KV, Sq, Skv, hd, causal, window, softcap, layout): bf16 calls
+# of the decode kernel. G = 1, 2, 4 (and 8 with Sq > 1), hd 8 to 256, the
+# window's edge, softcap, ragged Skv, 16 packed rows in two blocks, rows
+# with no visible key; most split the KV range over several blocks.
+DECODE_CARD_CASES = [
+    ("g4_hd120_window", 4, 32, 8, 1, 4640, 120, True, 4096, 0.0, "model"),
+    ("g2_hd128_softcap_window", 4, 32, 16, 1, 2080, 128, True, 4096, 50.0, "model"),
+    ("g1_hd80_causal", 4, 32, 32, 1, 2080, 80, True, 0, 0.0, "model"),
+    ("g4_hd64_softcap_ragged", 3, 8, 2, 1, 1001, 64, True, 0, 30.0, "contiguous"),
+    ("g2_hd120_window_short", 2, 4, 2, 1, 333, 120, True, 100, 0.0, "model"),
+    ("g1_hd128_not_causal", 1, 4, 4, 1, 777, 128, False, 0, 0.0, "contiguous"),
+    ("g4_sq4_rows16_window", 1, 4, 1, 4, 300, 64, True, 50, 0.0, "contiguous"),
+    ("g2_sq3_window", 2, 8, 4, 3, 500, 80, True, 130, 0.0, "model"),
+    ("g8_sq2_not_causal_window", 1, 8, 1, 2, 600, 120, False, 70, 0.0, "contiguous"),
+    ("hd8_fewer_keys_than_a_step", 1, 8, 4, 1, 5, 8, True, 0, 0.0, "contiguous"),
+    ("hd256", 1, 4, 2, 1, 900, 256, True, 0, 0.0, "contiguous"),
+    ("no_visible_key", 1, 2, 2, 4, 3, 64, True, 0, 0.0, "contiguous"),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CARD_CASES, ids=[c[0] for c in DECODE_CARD_CASES])
+def test_cuda_decode_kernel_matches_plain(cuda, case):
+    """The decode kernel against its plain version (one bf16 ulp of each
+    row's scale, 2^-11 relative RMS), two calls bit-equal, one decode launch
+    each, the output in q's layout."""
+    name, b, h, kv, sq, skv, hd, causal, window, softcap, kind = case
+    qn, kn, vn = _qkv(len(name) * 104_729 + skv, b, h, kv, sq, skv, hd)
+    if kind == "model":
+        q = torch.from_numpy(qn).to(cuda, torch.bfloat16).transpose(1, 2).contiguous()
+        q = q.transpose(1, 2)
+        cache = torch.zeros((2, b, skv + 32, kv, hd), dtype=torch.bfloat16, device=cuda)
+        cache[0, :, :skv] = torch.from_numpy(kn).to(cuda, torch.bfloat16).transpose(1, 2)
+        cache[1, :, :skv] = torch.from_numpy(vn).to(cuda, torch.bfloat16).transpose(1, 2)
+        k, v = cache[0, :, :skv].transpose(1, 2), cache[1, :, :skv].transpose(1, 2)
+    else:
+        q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (qn, kn, vn))
+    assert decode_path(q, k, v)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = (ops.flash_attention.decode_launches, ops.flash_attention.launches)
+    got = ops.flash_attention(q, k, v, **kw)
+    again = ops.flash_attention(q, k, v, **kw)
+    want = tref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention.decode_launches, ops.flash_attention.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert got.dtype == q.dtype and got.stride() == q.stride()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    assert _card_close(got, want), float((got.float() - want.float()).abs().max())
+

@@ -315,9 +315,9 @@ def test_segment_sums_go_through_ops(monkeypatch):
     calls = []
     real = ops.segment_stats
 
-    def counting(vals, seg, num_segments):
+    def counting(vals, seg, num_segments, plan=None):
         calls.append((vals.shape[1], num_segments))
-        return real(vals, seg, num_segments)
+        return real(vals, seg, num_segments, plan=plan)
 
     monkeypatch.setattr(ops, "segment_stats", counting)
     x, y, _, _ = _clustered(seed=3, c=16, n=600, k=4)

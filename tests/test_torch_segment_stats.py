@@ -16,6 +16,8 @@ The ``test_cuda_*`` tests need an NVIDIA card and skip elsewhere; they do not
 import JAX. On a card, from the root of a checkout:
     PYTHONPATH=src python -m pytest -q -p no:cacheprovider --noconftest -k cuda tests/test_torch_segment_stats.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -157,6 +159,46 @@ def test_rejects_what_the_kernel_does_not_take(bad):
         ops.segment_stats(vals, seg, s)
 
 
+@pytest.mark.parametrize("n,d,s,oob", SHAPES)
+def test_plan_gives_the_same_bits_on_the_plain_version(n, d, s, oob):
+    """On the CPU a plan changes nothing: the plain version runs either way."""
+    vals, seg = (torch.from_numpy(a) for a in _inputs(n + 2 * d + s, n, d, s, out_of_range=oob))
+    before = ops.segment_stats.plans, ops.segment_stats.launches
+    plan = ops.segment_plan(seg, s)
+    assert (plan.n, plan.num_segments, plan.device) == (n, s, seg.device)
+    assert plan.perm is None and plan.n_chunks == 0
+    got = ops.segment_stats(vals, seg, s, plan=plan)
+    assert (ops.segment_stats.plans, ops.segment_stats.launches) == before
+    assert torch.equal(got, ops.segment_stats(vals, seg, s))
+
+
+@pytest.mark.parametrize("bad", ["rows", "segments", "device"])
+def test_plan_for_other_ids_is_refused(bad):
+    vals, seg = (torch.from_numpy(a) for a in _inputs(4, 50, 3, 6))
+    plan = ops.segment_plan(seg, 6)
+    if bad == "rows":
+        plan = ops.segment_plan(seg[:49], 6)
+    elif bad == "segments":
+        plan = ops.segment_plan(seg, 7)
+    else:
+        plan = dataclasses.replace(plan, device=torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="plan"):
+        ops.segment_stats(vals, seg, 6, plan=plan)
+
+
+def test_chunk_table_counts_chunks_from_each_segments_first_row():
+    """The long segments' chunks: 256 rows each from the segment's own first
+    sorted position, the last one ragged, listed in segment order."""
+    from repro_torch.kernels.segment_scores import chunk_table
+    off = torch.tensor([0, 3, 3, 600, 610, 1122, 1122], dtype=torch.int32)
+    chunks, long_seg, long_first = chunk_table(off, 256)
+    assert chunks.tolist() == [[3, 259], [259, 515], [515, 600], [610, 866], [866, 1122]]
+    assert long_seg.tolist() == [2, 4] and long_first.tolist() == [0, 3, 5]
+    assert all(t.dtype == torch.int32 for t in (chunks, long_seg, long_first))
+    assert chunk_table(torch.tensor([0, 5, 261, 261], dtype=torch.int32), 256) == (
+        None, None, None)
+
+
 # ---------------------------------------------------------------------------
 # On a card: the kernel against its plain version, and bit-exact replay.
 # ---------------------------------------------------------------------------
@@ -229,3 +271,48 @@ def test_cuda_rejects_float64_vals(cuda):
 
 def test_segment_scores_is_a_kernel_source():
     assert "segment_scores" in build.SOURCES
+
+
+@pytest.mark.parametrize("d", [1, 10, 17, 289])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_plan_reuse_matches_a_fresh_plan_and_the_plain_version(cuda, d, dtype):
+    """The fit's widths: one plan reused over calls on other values gives the
+    bits of a call that builds its own plan, within CARD_TOL of the plain
+    version. A zipf head segment takes the long-segment path."""
+    n, s = 40_000, 3000
+    vals, seg = _inputs(d, n, d, s, out_of_range=True, zipf=True)
+    ts = torch.from_numpy(seg).to(cuda)
+    plans = ops.segment_stats.plans
+    plan = ops.segment_plan(ts, s)
+    assert ops.segment_stats.plans == plans + 1 and plan.n_long > 0
+    for step in range(3):
+        tv = (torch.from_numpy(vals) * (1.0 + step)).to(cuda).to(dtype)
+        launches = ops.segment_stats.launches
+        got = ops.segment_stats(tv, ts, s, plan=plan)
+        assert ops.segment_stats.plans == plans + 1 + step
+        fresh = ops.segment_stats(tv, ts, s)
+        assert ops.segment_stats.plans == plans + 2 + step
+        assert ops.segment_stats.launches == launches + 2
+        torch.cuda.synchronize()
+        assert torch.equal(got, fresh)
+        _assert_close(got, tref.segment_stats_ref(tv, ts, s), _scale(tv, ts, s), CARD_TOL)
+
+
+@pytest.mark.parametrize("d", [1, 17, 289])
+def test_cuda_appended_zero_rows_are_invisible_with_a_plan(cuda, d):
+    """Zero rows appended after the data, in short and long segments (and one
+    short segment that they make long), leave every segment's sum bit for bit
+    the same, through plans as the fit builds them."""
+    vals, seg = _inputs(9 + d, 6000, d, 40)
+    seg[:300] = 39                                          # a long segment
+    seg[300:] = np.where(seg[300:] == 39, 38, seg[300:])
+    seg[seg == 1] = 2
+    seg[:250:25] = 1                                        # 10 rows: short
+    tv, ts = torch.from_numpy(vals).to(cuda), torch.from_numpy(seg).to(cuda)
+    base = ops.segment_stats(tv, ts, 40, plan=ops.segment_plan(ts, 40))
+    pad_ids = torch.tensor([1] * 300 + [39] * 700 + [5] * 3, device=cuda)
+    more_v = torch.cat([tv, torch.zeros((pad_ids.numel(), d), device=cuda)])
+    more_s = torch.cat([ts, pad_ids])
+    plan = ops.segment_plan(more_s, 40)
+    assert 1 in plan.long_seg.tolist() and 39 in plan.long_seg.tolist()
+    assert torch.equal(base, ops.segment_stats(more_v, more_s, 40, plan=plan))
