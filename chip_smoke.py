@@ -6,13 +6,17 @@ Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 Phases, each fatal on failure:
   1. report the card (nvidia-smi name and power limit) and the TF32 switches;
   2. build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
-  3. hold each kernel against its plain PyTorch version at the shapes of the
-     main paths (full ``xc_linear`` width; ``sampled_head_loss`` for all 7
-     kinds, both table dtypes, reg/softcap off and on; ``segment_stats`` at
-     the generator fit's 8 shapes over N = 524,288 points, bit-exact across
-     two calls with one plan and a call that sorts its own ids; the plan and
-     a call with it timed apart), time both, and check the prediction path
-     on a small input against the port's CPU run;
+  3. time an empty kernel launched through the same ctypes path (the launch
+     floor, printed beside each bound); hold each kernel against its plain
+     PyTorch version at the shapes of the main paths (full ``xc_linear``
+     width; ``sampled_head_loss`` for all 7 kinds, both table dtypes,
+     reg/softcap off and on, two calls bit-equal; ``tree_logprob_all`` and
+     ``gather_scores`` also at the LM-serving path's shapes, the former
+     timed beside its FMA kernel and two calls bit-equal; ``segment_stats``
+     at the generator fit's 8 shapes over N = 524,288 points, bit-exact
+     across two calls with one plan and a call that sorts its own ids; the
+     plan and a call with it timed apart), time both, and check the
+     prediction path on a small input against the port's CPU run;
   4. the prediction path at full ``xc_linear`` width (C = 217,240, K = 512,
      k = 16, depth 18): 4 request batches of 256 queries through dense Eq. 5
      prediction and tree-beam top-k, launch counters reset just before and
@@ -61,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import subprocess
 import sys
@@ -82,6 +87,7 @@ from repro_torch.core import heads, tree as tree_lib, tree_fit, xc_train  # noqa
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.genfit import levels as genfit_levels  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import tree_logprob  # noqa: E402
 from repro_torch.kernels.sampled_loss import SAMPLED_KINDS  # noqa: E402
 from repro_torch.optim import OptimizerConfig, apply_updates, init_opt_state  # noqa: E402
 from repro_torch.optim.sparse import accumulate_rows  # noqa: E402
@@ -206,6 +212,20 @@ def time_ms(fn, flush: torch.Tensor, iters: int = TIMING_ITERS) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def kernel_device_ms(fn, flush, name: str, iters: int = TIMING_ITERS) -> float:
+    """Mean device time of the kernels named ``name`` in one call of ``fn``,
+    by torch.profiler, L2 flushed before each call: the kernel's own run,
+    without the launch that ``time_ms`` also counts."""
+    def calls():
+        for _ in range(iters):
+            flush.sum()
+            fn()
+    fn()
+    torch.cuda.synchronize()
+    by_name, _, _, _ = profile_by_kernel(calls)
+    return sum(v for k, v in by_name.items() if name in k) / iters
+
+
 def bound_ms(n_bytes: float, n_flop: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / FP32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -218,58 +238,132 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def check_gather(dev, gen, flush, cfg):
-    c, kdim = cfg.num_labels, cfg.feature_dim
-    w32 = 0.05 * torch.randn((c, kdim), generator=gen, device=dev)
-    b32 = 0.1 * torch.randn((c,), generator=gen, device=dev)
-    h = torch.randn((BATCH, kdim), generator=gen, device=dev)
-    ids = torch.randint(0, c, (BATCH, BEAM), generator=gen, device=dev)
-    rows = torch.unique(ids).numel()
+def check_gather(dev, gen, flush, cfg, floor):
+    """Full xc_linear width (B = 256, 64 candidates, K = 512) in both table
+    dtypes, and the LM-serving beam path's call: 4 rows, 64 candidates,
+    K = d_model = 3,840 of h2o-danube-3-4b, the head's float32 table."""
+    serve_cfg = configs.get_config(SERVE_ARCH)
+    shapes = [("xc_linear", cfg.num_labels, cfg.feature_dim, BATCH, BEAM, 0.05,
+               (torch.float32, torch.bfloat16)),
+              ("serving_beam", serve_cfg.padded_vocab, serve_cfg.d_model, SERVE_BATCH,
+               SERVE_BEAM, 0.02, (torch.float32,))]
     result = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        w, b = w32.to(dtype), b32.to(dtype)
-        got = ops.gather_scores(w, b, h, ids)
-        want = ref.gather_scores_ref(w, b, h, ids)
+    for shape, c, kdim, t, n, scale, dtypes in shapes:
+        w32 = scale * torch.randn((c, kdim), generator=gen, device=dev)
+        b32 = 0.1 * torch.randn((c,), generator=gen, device=dev)
+        h = torch.randn((t, kdim), generator=gen, device=dev)
+        ids = torch.randint(0, c, (t, n), generator=gen, device=dev)
+        rows = torch.unique(ids).numel()
+        for dtype in dtypes:
+            w, b = w32.to(dtype), b32.to(dtype)
+            got = ops.gather_scores(w, b, h, ids)
+            want = ref.gather_scores_ref(w, b, h, ids)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            what = f"gather_scores {shape} {str(dtype)[6:]}: T={t} n={n} K={kdim} C={c}"
+            print(f"{what} max_abs_err={err:.3e} tol={GATHER_TOL}")
+            check(close(got, want, GATHER_TOL), f"{what} disagrees")
+            elt = w.element_size()
+            n_bytes = (rows * kdim * elt + rows * elt + ids.numel() * 8
+                       + h.numel() * 4 + ids.numel() * 4)
+            bound, by = bound_ms(n_bytes, ids.numel() * (2 * kdim + 1))
+            ms = time_ms(lambda: ops.gather_scores(w, b, h, ids), flush)
+            plain = time_ms(lambda: ref.gather_scores_ref(w, b, h, ids), flush)
+            print(f"{what}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}, {rows} distinct rows), launch floor {floor:.4f} ms")
+            result[(shape, str(dtype)[6:])] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                                   bound_ms=bound, bound_by=by)
+    print(json.dumps({"gather_scores": {f"{k[0]}/{k[1]}": v for k, v in result.items()}}))
+    return result[("xc_linear", "float32")]
+
+
+def launch_floor_ms(flush):
+    """Time of an empty kernel launched through the ctypes path, by
+    ``time_ms`` and by the profiler (``kernel_device_ms``)."""
+    lib = build.load("empty")
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+
+    def launch():
+        build.check_launch(lib, "empty", lib.empty_launch(torch.cuda.current_stream().cuda_stream))
+
+    return time_ms(launch, flush), kernel_device_ms(launch, flush, "empty_kernel")
+
+
+def tree_shapes(cfg):
+    """(name, labels, k, B, init scale) of tree_logprob_all's two calls."""
+    serve_cfg = configs.get_config(SERVE_ARCH)
+    return [("prediction", cfg.num_labels, cfg.gen_feature_dim, BATCH, 1.0),
+            ("serving_dense", serve_cfg.vocab_size, serve_cfg.gen_feature_dim, SERVE_BATCH,
+             0.05)]
+
+
+def sampled_shapes(cfg):
+    """(T, m) of sampled_head_loss's two checked shapes."""
+    return {"main": (256, 1 + cfg.n_neg), "wide": WIDE_SHAPE}
+
+
+def check_tree(dev, gen, flush, cfg, floor):
+    """Dense prediction's call (B = 256, xc_linear's tree: C_pad = 262,144,
+    depth 18, k = 16) and the LM-serving dense path's (B = 4, h2o-danube's
+    tree over 32,000 labels: C_pad = 32,768, depth 15, k = 32): kernel
+    against plain version, two calls bit-equal, the launch plan's kernel
+    timed beside the FMA kernel on the same inputs."""
+    shapes = tree_shapes(cfg)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    result = {}
+    for shape, c, kg, bsz, scale in shapes:
+        tree = tree_lib.init_tree(gen, c, kg, scale=scale, device=dev)
+        x = torch.randn((bsz, kg), generator=gen, device=dev)
+        plan = tree_logprob.launch_plan(bsz, tree.depth, sm_count)
+        before = ops.tree_logprob_all.tensor_core_launches
+        got = ops.tree_logprob_all(tree.w, tree.b, x)
+        again = ops.tree_logprob_all(tree.w, tree.b, x)
+        took_tc = ops.tree_logprob_all.tensor_core_launches - before == 2
+        want = ref.tree_logprob_all_ref(tree.w, tree.b, x)
+        fma_out = torch.empty_like(got)
+        tree_logprob._launch(tree.w, tree.b, x, fma_out, tree.depth, tree_logprob.FMA, 0, 0)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        print(f"gather_scores {str(dtype)[6:]}: T={BATCH} n={BEAM} K={kdim} C={c} "
-              f"max_abs_err={err:.3e} tol={GATHER_TOL}")
-        check(close(got, want, GATHER_TOL), f"gather_scores {dtype} disagrees")
-        elt = w.element_size()
-        n_bytes = (rows * kdim * elt + rows * elt + ids.numel() * 8
-                   + h.numel() * 4 + ids.numel() * 4)
-        bound, by = bound_ms(n_bytes, ids.numel() * (2 * kdim + 1))
-        ms = time_ms(lambda: ops.gather_scores(w, b, h, ids), flush)
-        plain = time_ms(lambda: ref.gather_scores_ref(w, b, h, ids), flush)
-        print(f"gather_scores {str(dtype)[6:]}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}, {rows} distinct rows)")
-        result[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                             bound_ms=bound, bound_by=by)
-    return result[torch.float32]
-
-
-def check_tree(dev, gen, flush, cfg):
-    tree = tree_lib.init_tree(gen, cfg.num_labels, cfg.gen_feature_dim,
-                              scale=1.0, device=dev)
-    x = torch.randn((BATCH, cfg.gen_feature_dim), generator=gen, device=dev)
-    got = ops.tree_logprob_all(tree.w, tree.b, x)
-    want = ref.tree_logprob_all_ref(tree.w, tree.b, x)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    pad = got[:, cfg.num_labels:]
-    print(f"tree_logprob_all: B={BATCH} k={cfg.gen_feature_dim} depth={tree.depth} "
-          f"C_pad={got.shape[1]} max_abs_err={err:.3e} tol={TREE_TOL} "
-          f"padding leaves in [{float(pad.min()):.1f}, {float(pad.max()):.1f}]")
-    check(bool(torch.isfinite(got).all()), "tree_logprob_all gives non-finite values")
-    check(close(got, want, TREE_TOL), "tree_logprob_all disagrees")
-    n_nodes, kg = tree.w.shape
-    n_bytes = got.numel() * 4 + tree.w.numel() * 4 + tree.b.numel() * 4 + x.numel() * 4
-    bound, by = bound_ms(n_bytes, BATCH * n_nodes * (2 * kg + 3))
-    ms = time_ms(lambda: ops.tree_logprob_all(tree.w, tree.b, x), flush)
-    plain = time_ms(lambda: ref.tree_logprob_all_ref(tree.w, tree.b, x), flush)
-    print(f"tree_logprob_all: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {bound:.4f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+        fma_err = float((fma_out - want).abs().max())
+        pad = got[:, c:]
+        what = (f"tree_logprob_all {shape}: B={bsz} k={kg} depth={tree.depth} "
+                f"C_pad={got.shape[1]}")
+        print(f"{what} plan={plan} max_abs_err={err:.3e} (FMA kernel {fma_err:.3e}) "
+              f"tol={TREE_TOL} padding leaves in [{float(pad.min()):.1f}, "
+              f"{float(pad.max()):.1f}]")
+        check(took_tc and plan[0] == tree_logprob.TENSOR_CORES,
+              f"{what}: not on the tensor-core kernel")
+        check(bool(torch.isfinite(got).all()), f"{what} gives non-finite values")
+        check(close(got, want, TREE_TOL), f"{what} disagrees")
+        check(torch.equal(got, again), f"{what}: two calls differ")
+        check(close(fma_out, want, TREE_TOL), f"{what}: the FMA kernel disagrees")
+        del again, fma_out, want
+        n_nodes, _ = tree.w.shape
+        n_bytes = got.numel() * 4 + tree.w.numel() * 4 + tree.b.numel() * 4 + x.numel() * 4
+        bound, by = bound_ms(n_bytes, bsz * n_nodes * (2 * kg + 3))
+        out = torch.empty_like(got)
+        fma = time_ms(lambda: tree_logprob._launch(tree.w, tree.b, x, out, tree.depth,
+                                                   tree_logprob.FMA, 0, 0), flush)
+        ms = time_ms(lambda: ops.tree_logprob_all(tree.w, tree.b, x), flush)
+        fma_again = time_ms(lambda: tree_logprob._launch(tree.w, tree.b, x, out, tree.depth,
+                                                         tree_logprob.FMA, 0, 0), flush)
+        plain = time_ms(lambda: ref.tree_logprob_all_ref(tree.w, tree.b, x), flush)
+        device = kernel_device_ms(lambda: ops.tree_logprob_all(tree.w, tree.b, x), flush,
+                                  "tree_logprob_tc_kernel")
+        fma_device = kernel_device_ms(lambda: tree_logprob._launch(
+            tree.w, tree.b, x, out, tree.depth, tree_logprob.FMA, 0, 0), flush,
+            "tree_logprob_kernel")
+        print(f"{what}: kernel {ms:.4f} ms, FMA kernel {fma:.4f} / {fma_again:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bound:.4f} ms ({by}), launch floor {floor:.4f} ms; "
+              f"device time alone (profiler): kernel {device:.4f} ms, FMA {fma_device:.4f} ms")
+        result[shape] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                             bound_by=by, fma_ms=[fma, fma_again], plan=list(plan),
+                             device_ms=device, fma_device_ms=fma_device)
+        del got, out, tree, x
+    print(json.dumps({"tree_logprob_all": result}))
+    main = result["prediction"]
+    return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
 
 
 def dh_close(got, want, coeff, w, ids) -> bool:
@@ -287,14 +381,15 @@ def sampled_inputs(dev, gen, c, kdim, t, m):
     return h, ids, lp
 
 
-def check_sampled_loss(dev, gen, flush, cfg):
+def check_sampled_loss(dev, gen, flush, cfg, floor):
     """Every kind, both table dtypes, reg/softcap off and on, at the training
-    shape (T = 256, m = 2) and at T = 2048, m = 17; kernel and plain version
-    timed at both shapes for the main path's kind."""
+    shape (T = 256, m = 2) and at T = 2048, m = 17, two calls bit-equal;
+    kernel and plain version timed at both shapes and dtypes for the main
+    path's kind."""
     c, kdim = cfg.num_labels, cfg.feature_dim
     w32 = 0.05 * torch.randn((c, kdim), generator=gen, device=dev)
     b32 = 0.1 * torch.randn((c,), generator=gen, device=dev)
-    shapes = {"main": (256, 1 + cfg.n_neg), "wide": WIDE_SHAPE}
+    shapes = sampled_shapes(cfg)
     errs, timed = {}, {}
     for shape_name, (t, m) in shapes.items():
         h, ids, lp = sampled_inputs(dev, gen, c, kdim, t, m)
@@ -305,9 +400,12 @@ def check_sampled_loss(dev, gen, flush, cfg):
                 for reg, softcap in ((0.0, 0.0), (cfg.head_reg, 25.0)):
                     kw = dict(kind=kind, num_labels=c, reg=reg, softcap=softcap)
                     got = ops.sampled_head_loss(w, b, h, ids, lp, **kw)
+                    again = ops.sampled_head_loss(w, b, h, ids, lp, **kw)
                     want = ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw)
                     torch.cuda.synchronize()
                     what = f"sampled_head_loss {kind} {str(dtype)[6:]} reg={reg} softcap={softcap} T={t} m={m}"
+                    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                          f"{what}: two calls differ")
                     for name, g, wn in zip(("loss", "coeff", "xi"), got, want):
                         check(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
                         check(close(g, wn, LOSS_TOL), f"{what}: {name} disagrees")
@@ -323,11 +421,15 @@ def check_sampled_loss(dev, gen, flush, cfg):
             bound, by = bound_ms(n_bytes, t * m * 4 * kdim)
             ms = time_ms(lambda: ops.sampled_head_loss(w, b, h, ids, lp, **kw), flush)
             plain = time_ms(lambda: ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw), flush)
+            device = kernel_device_ms(lambda: ops.sampled_head_loss(w, b, h, ids, lp, **kw),
+                                      flush, "sampled_loss_kernel")
             print(f"sampled_head_loss {str(dtype)[6:]} T={t} m={m} K={kdim} C={c}: kernel "
                   f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}, "
-                  f"{n_bytes / 1e6:.2f} MB, {rows} distinct rows)")
+                  f"{n_bytes / 1e6:.2f} MB, {rows} distinct rows), launch floor {floor:.4f} ms; "
+                  f"device time alone (profiler) {device:.4f} ms")
             timed[(shape_name, str(dtype)[6:])] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                                       bound_by=by, megabytes=n_bytes / 1e6)
+                                                       bound_by=by, megabytes=n_bytes / 1e6,
+                                                       device_ms=device)
     by_kind = {}
     for (shape_name, dt, kind, reg), (err, dh_err) in errs.items():
         key = f"{shape_name}/{dt}/{kind}"
@@ -340,7 +442,7 @@ def check_sampled_loss(dev, gen, flush, cfg):
     main = dict(timed[("main", "float32")])
     main["max_abs_err"] = max(max(e) for (sh, dt, kind, _), e in errs.items()
                               if (sh, dt, kind) == ("main", "float32", "adversarial_ns"))
-    del main["megabytes"]
+    del main["megabytes"], main["device_ms"]
     return main
 
 
@@ -1331,9 +1433,11 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)   # 256 MiB > L2
     torch.cuda._sleep(1_000_000_000)    # about 0.5 s busy, so clocks are up before timing
     torch.cuda.synchronize()
-    gather = check_gather(dev, gen, flush, cfg)
-    tree = check_tree(dev, gen, flush, cfg)
-    sampled = check_sampled_loss(dev, gen, flush, cfg)
+    floor, floor_device = launch_floor_ms(flush)
+    print(json.dumps({"launch_floor_ms": floor, "empty_kernel_device_ms": floor_device}))
+    gather = check_gather(dev, gen, flush, cfg, floor)
+    tree = check_tree(dev, gen, flush, cfg, floor)
+    sampled = check_sampled_loss(dev, gen, flush, cfg, floor)
     segment = check_segment_stats(dev, gen, flush)
     attention = check_flash_attention(dev, gen, flush)
     del flush
@@ -1360,7 +1464,8 @@ def main() -> int:
     ]
     for k in kernels:
         k.setdefault("library_ms", None)
-        k.update(launches=launches[k["name"]], max_err=k["max_abs_err"], kernel_ms=k["ms"])
+        k.update(launches=launches[k["name"]], max_err=k["max_abs_err"], kernel_ms=k["ms"],
+                 launch_floor_ms=floor)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,18 +8,27 @@
 //
 // Replaces src/repro/kernels/sampled_loss.py:sampled_head_loss (Pallas, TPU).
 // The work is a gather of T*m rows of K values with four operations per value
-// read (the score dot and the dh sum), so device memory bytes bound it. Design:
-// one warp per token. h[t] is staged in shared memory; each of the m rows is
-// read once with 16-byte loads and reduced with warp shuffles, and is kept in
-// shared memory as float32 where the warp's m*K rows fit in its share of 48 KB
-// (at K = 512 up to m = 10); otherwise the dh pass reads the rows again, which
-// then come from L2. The loss and coefficient math runs one lane per slot
-// (lane j, j + 32, ...) with shuffle reductions for the negatives' sums, the
-// maximum and the softmax normaliser, in accurate expf/log1pf/logf/tanhf: these
-// are training gradients. Tables are float32 or bfloat16 (upcast with the
-// intrinsics); ids are torch's int64; T, m and K are ragged and masked here,
-// with no padding of the inputs. A token with an id outside [0, C) gets NaN in
-// all its outputs and no row of it is read.
+// read (the score dot and the dh sum), so device memory bytes bound it; at
+// the training shape (T = 256, m = 2) they are under a microsecond of
+// bandwidth, so what a token waits for is the latency of dependent reads.
+//
+// Design: one block of 4 warps per token, and two dependent round trips to
+// device memory. The first reads the token's ids and, in the same trip, its
+// slot_logp and h[t] (cp.async into shared memory). The second issues,
+// all at once, every row of the token (cp.async, 16 bytes a lane, a warp a
+// row) and b[ids], whatever m is. Rows are staged in shared memory in their
+// own dtype, up to the 227 KB a block can have (the launch's `chunk` slots
+// at a time: all m of them unless m * K does not fit, when the rows are
+// staged a chunk at a time and read again for dh). Warps then take a slot
+// each for the score dot (warp shuffles); one warp runs the loss and
+// coefficient math, one lane per slot (lane j, j + 32, ...) with shuffle
+// reductions for the negatives' sums, the maximum and the softmax
+// normaliser, in accurate expf/log1pf/logf/tanhf: these are training
+// gradients. dh is summed from the staged rows in slot order, a column per
+// thread, so two calls give the same bits. Tables are float32 or bfloat16
+// (upcast with the intrinsics); ids are torch's int64; T, m and K are ragged
+// and masked here, with no padding of the inputs. A token with an id outside
+// [0, C) gets NaN in all its outputs and no row of it is read.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -27,10 +36,11 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 2;
+constexpr int kWarps = 4;
 constexpr int kWarp = 32;
+constexpr int kThreads = kWarps * kWarp;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr size_t kSmemBytes = 48 * 1024;
+constexpr int64_t kMaxSmemBytes = 232448;   // the most a block can have (227 KB)
 
 // Kind codes: the index of the kind in SAMPLED_KINDS (kernels/sampled_loss.py).
 enum Kind : int {
@@ -224,12 +234,57 @@ __device__ float token_loss(const LossArgs& a, const float* xi_s, float* g_s,
   }
 }
 
-// grid = ceil(T / kWarpsPerBlock) blocks of kWarpsPerBlock warps, one token a
-// warp. Shared memory: a region of `region` floats per warp, laid out as
-// [rows (m*K, if stage) | h (K) | xi (m) | g (m)]. vec != 0 promises 16-byte
-// aligned rows (w aligned, K*sizeof(Scalar) % 16 == 0), hence K % 4 == 0.
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__host__ __device__ constexpr int64_t round16(int64_t bytes) { return (bytes + 15) / 16 * 16; }
+
+// Shared memory: [rows (chunk*K Scalar) | h (K floats) | ids (m int64) |
+// b, slot_logp, xi, g (m floats each)], each part 16-byte aligned.
+__host__ __device__ constexpr int64_t fixed_bytes(int64_t m, int64_t K) {
+  return round16(4 * K) + round16(8 * m) + 4 * round16(4 * m);
+}
+__host__ __device__ constexpr int64_t smem_bytes(int64_t chunk, int64_t m, int64_t K,
+                                                 int64_t elt) {
+  return round16(chunk * K * elt) + fixed_bytes(m, K);
+}
+
+// Copies the rows of slots j0 .. j0 + ns - 1 into rows_s, a warp a row:
+// 16-byte cp.async where vec, else element by element.
 template <typename Scalar>
-__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
+__device__ __forceinline__ void stage_rows(Scalar* rows_s, const Scalar* __restrict__ w,
+                                           const int64_t* id_s, int j0, int ns, int64_t K,
+                                           int vec, int warp, int lane) {
+  constexpr int kVec = 16 / sizeof(Scalar);
+  for (int j = warp; j < ns; j += kWarps) {
+    const Scalar* row = w + id_s[j0 + j] * K;
+    Scalar* dst = rows_s + (int64_t)j * K;
+    if (vec) {
+      for (int64_t k = (int64_t)lane * kVec; k < K; k += kWarp * kVec) cp_async16(dst + k, row + k);
+    } else {
+      for (int64_t k = lane; k < K; k += kWarp) dst[k] = row[k];
+    }
+  }
+  cp_async_commit();
+}
+
+// grid = T blocks of kThreads (registers for 6 resident an SM with float32
+// rows, whose shared memory takes that many at m = 17, K = 512; 8 with
+// bfloat16), one token a block. vec != 0 promises 16-byte
+// aligned rows of w and h (K * sizeof(Scalar) % 16 == 0), hence K % 4 == 0.
+template <typename Scalar>
+__global__ void __launch_bounds__(kThreads, sizeof(Scalar) == 4 ? 6 : 8)
 sampled_loss_kernel(const Scalar* __restrict__ w, const Scalar* __restrict__ b,
                     const float* __restrict__ h,
                     const int64_t* __restrict__ ids,
@@ -237,115 +292,143 @@ sampled_loss_kernel(const Scalar* __restrict__ w, const Scalar* __restrict__ b,
                     float* __restrict__ loss, float* __restrict__ coeff,
                     float* __restrict__ xi_out, float* __restrict__ dh,
                     int64_t T, int m, int64_t K, int64_t C, LossArgs args,
-                    int vec, int stage, int64_t region) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int64_t t = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
-  if (t >= T) return;  // warp-uniform; the kernel has no block barrier
-  float* rows_s = smem + warp * region;
-  float* h_s = rows_s + (stage ? (int64_t)m * K : 0);
-  float* xi_s = h_s + K;
-  float* g_s = xi_s + m;
-  const int64_t* ids_t = ids + t * m;
-  const float* lp_t = slot_logp + t * m;
+                    int vec, int chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int64_t t = blockIdx.x;
+  Scalar* rows_s = reinterpret_cast<Scalar*>(smem);
+  float* h_s = reinterpret_cast<float*>(smem + round16((int64_t)chunk * K * sizeof(Scalar)));
+  int64_t* id_s = reinterpret_cast<int64_t*>(reinterpret_cast<unsigned char*>(h_s) + round16(4 * K));
+  float* b_s = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(id_s) + round16(8 * m));
+  const int64_t mf = round16(4 * m) / 4;
+  float* lp_s = b_s + mf;
+  float* xi_s = lp_s + mf;
+  float* g_s = xi_s + mf;
+  const float* h_t = h + t * K;
 
+  // Round trip 1: the ids, and h and slot_logp, which do not depend on them.
+  if (vec) {
+    for (int64_t k = (int64_t)tid * 4; k < K; k += kThreads * 4) cp_async16(h_s + k, h_t + k);
+    cp_async_commit();
+  }
   bool bad = false;
-  for (int j = lane; j < m; j += kWarp) {
-    const int64_t id = ids_t[j];
+  for (int j = tid; j < m; j += kThreads) {
+    const int64_t id = ids[t * m + j];
+    id_s[j] = id;
+    lp_s[j] = slot_logp[t * m + j];
     bad |= id < 0 || id >= C;
   }
-  if (__any_sync(kFull, bad)) {
+  if (!vec)
+    for (int64_t k = tid; k < K; k += kThreads) h_s[k] = h_t[k];
+  if (__syncthreads_or(bad)) {
+    cp_async_wait_all();
     const float nan = __int_as_float(0x7fc00000);
-    if (lane == 0) loss[t] = nan;
-    for (int j = lane; j < m; j += kWarp) coeff[t * m + j] = xi_out[t * m + j] = nan;
-    for (int64_t k = lane; k < K; k += kWarp) dh[t * K + k] = nan;
+    if (tid == 0) loss[t] = nan;
+    for (int j = tid; j < m; j += kThreads) coeff[t * m + j] = xi_out[t * m + j] = nan;
+    for (int64_t k = tid; k < K; k += kThreads) dh[t * K + k] = nan;
     return;
   }
 
-  for (int64_t k = lane; k < K; k += kWarp) h_s[k] = h[t * K + k];
-  __syncwarp();
-
-  // Scores: each row read once, staged as float32 where it fits.
+  // Round trip 2: every row of the first chunk (all m where they fit) and
+  // b[ids], issued together. Then the score dots, a warp a slot.
   constexpr int kVec = 16 / sizeof(Scalar);
-  for (int j = 0; j < m; ++j) {
-    const int64_t id = ids_t[j];
-    const Scalar* row = w + id * K;
-    float* stage_j = stage ? rows_s + (int64_t)j * K : nullptr;
-    float acc = 0.f;
-    if (vec) {
-#pragma unroll 4
-      for (int64_t k = (int64_t)lane * kVec; k < K; k += kWarp * kVec) {
-        float v[kVec];
-        load16(row + k, v);
+  for (int j0 = 0; j0 < m; j0 += chunk) {
+    const int ns = min(chunk, m - j0);
+    if (j0 > 0) __syncthreads();          // the previous chunk's dots are done
+    stage_rows(rows_s, w, id_s, j0, ns, K, vec, warp, lane);
+    if (j0 == 0)
+      for (int j = tid; j < m; j += kThreads) b_s[j] = to_float(b[id_s[j]]);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int j = warp; j < ns; j += kWarps) {
+      const Scalar* row = rows_s + (int64_t)j * K;
+      float acc = 0.f;
+      if (vec) {
+        for (int64_t k = (int64_t)lane * kVec; k < K; k += kWarp * kVec) {
+          float v[kVec];
+          load16(row + k, v);
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) acc += v[i] * h_s[k + i];
-        if (stage_j) {
-#pragma unroll
-          for (int i = 0; i < kVec; i += 4)
-            *reinterpret_cast<float4*>(stage_j + k + i) =
-                make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+          for (int i = 0; i < kVec; i += 4) {
+            const float4 hv = *reinterpret_cast<const float4*>(h_s + k + i);
+            acc += v[i] * hv.x + v[i + 1] * hv.y + v[i + 2] * hv.z + v[i + 3] * hv.w;
+          }
         }
+      } else {
+        for (int64_t k = lane; k < K; k += kWarp) acc += to_float(row[k]) * h_s[k];
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) xi_s[j0 + j] = acc + b_s[j0 + j];
+    }
+  }
+  __syncthreads();
+
+  // The softcap, the loss and the coefficients: warp 0, a lane a slot.
+  if (warp == 0) {
+    for (int j = lane; j < m; j += kWarp) {
+      const float s = xi_s[j];
+      const float x = args.softcap != 0.f ? args.softcap * tanhf(s / args.softcap) : s;
+      xi_s[j] = x;
+      xi_out[t * m + j] = x;
+    }
+    __syncwarp();
+    float g0;
+    const float token = token_loss(args, xi_s, g_s, lp_s, id_s, m, lane, &g0);
+    __syncwarp();
+    // The softcap chain factor d xi / d score multiplies every coefficient.
+    for (int j = lane; j < m; j += kWarp) {
+      float g = j == 0 ? g0 : g_s[j];
+      if (args.softcap != 0.f) {
+        const float r = xi_s[j] / args.softcap;
+        g *= 1.f - r * r;
+      }
+      g_s[j] = g;
+      coeff[t * m + j] = g;
+    }
+    if (lane == 0) loss[t] = token;
+  }
+  __syncthreads();
+
+  // dh = coeff @ rows in slot order, a column (or 4) per thread; with more
+  // than one chunk, the partial sums wait in h_s (h is no longer needed)
+  // while each chunk is staged again.
+  float* dh_t = dh + t * K;
+  const int n_chunks = (m + chunk - 1) / chunk;
+  for (int j0 = 0; j0 < m; j0 += chunk) {
+    const int ns = min(chunk, m - j0);
+    const bool first = j0 == 0, last = j0 + ns == m;
+    if (n_chunks > 1) {
+      __syncthreads();                    // the previous chunk's reads are done
+      stage_rows(rows_s, w, id_s, j0, ns, K, vec, warp, lane);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    const int j_end = ns;
+    if (vec) {
+      for (int64_t k = (int64_t)tid * 4; k < K; k += kThreads * 4) {
+        float4 acc = first ? make_float4(0.f, 0.f, 0.f, 0.f)
+                           : *reinterpret_cast<const float4*>(h_s + k);
+        for (int j = 0; j < j_end; ++j) {
+          const float g = g_s[j0 + j];
+          const float4 r = load4(rows_s + (int64_t)j * K + k);
+          acc.x += g * r.x;
+          acc.y += g * r.y;
+          acc.z += g * r.z;
+          acc.w += g * r.w;
+        }
+        if (last)
+          *reinterpret_cast<float4*>(dh_t + k) = acc;
+        else
+          *reinterpret_cast<float4*>(h_s + k) = acc;
       }
     } else {
-      for (int64_t k = lane; k < K; k += kWarp) {
-        const float v = to_float(row[k]);
-        acc += v * h_s[k];
-        if (stage_j) stage_j[k] = v;
+      for (int64_t k = tid; k < K; k += kThreads) {
+        float acc = first ? 0.f : h_s[k];
+        for (int j = 0; j < j_end; ++j) acc += g_s[j0 + j] * to_float(rows_s[(int64_t)j * K + k]);
+        if (last)
+          dh_t[k] = acc;
+        else
+          h_s[k] = acc;
       }
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) xi_s[j] = acc + to_float(b[id]);
-  }
-  __syncwarp();
-
-  for (int j = lane; j < m; j += kWarp) {
-    const float s = xi_s[j];
-    const float x = args.softcap != 0.f ? args.softcap * tanhf(s / args.softcap) : s;
-    xi_s[j] = x;
-    xi_out[t * m + j] = x;
-  }
-  __syncwarp();
-
-  float g0;
-  const float token = token_loss(args, xi_s, g_s, lp_t, ids_t, m, lane, &g0);
-  // The softcap chain factor d xi / d score multiplies every coefficient.
-  for (int j = lane; j < m; j += kWarp) {
-    float g = j == 0 ? g0 : g_s[j];
-    if (args.softcap != 0.f) {
-      const float r = xi_s[j] / args.softcap;
-      g *= 1.f - r * r;
-    }
-    g_s[j] = g;
-    coeff[t * m + j] = g;
-  }
-  if (lane == 0) loss[t] = token;
-  __syncwarp();
-
-  // dh = coeff @ rows, from the staged rows or read again (from L2).
-  float* dh_t = dh + t * K;
-  if (vec) {
-    for (int64_t k = (int64_t)lane * 4; k < K; k += kWarp * 4) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int j = 0; j < m; ++j) {
-        const float g = g_s[j];
-        const float4 r = stage ? *reinterpret_cast<const float4*>(rows_s + (int64_t)j * K + k)
-                               : load4(w + ids_t[j] * K + k);
-        acc.x += g * r.x;
-        acc.y += g * r.y;
-        acc.z += g * r.z;
-        acc.w += g * r.w;
-      }
-      *reinterpret_cast<float4*>(dh_t + k) = acc;
-    }
-  } else {
-    for (int64_t k = lane; k < K; k += kWarp) {
-      float acc = 0.f;
-      for (int j = 0; j < m; ++j) {
-        const float r = stage ? rows_s[(int64_t)j * K + k] : to_float(w[ids_t[j] * K + k]);
-        acc += g_s[j] * r;
-      }
-      dh_t[k] = acc;
     }
   }
 }
@@ -355,39 +438,39 @@ int launch(const void* w, const void* b, const void* h, const void* ids,
            const void* slot_logp, void* loss, void* coeff, void* xi, void* dh,
            int64_t T, int64_t m, int64_t K, int64_t C, int kind, float reg,
            float softcap, float scl, float scl_n, float log_scl,
-           int mask_accidental, int vec, void* stream) {
+           int mask_accidental, int vec, int64_t chunk, void* stream) {
   if (T == 0) return 0;
+  const int64_t smem = smem_bytes(chunk, m, K, sizeof(Scalar));
+  if (chunk < 1 || chunk > m || smem > kMaxSmemBytes || T > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sampled_loss_kernel<Scalar>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const LossArgs args{kind, mask_accidental, reg, softcap, scl, scl_n, log_scl};
-  auto region_of = [&](bool stage) {
-    const int64_t floats = (stage ? m * K : 0) + K + 2 * m;
-    return (floats + 3) / 4 * 4;  // keeps every warp's region 16-byte aligned
-  };
-  const int stage =
-      (size_t)(kWarpsPerBlock * region_of(true)) * sizeof(float) <= kSmemBytes;
-  const int64_t region = region_of(stage);
-  const size_t smem = (size_t)(kWarpsPerBlock * region) * sizeof(float);
-  const unsigned grid = (unsigned)((T + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  sampled_loss_kernel<Scalar><<<grid, kWarpsPerBlock * kWarp, smem,
-                                (cudaStream_t)stream>>>(
+  sampled_loss_kernel<Scalar><<<(unsigned)T, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
       (const Scalar*)w, (const Scalar*)b, (const float*)h, (const int64_t*)ids,
       (const float*)slot_logp, (float*)loss, (float*)coeff, (float*)xi,
-      (float*)dh, T, (int)m, K, C, args, vec, stage, region);
+      (float*)dh, T, (int)m, K, C, args, vec, (int)chunk);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes. Each returns cudaGetLastError()
-// after the launch (0 when it was accepted).
+// Plain C entry points, loaded with ctypes. `chunk` is the wrapper's
+// staged_slots(m, K, itemsize): the slots staged at once, checked here to
+// fit. Each returns cudaGetLastError() after the launch (0 when it was
+// accepted).
 extern "C" int sampled_head_loss_f32(
     const void* w, const void* b, const void* h, const void* ids,
     const void* slot_logp, void* loss, void* coeff, void* xi, void* dh,
     int64_t T, int64_t m, int64_t K, int64_t C, int kind, float reg,
     float softcap, float scl, float scl_n, float log_scl, int mask_accidental,
-    int vec, void* stream) {
+    int vec, int64_t chunk, void* stream) {
   return launch<float>(w, b, h, ids, slot_logp, loss, coeff, xi, dh, T, m, K,
                        C, kind, reg, softcap, scl, scl_n, log_scl,
-                       mask_accidental, vec, stream);
+                       mask_accidental, vec, chunk, stream);
 }
 
 extern "C" int sampled_head_loss_bf16(
@@ -395,10 +478,10 @@ extern "C" int sampled_head_loss_bf16(
     const void* slot_logp, void* loss, void* coeff, void* xi, void* dh,
     int64_t T, int64_t m, int64_t K, int64_t C, int kind, float reg,
     float softcap, float scl, float scl_n, float log_scl, int mask_accidental,
-    int vec, void* stream) {
+    int vec, int64_t chunk, void* stream) {
   return launch<__nv_bfloat16>(w, b, h, ids, slot_logp, loss, coeff, xi, dh, T,
                                m, K, C, kind, reg, softcap, scl, scl_n,
-                               log_scl, mask_accidental, vec, stream);
+                               log_scl, mask_accidental, vec, chunk, stream);
 }
 
 extern "C" const char* sampled_head_loss_error_string(int code) {

@@ -11,15 +11,19 @@ scores and ``dh``. On the H100 the work is a gather of T·m rows of K values
 with four operations per value read (two for the score, two for ``dh``), so
 device memory bytes bound it: at the training shape of ``xc_linear``
 (T = 256, m = 2, K = 512, float32) about 2.1 MB, which is under a
-microsecond of bandwidth and far below a launch. The CUDA kernel
-(``csrc/sampled_loss.cu``) gives each token one warp: h[t] is staged in
-shared memory, each of the m rows is read once with 16-byte loads and a
-warp-shuffle dot, and kept in shared memory where m·K fits (else the ``dh``
-pass reads it again, from L2); the loss and coefficient math runs one lane
-per slot with shuffle reductions, in accurate ``expf``/``log1pf``. No
-gathered row reaches device memory (the plain version materializes the
-(T, m, K) rows twice). torch's int64 ids are read as they are; T and m are
-ragged, with no padding of the inputs.
+microsecond of bandwidth and far below a launch: what a token waits for is
+the latency of its dependent reads. The CUDA kernel (``csrc/sampled_loss.cu``)
+gives each token a block of 4 warps and two round trips to device memory: the
+ids (with h[t] and slot_logp, which do not depend on them), then every row of
+the token and ``b[ids]`` at once, copied into shared memory with 16-byte
+``cp.async``. Rows stay there in their own dtype for the score dots (a warp a
+slot) and the ``dh`` pass (a column per thread, slots summed in order), up to
+the 227 KB a block can have: :func:`staged_slots` says how many slots that is,
+and past it the rows are staged a chunk at a time and read again for ``dh``.
+The loss and coefficient math runs on one warp, a lane per slot, in accurate
+``expf``/``log1pf``. No gathered row reaches device memory (the plain version
+materializes the (T, m, K) rows twice). torch's int64 ids are read as they
+are; T and m are ragged, with no padding of the inputs.
 
 :func:`loss_and_coeffs` is the per-kind math in plain torch, shared by
 ``repro_torch.core.heads`` and the plain version
@@ -47,6 +51,23 @@ _NS_FAMILY = ("uniform_ns", "freq_ns", "adversarial_ns")
 _TABLE_DTYPES = (torch.float32, torch.bfloat16)
 MAX_K = 4096
 MAX_M = 512
+_MAX_SMEM_BYTES = 232448          # the most shared memory a block can have
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def staged_slots(m: int, k: int, itemsize: int) -> int:
+    """How many of a token's m rows (K values of ``itemsize`` bytes) the
+    kernel stages in shared memory at once, beside h, the ids and the
+    per-slot values: all m where they fit in a block's 227 KB, else as many
+    as fit (the rest in later chunks). The C entry checks it again."""
+    fixed = _round16(4 * k) + _round16(8 * m) + 4 * _round16(4 * m)
+    fit = (_MAX_SMEM_BYTES - fixed) // (k * itemsize)
+    while fit > 1 and _round16(fit * k * itemsize) + fixed > _MAX_SMEM_BYTES:
+        fit -= 1
+    return max(1, min(m, fit))
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -130,7 +151,7 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.sampled_head_loss_f32, lib.sampled_head_loss_bf16):
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 4
                        + [ctypes.c_int] + [ctypes.c_float] * 5
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 2 + [ctypes.c_int64, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -201,14 +222,16 @@ def sampled_head_loss(w, b, h, ids, slot_logp, *, kind: str,
     scl = (num_labels - 1) / n                   # ove, as the plain version
     lib = _lib()
     fn = lib.sampled_head_loss_f32 if w.dtype == torch.float32 else lib.sampled_head_loss_bf16
-    vec = int(w.data_ptr() % 16 == 0 and (k * w.element_size()) % 16 == 0)
+    vec = int(w.data_ptr() % 16 == 0 and h.data_ptr() % 16 == 0
+              and (k * w.element_size()) % 16 == 0)
+    chunk = staged_slots(m, k, w.element_size())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(w.data_ptr(), b.data_ptr(), h.data_ptr(), ids.data_ptr(),
                   slot_logp.data_ptr(), loss.data_ptr(), coeff.data_ptr(),
                   xi.data_ptr(), dh.data_ptr(), t, m, k, c,
                   SAMPLED_KINDS.index(kind), reg, softcap, scl, scl / n,
-                  math.log(scl), int(bool(mask_accidental)), vec, stream)
+                  math.log(scl), int(bool(mask_accidental)), vec, chunk, stream)
     build.check_launch(lib, "sampled_head_loss", code)
     sampled_head_loss.launches += 1
     return loss, coeff, xi, dh

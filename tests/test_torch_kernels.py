@@ -17,6 +17,7 @@ import torch
 from repro_torch.core import tree as tree_lib
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import tree_logprob as tlp
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 TREE_TOL = dict(atol=1e-4, rtol=1e-5)
@@ -172,6 +173,33 @@ def test_tree_logprob_all_rejects_what_the_kernel_does_not_take(bad):
         ops.tree_logprob_all(w, b, x)
 
 
+@pytest.mark.parametrize("bsz,depth,want", [
+    (256, 18, (tlp.TENSOR_CORES, 16, 16)),   # dense prediction: 1,024 blocks
+    (4, 15, (tlp.TENSOR_CORES, 1, 8)),       # LM serving: 128 leaf blocks, halves
+    (256, 15, (tlp.TENSOR_CORES, 4, 16)),
+    (300, 8, (tlp.TENSOR_CORES, 1, 8)),      # one leaf block: as many blocks as it can
+    (1, 30, (tlp.TENSOR_CORES, 1, 16)),
+    (5, 7, (tlp.FMA, 0, 0)),                 # under 256 leaves: the FMA kernel
+    (256, 1, (tlp.FMA, 0, 0)),
+])
+def test_tree_logprob_launch_plan(bsz, depth, want):
+    assert tlp.launch_plan(bsz, depth, 132) == want
+
+
+@pytest.mark.parametrize("sm_count", [1, 132])
+def test_tree_logprob_launch_plan_fills_the_card_within_its_limits(sm_count):
+    for bsz in (1, 4, 5, 16, 17, 100, 256, 300, 5000):
+        for depth in range(tlp.TENSOR_CORE_MIN_DEPTH, 21):
+            kernel, groups, sub = tlp.launch_plan(bsz, depth, sm_count)
+            assert kernel == tlp.TENSOR_CORES
+            assert 1 <= groups <= 16 and sub in (8, 16)
+            row_groups = -(-bsz // 16)
+            assert groups <= row_groups
+            blocks = (1 << (depth - 8)) * (16 // sub) * -(-row_groups // groups)
+            # Fewer than two blocks an SM only once nothing is left to halve.
+            assert blocks >= 2 * sm_count or (groups == 1 and sub == 8)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -227,6 +255,61 @@ def test_cuda_tree_logprob_all_kernel_matches_plain(cuda, c, bsz):
     assert ops.tree_logprob_all.launches == before + 1
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, tref.tree_logprob_all_ref(w, b, x), **TREE_TOL)
+
+
+def _tree_tables(seed, depth, k, bsz, device):
+    rng = np.random.default_rng(seed)
+    n = (1 << depth) - 1
+    w = rng.standard_normal((n, k)).astype(np.float32)
+    b = (0.3 * rng.standard_normal(n)).astype(np.float32)
+    x = rng.standard_normal((bsz, k)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (w, b, x))
+
+
+@pytest.mark.parametrize("k", [1, 16, 31, 32])
+@pytest.mark.parametrize("depth", [1, 8, 9, 15, 18])
+@pytest.mark.parametrize("bsz", [1, 4, 5, 256, 300])
+def test_cuda_tree_logprob_all_kernel_paths(cuda, bsz, depth, k):
+    """Both kernels, at the shapes where the launch plan and the tensor-core
+    kernel's tiling branch (depth 8: no prefix; 9: one; small B: sub-blocks
+    spread over warps; B = 300: a ragged second row chunk; k = 1, 31: padded
+    k steps), against the plain version; two calls bit-equal."""
+    w, b, x = _tree_tables(bsz * 1000 + depth * 40 + k, depth, k, bsz, cuda)
+    kernel = tlp.launch_plan(bsz, depth, torch.cuda.get_device_properties(cuda).multi_processor_count)[0]
+    before = (ops.tree_logprob_all.tensor_core_launches, ops.tree_logprob_all.fma_launches)
+    got = ops.tree_logprob_all(w, b, x)
+    again = ops.tree_logprob_all(w, b, x)
+    torch.cuda.synchronize()
+    after = (ops.tree_logprob_all.tensor_core_launches, ops.tree_logprob_all.fma_launches)
+    tc = kernel == tlp.TENSOR_CORES
+    assert (after[0] - before[0], after[1] - before[1]) == ((2, 0) if tc else (0, 2))
+    assert tc == (depth >= 8)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, tref.tree_logprob_all_ref(w, b, x), **TREE_TOL)
+
+
+@pytest.mark.parametrize("depth", [8, 15])
+def test_cuda_tree_logprob_fma_kernel_takes_any_depth(cuda, depth):
+    """The FMA kernel, which the plan keeps for small trees, still computes
+    deep ones (chip_smoke.py times it beside the tensor-core kernel)."""
+    w, b, x = _tree_tables(depth, depth, 32, 4, cuda)
+    out = torch.empty((4, 1 << depth), device=cuda)
+    tlp._launch(w, b, x, out, depth, tlp.FMA, 0, 0)
+    torch.testing.assert_close(out, tref.tree_logprob_all_ref(w, b, x), **TREE_TOL)
+
+
+@pytest.mark.parametrize("plan", [(tlp.TENSOR_CORES, 1, 16), (tlp.TENSOR_CORES, 0, 16),
+                                  (tlp.TENSOR_CORES, 17, 16), (tlp.TENSOR_CORES, 1, 12),
+                                  (2, 0, 0)])
+def test_cuda_tree_logprob_entry_refuses_a_plan_it_cannot_run(cuda, plan):
+    """The C entry checks the plan again: the tensor-core kernel needs depth
+    >= 8, 1..16 row groups and a power of two of sub-blocks."""
+    depth = 7 if plan == (tlp.TENSOR_CORES, 1, 16) else 9
+    w, b, x = _tree_tables(0, depth, 16, 4, cuda)
+    out = torch.empty((4, 1 << depth), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tlp._launch(w, b, x, out, depth, *plan)
 
 
 def test_cuda_mixed_devices_raise(cuda):

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import sampled_loss as sl
 from repro_torch.kernels.sampled_loss import SAMPLED_KINDS, loss_and_coeffs
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -171,6 +172,35 @@ def test_sampled_head_loss_rejects_what_the_kernel_does_not_take(bad):
         ops.sampled_head_loss(w, b, h, ids, lp, kind=kind, num_labels=50)
 
 
+@pytest.mark.parametrize("m,k,itemsize,want", [
+    (2, 512, 4, 2),          # the training shape: everything staged
+    (17, 512, 4, 17),
+    (17, 512, 2, 17),
+    (512, 512, 4, 106),      # 1 MB of rows: five chunks
+    (512, 512, 2, 213),
+    (512, 130, 4, 422),
+    (17, 4096, 4, 13),       # 16 KB rows: two chunks
+    (17, 4096, 2, 17),
+    (512, 4096, 4, 12),
+])
+def test_staged_slots(m, k, itemsize, want):
+    assert sl.staged_slots(m, k, itemsize) == want
+
+
+def test_staged_slots_fill_but_never_pass_a_blocks_shared_memory():
+    def smem(chunk, m, k, itemsize):
+        r16 = sl._round16
+        return r16(chunk * k * itemsize) + r16(4 * k) + r16(8 * m) + 4 * r16(4 * m)
+
+    for m in (2, 3, 10, 11, 17, 64, 511, 512):
+        for k in (1, 3, 50, 130, 511, 512, 3840, 4095, 4096):
+            for itemsize in (2, 4):
+                chunk = sl.staged_slots(m, k, itemsize)
+                assert 1 <= chunk <= m
+                assert smem(chunk, m, k, itemsize) <= sl._MAX_SMEM_BYTES
+                assert chunk == m or smem(chunk + 1, m, k, itemsize) > sl._MAX_SMEM_BYTES
+
+
 # ---------------------------------------------------------------------------
 # On a card: the kernel against its plain version.
 # ---------------------------------------------------------------------------
@@ -183,8 +213,12 @@ def _dh_close(got, want, coeff, w, ids):
 
 @pytest.mark.parametrize("reg,softcap", REG_SOFTCAP, ids=["plain", "reg_softcap"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t,m,kdim", [(7, 5, 50), (256, 2, 512), (2048, 17, 512)],
-                         ids=["small_ragged", "main_path", "wide_unstaged"])
+@pytest.mark.parametrize("t,m,kdim", [(7, 5, 50), (256, 2, 512), (2048, 17, 512),
+                                     (37, 10, 510), (37, 11, 511), (9, 17, 4096),
+                                     (19, 512, 130), (11, 512, 512)],
+                         ids=["small_ragged", "main_path", "wide_unstaged", "m10_k510",
+                              "m11_k511", "m17_k4096_chunked_fp32", "m512_k130_unaligned",
+                              "m512_k512_chunked"])
 @pytest.mark.parametrize("kind", SAMPLED_KINDS)
 def test_cuda_sampled_head_loss_kernel_matches_plain(cuda, kind, t, m, kdim, dtype,
                                                      reg, softcap):
@@ -201,6 +235,28 @@ def test_cuda_sampled_head_loss_kernel_matches_plain(cuda, kind, t, m, kdim, dty
     for g, w_ in zip(got[:3], want[:3]):
         torch.testing.assert_close(g, w_, **TOL)
     assert _dh_close(got[3], want[3], want[1], w, ids)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,m,kdim", [(256, 2, 512), (2048, 17, 512), (11, 512, 512),
+                                     (9, 17, 4095)])
+def test_cuda_sampled_head_loss_two_calls_bit_equal(cuda, t, m, kdim, dtype):
+    w, b, h, ids, lp = (torch.from_numpy(a).to(cuda)
+                        for a in _head_inputs(t + m, 5000, kdim, t, m, w_scale=0.05))
+    w, b = w.to(dtype), b.to(dtype)
+    kw = dict(kind="sampled_softmax", num_labels=5000, reg=1e-3)
+    first = ops.sampled_head_loss(w, b, h, ids, lp, **kw)
+    second = ops.sampled_head_loss(w, b, h, ids, lp, **kw)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+def test_cuda_sampled_head_loss_entry_refuses_a_chunk_that_does_not_fit(cuda, monkeypatch):
+    """The C entry checks the staged slots again."""
+    w, b, h, ids, lp = (torch.from_numpy(a).to(cuda) for a in _head_inputs(2, 100, 4096, 4, 17))
+    monkeypatch.setattr(sl, "staged_slots", lambda m, k, itemsize: m)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.sampled_head_loss(w, b, h, ids, lp, kind="adversarial_ns", num_labels=100)
 
 
 def test_cuda_sampled_head_loss_out_of_range_id_is_nan(cuda):
