@@ -12,7 +12,8 @@ Phases, each fatal on failure:
      width; ``sampled_head_loss`` for all 7 kinds, both table dtypes,
      reg/softcap off and on, two calls bit-equal; ``tree_logprob_all`` and
      ``gather_scores`` also at the LM-serving path's shapes, the former
-     timed beside its FMA kernel and two calls bit-equal; ``segment_stats``
+     timed beside its FMA kernel, the latter on the variant its launch plan
+     names, each two calls bit-equal and timed alone too; ``segment_stats``
      at the generator fit's 8 shapes over N = 524,288 points, bit-exact
      across two calls with one plan and a call that sorts its own ids; the
      plan and a call with it timed apart), time both, and check the
@@ -20,7 +21,8 @@ Phases, each fatal on failure:
   4. the prediction path at full ``xc_linear`` width (C = 217,240, K = 512,
      k = 16, depth 18): 4 request batches of 256 queries through dense Eq. 5
      prediction and tree-beam top-k, launch counters reset just before and
-     read just after; exhaustive beam against dense top-5 on 4 queries;
+     read just after (every ``gather_scores`` call on the rows variant);
+     exhaustive beam against dense top-5 on 4 queries;
   5. the training path at full ``xc_linear`` width: ``train_linear_head``
      (adversarial_ns, 1 negative, batch 256, sparse Adagrad), counters reset
      just before and read just after; ms per step, its device time by
@@ -52,7 +54,8 @@ Phases, each fatal on failure:
      the lock-step launcher serves 4 requests of 4,608 prompt tokens and 32
      greedy tokens through dense Eq. 5 scoring and again through beam 64,
      counters reset just before and read just after each (prefill on the
-     tensor-core kernel, decode on the decode kernel); prefill and
+     tensor-core kernel, decode on the decode kernel, beam scoring on
+     ``gather_scores``'s split variant); prefill and
      per-token ms, the device time by kernel and idle share of one decode
      step, peak memory; prefill plus decode of all 4 requests through the
      cache against the plain version's cache-free forward over the 4,640
@@ -67,6 +70,7 @@ import argparse
 import contextlib
 import ctypes
 import json
+import math
 import subprocess
 import sys
 import time
@@ -87,7 +91,7 @@ from repro_torch.core import heads, tree as tree_lib, tree_fit, xc_train  # noqa
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.genfit import levels as genfit_levels  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.kernels import tree_logprob  # noqa: E402
+from repro_torch.kernels import gather_scores as gather_scores_lib, tree_logprob  # noqa: E402
 from repro_torch.kernels.sampled_loss import SAMPLED_KINDS  # noqa: E402
 from repro_torch.optim import OptimizerConfig, apply_updates, init_opt_state  # noqa: E402
 from repro_torch.optim.sparse import accumulate_rows  # noqa: E402
@@ -191,15 +195,14 @@ def close(got: torch.Tensor, want: torch.Tensor, tol: dict) -> bool:
     return bool(((got - want).abs() <= tol["atol"] + tol["rtol"] * want.abs()).all())
 
 
-def time_ms(fn, flush: torch.Tensor, iters: int = TIMING_ITERS) -> float:
-    """Mean device time of ``fn`` with CUDA events, L2 flushed before each
-    call by reading ``flush`` (a read leaves no dirty lines to write back).
-    A GPU-side spin ahead of each call lets the host enqueue the whole call
-    before the device reaches it, so host overhead is not timed."""
-    fn()
-    torch.cuda.synchronize()
+def round_times(fn, flush: torch.Tensor, rounds: int) -> list:
+    """Device ms of each of ``rounds`` calls of ``fn`` with CUDA events, L2
+    flushed before each call by reading ``flush`` (a read leaves no dirty
+    lines to write back). A GPU-side spin ahead of each call lets the host
+    enqueue the whole call before the device reaches it, so host overhead
+    is not timed."""
     events = []
-    for _ in range(iters):
+    for _ in range(rounds):
         torch.cuda._sleep(2_000_000)
         flush.sum()
         start = torch.cuda.Event(enable_timing=True)
@@ -209,21 +212,42 @@ def time_ms(fn, flush: torch.Tensor, iters: int = TIMING_ITERS) -> float:
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / iters
+    return [s.elapsed_time(e) for s, e in events]
 
 
-def kernel_device_ms(fn, flush, name: str, iters: int = TIMING_ITERS) -> float:
-    """Mean device time of the kernels named ``name`` in one call of ``fn``,
-    by torch.profiler, L2 flushed before each call: the kernel's own run,
-    without the launch that ``time_ms`` also counts."""
+def time_ms(fn, flush: torch.Tensor, iters: int = TIMING_ITERS) -> float:
+    """Mean of ``round_times`` over ``iters`` calls after one untimed: in
+    the first round of a process the host can outlast the spin (loading
+    the flush's kernel) and the device waits inside the call."""
+    return sum(round_times(fn, flush, iters + 1)[1:]) / iters
+
+
+def kernel_device_ms(fn, flush, name: str, iters: int = TIMING_ITERS,
+                     attempts: int = 3):
+    """Mean device time of one launch of the kernels named ``name`` (one a
+    call of ``fn``), by torch.profiler, L2 flushed before each call: the
+    kernel's own run, without the launch that ``time_ms`` also counts, and
+    the launches the mean is over. The profiler now and then records none
+    of the kernels of some calls (the flushes' neither), so the mean is over
+    the launches it recorded; a line gives every kernel's count when that is
+    not ``iters``, and a profile that recorded none is taken again, up to
+    ``attempts`` times (NaN over 0 if every one comes back empty)."""
     def calls():
         for _ in range(iters):
             flush.sum()
             fn()
     fn()
     torch.cuda.synchronize()
-    by_name, _, _, _ = profile_by_kernel(calls)
-    return sum(v for k, v in by_name.items() if name in k) / iters
+    for attempt in range(attempts):
+        by_name, _, _, _, counts = profile_by_kernel(calls)
+        seen = sum(v for k, v in counts.items() if name in k)
+        if seen != iters:
+            print(json.dumps({"profiler_launches": {
+                "kernel": name, "calls": iters, "seen": seen, "attempt": attempt,
+                "recorded": {k[:60]: v for k, v in counts.items()}}}))
+        if seen:
+            return sum(v for k, v in by_name.items() if name in k) / seen, seen
+    return float("nan"), 0
 
 
 def bound_ms(n_bytes: float, n_flop: float):
@@ -238,30 +262,55 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def check_gather(dev, gen, flush, cfg, floor):
-    """Full xc_linear width (B = 256, 64 candidates, K = 512) in both table
-    dtypes, and the LM-serving beam path's call: 4 rows, 64 candidates,
-    K = d_model = 3,840 of h2o-danube-3-4b, the head's float32 table."""
+def gather_shapes(cfg):
+    """(name, C, K, T, n, w scale, table dtypes) of gather_scores's checked
+    calls: the prediction beam's at full xc_linear width (B = 256, 64
+    candidates, K = 512) and the LM-serving beam path's (4 rows, 64
+    candidates, K = d_model = 3,840 of h2o-danube-3-4b, the head's float32
+    table)."""
     serve_cfg = configs.get_config(SERVE_ARCH)
-    shapes = [("xc_linear", cfg.num_labels, cfg.feature_dim, BATCH, BEAM, 0.05,
-               (torch.float32, torch.bfloat16)),
-              ("serving_beam", serve_cfg.padded_vocab, serve_cfg.d_model, SERVE_BATCH,
-               SERVE_BEAM, 0.02, (torch.float32,))]
+    return [("xc_linear", cfg.num_labels, cfg.feature_dim, BATCH, BEAM, 0.05,
+             (torch.float32, torch.bfloat16)),
+            ("serving_beam", serve_cfg.padded_vocab, serve_cfg.d_model, SERVE_BATCH,
+             SERVE_BEAM, 0.02, (torch.float32,))]
+
+
+def gather_inputs(dev, gen, c, kdim, t, n, scale):
+    w32 = scale * torch.randn((c, kdim), generator=gen, device=dev)
+    b32 = 0.1 * torch.randn((c,), generator=gen, device=dev)
+    h = torch.randn((t, kdim), generator=gen, device=dev)
+    ids = torch.randint(0, c, (t, n), generator=gen, device=dev)
+    return w32, b32, h, ids
+
+
+def gather_variant(plan) -> str:
+    return "rows" if plan[0] == gather_scores_lib.ROWS else "split"
+
+
+def check_gather(dev, gen, flush, cfg, floor):
+    """Each of gather_shapes' calls in its table dtypes: the variant of its
+    launch plan taken, kernel against plain version, two calls bit-equal;
+    kernel (with its launch), plain version and the kernel alone timed."""
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     result = {}
-    for shape, c, kdim, t, n, scale, dtypes in shapes:
-        w32 = scale * torch.randn((c, kdim), generator=gen, device=dev)
-        b32 = 0.1 * torch.randn((c,), generator=gen, device=dev)
-        h = torch.randn((t, kdim), generator=gen, device=dev)
-        ids = torch.randint(0, c, (t, n), generator=gen, device=dev)
+    for shape, c, kdim, t, n, scale, dtypes in gather_shapes(cfg):
+        w32, b32, h, ids = gather_inputs(dev, gen, c, kdim, t, n, scale)
         rows = torch.unique(ids).numel()
         for dtype in dtypes:
             w, b = w32.to(dtype), b32.to(dtype)
+            plan = gather_scores_lib.launch_plan(t, n, kdim, w.element_size(), sm_count)
+            counter = f"{gather_variant(plan)}_launches"
+            before = getattr(ops.gather_scores, counter)
             got = ops.gather_scores(w, b, h, ids)
+            again = ops.gather_scores(w, b, h, ids)
+            took = getattr(ops.gather_scores, counter) - before
             want = ref.gather_scores_ref(w, b, h, ids)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             what = f"gather_scores {shape} {str(dtype)[6:]}: T={t} n={n} K={kdim} C={c}"
-            print(f"{what} max_abs_err={err:.3e} tol={GATHER_TOL}")
+            print(f"{what} plan={plan} max_abs_err={err:.3e} tol={GATHER_TOL}")
+            check(took == 2, f"{what}: not on the {gather_variant(plan)} variant of its plan")
+            check(torch.equal(got, again), f"{what}: two calls differ")
             check(close(got, want, GATHER_TOL), f"{what} disagrees")
             elt = w.element_size()
             n_bytes = (rows * kdim * elt + rows * elt + ids.numel() * 8
@@ -269,17 +318,29 @@ def check_gather(dev, gen, flush, cfg, floor):
             bound, by = bound_ms(n_bytes, ids.numel() * (2 * kdim + 1))
             ms = time_ms(lambda: ops.gather_scores(w, b, h, ids), flush)
             plain = time_ms(lambda: ref.gather_scores_ref(w, b, h, ids), flush)
+            device, seen = kernel_device_ms(lambda: ops.gather_scores(w, b, h, ids), flush,
+                                            "gather_scores_kernel")
             print(f"{what}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
-                  f"({by}, {rows} distinct rows), launch floor {floor:.4f} ms")
-            result[(shape, str(dtype)[6:])] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                                   bound_ms=bound, bound_by=by)
+                  f"({by}, {rows} distinct rows), launch floor {floor:.4f} ms; "
+                  f"device time alone (profiler) {device:.4f} ms over {seen} launches")
+            result[(shape, str(dtype)[6:])] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                device_ms=None if math.isnan(device) else device,
+                device_ms_launches_seen=seen, plan=list(plan),
+                variant=gather_variant(plan), bit_equal=True)
     print(json.dumps({"gather_scores": {f"{k[0]}/{k[1]}": v for k, v in result.items()}}))
-    return result[("xc_linear", "float32")]
+    main = dict(result[("xc_linear", "float32")])
+    main["shapes"] = {f"{k[0]}/{k[1]}": {key: v[key] for key in (
+        "ms", "device_ms", "device_ms_launches_seen", "bound_ms", "plain_ms", "max_abs_err",
+        "variant")}
+        for k, v in result.items()}
+    return main
 
 
 def launch_floor_ms(flush):
     """Time of an empty kernel launched through the ctypes path, by
-    ``time_ms`` and by the profiler (``kernel_device_ms``)."""
+    ``time_ms`` and by the profiler (``kernel_device_ms``: its mean and the
+    launches it saw)."""
     lib = build.load("empty")
     lib.empty_launch.argtypes = [ctypes.c_void_p]
     lib.empty_launch.restype = ctypes.c_int
@@ -349,17 +410,19 @@ def check_tree(dev, gen, flush, cfg, floor):
         fma_again = time_ms(lambda: tree_logprob._launch(tree.w, tree.b, x, out, tree.depth,
                                                          tree_logprob.FMA, 0, 0), flush)
         plain = time_ms(lambda: ref.tree_logprob_all_ref(tree.w, tree.b, x), flush)
-        device = kernel_device_ms(lambda: ops.tree_logprob_all(tree.w, tree.b, x), flush,
-                                  "tree_logprob_tc_kernel")
-        fma_device = kernel_device_ms(lambda: tree_logprob._launch(
+        device, seen = kernel_device_ms(lambda: ops.tree_logprob_all(tree.w, tree.b, x),
+                                        flush, "tree_logprob_tc_kernel")
+        fma_device, fma_seen = kernel_device_ms(lambda: tree_logprob._launch(
             tree.w, tree.b, x, out, tree.depth, tree_logprob.FMA, 0, 0), flush,
             "tree_logprob_kernel")
         print(f"{what}: kernel {ms:.4f} ms, FMA kernel {fma:.4f} / {fma_again:.4f} ms, plain "
               f"{plain:.4f} ms, bound {bound:.4f} ms ({by}), launch floor {floor:.4f} ms; "
-              f"device time alone (profiler): kernel {device:.4f} ms, FMA {fma_device:.4f} ms")
+              f"device time alone (profiler): kernel {device:.4f} ms over {seen} launches, "
+              f"FMA {fma_device:.4f} ms over {fma_seen}")
         result[shape] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                              bound_by=by, fma_ms=[fma, fma_again], plan=list(plan),
-                             device_ms=device, fma_device_ms=fma_device)
+                             device_ms=device, device_ms_launches_seen=seen,
+                             fma_device_ms=fma_device, fma_device_ms_launches_seen=fma_seen)
         del got, out, tree, x
     print(json.dumps({"tree_logprob_all": result}))
     main = result["prediction"]
@@ -421,15 +484,17 @@ def check_sampled_loss(dev, gen, flush, cfg, floor):
             bound, by = bound_ms(n_bytes, t * m * 4 * kdim)
             ms = time_ms(lambda: ops.sampled_head_loss(w, b, h, ids, lp, **kw), flush)
             plain = time_ms(lambda: ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw), flush)
-            device = kernel_device_ms(lambda: ops.sampled_head_loss(w, b, h, ids, lp, **kw),
-                                      flush, "sampled_loss_kernel")
+            device, seen = kernel_device_ms(
+                lambda: ops.sampled_head_loss(w, b, h, ids, lp, **kw), flush,
+                "sampled_loss_kernel")
             print(f"sampled_head_loss {str(dtype)[6:]} T={t} m={m} K={kdim} C={c}: kernel "
                   f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}, "
                   f"{n_bytes / 1e6:.2f} MB, {rows} distinct rows), launch floor {floor:.4f} ms; "
-                  f"device time alone (profiler) {device:.4f} ms")
+                  f"device time alone (profiler) {device:.4f} ms over {seen} launches")
             timed[(shape_name, str(dtype)[6:])] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                                                        bound_by=by, megabytes=n_bytes / 1e6,
-                                                       device_ms=device)
+                                                       device_ms=device,
+                                                       device_ms_launches_seen=seen)
     by_kind = {}
     for (shape_name, dt, kind, reg), (err, dh_err) in errs.items():
         key = f"{shape_name}/{dt}/{kind}"
@@ -442,7 +507,7 @@ def check_sampled_loss(dev, gen, flush, cfg, floor):
     main = dict(timed[("main", "float32")])
     main["max_abs_err"] = max(max(e) for (sh, dt, kind, _), e in errs.items()
                               if (sh, dt, kind) == ("main", "float32", "adversarial_ns"))
-    del main["megabytes"], main["device_ms"]
+    del main["megabytes"], main["device_ms"], main["device_ms_launches_seen"]
     return main
 
 
@@ -557,7 +622,8 @@ def main_path(dev, seed, cfg):
     hgen = heads.make_tree_generator(tree)
     torch.cuda.synchronize()
 
-    ops.gather_scores.launches = 0
+    ops.gather_scores.launches = ops.gather_scores.rows_launches = 0
+    ops.gather_scores.split_launches = 0
     ops.tree_logprob_all.launches = 0
     dense_ms, beam_ms = [], []
     for _ in range(N_BATCHES):
@@ -598,6 +664,8 @@ def main_path(dev, seed, cfg):
           "exhaustive beam top-5 labels differ from dense")
     for name, n in launches.items():
         check(n > 0, f"the main path never launched {name}")
+    check(ops.gather_scores.rows_launches == launches["gather_scores"],
+          "the prediction beam's gather_scores calls are not all on the rows variant")
     print(json.dumps({"main_path": {
         "batches": N_BATCHES, "batch": BATCH, "num_labels": c, "beam": BEAM,
         "dense_ms": dense_ms, "beam_ms": beam_ms, "launches": launches,
@@ -858,9 +926,10 @@ def pipeline_small(dev, seed):
 
 def profile_by_kernel(fn, ranges=()):
     """Device ms by kernel name and the kernels' count of one call of ``fn``
-    (torch.profiler), the call's host ms, and, for each ``record_function``
-    range named in ``ranges``, the device ms by kernel name of the kernels
-    launched inside it (the innermost named range counts)."""
+    (torch.profiler), the call's host ms, for each ``record_function`` range
+    named in ``ranges`` the device ms by kernel name of the kernels launched
+    inside it (the innermost named range counts), and the launches recorded
+    by kernel name."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
@@ -884,7 +953,10 @@ def profile_by_kernel(fn, ranges=()):
         if owner is not None:
             for k in e.kernels:
                 inside[owner.name][k.name] = inside[owner.name].get(k.name, 0.0) + k.duration / 1e3
-    return by_name, len(kernels), host_ms, inside
+    counts: dict = {}
+    for e in kernels:
+        counts[e.name] = counts.get(e.name, 0) + 1
+    return by_name, len(kernels), host_ms, inside, counts
 
 
 def in_range(name, fn):
@@ -900,7 +972,7 @@ def device_time_by_op(fn, top: int = 8) -> dict:
     the total, the kernels' count, and the ``top`` kernels by time."""
     fn()
     torch.cuda.synchronize()
-    by_name, n_kernels, _, _ = profile_by_kernel(fn)
+    by_name, n_kernels, _, _, _ = profile_by_kernel(fn)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"device_ms": sum(by_name.values()), "kernels": n_kernels,
             "top_ms": [[name[:60], ms] for name, ms in ranked]}
@@ -1006,7 +1078,7 @@ def genfit_path(dev, seed, cfg):
     for level, run in sorted(kept.items()):
         lvl_plans, lvl_calls = ops.segment_stats.plans, ops.segment_stats.launches
         with swapped(ops, segment_plan=in_range("segment_plan", ops.segment_plan)):
-            by_name, n_kernels, prof_host_ms, inside = profile_by_kernel(
+            by_name, n_kernels, prof_host_ms, inside, _ = profile_by_kernel(
                 lambda: run.update(replay=run_level(*run["args"])), ranges=("segment_plan",))
         lvl_plans = ops.segment_stats.plans - lvl_plans
         lvl_calls = ops.segment_stats.launches - lvl_calls
@@ -1283,6 +1355,7 @@ def serve_path(dev, seed):
         torch.cuda.synchronize()
         for name in kernels:
             getattr(ops, name).launches = 0
+        ops.gather_scores.rows_launches = ops.gather_scores.split_launches = 0
         ops.flash_attention.decode_launches = ops.flash_attention.fma_launches = 0
         ops.flash_attention.tensor_core_launches = 0
         with swapped(transformer, forward=rec_forward), \
@@ -1300,6 +1373,10 @@ def serve_path(dev, seed):
               f"kernel, or decode's not all on the decode kernel: {by_path}")
         check(launches["tree_logprob_all" if beam == 0 else "gather_scores"] == SERVE_GEN,
               f"{path}: the Eq. 5 kernel did not launch once per decode step: {launches}")
+        gather_split = ops.gather_scores.split_launches
+        check(gather_split == launches["gather_scores"],
+              f"{path}: {launches['gather_scores'] - gather_split} gather_scores calls "
+              f"not on the split variant")
         check(run["tokens"].shape == (SERVE_BATCH, SERVE_GEN), f"{path}: token shape")
         check(bool(((run["tokens"] >= 0) & (run["tokens"] < cfg.vocab_size)).all()),
               f"{path}: a token outside the vocabulary")
@@ -1309,7 +1386,7 @@ def serve_path(dev, seed):
         # One decode step at the last position, profiled by kernel.
         step = make_serve_step(cfg, hcfg, topk_beam=beam)
         last = SERVE_PROMPT + SERVE_GEN - 1
-        by_name, n_kernels, host_ms, _ = profile_by_kernel(
+        by_name, n_kernels, host_ms, _, _ = profile_by_kernel(
             lambda: step(params, state, run["token"], run["cache"], last))
         device_ms = sum(by_name.values())
         flash_ms = sum(v for k, v in by_name.items() if "flash_attention" in k)
@@ -1317,7 +1394,7 @@ def serve_path(dev, seed):
         paths[path] = dict(
             beam=beam, prefill_ms=run["prefill_ms"], decode_ms=run["decode_ms"],
             ms_per_token=run["decode_ms"] / run["steps"], launches=launches,
-            flash_attention_launches_by_kernel=by_path,
+            flash_attention_launches_by_kernel=by_path, gather_split_launches=gather_split,
             decode_step_profile=dict(
                 host_ms=host_ms, device_ms=device_ms, kernels=n_kernels,
                 idle_share=1.0 - device_ms / host_ms, flash_attention_device_ms=flash_ms,
@@ -1331,7 +1408,7 @@ def serve_path(dev, seed):
     # One prefill of the same 4 prompts, profiled by kernel.
     prompts = paths["dense"]["_run"]["prompts"]
     cache = transformer.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT, device=dev)
-    by_name, n_kernels, host_ms, _ = profile_by_kernel(
+    by_name, n_kernels, host_ms, _, _ = profile_by_kernel(
         lambda: make_prefill(cfg)(params, prompts, cache))
     device_ms = sum(by_name.values())
     prefill_profile = dict(
@@ -1433,8 +1510,9 @@ def main() -> int:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)   # 256 MiB > L2
     torch.cuda._sleep(1_000_000_000)    # about 0.5 s busy, so clocks are up before timing
     torch.cuda.synchronize()
-    floor, floor_device = launch_floor_ms(flush)
-    print(json.dumps({"launch_floor_ms": floor, "empty_kernel_device_ms": floor_device}))
+    floor, (floor_device, floor_seen) = launch_floor_ms(flush)
+    print(json.dumps({"launch_floor_ms": floor, "empty_kernel_device_ms": floor_device,
+                      "empty_kernel_device_ms_launches_seen": floor_seen}))
     gather = check_gather(dev, gen, flush, cfg, floor)
     tree = check_tree(dev, gen, flush, cfg, floor)
     sampled = check_sampled_loss(dev, gen, flush, cfg, floor)

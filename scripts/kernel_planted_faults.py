@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""What chip_smoke.py's checks of ``tree_logprob_all`` and ``sampled_head_loss``
-read on planted faults.
+"""What chip_smoke.py's checks of ``tree_logprob_all``, ``sampled_head_loss`` and
+``gather_scores`` read on planted faults.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -13,12 +13,14 @@ kernels against their plain versions with chip_smoke.py's shapes, inputs,
 tolerances and bit-equality check: ``tree_logprob_all`` at the prediction
 and the LM-serving shapes, ``sampled_head_loss`` for all 7 kinds, reg and
 softcap off and on, both table dtypes, at T = 256, m = 2 and T = 2048,
-m = 17. "none" is the unedited kernels: the largest error a sound kernel
-shows. Prints one JSON line per fault and check: the largest ratio of an
-error to its tolerance (> 1 fails; chip_smoke.py's ``close`` and
-``dh_close``), whether two calls were bit-equal and whether chip_smoke.py
-would pass it. Exits non-zero if the sound kernels fail a check or a planted
-fault passes a check where it must fail.
+m = 17; ``gather_scores`` at the prediction beam's and the LM-serving beam's
+calls (``chip_smoke.gather_shapes``). "none" is the unedited kernels: the
+largest error a sound kernel shows. Prints one JSON line per fault and
+check: the largest ratio of an error to its tolerance (> 1 fails;
+chip_smoke.py's ``close`` and ``dh_close``), whether two calls were
+bit-equal and whether chip_smoke.py would pass it. Exits non-zero if the
+sound kernels fail a check, a planted fault passes a check where it must
+fail, or a fault in one kernel fails another kernel's check.
 """
 from __future__ import annotations
 
@@ -35,6 +37,10 @@ CSRC = Path("src/repro_torch/kernels/csrc")
 TREE_CHECKS = ("tree_logprob_all/prediction", "tree_logprob_all/serving_dense")
 SAMPLED_CHECKS = tuple(f"sampled_head_loss/{shape}/{dtype}" for shape in ("main", "wide")
                        for dtype in ("float32", "bfloat16"))
+GATHER_XC = ("gather_scores/xc_linear/float32", "gather_scores/xc_linear/bfloat16")
+GATHER_SERVING = ("gather_scores/serving_beam/float32",)
+KERNEL_OF = {"tree_logprob.cu": "tree_logprob_all/", "sampled_loss.cu": "sampled_head_loss/",
+             "gather_scores.cu": "gather_scores/"}
 
 # name: (source file, (text in it, its replacement), the checks that must fail).
 FAULTS = {
@@ -52,6 +58,22 @@ FAULTS = {
         "sampled_loss.cu", ("b_s[j] = to_float(b[id_s[j]]);",
                             "b_s[j] = to_float(b[id_s[(j + 1) % m]]);"),
         SAMPLED_CHECKS),
+    # The split variant's block sum leaves out the last warp's partial sum
+    # of every row (a K-split partial dropped).
+    "gather_last_warp_dropped": (
+        "gather_scores.cu", ("for (int i = 0; i < warps; ++i)", "for (int i = 0; i < warps - 1; ++i)"),
+        GATHER_SERVING),
+    # The rows variant's shuffle sum stops one stage short: each row's score
+    # is the sum of half its lanes.
+    "gather_shuffle_stage_dropped": (
+        "gather_scores.cu", ("for (int o = lanes / 2; o > 0; o >>= 1)",
+                             "for (int o = lanes / 2; o > 1; o >>= 1)"),
+        GATHER_XC),
+    # Each slot's score takes the bias of the next slot's id (the id of
+    # slot 0, a padding slot, where the group has one row).
+    "gather_b_read_for_the_wrong_slot": (
+        "gather_scores.cu", ("to_float(b[id[r]])", "to_float(b[id[(r + 1) % kMaxRows]])"),
+        GATHER_XC + GATHER_SERVING),
 }
 
 
@@ -106,6 +128,20 @@ def child(seed: int) -> int:
                                   max_ratio_loss_coeff_xi=worst, max_ratio_dh=dh_worst,
                                   bit_equal=equal,
                                   passes=max(worst, dh_worst) <= 1.0 and equal)))
+    del w32, b32, w, b, h, ids, lp
+    torch.cuda.empty_cache()
+    for shape, c, kdim, t, n, scale, dtypes in cs.gather_shapes(cfg):
+        w32, b32, h, ids = cs.gather_inputs(dev, gen, c, kdim, t, n, scale)
+        for dtype in dtypes:
+            w, b = w32.to(dtype), b32.to(dtype)
+            got = ops.gather_scores(w, b, h, ids)
+            again = ops.gather_scores(w, b, h, ids)
+            want = ref.gather_scores_ref(w, b, h, ids)
+            r, equal = ratio(got, want, cs.GATHER_TOL), torch.equal(got, again)
+            print(json.dumps(dict(check=f"gather_scores/{shape}/{str(dtype)[6:]}",
+                                  max_ratio=r, bit_equal=equal, passes=r <= 1.0 and equal)))
+        del w32, b32, h, ids, w, b
+        torch.cuda.empty_cache()
     return 0
 
 
@@ -142,9 +178,14 @@ def main() -> int:
                 row = json.loads(line)
                 print(json.dumps(dict(fault=fault, **row)))
                 passes[row["check"]] = row["passes"]
-        # A fault in one kernel leaves the other kernel's checks as they were.
-        ok &= (all(passes.values()) if edit is None
-               else not any(passes[check] for check in must_fail))
+        # A fault fails the checks it must, and leaves the other kernels'
+        # checks as they were.
+        if edit is None:
+            ok &= all(passes.values())
+        else:
+            ok &= not any(passes[check] for check in must_fail)
+            ok &= all(v for check, v in passes.items()
+                      if not check.startswith(KERNEL_OF[source]))
     return 0 if ok else 1
 
 

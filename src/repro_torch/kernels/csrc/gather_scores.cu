@@ -3,121 +3,261 @@
 //
 // Replaces src/repro/kernels/gather_scores.py:gather_scores (Pallas, TPU).
 // The work is a gather of T*n rows of K values with two operations per value
-// read, so device memory bytes bound it. Design: one warp per (t, j) pair
-// reads its row once with 16-byte loads, multiplies it with h[t] held in
-// shared memory as float32, and reduces with warp shuffles; the block of 8
-// warps shares one token t, so h[t] is read once per 8 rows. Tables are
-// float32 or bfloat16 (upcast with the intrinsics), ids are torch's int64,
-// and every edge (any T, any n, any K) is masked here. An id outside [0, C)
-// is never read: its score is written as NaN.
+// read, so device memory bytes bound it. At the LM-serving beam call (4
+// tokens, 64 candidates, K = 3,840) those bytes are 3.9 MB, about a
+// microsecond of bandwidth: what a row waits for there is the latency of
+// dependent reads and how many of them the card has in flight.
+//
+// Design: two dependent round trips to device memory for every row. Lanes
+// form groups of `lanes` threads (8 to 256, a power of two); a group scores
+// `rows` slots of one token (1, 2 or 4). In round trip 1 a lane reads its
+// part of h[t], which does not depend on the ids, and the ids of its
+// group's slots; in round trip 2 it issues every 16-byte chunk
+// of every row it owns (16 values of a row, all in registers: 4 chunks of
+// float32 or 2 of bfloat16) and b[id], and only then runs an FMA. Nothing
+// waits on a barrier before the ids are read, and h is never staged in
+// shared memory, so K has no cap. A row longer than 16 * lanes values takes
+// more rounds of the same kind.
+//
+// Two variants, one source (kernels/gather_scores.py:launch_plan picks one
+// from the shape alone; the C entry checks the plan again):
+// - rows (lanes <= 32): a row lies within one warp; a warp scores several
+//   rows, reusing its h in registers, and sums with shuffles only. Many-row
+//   calls (B = 256 queries, K = 512) take it.
+// - split (lanes >= 64): a row is spread over the warps of a block, summed
+//   in shared memory. Few-row calls take it, so that the grid has blocks on
+//   every SM (the LM-serving beam call: a block a row).
+// The plan aims the grid at one wave, kBlocksPerSm blocks an SM (what 256
+// threads at up to 128 registers let reside; exported so the plan can check
+// it): every load of a block is issued at once, so a second wave would wait
+// a whole round trip behind the first. Every sum runs in a fixed order
+// (lane chunks, shuffle tree, warps) and no atomics are used: two calls
+// give the same bits. Tables are float32 or bfloat16 (upcast with the
+// intrinsics), h is float32, ids are torch's int64; any T, n and K is
+// masked here. Rows that are not 16-byte aligned (vec == 0) are read element
+// by element by the same lanes. An id outside [0, C) is never read: its
+// score is written as NaN.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 2;   // the occupancy launch_plan's wave assumes
 constexpr int kWarp = 32;
+constexpr int kWarps = kThreads / kWarp;
+constexpr int kLaneValues = 16;  // values of each row a lane holds in a round
+constexpr int kMaxRows = 4;      // slots a group scores together
+constexpr int kMinLanes = 8;
+constexpr unsigned kFull = 0xffffffffu;
+enum Variant : int { kRows = 0, kSplit = 1 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Dot product of one 16-byte chunk of a row with the matching floats of h.
-__device__ __forceinline__ float dot_chunk(const float* row, const float* h) {
-  const float4 r = *reinterpret_cast<const float4*>(row);
-  const float4 x = *reinterpret_cast<const float4*>(h);
-  return r.x * x.x + r.y * x.y + r.z * x.z + r.w * x.w;
-}
-
-__device__ __forceinline__ float dot_chunk(const __nv_bfloat16* row,
-                                           const float* h) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(row);
-  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float4 x0 = *reinterpret_cast<const float4*>(h);
-  const float4 x1 = *reinterpret_cast<const float4*>(h + 4);
-  const float2 r0 = __bfloat1622float2(pairs[0]);
-  const float2 r1 = __bfloat1622float2(pairs[1]);
-  const float2 r2 = __bfloat1622float2(pairs[2]);
-  const float2 r3 = __bfloat1622float2(pairs[3]);
-  return r0.x * x0.x + r0.y * x0.y + r1.x * x0.z + r1.y * x0.w +
-         r2.x * x1.x + r2.y * x1.y + r3.x * x1.z + r3.y * x1.w;
-}
-
-// grid = (T, ceil(n / kWarpsPerBlock)); shared memory = K floats.
-// vec != 0 promises 16-byte aligned rows (w aligned, K*sizeof(Scalar) % 16 == 0).
-template <typename Scalar>
-__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
-gather_scores_kernel(const Scalar* __restrict__ w, const Scalar* __restrict__ b,
-                     const float* __restrict__ h,
-                     const int64_t* __restrict__ ids, float* __restrict__ out,
-                     int64_t n, int64_t K, int64_t C, int vec) {
-  extern __shared__ __align__(16) float h_s[];
-  const int64_t t = blockIdx.x;
-  const float* h_t = h + t * K;
-  for (int64_t k = threadIdx.x; k < K; k += blockDim.x) h_s[k] = h_t[k];
-  __syncthreads();
-
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int64_t j = (int64_t)blockIdx.y * kWarpsPerBlock + warp;
-  if (j >= n) return;
-  const int64_t slot = t * n + j;
-  const int64_t id = ids[slot];
-  if (id < 0 || id >= C) {  // warp-uniform: the whole warp leaves together
-    if (lane == 0) out[slot] = __int_as_float(0x7fc00000);
-    return;
-  }
-  const Scalar* row = w + id * K;
-  constexpr int kVec = 16 / sizeof(Scalar);  // elements in one 16-byte load
-  float acc = 0.f;
-  int64_t tail = 0;
-  if (vec) {
-    for (int64_t k = (int64_t)lane * kVec; k < K; k += kWarp * kVec)
-      acc += dot_chunk(row + k, h_s + k);
-    tail = K;
-  }
-  for (int64_t k = tail + lane; k < K; k += kWarp)
-    acc += to_float(row[k]) * h_s[k];
+// h for one 16-byte chunk of the table: 4 floats (float32 rows) or 8
+// (bfloat16 rows), zero where the chunk is masked.
+template <int kElts>
+__device__ __forceinline__ void load_h(float (&x)[kElts], const float* h, bool live) {
 #pragma unroll
-  for (int offset = kWarp / 2; offset > 0; offset >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, offset);
-  if (lane == 0) out[slot] = acc + to_float(b[id]);
+  for (int i = 0; i < kElts; i += 4) {
+    const float4 v = live ? __ldg(reinterpret_cast<const float4*>(h + i))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    x[i] = v.x; x[i + 1] = v.y; x[i + 2] = v.z; x[i + 3] = v.w;
+  }
+}
+
+// acc + (one chunk of a row) . (its h), in element order.
+__device__ __forceinline__ float dot_chunk(float, const uint4& r, const float (&x)[4],
+                                           float acc) {
+  acc = fmaf(__uint_as_float(r.x), x[0], acc);
+  acc = fmaf(__uint_as_float(r.y), x[1], acc);
+  acc = fmaf(__uint_as_float(r.z), x[2], acc);
+  return fmaf(__uint_as_float(r.w), x[3], acc);
+}
+__device__ __forceinline__ float dot_chunk(__nv_bfloat16, const uint4& r, const float (&x)[8],
+                                           float acc) {
+  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(pairs[i]);
+    acc = fmaf(f.x, x[2 * i], acc);
+    acc = fmaf(f.y, x[2 * i + 1], acc);
+  }
+  return acc;
+}
+
+// grid = ceil(groups / (kThreads / lanes)) blocks of kThreads; a group is
+// `rows` consecutive slots of one token. vec != 0 promises 16-byte aligned
+// rows of w and h (K * sizeof(Scalar) % 16 == 0).
+template <typename Scalar, bool kSplitRows>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+gather_scores_kernel(const Scalar* __restrict__ w, const Scalar* __restrict__ b,
+                     const float* __restrict__ h, const int64_t* __restrict__ ids,
+                     float* __restrict__ out, int64_t T, int64_t n, int64_t K, int64_t C,
+                     int vec, int lanes, int rows) {
+  constexpr int kElts = 16 / (int)sizeof(Scalar);   // elements in a chunk
+  constexpr int kVec = kLaneValues / kElts;          // chunks of a row a lane holds
+  const int tid = threadIdx.x;
+  const int lane = tid & (lanes - 1);
+  const int group_in_block = tid / lanes;
+  const int64_t group = (int64_t)blockIdx.x * (kThreads / lanes) + group_in_block;
+  const int64_t per_token = (n + rows - 1) / rows;
+  const bool live = group < T * per_token;
+  const int64_t t = live ? group / per_token : 0;
+  const int64_t j0 = live ? (group - t * per_token) * rows : 0;
+
+  const int64_t chunks = (K + kElts - 1) / kElts;   // of a row
+  const int64_t stride = (int64_t)kVec * lanes;
+  const float* h_t = h + t * K;
+
+  // Round trip 1: h for the first round, then the ids; neither waits on the other.
+  float hv[kVec][kElts];
+  if (vec) {
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      const int64_t c = lane + (int64_t)v * lanes;
+      load_h(hv[v], h_t + c * kElts, c < chunks);
+    }
+  }
+  int64_t id[kMaxRows];
+  bool exists[kMaxRows], ok[kMaxRows];
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) {
+    exists[r] = live && r < rows && j0 + r < n;
+    id[r] = exists[r] ? (int64_t)__ldg(reinterpret_cast<const long long*>(ids) + t * n + j0 + r)
+                      : 0;
+    ok[r] = exists[r] && id[r] >= 0 && id[r] < C;
+  }
+
+  // Round trip 2: b[id] for the lane that writes, and every chunk of the
+  // group's rows in this round, issued before any is used.
+  const bool writer = lane == 0;
+  float bias[kMaxRows];
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) bias[r] = (writer && ok[r]) ? to_float(b[id[r]]) : 0.f;
+  float acc[kMaxRows];
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
+  if (vec) {
+    for (int64_t c0 = 0; c0 < chunks; c0 += stride) {
+      if (c0 != 0) {
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) {
+          const int64_t c = c0 + lane + (int64_t)v * lanes;
+          load_h(hv[v], h_t + c * kElts, c < chunks);
+        }
+      }
+      uint4 wv[kMaxRows][kVec];
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        const Scalar* row = w + id[r] * K;
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) {
+          const int64_t c = c0 + lane + (int64_t)v * lanes;
+          wv[r][v] = (ok[r] && c < chunks)
+                         ? __ldg(reinterpret_cast<const uint4*>(row + c * kElts))
+                         : make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r)
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) acc[r] = dot_chunk(Scalar(), wv[r][v], hv[v], acc[r]);
+    }
+  } else {
+    for (int64_t k = lane; k < K; k += lanes) {
+      const float x = __ldg(h_t + k);
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r)
+        if (ok[r]) acc[r] = fmaf(to_float(w[id[r] * K + k]), x, acc[r]);
+    }
+  }
+
+  // The sums, in a fixed order.
+  float* dst = out + t * n + j0;
+  if constexpr (!kSplitRows) {
+    for (int o = lanes / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) acc[r] += __shfl_xor_sync(kFull, acc[r], o);
+  } else {
+    __shared__ float warp_s[kWarps][kMaxRows];
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) acc[r] += __shfl_xor_sync(kFull, acc[r], o);
+    if ((tid & (kWarp - 1)) == 0)
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) warp_s[tid / kWarp][r] = acc[r];
+    __syncthreads();
+    const int warps = lanes / kWarp;   // warps of a group
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < kMaxRows; ++r) {
+        acc[r] = 0.f;
+        for (int i = 0; i < warps; ++i) acc[r] += warp_s[group_in_block * warps + i][r];
+      }
+    }
+  }
+  if (writer)
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r)
+      if (exists[r]) dst[r] = ok[r] ? acc[r] + bias[r] : __int_as_float(0x7fc00000);
 }
 
 template <typename Scalar>
-int launch(const void* w, const void* b, const void* h, const void* ids,
-           void* out, int64_t T, int64_t n, int64_t K, int64_t C, int vec,
-           void* stream) {
+int launch(const void* w, const void* b, const void* h, const void* ids, void* out,
+           int64_t T, int64_t n, int64_t K, int64_t C, int vec, int variant, int lanes,
+           int rows, void* stream) {
+  const bool pow2 = lanes >= kMinLanes && lanes <= kThreads && (lanes & (lanes - 1)) == 0;
+  const bool plan_ok = pow2 && (rows == 1 || rows == 2 || rows == 4) &&
+                       ((variant == kRows && lanes <= kWarp) ||
+                        (variant == kSplit && lanes > kWarp));
+  if (T < 0 || n < 0 || K < 0 || !plan_ok) return (int)cudaErrorInvalidValue;
   if (T == 0 || n == 0) return 0;
-  const dim3 grid((unsigned)T,
-                  (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  const size_t smem = (size_t)K * sizeof(float);
-  gather_scores_kernel<Scalar><<<grid, kWarpsPerBlock * kWarp, smem,
-                                 (cudaStream_t)stream>>>(
-      (const Scalar*)w, (const Scalar*)b, (const float*)h,
-      (const int64_t*)ids, (float*)out, n, K, C, vec);
+  const int64_t groups = T * ((n + rows - 1) / rows);
+  const int64_t per_block = kThreads / lanes;
+  const int64_t blocks = (groups + per_block - 1) / per_block;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+
+  const Scalar* w_ = static_cast<const Scalar*>(w);
+  const Scalar* b_ = static_cast<const Scalar*>(b);
+  const float* h_ = static_cast<const float*>(h);
+  const int64_t* ids_ = static_cast<const int64_t*>(ids);
+  float* out_ = static_cast<float*>(out);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (variant == kRows)
+    gather_scores_kernel<Scalar, false><<<(unsigned)blocks, kThreads, 0, s>>>(
+        w_, b_, h_, ids_, out_, T, n, K, C, vec, lanes, rows);
+  else
+    gather_scores_kernel<Scalar, true><<<(unsigned)blocks, kThreads, 0, s>>>(
+        w_, b_, h_, ids_, out_, T, n, K, C, vec, lanes, rows);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes. Each returns cudaGetLastError()
+// Plain C entry points, loaded with ctypes. (variant, lanes, rows) is
+// kernels/gather_scores.py:launch_plan's; a plan this file cannot run
+// returns cudaErrorInvalidValue. Otherwise each returns cudaGetLastError()
 // after the launch (0 when it was accepted).
-extern "C" int gather_scores_f32(const void* w, const void* b, const void* h,
-                                 const void* ids, void* out, int64_t T,
-                                 int64_t n, int64_t K, int64_t C, int vec,
-                                 void* stream) {
-  return launch<float>(w, b, h, ids, out, T, n, K, C, vec, stream);
+extern "C" int gather_scores_f32(const void* w, const void* b, const void* h, const void* ids,
+                                 void* out, int64_t T, int64_t n, int64_t K, int64_t C,
+                                 int vec, int variant, int lanes, int rows, void* stream) {
+  return launch<float>(w, b, h, ids, out, T, n, K, C, vec, variant, lanes, rows, stream);
 }
 
-extern "C" int gather_scores_bf16(const void* w, const void* b, const void* h,
-                                  const void* ids, void* out, int64_t T,
-                                  int64_t n, int64_t K, int64_t C, int vec,
-                                  void* stream) {
-  return launch<__nv_bfloat16>(w, b, h, ids, out, T, n, K, C, vec, stream);
+extern "C" int gather_scores_bf16(const void* w, const void* b, const void* h, const void* ids,
+                                  void* out, int64_t T, int64_t n, int64_t K, int64_t C,
+                                  int vec, int variant, int lanes, int rows, void* stream) {
+  return launch<__nv_bfloat16>(w, b, h, ids, out, T, n, K, C, vec, variant, lanes, rows,
+                               stream);
 }
+
+// The blocks an SM the kernel's launch bounds promise, which launch_plan's
+// wave assumes (kernels/gather_scores.py checks the two agree).
+extern "C" int gather_scores_blocks_per_sm() { return kBlocksPerSm; }
 
 extern "C" const char* gather_scores_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core import tree as tree_lib
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import gather_scores as gsc
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tree_logprob as tlp
 
@@ -200,6 +201,76 @@ def test_tree_logprob_launch_plan_fills_the_card_within_its_limits(sm_count):
             assert blocks >= 2 * sm_count or (groups == 1 and sub == 8)
 
 
+@pytest.mark.parametrize("t,n,k,itemsize,want", [
+    (4, 64, 3840, 4, (gsc.SPLIT, 256, 1)),   # LM-serving beam: a block a row, 256 blocks
+    (256, 64, 512, 4, (gsc.ROWS, 16, 4)),    # prediction beam: a block a token, two rounds
+    (256, 64, 512, 2, (gsc.ROWS, 16, 4)),    # the same, bfloat16
+    (1, 1, 512, 4, (gsc.SPLIT, 128, 1)),     # one row: a chunk a lane
+    (1, 1, 3840, 4, (gsc.SPLIT, 256, 1)),
+    (7, 5, 50, 4, (gsc.ROWS, 16, 1)),        # K not a multiple of a 16-byte chunk
+    (4, 64, 3841, 4, (gsc.SPLIT, 256, 1)),
+    (4, 64, 16384, 4, (gsc.SPLIT, 256, 1)),  # a row longer than a block's round: 4 rounds
+    (2, 3, 1_000_000, 2, (gsc.SPLIT, 256, 1)),
+])
+def test_gather_scores_launch_plan(t, n, k, itemsize, want):
+    assert gsc.launch_plan(t, n, k, itemsize, 132) == want
+
+
+@pytest.mark.parametrize("sm_count", [1, 78, 132])
+def test_gather_scores_launch_plan_fills_the_card_within_its_limits(sm_count):
+    for t in (1, 4, 7, 256, 5000):
+        for n in (1, 3, 5, 64, 300):
+            for k in (1, 4, 50, 512, 513, 3840, 3841, 12289, 100_000):
+                for itemsize in (4, 2):
+                    variant, lanes, rows = gsc.launch_plan(t, n, k, itemsize, sm_count)
+                    c = gsc.chunks(k, itemsize)
+                    assert lanes in (8, 16, 32, 64, 128, 256) and rows in (1, 2, 4)
+                    assert variant == (gsc.ROWS if lanes <= 32 else gsc.SPLIT)
+                    assert rows <= n
+                    # Never a row over more lanes than twice its chunks (so
+                    # never over more warps than it has chunks), and at most
+                    # two rounds a lane unless a whole block takes the row.
+                    assert lanes < 2 * c or lanes == 8
+                    assert variant == gsc.ROWS or lanes // 32 <= c
+                    assert gsc.rounds(c, itemsize, lanes) <= 2 or lanes == 256
+                    blocks = gsc.blocks(t, n, lanes, rows)
+                    # At least one block an SM unless nothing is left to
+                    # split, and within one wave (BLOCKS_PER_SM an SM)
+                    # unless narrower groups would take more than two rounds.
+                    assert blocks >= sm_count or (
+                        rows == 1 and (lanes == 256 or lanes >= c))
+                    assert blocks <= gsc.BLOCKS_PER_SM * sm_count or lanes == 8 or (
+                        gsc.rounds(c, itemsize, lanes // 2) > 2)
+
+
+class _FakeGatherLibrary:
+    """A stand-in for the kernel's library: entry points that take
+    ctypes attributes, and the launch bounds' blocks an SM."""
+
+    def __init__(self, blocks_per_sm):
+        fn = type("Entry", (), {"__call__": lambda self, *a: 0})
+        self.gather_scores_f32, self.gather_scores_bf16 = fn(), fn()
+        self.gather_scores_blocks_per_sm = type(
+            "Entry", (), {"__call__": lambda self: blocks_per_sm})()
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 3])
+def test_gather_scores_refuses_a_library_of_another_occupancy(monkeypatch, blocks_per_sm):
+    """launch_plan's wave assumes the kernel's launch bounds: a library
+    whose bounds promise another count of blocks an SM is not used."""
+    monkeypatch.setattr(build, "load", lambda name: _FakeGatherLibrary(blocks_per_sm))
+    gsc._lib.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="blocks an SM"):
+            gsc._lib()
+        monkeypatch.setattr(build, "load",
+                            lambda name: _FakeGatherLibrary(gsc.BLOCKS_PER_SM))
+        gsc._lib.cache_clear()
+        assert gsc._lib().gather_scores_blocks_per_sm() == gsc.BLOCKS_PER_SM
+    finally:
+        gsc._lib.cache_clear()
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -240,6 +311,118 @@ def test_cuda_gather_scores_out_of_range_id_is_nan(cuda):
     got = ops.gather_scores(w, b, h, ids).cpu()
     assert torch.isnan(got[1, 2]) and torch.isnan(got[2, 0])
     assert torch.isfinite(got).sum() == got.numel() - 2
+
+
+def _gather_case(device, seed, c, kdim, t, n, dtype):
+    """Inputs at a model's scale (w ~ N(0, 1/K)), so one float32 dot stays
+    within TOL of another summed in another order."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((c, kdim)) / np.sqrt(kdim)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    h = rng.standard_normal((t, kdim)).astype(np.float32)
+    ids = rng.integers(0, c, (t, n))
+    w, b, h, ids = (torch.from_numpy(a).to(device) for a in (w, b, h, ids))
+    return w.to(dtype), b.to(dtype), h, ids
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+# Every variant and split a plan can give, forced through the launch.
+GATHER_PLANS = [(gsc.ROWS, 8, 1), (gsc.ROWS, 16, 2), (gsc.ROWS, 32, 4), (gsc.ROWS, 8, 4),
+                (gsc.SPLIT, 64, 4), (gsc.SPLIT, 128, 2), (gsc.SPLIT, 256, 1),
+                (gsc.SPLIT, 256, 2), (gsc.SPLIT, 128, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kdim", [50, 512, 3840, 3841])
+@pytest.mark.parametrize("plan", GATHER_PLANS)
+def test_cuda_gather_scores_each_plan_matches_plain(cuda, plan, kdim, dtype):
+    """Each variant and split against the plain version: aligned rows (K =
+    512, 3,840) and ragged ones read element by element (K = 50, 3,841); n =
+    37 over the 32 slots a block takes at most; an id outside [0, C) scores
+    NaN; two calls give the same bits; the variant's counter moves."""
+    c, t, n = 1000, 5, 37
+    w, b, h, ids = _gather_case(cuda, kdim + plan[1] + plan[2], c, kdim, t, n, dtype)
+    ids[0, 3], ids[4, 36], ids[2, 0] = c, -1, c + 77
+    bad = (ids < 0) | (ids >= c)
+    out, again = (torch.empty((t, n), device=cuda) for _ in range(2))
+    before = (gsc.gather_scores.rows_launches, gsc.gather_scores.split_launches)
+    gsc._launch(w, b, h, ids, out, *plan)
+    gsc._launch(w, b, h, ids, again, *plan)
+    torch.cuda.synchronize()
+    after = (gsc.gather_scores.rows_launches, gsc.gather_scores.split_launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (
+        (2, 0) if plan[0] == gsc.ROWS else (0, 2))
+    assert torch.equal(_bits(out), _bits(again))
+    assert torch.equal(torch.isnan(out), bad)
+    want = tref.gather_scores_ref(w, b, h, ids.clamp(0, c - 1))
+    torch.testing.assert_close(out[~bad], want[~bad], **TOL)
+
+
+@pytest.mark.parametrize("shifted", ["w", "h"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gather_scores_unaligned_rows(cuda, shifted, dtype):
+    """Rows of w or h that do not start on 16 bytes (a table sliced one
+    element in) take the element-by-element path under the plan."""
+    c, kdim, t, n = 700, 512, 6, 64
+    w, b, h, ids = _gather_case(cuda, 3, c, kdim, t, n, dtype)
+    if shifted == "w":
+        w = torch.cat([w.new_zeros(1), w.reshape(-1)])[1:].view(c, kdim)
+        assert w.data_ptr() % 16 != 0
+    else:
+        h = torch.cat([h.new_zeros(1), h.reshape(-1)])[1:].view(t, kdim)
+        assert h.data_ptr() % 16 != 0
+    got = ops.gather_scores(w, b, h, ids)
+    again = ops.gather_scores(w, b, h, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, tref.gather_scores_ref(w, b, h, ids), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,n,kdim,variant", [
+    (4, 64, 3840, gsc.SPLIT),     # the LM-serving beam path's call
+    (256, 64, 512, gsc.ROWS),     # the prediction beam path's call
+    (1, 1, 512, gsc.SPLIT),
+    (4, 64, 16384, gsc.SPLIT),    # a row in 4 rounds of a block
+])
+def test_cuda_gather_scores_plans_the_main_paths(cuda, t, n, kdim, variant, dtype):
+    """The plan of the main paths' shapes takes the variant it names, counted
+    by its own counter, and two calls give the same bits."""
+    w, b, h, ids = _gather_case(cuda, t + n, 1024, kdim, t, n, dtype)
+    sm_count = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert gsc.launch_plan(t, n, kdim, w.element_size(), sm_count)[0] == variant
+    counter = "rows_launches" if variant == gsc.ROWS else "split_launches"
+    before = (getattr(ops.gather_scores, counter), ops.gather_scores.launches)
+    got = ops.gather_scores(w, b, h, ids)
+    again = ops.gather_scores(w, b, h, ids)
+    torch.cuda.synchronize()
+    assert (getattr(ops.gather_scores, counter), ops.gather_scores.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, tref.gather_scores_ref(w, b, h, ids), **TOL)
+
+
+@pytest.mark.parametrize("plan", [(gsc.ROWS, 64, 1), (gsc.SPLIT, 32, 1),
+                                  (gsc.ROWS, 32, 3), (gsc.ROWS, 4, 1),
+                                  (gsc.ROWS, 16, 8), (gsc.SPLIT, 128, 3),
+                                  (gsc.SPLIT, 96, 1), (2, 32, 1),
+                                  (gsc.SPLIT, 64, 8)])
+def test_cuda_gather_scores_entry_refuses_a_plan_it_cannot_run(cuda, plan):
+    """The C entry checks the plan again: ROWS takes 8 to 32 lanes, SPLIT
+    64 to 256 lanes, powers of two; rows 1, 2 or 4."""
+    w, b, h, ids = _gather_case(cuda, 0, 50, 4, 3, 5, torch.float32)
+    out = torch.empty((3, 5), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        gsc._launch(w, b, h, ids, out, *plan)
+
+
+def test_cuda_gather_scores_library_bounds_match_the_plan(cuda):
+    """The built kernel's launch bounds promise the blocks an SM that
+    launch_plan's wave assumes."""
+    assert gsc._lib().gather_scores_blocks_per_sm() == gsc.BLOCKS_PER_SM
 
 
 @pytest.mark.parametrize("bsz", [1, 3, 130])
