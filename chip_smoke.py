@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's prediction, training, generator-fitting and LM-serving paths on one NVIDIA card.
+"""Drives the PyTorch port's prediction, training, head-math, generator-fitting and LM-serving paths on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
@@ -60,7 +60,21 @@ Phases, each fatal on failure:
      step, peak memory; prefill plus decode of all 4 requests through the
      cache against the plain version's cache-free forward over the 4,640
      cached tokens (hiddens and dense Eq. 5 scores of every decode step);
- 10. print the ``kernels`` JSON line and, last, the device line.
+ 10. the head math at full ``xc_linear`` width (run after phase 5),
+     counters reset just before and read just after: on
+     benchmarks/bench_snr.py's conditional problem (256 contexts, p_D =
+     softmax(2 ctx @ emb^T), 524,288 pairs) the tree (level-parallel fit),
+     LSH (8 bits) and RFF (D = 64) proposals, each normalized, reporting
+     its draws' log-probabilities, a chi-square of 2^20 draws, 300 training
+     steps (ms per step, one ``sampled_head_loss`` launch a step) and a
+     held-out log-likelihood above uniform's; the sparse training step
+     with adagrad, sm3 (fp32, bf16) and adamw (fp32, int8) at C = 217,240
+     and 2,097,152 (ms per step, p50/p95 from an ``obs`` histogram, state
+     bytes, peak growth, one update profiled), SM3 and lazy AdamW sparse
+     against dense; closed-form gradient SNR and signal mass of every
+     proposal (Theorem 2), the streamed estimator timed; each section in
+     an ``obs`` span, a ``record_function`` range in the profiler;
+ 11. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
 """
@@ -82,18 +96,19 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import configs, device as device_lib, genfit  # noqa: E402
+from repro_torch import configs, device as device_lib, genfit, obs, optim  # noqa: E402
 from repro_torch.configs import xc_linear  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm_head, transformer  # noqa: E402
 from repro_torch.train import make_prefill, make_serve_step  # noqa: E402
-from repro_torch.core import heads, tree as tree_lib, tree_fit, xc_train  # noqa: E402
+from repro_torch.core import heads, samplers, snr, tree as tree_lib, tree_fit, xc_train  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.genfit import levels as genfit_levels  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import gather_scores as gather_scores_lib, tree_logprob  # noqa: E402
 from repro_torch.kernels.sampled_loss import SAMPLED_KINDS  # noqa: E402
 from repro_torch.optim import OptimizerConfig, apply_updates, init_opt_state  # noqa: E402
+from repro_torch.optim import sparse as sparse_lib  # noqa: E402
 from repro_torch.optim.sparse import accumulate_rows  # noqa: E402
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet).
@@ -712,10 +727,11 @@ class Timer:
         return 1e3 * (t1 - t0) / (s1 - s0)
 
 
-def ms_per_train_step(hcfg, gen, data, lr, steps, seed):
+def ms_per_train_step(hcfg, gen, data, lr, steps, seed, sampler=None):
     timer = Timer()
     params = xc_train.train_linear_head(hcfg, gen, *data, lr=lr, steps=steps, seed=seed,
-                                        callback=timer, device=data[0].device)
+                                        callback=timer, sampler=sampler,
+                                        device=data[0].device)
     torch.cuda.synchronize()
     return timer.ms_per_step(), params
 
@@ -1483,6 +1499,383 @@ def serve_path(dev, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: head math (proposals, head state, gradient SNR).
+# ---------------------------------------------------------------------------
+
+HM_CONTEXTS = 256                # contexts of the synthetic conditional problem
+HM_TAU = 2.0                     # p_D = softmax(tau · ctx @ emb^T), benchmarks/bench_snr.py
+HM_PAIRS = SEG_POINTS            # (context, label ~ p_D) pairs the proposals are fitted on
+HM_HELD_OUT = 1024
+HM_CHI_DRAWS = 2 ** 20
+HM_RFF_CHUNK = 4096              # RFF draws gather a (draws, C) CDF block: 3.6 GB at 4,096
+HM_STATE_STEPS = 100
+HM_STATE_START = 1000            # the step a timed head-state run starts at (see below)
+HM_STATE_CS = (217_240, BIG_C)
+HM_STATE_VARIANTS = (("adagrad/fp32", "adagrad", "fp32", torch.float32),
+                     ("adagrad/bf16", "adagrad", "bf16", torch.bfloat16),
+                     ("sm3/fp32", "sm3", "fp32", torch.float32),
+                     ("sm3/bf16", "sm3", "bf16", torch.bfloat16),
+                     ("adamw/fp32", "adamw", "fp32", torch.float32),
+                     ("adamw/int8", "adamw", "int8", torch.float32))
+HM_PROFILED = ("adagrad/fp32", "adamw/fp32")   # an update profiled at C = 217,240
+HM_SNR_SAMPLES = 2 ** 18
+HM_SNR_CHUNK = 2 ** 16
+STATE_TOL = dict(atol=1e-6, rtol=1e-5)    # tests/test_state_memory.py's sparse == dense
+
+
+def conditional_problem(dev, gen, c, kdim, kg, n_pairs):
+    """benchmarks/bench_snr.py's synthetic conditional problem at full width:
+    HM_CONTEXTS contexts ctx (k dims) and label embeddings emb (C, k),
+    p_D(.|x) = softmax(tau · ctx @ emb^T), and (context, y ~ p_D) pairs. The
+    head sees each context through a fixed random map to K dims."""
+    ctx = torch.randn((HM_CONTEXTS, kg), generator=gen, device=dev)
+    emb = torch.randn((c, kg), generator=gen, device=dev)
+    p_d = torch.softmax(HM_TAU * ctx @ emb.T, dim=-1)                  # (X, C), 222 MB
+    feat = ctx @ (torch.randn((kg, kdim), generator=gen, device=dev) / kg ** 0.5)
+
+    def pairs(n):
+        y = torch.multinomial(p_d, n // HM_CONTEXTS, replacement=True, generator=gen)
+        xs = torch.arange(HM_CONTEXTS, device=dev).repeat_interleave(n // HM_CONTEXTS)
+        perm = torch.randperm(n, generator=gen, device=dev)
+        xs, y = xs[perm], y.reshape(-1)[perm]
+        return feat[xs], ctx[xs], y
+
+    return ctx, p_d, pairs(n_pairs), pairs(HM_HELD_OUT)
+
+
+def chi_square(sampler, x1, c, gen, chunk):
+    """Chi-square of HM_CHI_DRAWS draws for one query against
+    exp(log_prob_all), as tests/test_samplers.py does, with the bins that
+    expect fewer than 5 draws pooled into one. Returns (chi2, degrees of
+    freedom, draws in zero-probability bins)."""
+    p = torch.exp(sampler.log_prob_all(x1)[0].double())
+    p = p / p.sum()
+    counts = torch.zeros(c, dtype=torch.float64, device=x1.device)
+    for _ in range(HM_CHI_DRAWS // chunk):
+        ids, _ = sampler.sample(gen, x1, (1, chunk))
+        counts += torch.bincount(ids.reshape(-1), minlength=c).double()
+    exp = HM_CHI_DRAWS * p
+    keep = exp >= 5.0
+    obs_b = torch.cat([counts[keep], counts[~keep].sum()[None]])
+    exp_b = torch.cat([exp[keep], exp[~keep].sum()[None]])
+    if float(exp_b[-1]) < 5.0:
+        obs_b, exp_b = obs_b[:-1], exp_b[:-1]
+    chi2 = float(((obs_b - exp_b) ** 2 / exp_b).sum())
+    return chi2, exp_b.numel() - 1, int(counts[exp < 1e-6].sum())
+
+
+def proposals_section(dev, seed, cfg, card, reg):
+    """Fit the tree, LSH (8 bits) and RFF (D = 64) proposals on the
+    conditional problem at full width; check each on 256 queries; train 300
+    steps with each; predictive log-likelihood above uniform's."""
+    c, kdim, kg = cfg.num_labels, cfg.feature_dim, cfg.gen_feature_dim
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    ctx, p_d, (x, xg, y), (x_te, xg_te, y_te) = conditional_problem(dev, gen, c, kdim, kg,
+                                                                    HM_PAIRS)
+    fit_s = {}
+    t0 = time.perf_counter()
+    # fit_sampler("tree") is the per-node fit, sequential in C: at full width
+    # the level-parallel fit's tree is wrapped instead.
+    tree = genfit.fit_tree_levelwise(xg.cpu().numpy(), y.cpu().numpy(), c,
+                                     config=tree_fit.FitConfig(reg=cfg.gen_reg, seed=seed),
+                                     device=dev)
+    torch.cuda.synchronize()
+    fit_s["tree"] = time.perf_counter() - t0
+    props = {"tree": samplers.TreeSampler(tree)}
+    for kind, kw in (("lsh", dict(n_bits=8)), ("rff", dict(n_features=64))):
+        t0 = time.perf_counter()
+        props[kind] = samplers.fit_sampler(kind, xg, y, c, seed=seed, device=dev, **kw)
+        torch.cuda.synchronize()
+        fit_s[kind] = time.perf_counter() - t0
+    q = xg_te[:256]
+    hcfg = heads.HeadConfig(num_labels=c, kind="adversarial_ns", n_neg=cfg.n_neg,
+                            reg=cfg.head_reg)
+    out = {}
+    for kind, s in props.items():
+        with obs.span(f"head_math/proposals/{kind}", reg):
+            lse = float(torch.logsumexp(s.log_prob_all(q), dim=-1).abs().max())
+            ids, lp = s.sample(gen, q, (256, 4))
+            lp_err = float((lp - s.log_prob(q, ids)).abs().max())
+            chi2, dof, in_zero = chi_square(s, q[:1], c, gen,
+                                            HM_RFF_CHUNK if kind == "rff" else HM_CHI_DRAWS)
+            check(lse <= 1e-4, f"{kind}: log_prob_all rows do not sum to 1 ({lse})")
+            check(lp_err <= 1e-5, f"{kind}: sample's log_pn differs from log_prob by {lp_err}")
+            check(in_zero == 0, f"{kind}: {in_zero} draws in zero-probability bins")
+            check(chi2 < dof + 5.0 * math.sqrt(2.0 * dof),
+                  f"{kind}: chi-square {chi2} over {dof} degrees of freedom")
+            before = ops.sampled_head_loss.launches
+            ms, params = ms_per_train_step(hcfg, heads.Generator(), (x, xg, y),
+                                           cfg.learning_rate, TRAIN_STEPS, seed, sampler=s)
+            launched = ops.sampled_head_loss.launches - before
+            check(launched == TRAIN_STEPS,
+                  f"{kind}: {launched} sampled_head_loss launches in {TRAIN_STEPS} steps")
+            ll = float(heads.predictive_log_likelihood(hcfg, params, heads.Generator(),
+                                                       x_te, xg_te, y_te, sampler=s))
+            check(math.isfinite(ll) and ll > -math.log(c),
+                  f"{kind}: predictive log-likelihood {ll} not above uniform's {-math.log(c)}")
+        out[kind] = {"fit_s": fit_s[kind], "max_abs_logsumexp": lse,
+                     "max_log_pn_err": lp_err, "chi2": chi2, "chi2_dof": dof,
+                     "train_ms_per_step": ms, "sampled_head_loss_launches": launched,
+                     "predictive_ll": ll}
+        del params
+    print(json.dumps({"head_math_proposals": {
+        "card": card, "num_labels": c, "contexts": HM_CONTEXTS, "tau": HM_TAU,
+        "pairs": HM_PAIRS, "held_out": HM_HELD_OUT, "chi2_draws": HM_CHI_DRAWS,
+        "distinct_labels": int(torch.unique(y).numel()), "uniform_ll": -math.log(c),
+        "proposals": out}}))
+    return ctx, p_d, y, props
+
+
+def state_inputs(dev, seed, c, kdim, kg):
+    """benchmarks/bench_heads.py's step inputs: one batch of 256 (features,
+    generator features, labels), negatives from a random tree."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    batch = (torch.randn((BATCH, kdim), generator=gen, device=dev),
+             torch.randn((BATCH, kg), generator=gen, device=dev),
+             torch.randint(0, c, (BATCH,), generator=gen, device=dev))
+    hgen = heads.make_tree_generator(tree_lib.init_tree(gen, c, kg, scale=0.1, device=dev))
+    return batch, hgen
+
+
+def state_update(ocfg, params, rows, state, reg):
+    """optim.apply_updates in an obs span (a profiler range)."""
+    with obs.span("head_math/apply_updates", reg):
+        return optim.apply_updates(ocfg, params, rows, state)
+
+
+def state_step(hcfg, ocfg, params, state, hgen, batch, g, reg):
+    """The sparse step of benchmarks/bench_heads.py in the port:
+    heads.sparse_head_loss, then optim.apply_updates."""
+    _, _, rows, _ = heads.sparse_head_loss(hcfg, params, hgen, *batch, g)
+    return state_update(ocfg, params, rows, state, reg)
+
+
+def time_state_variant(dev, seed, cfg, c, variant, reg, batch, hgen):
+    """ms per step of one head-state variant over HM_STATE_STEPS steps (each
+    in an obs span, its time in the registry's histogram), its state bytes,
+    the growth of the allocated bytes and of their peak; at C = 217,240 one
+    update of the HM_PROFILED variants under the profiler."""
+    label, name, sd, dtype = variant
+    hcfg = heads.HeadConfig(num_labels=c, kind="adversarial_ns", n_neg=cfg.n_neg,
+                            reg=cfg.head_reg)
+    ocfg = optim.OptimizerConfig(name=name, learning_rate=cfg.learning_rate, state_dtype=sd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = heads.HeadParams(torch.zeros((c, cfg.feature_dim), dtype=dtype, device=dev),
+                              torch.zeros((c,), dtype=dtype, device=dev))
+    # A run that has gone on for a while: with 512 touched rows a step at
+    # C = 217,240 a row waits ~424 steps between touches, so AdamW's
+    # catch-up replays its whole horizon (197 steps) nearly every step.
+    state = optim.init_opt_state(ocfg, params)._replace(step=HM_STATE_START)
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    for _ in range(5):
+        params, state, _ = state_step(hcfg, ocfg, params, state, hgen, batch, g, reg)
+    torch.cuda.synchronize()
+    hist = f"head_math/state/{label}/c{c}/step_s"
+    t0 = time.perf_counter()
+    for _ in range(HM_STATE_STEPS):
+        with obs.span(hist, reg):
+            params, state, _ = state_step(hcfg, ocfg, params, state, hgen, batch, g, reg)
+            torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / HM_STATE_STEPS
+    resident = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    # After the peak is read: isfinite makes (C, K) temporaries of its own.
+    check(bool(torch.isfinite(params.w).all()), f"{label} C={c}: params not finite")
+    h = reg.histogram(hist)
+    row = {"variant": label, "num_labels": c, "ms_per_step": ms,
+           "p50_ms": 1e3 * h.quantile(0.5), "p95_ms": 1e3 * h.quantile(0.95),
+           "state_bytes": optim.head_state_bytes(params, state),
+           "resident_growth_gib": resident / 2 ** 30, "peak_growth_gib": peak / 2 ** 30}
+    if c == HM_STATE_CS[0] and label in HM_PROFILED:
+        _, _, rows, _ = heads.sparse_head_loss(hcfg, params, hgen, *batch, g)
+        gap = (None if state.last is None else
+               int((state.step - state.last.w.index_select(0, rows.ids)).max()))
+        torch.cuda.synchronize()
+        by_name, n_kernels, host_ms, inside, _ = profile_by_kernel(
+            lambda: state_update(ocfg, params, rows, state, reg),
+            ranges=("head_math/apply_updates",))
+        row["profiled_update"] = {
+            "host_ms": host_ms, "kernels": n_kernels, "device_ms": sum(by_name.values()),
+            "device_ms_in_span": sum(inside["head_math/apply_updates"].values()),
+            "largest_gap_of_touched_rows": gap}
+    return row
+
+
+def check_sm3_sparse_dense(dev, seed, cfg, batch, hgen):
+    """SM3 at C = 217,240: 5 steps of the same gradients as SparseRows and
+    in dense form agree at the reference test's tolerance (params and both
+    covers); rows no step touched are bit for bit unchanged."""
+    c, kdim = cfg.num_labels, cfg.feature_dim
+    hcfg = heads.HeadConfig(num_labels=c, kind="adversarial_ns", n_neg=cfg.n_neg,
+                            reg=cfg.head_reg)
+    ocfg = optim.OptimizerConfig(name="sm3", learning_rate=0.1, clip_norm=1.0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 32)
+    p0 = heads.HeadParams(0.05 * torch.randn((c, kdim), generator=gen, device=dev),
+                          torch.zeros((c,), device=dev))
+    ps = heads.HeadParams(p0.w.clone(), p0.b.clone())
+    pd = heads.HeadParams(p0.w.clone(), p0.b.clone())
+    ss, sd = optim.init_opt_state(ocfg, ps), optim.init_opt_state(ocfg, pd)
+    touched = torch.zeros(c, dtype=torch.bool, device=dev)
+    for _ in range(5):
+        _, _, rows, _ = heads.sparse_head_loss(hcfg, ps, hgen, *batch, gen)
+        touched[rows.ids] = True
+        pd, sd, _ = optim.apply_updates(ocfg, pd, heads.HeadParams(
+            *sparse_lib.to_dense(rows, tuple(pd.w.shape))), sd)
+        ps, ss, _ = optim.apply_updates(ocfg, ps, rows, ss)
+    for a, b_, what in ((ps.w, pd.w, "w"), (ps.b, pd.b, "b"),
+                        (ss.nu.w.row, sd.nu.w.row, "row cover"),
+                        (ss.nu.w.col, sd.nu.w.col, "column cover")):
+        check(close(a, b_, STATE_TOL), f"sm3: sparse and dense {what} differ")
+    check(torch.equal(ps.w[~touched], p0.w[~touched]), "sm3: an untouched row moved")
+    return {"steps": 5, "rows_touched": int(touched.sum()),
+            "max_abs_w_diff": float((ps.w - pd.w).abs().max())}
+
+
+def check_adamw_sparse_dense(dev, seed, cfg):
+    """Lazy AdamW at C = 217,240: random touches of 4,096 rows for 9 steps,
+    a jump of 250 steps (past the 197-step horizon), then every row touched;
+    sparse and dense agree at the reference test's tolerance."""
+    c, kdim = cfg.num_labels, cfg.feature_dim
+    ocfg = optim.OptimizerConfig(name="adamw", learning_rate=0.01, weight_decay=0.1)
+    gen = torch.Generator(device=dev).manual_seed(seed + 33)
+    p0 = heads.HeadParams(torch.randn((c, kdim), generator=gen, device=dev),
+                          torch.randn((c,), generator=gen, device=dev))
+    ps = heads.HeadParams(p0.w.clone(), p0.b.clone())
+    pd = heads.HeadParams(p0.w.clone(), p0.b.clone())
+    ss, sd = optim.init_opt_state(ocfg, ps), optim.init_opt_state(ocfg, pd)
+    for step in range(10):
+        if step == 9:
+            ss, sd = ss._replace(step=ss.step + 250), sd._replace(step=sd.step + 250)
+            ids = torch.arange(c, device=dev)
+        else:
+            ids = torch.randperm(c, generator=gen, device=dev)[:4096].sort().values
+        rows = sparse_lib.SparseRows(
+            ids, torch.randn((ids.numel(), kdim), generator=gen, device=dev),
+            torch.randn((ids.numel(),), generator=gen, device=dev))
+        pd, sd, _ = optim.apply_updates(ocfg, pd, heads.HeadParams(
+            *sparse_lib.to_dense(rows, (c, kdim))), sd)
+        ps, ss, _ = optim.apply_updates(ocfg, ps, rows, ss)
+    err = max(float((ps.w - pd.w).abs().max()), float((ps.b - pd.b).abs().max()))
+    check(close(ps.w, pd.w, STATE_TOL) and close(ps.b, pd.b, STATE_TOL),
+          f"adamw: lazy sparse and dense differ by {err}")
+    return {"steps": 10, "gap_jump": 250, "max_abs_diff": err}
+
+
+def head_state_section(dev, seed, cfg, card, reg):
+    """The head-state variants at C = 217,240 and 2,097,152 (ms per step,
+    state bytes, peak growth), their bytes at C = 16,777,216 on meta
+    tensors, and the sparse == dense checks."""
+    kdim, kg = cfg.feature_dim, cfg.gen_feature_dim
+    rows = []
+    for c in HM_STATE_CS:
+        batch, hgen = state_inputs(dev, seed, c, kdim, kg)
+        for variant in HM_STATE_VARIANTS:
+            with obs.span(f"head_math/state/{variant[0]}/c{c}", reg):
+                row = time_state_variant(dev, seed, cfg, c, variant, reg, batch, hgen)
+            rows.append(row)
+            print(json.dumps({"head_math_state_row": dict(row, card=card)}))
+            torch.cuda.empty_cache()
+    meta_bytes = {}
+    for label, name, sd, dtype in HM_STATE_VARIANTS:
+        p = heads.HeadParams(torch.empty((16_777_216, kdim), dtype=dtype, device="meta"),
+                             torch.empty((16_777_216,), dtype=dtype, device="meta"))
+        meta_bytes[label] = optim.head_state_bytes(
+            p, optim.init_opt_state(optim.OptimizerConfig(name=name, state_dtype=sd), p))
+    batch, hgen = state_inputs(dev, seed, cfg.num_labels, kdim, kg)
+    with obs.span("head_math/state/checks", reg):
+        sm3 = check_sm3_sparse_dense(dev, seed, cfg, batch, hgen)
+        adamw = check_adamw_sparse_dense(dev, seed, cfg)
+    torch.cuda.empty_cache()
+    print(json.dumps({"head_math_state": {
+        "card": card, "steps": HM_STATE_STEPS, "start_step": HM_STATE_START, "batch": BATCH,
+        "K": kdim, "ms_per_step": {f"{r['variant']}/c{r['num_labels']}": r["ms_per_step"]
+                                   for r in rows},
+        "state_bytes_c16777216": meta_bytes, "sm3_sparse_vs_dense": sm3,
+        "adamw_sparse_vs_dense": adamw}}))
+
+
+def snr_section(dev, seed, card, reg, ctx, p_d, y, props):
+    """Closed-form eta and signal mass of each proposal on the conditional
+    problem (Theorem 2: p_n = p_D maximizes both, and the mass is at most
+    1/2); the streamed estimator for the tree timed at 2^18 samples; the
+    estimator against the closed form at tests/test_snr.py's size."""
+    c = p_d.shape[1]
+
+    def table(s):
+        p = torch.exp(s.log_prob_all(ctx).double())
+        return (p / p.sum(dim=-1, keepdim=True)).float()
+
+    tables = {"uniform": torch.full_like(p_d, 1.0 / c),
+              "unigram": table(samplers.fit_sampler("unigram", None, y, c, device=dev))}
+    tables.update({kind: table(s) for kind, s in props.items()})
+    tables["p_D"] = p_d
+    out = {}
+    with obs.span("head_math/snr/closed_form", reg):
+        for kind, p_n in tables.items():
+            out[kind] = {"eta": float(snr.snr_closed_form(p_d, p_n)),
+                         "signal_mass": float(snr.alpha(p_d, p_n).sum(-1).mean())}
+    best = out["p_D"]
+    check(abs(best["signal_mass"] - 0.5) <= 1e-4, f"snr: mass at p_D is {best['signal_mass']}")
+    for kind, r in out.items():
+        check(r["signal_mass"] <= 0.5 + 1e-5, f"snr: {kind}'s signal mass is above 1/2")
+        check(r["signal_mass"] <= best["signal_mass"] + 1e-5
+              and r["eta"] <= best["eta"] * (1 + 1e-6), f"snr: {kind} beats p_D (Theorem 2)")
+    g = torch.Generator(device=dev).manual_seed(seed + 40)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with obs.span("head_math/snr/empirical_tree", reg):
+        eta_emp = float(snr.snr_empirical(p_d, tables["tree"], g, n_samples=HM_SNR_SAMPLES,
+                                          chunk=HM_SNR_CHUNK))
+    emp_s = time.perf_counter() - t0
+    check(math.isfinite(eta_emp) and eta_emp > 0, "snr: empirical eta is not positive")
+    rng = np.random.default_rng(0)
+
+    def dist(temp):
+        p = np.exp(rng.standard_normal((4, 12)) * temp)
+        return torch.as_tensor(p / p.sum(-1, keepdims=True), dtype=torch.float32, device=dev)
+
+    small_d, small_n = dist(1.2), dist(0.8)
+    small_cf = float(snr.snr_closed_form(small_d, small_n))
+    small_mc = float(snr.snr_empirical(small_d, small_n, g, n_samples=400_000))
+    check(abs(small_mc - small_cf) <= 0.05 * small_cf,
+          f"snr: empirical {small_mc} against closed form {small_cf} at (4, 12)")
+    print(json.dumps({"head_math_snr": {
+        "card": card, "contexts": HM_CONTEXTS, "num_labels": c, "tau": HM_TAU,
+        "proposals": out, "tree_empirical": {"samples": HM_SNR_SAMPLES, "chunk": HM_SNR_CHUNK,
+                                             "eta": eta_emp, "seconds": emp_s},
+        "small_check": {"closed_form": small_cf, "empirical": small_mc, "rtol": 0.05}}}))
+
+
+def head_math_path(dev, seed, cfg, card):
+    """Phase 10: proposals, head state and gradient SNR at full xc_linear
+    width; sampled_head_loss's and tree_logprob_all's launches counted from
+    just before to just after."""
+    reg = obs.Registry(annotate=True)
+    ops.sampled_head_loss.launches = 0
+    ops.tree_logprob_all.launches = 0
+    t0 = time.perf_counter()
+    with obs.span("head_math/proposals", reg):
+        ctx, p_d, y, props = proposals_section(dev, seed, cfg, card, reg)
+    with obs.span("head_math/state", reg):
+        head_state_section(dev, seed, cfg, card, reg)
+    with obs.span("head_math/snr", reg):
+        snr_section(dev, seed, card, reg, ctx, p_d, y, props)
+    torch.cuda.synchronize()
+    launches = {"sampled_head_loss": ops.sampled_head_loss.launches,
+                "tree_logprob_all": ops.tree_logprob_all.launches}
+    for name, n in launches.items():
+        check(n > 0, f"the head-math path never launched {name}")
+    print(json.dumps({"head_math": {
+        "card": card, "wall_s": time.perf_counter() - t0, "launches": launches,
+        "phase_s": {name: reg.histogram(name).total for name in
+                    ("head_math/proposals", "head_math/state", "head_math/snr")},
+        "apply_updates_calls": reg.histogram("head_math/apply_updates").count}}))
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1492,7 +1885,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = device_lib.resolve("cuda")
-    print(card_line())
+    card = card_line()
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; tf32: "
           f"matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
@@ -1523,6 +1917,8 @@ def main() -> int:
 
     launches = main_path(dev, args.seed, cfg)
     launches.update(sampled_head_loss=train_path(dev, args.seed, cfg)["sampled_head_loss"])
+    for name, n in head_math_path(dev, args.seed, cfg, card).items():
+        launches[name] += n
     pipeline_small(dev, args.seed)
     launches.update(segment_stats=genfit_path(dev, args.seed, cfg)["segment_stats"])
     small_fits(dev, args.seed)

@@ -34,4 +34,14 @@ stack with a contiguous KV cache, the serving half of the LM head),
 :mod:`repro_torch.train.step` (``make_prefill``, ``make_serve_step``) and
 :mod:`repro_torch.launch.serve`, with attention in the hand-written CUDA
 kernel ``flash_attention``.
+
+Slice 5 completes the head math and adds the observability layer:
+:mod:`repro_torch.core.snr` (the gradient SNR of Theorem 2), the LSH and
+RFF proposals and ``fit_sampler`` in :mod:`repro_torch.core.samplers`,
+AdamW with its exact lazy catch-up, SM3 and bf16/int8 head state in
+:mod:`repro_torch.optim` (with :mod:`repro_torch.optim.compression`), and
+:mod:`repro_torch.obs` and :mod:`repro_torch.resilience` (metrics, spans
+as ``torch.profiler`` ranges, exporters, fault injection). It adds no
+kernel: its training steps run ``sampled_head_loss`` and its SNR tables
+``tree_logprob_all``.
 """
