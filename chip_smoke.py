@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's prediction, training, head-math, generator-fitting and LM-serving paths on one NVIDIA card.
+"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving and LM-training paths on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
@@ -74,19 +74,40 @@ Phases, each fatal on failure:
      against dense; closed-form gradient SNR and signal mass of every
      proposal (Theorem 2), the streamed estimator timed; each section in
      an ``obs`` span, a ``record_function`` range in the profiler;
- 11. print the ``kernels`` JSON line and, last, the device line.
+ 11. LM training at full stablelm-3b width (32 layers, d 2,560, 32 heads,
+     d_ff 6,912, vocab 50,304; tree C_pad 65,536, depth 16, k = 32; bf16
+     compute over float32 master weights, remat on): the port's training
+     launcher (``launch.train.setup``: ``build``, ``init_train_state``,
+     ``make_train_step``) and ``run_loop``, batch 4 x 2,048, 12 steps,
+     ``adversarial_ns`` with 1 negative, Adagrad, clip 1.0, generator fits
+     at ``--gen-warmup 2 --gen-refresh 4 --gen-async --gen-swap-delay 2``,
+     no checkpoint, then ``make_eval_step`` on the held-out batch; counters
+     reset just before and read just after (one ``sampled_head_loss`` a
+     step, ``segment_stats`` in every fit, one ``tree_logprob_all`` in the
+     eval, no ``flash_attention``); ms per step (median, spread), tokens per
+     second, fit seconds, peak memory, one profiled step's device time by
+     kernel and layer and its idle share; the kernel against its plain
+     version at the step's shape (T = 8,192, m = 2, K = 2,560); at full
+     width and 2 layers, every trunk gradient against dense autograd on the
+     same candidates, and 6 straight steps against 3 + preemption + resume,
+     bit for bit;
+ 12. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
+import dataclasses
 import json
 import math
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -96,9 +117,13 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import configs, device as device_lib, genfit, obs, optim  # noqa: E402
+from repro_torch import configs, device as device_lib, genfit, obs, optim, tree_util  # noqa: E402
+from repro_torch import train as train_lib  # noqa: E402
 from repro_torch.configs import xc_linear  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.train import step as train_step_lib  # noqa: E402
+from repro_torch.train.loop import step_generator  # noqa: E402
 from repro_torch.models import lm_head, transformer  # noqa: E402
 from repro_torch.train import make_prefill, make_serve_step  # noqa: E402
 from repro_torch.core import heads, samplers, snr, tree as tree_lib, tree_fit, xc_train  # noqa: E402
@@ -1500,6 +1525,330 @@ def serve_path(dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: LM training at full stablelm-3b width.
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "stablelm-3b"
+LM_BATCH, LM_SEQ, LM_STEPS = 4, 2048, 12
+# The launcher's flags (launch.train), full width and depth; the learning
+# rate is cut from the launcher's reduced-model default of 0.05: Adagrad's
+# first step moves every weight by about lr, and the weights' scale at
+# d_model 2,560 is 0.02.
+LM_FLAGS = ["--arch", LM_ARCH, "--full", "--device", "cuda", "--head", "adversarial_ns",
+            "--n-neg", "1", "--optimizer", "adagrad", "--lr", "1e-3",
+            "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--steps", str(LM_STEPS),
+            "--gen-warmup", "2", "--gen-refresh", "4", "--gen-async", "--gen-swap-delay", "2"]
+LM_EVAL_BATCH = 99_999           # the held-out batch, as examples/train_lm.py
+LM_FITS = 3                      # submits at 2 and 6 (swaps at 4, 8), a blocking fit at 10
+LM_PEAK_GIB = 72.0               # above it the run halves the depth
+LM_CHECK_LAYERS = 2              # depth of the gradient and resume checks (full width)
+LM_RESUME_STEPS, LM_PREEMPT_AFTER = 6, 3
+LM_TRUNK_REL_TOL = 1e-2          # dh rounded to bf16 into the trunk: 2^-8 relative a term
+LM_GRAD_TOL = dict(atol=1e-5, rtol=1e-5)
+LM_SEG_NODES = 256               # the fit level (8) whose segment_stats calls are checked
+LM_RANGES = ("train/forward", "train/head", "train/backward", "train/embed_rows",
+             "train/optimizer")
+ROW_SUM_KERNELS = ("Sort", "sort", "unique", "Unique")   # torch.unique and the plans' sort
+
+
+def lm_step_layers(train_step, state, batch, gen, seed_step):
+    """One profiled sparse step: device ms by kernel and by layer (trunk
+    forward, backward with the recompute, sampling, the head kernel, row
+    sums, optimizer), host ms and the idle share. The step's ranges
+    (``train/...``) own the PyTorch kernels launched inside them; the CUDA
+    kernels of the port, launched through ctypes, are told by name; the
+    backward pass runs on autograd's thread, outside every range, and takes
+    the rest."""
+    out = {}
+
+    def step():
+        out["state"], _ = train_step(state, batch, gen(seed_step))
+
+    by_name, n_kernels, host_ms, inside, _ = profile_by_kernel(step, ranges=LM_RANGES)
+    device = sum(by_name.values())
+
+    def total(names, table=by_name):
+        return sum(v for k, v in table.items() if any(n in k for n in names))
+
+    kernel = total(("sampled_loss_kernel",))
+    sums = total(SEGMENT_KERNELS + SEGMENT_PLAN_KERNELS)
+    head = inside["train/head"]
+    head_sort = total(ROW_SUM_KERNELS, head)
+    ranged = {name: sum(v.values()) for name, v in inside.items()}
+    layers = {
+        "trunk_forward": ranged["train/forward"],
+        "sampling": ranged["train/head"] - head_sort,
+        "head_kernel": kernel,
+        "row_sums": sums + head_sort + ranged["train/embed_rows"],
+        "optimizer": ranged["train/optimizer"],
+    }
+    layers["backward_with_recompute"] = device - sum(layers.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return out["state"], {"host_ms": host_ms, "device_ms": device, "kernels": n_kernels,
+                          "idle_share": 1.0 - device / host_ms, "layers_ms": layers,
+                          "memcpy_ms": total(("Memcpy",)),
+                          "top_ms": [[k[:70], v] for k, v in ranked]}
+
+
+def lm_kernel_check(dev, state, cfg, hcfg, batch, seed):
+    """The sampled_head_loss kernel against its plain version at the
+    training step's shape (T = 8,192, m = 2, K = 2,560) on the trained head
+    and a step's candidates, within phase 3's tolerances; both timed."""
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    with torch.no_grad():
+        h, _, _ = transformer.forward(state.params, cfg, batch["tokens"], attn_impl="plain")
+        h = h.reshape(-1, cfg.d_model).float().contiguous()
+        ids, lp, _ = heads._sample_candidates(hcfg, state.head_state.gen,
+                                              lm_head.gen_features(state.head_state, h),
+                                              batch["labels"].reshape(-1), g)
+    w, b = state.params["head"]["w"], state.params["head"]["b"]
+    kw = dict(kind=hcfg.kind, num_labels=cfg.vocab_size, reg=hcfg.reg,
+              softcap=cfg.final_logit_softcap)
+    got = ops.sampled_head_loss(w, b, h, ids, lp, **kw)
+    want = ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw)
+    for name, g_, w_ in zip(("loss", "coeff", "xi"), got, want):
+        check(bool(torch.isfinite(g_).all()), f"LM kernel check: non-finite {name}")
+        check(close(g_, w_, LOSS_TOL), f"LM kernel check: {name} disagrees")
+    check(dh_close(got[3], want[3], want[1], w, ids), "LM kernel check: dh disagrees")
+    t, m = ids.shape
+    rows = torch.unique(ids).numel()
+    n_bytes = (rows * (cfg.d_model + 1) * 4 + t * cfg.d_model * 4 + t * m * (8 + 4)
+               + t * 4 + 2 * t * m * 4 + t * cfg.d_model * 4)
+    bound, by = bound_ms(n_bytes, t * m * 4 * cfg.d_model)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    ms = time_ms(lambda: ops.sampled_head_loss(w, b, h, ids, lp, **kw), flush)
+    plain = time_ms(lambda: ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw), flush)
+    return {"t": t, "m": m, "k": cfg.d_model, "distinct_rows": rows,
+            "max_abs_err": max(float((g_ - w_).abs().max()) for g_, w_ in zip(got[:3], want[:3])),
+            "dh_max_abs_err": float((got[3] - want[3]).abs().max()),
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "tol": LOSS_TOL}
+
+
+def lm_tree_check(calls):
+    """The eval's tree_logprob_all call (B = 8,192, depth 16, k = 32), its
+    output against the plain version on its own inputs, within TREE_TOL."""
+    check(len(calls) == 1, f"LM eval: {len(calls)} tree_logprob_all calls recorded, not 1")
+    w, b, x, got = calls.pop()
+    want = ref.tree_logprob_all_ref(w, b, x)
+    err = float((got - want).abs().max())
+    what = f"LM eval tree_logprob_all (B={x.shape[0]}, k={x.shape[1]}, C_pad={got.shape[1]})"
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    check(close(got, want, TREE_TOL), f"{what} disagrees with the plain version ({err:.3e})")
+    return {"b": x.shape[0], "k": x.shape[1], "c_pad": got.shape[1], "max_abs_err": err,
+            "tol": TREE_TOL}
+
+
+def lm_segment_check(calls, k):
+    """The first fit's recorded segment_stats calls (its first call, the
+    per-label sums, and every call at the level of LM_SEG_NODES nodes: the
+    Newton solves' objective, Hessian, gradient and Armijo sums), each
+    output against the plain version on its own inputs, within SEG_TOL of
+    each segment's sum of |vals|."""
+    shapes, worst = collections.Counter(), 0.0
+    for vals, seg, s, got in calls:
+        want = ref.segment_stats_ref(vals, seg, s)
+        scale = ref.segment_stats_ref(vals.abs(), seg, s) + 1.0
+        what = f"LM fit segment_stats (N={vals.shape[0]}, D={vals.shape[1]}, S={s})"
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite sums")
+        rel = float(((got - want).abs() / scale).max())
+        check(rel <= SEG_TOL, f"{what} disagrees with the plain version ({rel:.3e})")
+        shapes[f"N={vals.shape[0]},D={vals.shape[1]},S={s}"] += 1
+        worst = max(worst, rel)
+    hess = f",D={(k + 1) ** 2},S={LM_SEG_NODES}"
+    check(any(key.endswith(hess) for key in shapes),
+          f"LM fit: no Hessian sum at {LM_SEG_NODES} nodes recorded ({dict(shapes)})")
+    return {"calls": len(calls), "shapes": dict(shapes), "worst_err_of_abs_sum": worst,
+            "tol": SEG_TOL, "recorded_mib": sum(v.numel() * v.element_size()
+                                                for v, _, _, _ in calls) / 2 ** 20}
+
+
+def lm_grad_check(dev, cfg, hcfg, batch, seed):
+    """At full width and LM_CHECK_LAYERS layers: the sparse step's gradients
+    (the kernel's dh through the trunk) against dense autograd through the
+    candidate scores, on the same candidates; every trunk leaf non-zero."""
+    state = train_lib.init_train_state(torch.Generator(device=dev).manual_seed(seed + 12),
+                                       cfg, OptimizerConfig(), hcfg.kind, device=dev)
+    sparse, ms = train_step_lib.make_grad_fn(cfg, hcfg, "sparse")(
+        state, batch, torch.Generator(device=dev).manual_seed(seed + 13))
+    dense, md = train_step_lib.make_grad_fn(cfg, hcfg, "dense")(
+        state, batch, torch.Generator(device=dev).manual_seed(seed + 13))
+    check(close(ms["loss"], md["loss"], LM_GRAD_TOL), "LM grads: sparse and dense losses differ")
+    head_w, head_b = sparse_lib.to_dense(sparse["head"], state.params["head"]["w"].shape)
+    check(close(head_w, dense["head"]["w"], LM_GRAD_TOL)
+          and close(head_b, dense["head"]["b"], LM_GRAD_TOL),
+          "LM grads: the head's SparseRows differ from dense autograd")
+    embed, _ = sparse_lib.to_dense(sparse["embed"], state.params["embed"].shape)
+    pairs = [("embed", embed, dense["embed"])]
+    trunk = lambda gr: {k: v for k, v in gr.items() if k not in ("head", "embed")}  # noqa: E731
+    flat_s, flat_d = tree_util.flatten(trunk(sparse))[0], tree_util.flatten(trunk(dense))[0]
+    pairs += [(f"trunk_leaf_{i}", a, b) for i, (a, b) in enumerate(zip(flat_s, flat_d))]
+    rels = {}
+    for name, a, b in pairs:
+        check(bool(torch.isfinite(a).all()) and float(a.abs().sum()) > 0,
+              f"LM grads: {name} is zero or not finite")
+        rels[name] = float((a.float() - b.float()).norm() / b.float().norm())
+        check(rels[name] <= LM_TRUNK_REL_TOL,
+              f"LM grads: {name} differs from dense autograd by {rels[name]:.3e}")
+    return {"leaves": len(pairs), "worst_rel_err": max(rels.values()), "rel_err": rels,
+            "leaf_order": "embed, then the trunk's leaves in sorted-key order (final_norm, "
+                          "layers[i].attn.wk/wo/wq/wv, mlp.w_down/w_gate/w_up, norm_ffn, "
+                          "norm_mix)", "rel_tol": LM_TRUNK_REL_TOL,
+            "loss_sparse": float(ms["loss"]), "loss_dense": float(md["loss"])}
+
+
+def lm_resume_check(dev, cfg, hcfg, opt, batch_fn, seed):
+    """At full width and LM_CHECK_LAYERS layers: LM_RESUME_STEPS straight
+    steps against LM_PREEMPT_AFTER steps, a Preemption, and a resume from
+    the checkpoint in a fresh state, bit for bit in params and optimizer
+    state."""
+    def fresh():
+        return train_lib.init_train_state(torch.Generator(device=dev).manual_seed(seed + 14),
+                                          cfg, opt, hcfg.kind, device=dev)
+
+    step = train_lib.make_train_step(cfg, hcfg, opt, skip_nonfinite=True)
+    t0 = time.perf_counter()
+    straight, _ = train_lib.run_loop(fresh(), step, batch_fn,
+                                     train_lib.LoopConfig(total_steps=LM_RESUME_STEPS), seed)
+    with tempfile.TemporaryDirectory() as ckpt:
+        loop = train_lib.LoopConfig(total_steps=LM_RESUME_STEPS, checkpoint_every=0,
+                                    checkpoint_dir=ckpt)
+        pre = train_lib.Preemption()
+        _, hist = train_lib.run_loop(
+            fresh(), step, batch_fn, loop, seed, preemption=pre,
+            on_step=lambda s, m: s == LM_PREEMPT_AFTER - 1 and pre.trigger())
+        check(hist.get("preempted_at") == LM_PREEMPT_AFTER, "LM resume: no preemption")
+        resumed, hist = train_lib.run_loop(fresh(), step, batch_fn, loop, seed)
+    check(hist["step"] == list(range(LM_PREEMPT_AFTER, LM_RESUME_STEPS)),
+          f"LM resume: the resumed run took steps {hist['step']}")
+    for what, a, b in (("params", straight.params, resumed.params),
+                       ("optimizer state", straight.opt_state, resumed.opt_state)):
+        la, lb = tree_util.flatten(a)[0], tree_util.flatten(b)[0]
+        check(all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                  for x, y in zip(la, lb)), f"LM resume: {what} differ from the straight run")
+    return {"steps": LM_RESUME_STEPS, "preempted_after": LM_PREEMPT_AFTER,
+            "bit_equal": True, "wall_s": time.perf_counter() - t0}
+
+
+def lm_train_path(dev, seed, card):
+    """The port's training launcher at full stablelm-3b width: 12 steps with
+    asynchronous generator refits, counters reset just before and read just
+    after the loop and the held-out eval; then the profiled step, the kernel
+    at the step's shape, and the gradient and resume checks at 2 layers."""
+    args = launch_train.parser().parse_args(LM_FLAGS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, hcfg, state, train_step, batch_fn, gen_fit, loop = launch_train.setup(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # segment_stats calls per fit: each fit runs on one thread (the
+    # refresher's, or this one for the blocking fit), so a per-thread tally
+    # around it counts its calls alone. The first fit's first call and its
+    # calls at LM_SEG_NODES nodes are kept with copies of their inputs, and
+    # the eval's tree_logprob_all call with its inputs, to be held against
+    # the plain versions after the run.
+    tally, real_segment_stats, fits = collections.Counter(), ops.segment_stats, []
+    real_tree, seg_calls, tree_calls, first_fit = ops.tree_logprob_all, [], [], {}
+
+    def counted_segment_stats(vals, seg, num_segments, *a, **kw):
+        me = threading.get_ident()
+        tally[me] += 1
+        out = real_segment_stats(vals, seg, num_segments, *a, **kw)
+        if first_fit.get("thread") == me and "done" not in first_fit:
+            if num_segments == LM_SEG_NODES or tally[me] == first_fit["tally"] + 1:
+                seg_calls.append((vals.clone(), seg.clone(), num_segments, out.clone()))
+        return out
+
+    def recorded_tree(w, b, x):
+        out = real_tree(w, b, x)
+        tree_calls.append((w.clone(), b.clone(), x.clone(), out))
+        return out
+
+    def fit(st):
+        me, t_fit = threading.get_ident(), time.perf_counter()
+        n0 = tally[me]
+        if not first_fit:
+            first_fit.update(thread=me, tally=n0)
+        head = gen_fit(st)
+        torch.cuda.synchronize()
+        first_fit.setdefault("done", True)
+        fits.append({"fit_of_step": int(st.step), "thread": threading.current_thread().name,
+                     "s": time.perf_counter() - t_fit, "segment_stats_calls": tally[me] - n0,
+                     "warm": int(st.gen_fit_step) >= 0})
+        return head
+
+    names = ("sampled_head_loss", "segment_stats", "tree_logprob_all", "flash_attention",
+             "gather_scores")
+    for name in names:
+        getattr(ops, name).launches = 0
+    t0 = time.perf_counter()
+    with swapped(ops, segment_stats=counted_segment_stats):
+        state, hist = train_lib.run_loop(state, train_step, batch_fn, loop,
+                                         launch_train.LOOP_SEED, gen_fit_fn=fit)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        eval_batch = batch_fn(LM_EVAL_BATCH)
+        with swapped(ops, tree_logprob_all=recorded_tree):
+            ev = train_lib.make_eval_step(cfg, hcfg)(state, eval_batch)
+        ev = {k: float(v) for k, v in ev.items()}
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: getattr(ops, name).launches for name in names}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(hist["step"] == list(range(LM_STEPS)), f"LM training ran steps {hist['step']}")
+    check(launches["sampled_head_loss"] == LM_STEPS,
+          f"LM training launched sampled_head_loss {launches['sampled_head_loss']} times "
+          f"in {LM_STEPS} steps")
+    check(len(fits) == LM_FITS and all(f["segment_stats_calls"] > 0 for f in fits),
+          f"LM training: fits {fits} (each must call segment_stats)")
+    check(launches["tree_logprob_all"] == 1,
+          f"LM eval launched tree_logprob_all {launches['tree_logprob_all']} times, not once")
+    check(launches["flash_attention"] == 0,
+          f"LM training launched flash_attention {launches['flash_attention']} times")
+    check(all(math.isfinite(x) for x in hist["loss"]), f"LM losses {hist['loss']}")
+    check(math.isfinite(ev["eval_loglik"]), f"LM eval log-likelihood {ev['eval_loglik']}")
+    check(peak_gib <= LM_PEAK_GIB, f"LM training peak {peak_gib:.1f} GiB > {LM_PEAK_GIB}")
+    eval_tree = lm_tree_check(tree_calls)
+    fit_sums = lm_segment_check(seg_calls, cfg.gen_feature_dim)
+    del seg_calls
+    steady = sorted(hist["step_times"])
+    median_s = steady[len(steady) // 2]
+    tokens = LM_BATCH * LM_SEQ
+
+    gen = lambda s: step_generator(launch_train.LOOP_SEED, s, dev)  # noqa: E731
+    train_step(state, batch_fn(LM_STEPS), gen(LM_STEPS))            # warm the profiler's step
+    state, profile = lm_step_layers(train_step, state, batch_fn(LM_STEPS + 1), gen,
+                                    LM_STEPS + 1)
+    kernel = lm_kernel_check(dev, state, cfg, hcfg, eval_batch, seed)
+    del state, eval_batch
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, num_layers=LM_CHECK_LAYERS)
+    _, _, opt = launch_train.build(args)
+    grads = lm_grad_check(dev, small, hcfg, batch_fn(0), seed)
+    resume = lm_resume_check(dev, small, hcfg, opt, batch_fn, seed)
+    result = {
+        "card": card, "arch": LM_ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "heads": cfg.num_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "params_b": cfg.param_count() / 1e9, "batch": LM_BATCH, "seq": LM_SEQ,
+        "tokens_per_step": tokens, "steps": LM_STEPS, "flags": LM_FLAGS, "setup_s": setup_s,
+        "wall_s": wall_s, "loop_s": loop_s, "compile_time_s": hist.get("compile_time_s"),
+        "tokens_per_s": LM_STEPS * tokens / loop_s,
+        "ms_per_step_median": 1e3 * median_s,
+        "ms_per_step_min": 1e3 * steady[0], "ms_per_step_max": 1e3 * steady[-1],
+        "step_ms": [1e3 * x for x in hist["step_times"]],
+        "tokens_per_s_median_step": tokens / median_s, "loss": hist["loss"], "eval": ev,
+        "eval_tree_check": eval_tree, "fit_segment_check": fit_sums,
+        "fits": fits, "gen_submit_steps": hist.get("gen_submit_steps"),
+        "gen_swap_steps": hist.get("gen_swap_steps"), "peak_mem_gib": peak_gib,
+        "launches": launches, "profiled_step": profile, "kernel_at_step_shape": kernel,
+        "grads_2_layers": grads, "resume_2_layers": resume}
+    print(json.dumps({"lm_train_path": result}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: head math (proposals, head state, gradient SNR).
 # ---------------------------------------------------------------------------
 
@@ -1923,6 +2272,9 @@ def main() -> int:
     launches.update(segment_stats=genfit_path(dev, args.seed, cfg)["segment_stats"])
     small_fits(dev, args.seed)
     launches.update(flash_attention=serve_path(dev, args.seed)["flash_attention"])
+    for name, n in lm_train_path(dev, args.seed, card).items():
+        if name in launches:
+            launches[name] += n
     src = "src/repro_torch/kernels/csrc"
     kernels = [
         dict(name="gather_scores", route="cuda", source=f"{src}/gather_scores.cu",

@@ -46,6 +46,11 @@ Sq, Skv and hd <= 256 and any strides over (b, h, s) with the last
 dimension contiguous, so the model passes its (B, S, KV, hd) cache slices as
 permuted views without copying.
 
+The kernel is forward-only, as the Pallas kernel is: on the card, inputs
+that need gradients (grad mode on and q, k or v requiring grad) raise, so a
+trainer cannot take its output, which has no ``grad_fn``, for a
+differentiable one. Training runs ``models.layers.plain_attention``.
+
 CPU tensors go to the plain version (:func:`..ref.flash_attention_ref`);
 CUDA tensors launch a kernel or raise. ``flash_attention.launches`` counts
 launches; ``decode_launches``, ``tensor_core_launches`` and ``fma_launches``
@@ -177,6 +182,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                    softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel is forward-only and its output has no "
+            "gradient; train through layers.plain_attention (attention impl='plain')")
     b, h, sq, hd = q.shape
     kv, skv = k.shape[1], k.shape[2]
     if hd > MAX_HEAD_DIM:

@@ -2,9 +2,12 @@
 
 Parameter-dict style, as the JAX package's ``repro.models.layers``: each
 layer is an ``init_*`` returning a dict of tensors under the reference's key
-names plus a function on tensors. Attention runs through
-``ops.flash_attention`` (the CUDA kernel on the card, its plain version on
-the CPU) with float32 logits and softmax; bulk matmuls honour ``cfg.dtype``.
+names plus a function on tensors. Attention has two implementations, chosen
+by the caller: ``impl="kernel"`` (serving) runs ``ops.flash_attention`` (the
+forward-only CUDA kernel on the card, its plain version on the CPU);
+``impl="plain"`` (training, evaluation, feature collection) is the
+reference's own attention in plain torch, differentiable under autograd.
+Both take float32 logits and softmax; bulk matmuls honour ``cfg.dtype``.
 """
 from __future__ import annotations
 
@@ -102,10 +105,54 @@ def _project(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
     return (x @ w.to(dtype).reshape(d, heads * hd)).view(*x.shape[:2], heads, hd)
 
 
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap) if cap and cap > 0.0 else x
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cfg: ModelConfig, window: int) -> torch.Tensor:
+    """Causal self-attention as the reference computes it in training
+    (``src/repro/models/layers.py:238-264``), under autograd.
+
+    q: (B, S, H, hd) already scaled by 1/sqrt(hd) in ``cfg.dtype``; k, v:
+    (B, S, KV, hd). Logits in ``cfg.softmax_dtype`` (float32), the softcap,
+    masked entries at -1e4 under a softcap and at finfo.min / 2 otherwise,
+    the softmax (without the max subtraction under a softcap, whose logits
+    are bounded), probabilities rounded to ``cfg.dtype`` before P·V.
+    Returns (B, S, H, hd) in ``cfg.dtype``.
+    """
+    b, s, h, hd = q.shape
+    groups = h // k.shape[2]
+    cdt, sm_dt = _dtype(cfg), getattr(torch, cfg.softmax_dtype)
+
+    def heads_first(x):                        # (B, S, H, hd) -> (B·H, S, hd)
+        return x.transpose(1, 2).reshape(b * h, s, hd)
+
+    kx = k.repeat_interleave(groups, dim=2) if groups > 1 else k
+    vx = v.repeat_interleave(groups, dim=2) if groups > 1 else v
+    # bmm returns a tensor of its own (einsum and matmul return views of
+    # theirs), and no backward needs the logits' values, so the mask is
+    # filled in place: no copy of the (B·H, S, S) logits in the forward or
+    # the backward.
+    logits = torch.bmm(heads_first(q.to(sm_dt)), heads_first(kx.to(sm_dt)).transpose(1, 2))
+    cap = cfg.attn_logit_softcap
+    logits = _softcap(logits, cap)
+    capped = cap > 0.0
+    neg = -1e4 if capped else torch.finfo(sm_dt).min / 2
+    logits.masked_fill_(~causal_window_mask(s, window, device=q.device), neg)
+    if capped:
+        ex = torch.exp(logits)
+        probs = (ex / ex.sum(dim=-1, keepdim=True)).to(cdt)
+    else:
+        probs = torch.softmax(logits, dim=-1).to(cdt)
+    out = torch.bmm(probs, heads_first(vx.to(cdt)))
+    return out.view(b, h, s, hd).transpose(1, 2)
+
+
 def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
               window: int,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_pos=None):
+              cache_pos=None, impl: str = "kernel"):
     """GQA attention with causal + per-layer sliding-window mask + softcap.
 
     Training/prefill: ``kv_cache is None`` → self-attention over x; the
@@ -128,6 +175,11 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     called with ``scale=1.0``), float32 logits, softcap and softmax. The
     reference rounds the probabilities to ``cfg.dtype`` before P·V; the
     kernel keeps them in float32, as the Pallas kernel does.
+
+    ``impl="plain"`` runs :func:`plain_attention` instead of the kernel: the
+    reference's training math, differentiable, for self-attention without a
+    cache. The kernel is forward-only and refuses inputs that need
+    gradients.
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -139,9 +191,13 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"attention impl must be 'kernel' or 'plain', got {impl!r}")
     if kv_cache is None:
         k_all, v_all = k, v
         new_cache = (k, v)
+    elif impl == "plain":
+        raise ValueError("the plain attention is self-attention without a cache")
     else:
         if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() > 0:
             raise NotImplementedError(
@@ -161,10 +217,13 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     # Fold the 1/sqrt(hd) scale into q, rounded to cfg.dtype as the reference.
     scale = (1.0 / torch.sqrt(torch.tensor(float(hd)))).to(cdt).item()
     q = q * scale
-    out = ops.flash_attention(q.transpose(1, 2), k_all.transpose(1, 2),
-                              v_all.transpose(1, 2), causal=True, window=window,
-                              softcap=cfg.attn_logit_softcap, scale=1.0)
-    out = out.transpose(1, 2).reshape(b, s, h * hd)
+    if impl == "plain":
+        out = plain_attention(q, k_all, v_all, cfg, window).reshape(b, s, h * hd)
+    else:
+        out = ops.flash_attention(q.transpose(1, 2), k_all.transpose(1, 2),
+                                  v_all.transpose(1, 2), causal=True, window=window,
+                                  softcap=cfg.attn_logit_softcap, scale=1.0)
+        out = out.transpose(1, 2).reshape(b, s, h * hd)
     out = out @ params["wo"].to(cdt).reshape(h * hd, -1)
     return out, new_cache
 

@@ -1,14 +1,17 @@
-"""LM output head, serving half: the paper's Eq. 5 bias removal on the
-decoder's final hidden state, dense over the vocabulary or over the
-candidates of a beam search down the generator tree, with vocab padding and
-gemma2's final softcap.
+"""LM output head: the paper's adversarial softmax approximation on the
+decoder's final hidden state. Training: every head kind's loss under
+autograd (:func:`lm_head_loss`, the softmax baseline over the padded,
+softcapped full logits) and the sampled kinds' loss with analytic sparse
+gradients (:func:`lm_sparse_head_loss`, the ``sampled_head_loss`` kernel on
+the card). Serving: Eq. 5 bias removal, dense over the vocabulary or over
+the candidates of a beam search down the generator tree.
 
 The generator feature x_gen (paper: PCA of the input) is a fixed linear
 projection of the (stop-gradient) final hidden state — ``LMHeadState.proj``.
-Padded vocab rows are masked out of full-logit paths. On the card the dense
-path runs the ``tree_logprob_all`` kernel (``tree.log_prob_all``) and the
-beam path scores its candidates with the ``gather_scores`` kernel
-(``heads.kernel_scores``); the training losses wait for ROADMAP item 10.
+Padded vocab rows are masked out of full-logit paths; the samplers only
+draw real labels. On the card the dense path runs the ``tree_logprob_all``
+kernel (``tree.log_prob_all``) and the beam path scores its candidates with
+the ``gather_scores`` kernel (``heads.kernel_scores``).
 """
 from __future__ import annotations
 
@@ -81,6 +84,56 @@ def masked_full_logits(cfg: ModelConfig, params: HeadParams, h: torch.Tensor
         logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
     pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
     return torch.where(pad_mask, logits, -1e30)
+
+
+def lm_head_loss(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
+                 state: LMHeadState, h: torch.Tensor, labels: torch.Tensor,
+                 generator: Optional[torch.Generator],
+                 mask: Optional[torch.Tensor] = None,
+                 score_fn: Optional[heads_lib.ScoreFn] = None, sampler=None,
+                 u: Optional[torch.Tensor] = None):
+    """Next-token loss on final hiddens h (…, d) and labels (…,), under
+    autograd. Returns (loss, metrics).
+
+    ``softmax`` is the padded, softcapped full-logit cross entropy (the
+    O(K·C) baseline the paper replaces); every sampled kind goes through
+    ``heads.head_loss`` with the final softcap in its score function.
+    ``sampler`` overrides the proposal; negatives come from ``generator``
+    or the uniforms ``u``.
+    """
+    x_gen = gen_features(state, h)
+    if hcfg.kind == "softmax":
+        logits = masked_full_logits(cfg, params, h)
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+        logz = torch.logsumexp(logits, dim=-1)
+        pos = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        denom = mask.sum().clamp(min=1.0)
+        loss = ((logz - pos) * mask).sum() / denom
+        return loss, {"pos_score": (pos.detach() * mask).sum() / denom}
+    if score_fn is None:
+        score_fn = (_softcap_score_fn(cfg.final_logit_softcap, heads_lib.candidate_scores)
+                    if cfg.final_logit_softcap else heads_lib.candidate_scores)
+    return heads_lib.head_loss(hcfg, params, state.gen, h, x_gen, labels, generator,
+                               score_fn=score_fn, mask=mask, sampler=sampler, u=u)
+
+
+def lm_sparse_head_loss(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
+                        state: LMHeadState, h: torch.Tensor, labels: torch.Tensor,
+                        generator: Optional[torch.Generator],
+                        mask: Optional[torch.Tensor] = None, sampler=None,
+                        u: Optional[torch.Tensor] = None):
+    """Sampled-head loss with O(B·K·n_neg) analytic gradients: the same loss
+    and metrics as :func:`lm_head_loss` (the final softcap folded into the
+    coefficients), the deduped ``SparseRows`` head gradient and the trunk
+    gradient ``dh`` (float32, h's shape). On the card the loss, coefficients
+    and dh come from the ``sampled_head_loss`` kernel, which the port always
+    takes there (the reference's ``use_kernel`` switch has no counterpart).
+    Returns (loss, metrics, sparse, dh)."""
+    x_gen = gen_features(state, h)
+    return heads_lib.sparse_head_loss(
+        hcfg, params, state.gen, h.detach(), x_gen, labels.long(), generator,
+        mask=mask, softcap=cfg.final_logit_softcap, sampler=sampler, u=u)
 
 
 def lm_predictive_topk(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,

@@ -13,12 +13,21 @@ Modes:
                                     single-token decode (S == 1), with a
                                     scalar ``cache_pos``; the cache is
                                     updated in place
+
+Training passes ``attn_impl="plain"`` (the reference's attention under
+autograd; the CUDA kernel is forward-only) and, for the sparse embedding
+update, ``inputs_embeds`` (the token gather done outside the graph). With
+``cfg.remat`` and grad mode on, each layer runs under
+``torch.utils.checkpoint`` (non-reentrant): its input is saved, its inside
+recomputed in the backward pass. The forward draws no random numbers, so
+the recompute gives the same bits.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as checkpoint_lib
 
 from repro_torch import device as device_lib
 from repro_torch.models import layers as L
@@ -104,12 +113,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _block(layer_params, cfg: ModelConfig, h, positions, window: int,
-           cache_l, cache_pos):
+           cache_l, cache_pos, attn_impl: str = "kernel"):
     """One decoder block. Returns (h, new_cache_l, metrics)."""
     mix_in = L.rmsnorm(layer_params["norm_mix"], h)
     kvc = (cache_l["k"], cache_l["v"]) if cache_l is not None else None
     a_out, a_cache = L.attention(layer_params["attn"], cfg, mix_in, positions,
-                                 window, kv_cache=kvc, cache_pos=cache_pos)
+                                 window, kv_cache=kvc, cache_pos=cache_pos,
+                                 impl=attn_impl)
     new_cache = {"k": a_cache[0], "v": a_cache[1]} if cache_l is not None else {}
     h = h + a_out.to(h.dtype)
     ffn_in = L.rmsnorm(layer_params["norm_ffn"], h)
@@ -133,7 +143,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             vision_embeds: Optional[torch.Tensor] = None,
             cache: Optional[Dict[str, torch.Tensor]] = None,
-            cache_pos=None) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
+            cache_pos=None, inputs_embeds: Optional[torch.Tensor] = None,
+            attn_impl: str = "kernel") -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
     """Run the stack. Returns (hidden (B,S,d), cache, metrics).
 
     - training:        cache=None
@@ -145,11 +156,18 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     the kernel's mask is positional by index, so explicit ``positions``
     (M-RoPE, vision) raise until the vision slice, and a per-row
     ``cache_pos`` until the serving engine (ROADMAP items 9 and 11).
+
+    ``inputs_embeds`` (B, S, d), already in ``cfg.dtype``, replaces the
+    embedding gather: the sparse-embedding training path gathers outside
+    the autograd graph and collects the rows' gradients itself.
+    ``attn_impl`` is ``"kernel"`` (serving) or ``"plain"`` (training,
+    see :func:`repro_torch.models.layers.attention`).
     """
     if positions is not None:
         raise NotImplementedError("explicit positions come with the vision "
                                   "slice (ROADMAP item 9)")
-    h = embed_inputs(params, cfg, tokens, vision_embeds)
+    h = (inputs_embeds if inputs_embeds is not None
+         else embed_inputs(params, cfg, tokens, vision_embeds))
     bsz, s, _ = h.shape
     base = 0 if cache_pos is None else cache_pos
     if isinstance(base, torch.Tensor):
@@ -158,9 +176,17 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                                       "engine (ROADMAP item 11)")
         base = int(base)
     positions = (base + torch.arange(s, device=h.device)).expand(bsz, s)
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for i, layer_params in enumerate(params["layers"]):
         cache_l = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
-        h, _, _ = _block(layer_params, cfg, h, positions, cfg.window_for_layer(i),
-                         cache_l, base)
+        window = cfg.window_for_layer(i)
+        if remat:
+            h = checkpoint_lib.checkpoint(
+                lambda lp, x, w=window: _block(lp, cfg, x, positions, w, None, base,
+                                               attn_impl)[0],
+                layer_params, h, use_reentrant=False)
+        else:
+            h, _, _ = _block(layer_params, cfg, h, positions, window, cache_l, base,
+                             attn_impl)
     h = L.rmsnorm(params["final_norm"], h)
     return h, cache, {}

@@ -11,6 +11,14 @@ in-place write is the port's form of the JAX package's buffer donation: the
 step never copies the (C, K) tables, so its cost does not depend on C. The
 dense path returns new tensors.
 
+Params may also be a tree of dicts and lists (an LM's): its gradient tree
+has the same structure, except that a ``SparseRows`` may stand in for a
+``{"w", "b"}`` subtree (the sampled head) or for a bare row table (the
+input embedding, ``db`` None). Every leaf of a tree, dense or sparse, is
+updated in place, so an LM step holds one copy of its parameters and
+state. A leaf whose path has a component named "head" takes ``head_name``
+and ``state_dtype``; every other leaf takes ``name`` with float32 state.
+
 Memory-cheap head state:
 
 * ``sm3`` keeps one (C,) row cover and one (K,) column cover instead of a
@@ -45,6 +53,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree_util
 from repro_torch.optim import compression
 from repro_torch.optim import sparse as sparse_lib
 from repro_torch.optim.compression import QuantizedRows
@@ -114,37 +123,59 @@ def _nu_sd(sd: str) -> str:
     return "bf16" if sd == "int8" else sd
 
 
+def _is_tree(params) -> bool:
+    """A tree of dicts and lists (an LM's params), not a standalone head."""
+    return isinstance(params, (dict, list))
+
+
+def _leaf_rules(cfg: OptimizerConfig, paths):
+    """(rule, state dtype) per leaf path: head leaves take ``head_name`` and
+    ``state_dtype``, every other leaf ``name`` with float32 state."""
+    _rule(cfg)
+    return [((cfg.head_name or cfg.name), cfg.state_dtype) if "head" in path
+            else (cfg.name, "fp32") for path in paths]
+
+
+def _leaf_state(cfg: OptimizerConfig, name: str, sd: str, p):
+    """(mu, nu, last) storage of one leaf under its rule."""
+    def full(shape, state_dtype, fill=0.0):
+        return compression.full_rows(shape, fill, state_dtype, p.device)
+    if name == "adamw":
+        return (full(p.shape, sd), full(p.shape, _nu_sd(sd)),
+                torch.zeros(p.shape[:1], dtype=torch.int32, device=p.device))
+    if name == "adagrad":
+        return None, full(p.shape, _nu_sd(sd), cfg.adagrad_init), None
+    if name == "sm3":
+        if p.dim() == 2:
+            return None, Sm3Cover(row=full(p.shape[:1], _nu_sd(sd)),
+                                  col=full(p.shape[1:2], "fp32")), None
+        # 1-D / 3-D+ leaves: SM3's per-element cover degenerates to the
+        # full Adagrad accumulator.
+        return None, full(p.shape, _nu_sd(sd)), None
+    return None, None, None
+
+
 def init_opt_state(cfg: OptimizerConfig, params) -> OptState:
     """Zero step and zero state (Adagrad's accumulators at
     ``adagrad_init``), in the storage ``state_dtype`` names, on the params'
-    device (``meta`` params give a state that holds no memory)."""
-    name, sd = _rule(cfg)
-    mu, nu, last = [], [], []
-    for p in params:
-        def full(shape, state_dtype, fill=0.0, p=p):
-            return compression.full_rows(shape, fill, state_dtype, p.device)
-        m = n = l = None
-        if name == "adamw":
-            m = full(p.shape, sd)
-            n = full(p.shape, _nu_sd(sd))
-            l = torch.zeros(p.shape[:1], dtype=torch.int32, device=p.device)
-        elif name == "adagrad":
-            n = full(p.shape, _nu_sd(sd), cfg.adagrad_init)
-        elif name == "sm3":
-            if p.dim() == 2:
-                n = Sm3Cover(row=full(p.shape[:1], _nu_sd(sd)), col=full(p.shape[1:2], "fp32"))
-            else:
-                # 1-D / 3-D+ leaves: SM3's per-element cover degenerates to
-                # the full Adagrad accumulator.
-                n = full(p.shape, _nu_sd(sd))
-        mu.append(m)
-        nu.append(n)
-        last.append(l)
+    device (``meta`` params give a state that holds no memory). A tree of
+    params gets state trees of the same structure."""
+    if _is_tree(params):
+        pairs, spec = tree_util.flatten_with_paths(params)
+        flat = [p for _, p in pairs]
+        rules = _leaf_rules(cfg, [path for path, _ in pairs])
+        rebuild = lambda leaves: tree_util.unflatten(spec, leaves)  # noqa: E731
+    else:
+        flat = list(params)
+        rules = [_rule(cfg)] * len(flat)
+        rebuild = lambda leaves: type(params)(*leaves)  # noqa: E731
+    states = [_leaf_state(cfg, name, sd, p) for p, (name, sd) in zip(flat, rules)]
 
-    def pack(leaves):
-        return None if all(x is None for x in leaves) else type(params)(*leaves)
+    def pack(i):
+        leaves = [st[i] for st in states]
+        return None if all(x is None for x in leaves) else rebuild(leaves)
 
-    return OptState(step=0, mu=pack(mu), nu=pack(nu), last=pack(last))
+    return OptState(step=0, mu=pack(0), nu=pack(1), last=pack(2))
 
 
 def schedule(cfg: OptimizerConfig, step):
@@ -382,14 +413,79 @@ def _dense_leaf_update(cfg, name, sd, lr, t, p, g, m, n, last):
             None if last is None else torch.full_like(last, t))
 
 
+def _assign(dst, src) -> None:
+    """Write a leaf's new value into its storage in place (boxes by part)."""
+    if dst is None or dst is src:
+        return
+    if isinstance(dst, _STATE_BOXES):
+        for d, s_ in zip(dst, src):
+            _assign(d, s_)
+    else:
+        dst.copy_(src)
+
+
+def _aligned(tree, n: int):
+    """A state tree's leaves (None and boxes kept whole) in the params' order."""
+    if tree is None:
+        return [None] * n
+    leaves = [x for _, x in _named_leaves(tree)]
+    if len(leaves) != n:
+        raise ValueError(f"optimizer state has {len(leaves)} leaves, the params {n}")
+    return leaves
+
+
+def _apply_tree(cfg: OptimizerConfig, params, grads, state: OptState, lr, t: int) -> None:
+    """The update of a tree of params (module docstring), every leaf in
+    place; ``grads`` already clipped."""
+    flat_p = _named_leaves(params)
+    n = len(flat_p)
+    idx_of = {path: i for i, (path, _) in enumerate(flat_p)}
+    rules = _leaf_rules(cfg, [path for path, _ in flat_p])
+    ms, ns, ls = (_aligned(x, n) for x in (state.mu, state.nu, state.last))
+    covered = set()
+    for path, g in _named_leaves(grads):
+        if sparse_lib.is_sparse(g):
+            # A SparseRows stands in for a {w, b} subtree (2-D w first) or
+            # for a bare row table (db None), found by path prefix.
+            sub = [i for i, (pp, _) in enumerate(flat_p) if pp[:len(path)] == path]
+            if len(sub) == 2:
+                if flat_p[sub[0]][1].dim() != 2:
+                    sub.reverse()
+                pairs = ((sub[0], g.dw), (sub[1], g.db))
+            elif len(sub) == 1 and g.db is None:
+                pairs = ((sub[0], g.dw),)
+            else:
+                raise ValueError(f"a SparseRows at {path} must stand for a {{w, b}} "
+                                 f"pair or, without db, one table; it covers {len(sub)}")
+            for i, gv in pairs:
+                _sparse_leaf_update(cfg, rules[sub[0]][0], lr, t, g.ids, flat_p[i][1], gv,
+                                    ms[i], ns[i], ls[i])
+                covered.add(i)
+            continue
+        i = idx_of[path]
+        name, sd = rules[i]
+        p = flat_p[i][1]
+        new = _dense_leaf_update(cfg, name, sd, lr, t, p, g, ms[i], ns[i], ls[i])
+        for dst, src in zip((p, ms[i], ns[i], ls[i]), new):
+            _assign(dst, src)
+        covered.add(i)
+    if len(covered) != n:
+        missing = [flat_p[i][0] for i in range(n) if i not in covered]
+        raise ValueError(f"grads cover {len(covered)}/{n} param leaves; "
+                         f"missing {missing[:5]}")
+
+
 def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
-                  mesh=None):
+                  mesh=None, norm: Optional[torch.Tensor] = None):
     """One optimizer step. Returns (params, state, metrics).
 
     ``grads`` is a dense ``HeadParams`` or one ``SparseRows`` for the whole
     head. A sparse step writes the touched rows of ``params`` and of the
     state in place and returns those same tensors; a dense step returns new
-    ones.
+    ones. A tree of params (module docstring) is updated in place, dense or
+    sparse. ``norm``, if given, is ``global_norm(grads)`` computed by the
+    caller (a training step reads it before any write) and is not taken
+    again.
     """
     if mesh is not None:
         raise NotImplementedError("vocab-sharded row updates (mesh=) come with "
@@ -397,11 +493,16 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
     name, sd = _rule(cfg)
     metrics = {}
     if cfg.clip_norm:
-        grads, norm = clip_by_global_norm(grads, cfg.clip_norm)
+        norm = global_norm(grads) if norm is None else norm
+        grads = _scaled(grads, torch.clamp(cfg.clip_norm / (norm + 1e-12), max=1.0))
         metrics["grad_norm"] = norm
     lr = schedule(cfg, state.step)
     metrics["lr"] = lr
     t = state.step + 1
+    if _is_tree(params):
+        with torch.no_grad():
+            _apply_tree(cfg, params, grads, state, lr, t)
+        return params, state._replace(step=t), metrics
     n_leaves = len(params)
     mus, nus, lasts = ((None,) * n_leaves if x is None else x
                        for x in (state.mu, state.nu, state.last))
@@ -426,20 +527,14 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
 # Bytes of head state.
 # ---------------------------------------------------------------------------
 
-def _named_leaves(tree, path=()):
-    """(path, leaf) pairs of a tree of dicts and (named) tuples; anything
-    else (a tensor, a state box, a SparseRows, None, a Python number) is a
-    leaf."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif (isinstance(tree, _STATE_BOXES) or sparse_lib.is_sparse(tree)
-          or not isinstance(tree, (list, tuple))):
-        return [(path, tree)]
-    elif hasattr(tree, "_fields"):
-        items = zip(tree._fields, tree)
-    else:
-        items = ((str(i), x) for i, x in enumerate(tree))
-    return [pl for k, x in items for pl in _named_leaves(x, path + (str(k),))]
+def _is_state_leaf(x) -> bool:
+    return x is None or isinstance(x, _STATE_BOXES) or sparse_lib.is_sparse(x)
+
+
+def _named_leaves(tree):
+    """(path, leaf) pairs of a tree of dicts and (named) tuples in sorted-key
+    order; a state box, a SparseRows and None are each one leaf."""
+    return tree_util.flatten_with_paths(tree, is_leaf=_is_state_leaf)[0]
 
 
 def _leaf_nbytes(x) -> int:

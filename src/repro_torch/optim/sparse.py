@@ -13,13 +13,19 @@ Invariants:
     slots (the JAX package pads to a static size for its trace);
   * duplicate occurrences (a negative drawn twice, or colliding with the
     positive) are *summed* into one row, so ``to_dense`` equals the dense
-    autograd gradient and ``sq_norm`` is the true global-norm contribution.
+    autograd gradient and ``sq_norm`` is the true global-norm contribution;
+  * the sums are the same on every run: each row's occurrences are added in
+    their original order by ``ops.segment_stats`` (the deterministic CUDA
+    kernel on the card, ``index_add_`` in order on the CPU), never by float
+    atomics, so a resumed training run replays bit for bit.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import ops
 
 
 class SparseRows(NamedTuple):
@@ -47,17 +53,33 @@ def accumulate_rows(ids: torch.Tensor, coeff: torch.Tensor, h: torch.Tensor,
     ids: (T,) int (duplicates allowed) in [0, num_rows); coeff: (T,);
     h: (T, K). ``num_rows`` is the row count of the dense table; the result
     has no slot for it. On the card ``torch.unique`` synchronizes the host
-    once, to learn U.
+    once, to learn U, and the sums' plan once more.
     """
     del num_rows      # kept for the JAX package's signature; U is dynamic
-    uniq, inv = torch.unique(ids.reshape(-1), return_inverse=True)
+    uniq, inv = torch.unique(ids.reshape(-1).long(), return_inverse=True)
     coeff = coeff.reshape(-1).float()
-    db = torch.zeros(uniq.shape, dtype=torch.float32, device=coeff.device)
-    db.index_add_(0, inv, coeff)
-    dw = torch.zeros((uniq.shape[0], h.shape[-1]), dtype=torch.float32,
-                     device=coeff.device)
-    dw.index_add_(0, inv, coeff[:, None] * h.float())
+    u = uniq.shape[0]
+    plan = ops.segment_plan(inv, u)
+    db = ops.segment_stats(coeff[:, None], inv, u, plan=plan)[:, 0]
+    dw = ops.segment_stats(coeff[:, None] * h.float(), inv, u, plan=plan)
     return SparseRows(ids=uniq, dw=dw, db=db)
+
+
+def accumulate_embed_rows(ids: torch.Tensor, dh: torch.Tensor,
+                          num_rows: int) -> SparseRows:
+    """Dedupe per-occurrence embedding gradients into per-row sums.
+
+    The input-embedding gather ``h0 = embed[tokens]`` backpropagates as a
+    sum of the gradient rows ``dh`` into the touched token rows: the head's
+    computation without the bias and the rank-1 structure. ids: (T,) int
+    token ids (duplicates allowed); dh: (T, d) float32 or bfloat16 rows,
+    summed in float32. Returns a bias-free ``SparseRows`` (db None) that
+    ``optim.apply_updates`` applies to the ``embed`` table.
+    """
+    del num_rows      # kept for the JAX package's signature; U is dynamic
+    uniq, inv = torch.unique(ids.reshape(-1).long(), return_inverse=True)
+    dw = ops.segment_stats(dh.reshape(-1, dh.shape[-1]), inv, uniq.shape[0])
+    return SparseRows(ids=uniq, dw=dw, db=None)
 
 
 def to_dense(sparse: SparseRows, w_shape: Tuple[int, ...]

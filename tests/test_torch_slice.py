@@ -30,6 +30,8 @@ from repro_torch.core import xc_train as txc
 from repro_torch.configs import reduced_config
 from repro_torch.models import lm_head as tlm_head
 from repro_torch.models import transformer as ttransformer
+from repro_torch.optim import OptimizerConfig
+from repro_torch.train import step as tstep
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-4, rtol=1e-5)
@@ -132,7 +134,7 @@ def test_port_imports_neither_jax_nor_repro():
                                    "head_params_from_numpy", "train_linear_head",
                                    "fit_tree", "opt_state_from_numpy", "init_params",
                                    "init_cache", "default_head_state",
-                                   "lm_params_from_numpy"])
+                                   "lm_params_from_numpy", "init_train_state"])
 def test_card_default_raises_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -157,6 +159,9 @@ def test_card_default_raises_without_cuda(monkeypatch, entry):
         "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
             {"embed": np.zeros((8, 4)), "layers": [], "final_norm": {"scale": np.zeros(4)},
              "head": {"w": np.zeros((8, 4)), "b": np.zeros(8)}}),
+        "init_train_state": lambda: tstep.init_train_state(
+            torch.Generator(), reduced_config("stablelm-3b"), OptimizerConfig(),
+            "adversarial_ns"),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
