@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving and LM-training paths on one NVIDIA card.
+"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving (lock-step and engine) and LM-training paths on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
@@ -60,6 +60,31 @@ Phases, each fatal on failure:
      step, peak memory; prefill plus decode of all 4 requests through the
      cache against the plain version's cache-free forward over the 4,640
      cached tokens (hiddens and dense Eq. 5 scores of every decode step);
+  9b. the continuous-batching engine (``repro_torch.serve.Engine``) at the
+     same width, bf16 cache, 8 lanes, pages of 256 positions, counters
+     reset just before and read just after each run, each run printed as
+     an ``engine_run`` line (requests, tokens, wall ms, tokens/s, TTFT
+     p50/p95, decode steps, prefill calls, share hits, drafts, preemptions,
+     page grows, peak pages and GiB, launches by kernel and by
+     ``flash_attention`` variant, host seconds by phase): (a) a burst of 8
+     prompts of 4,096 tokens, 32 tokens each, dense and beam 64, token for
+     token against the lock-step launcher at batch 8 on the same prompts
+     (prefill on the tensor-core kernel, decode on the paged decode
+     kernel; the largest difference of the decode hiddens printed); (b) 24
+     requests of 256 to 4,090 prompt tokens and 8 to 32 new ones in two
+     waves, the second of a higher class, under on-demand page growth and
+     preemption with 60% of the full page reservation (both must happen;
+     one step profiled by kernel and phase); (c) a shared-prefix burst
+     (templates of 2,048 tokens, suffixes of 64) with prefix sharing and
+     speculative decode (max draft 4), cold then warm, with a preempting
+     class; (d) a float32 cache. Fatal: the pool's invariants and no leaked
+     lane or page after each run, and the paged kernel against its plain
+     version (``check_flash_attention``'s tolerances) on calls recorded
+     from the engine — a bf16 decode step from (b), a multi-token step from
+     (c), a float32-cache decode step from (d) — each with pages out of
+     order, ragged key counts and a free lane on the sink page, timed
+     beside its bound and the plain version; the lock-step's token
+     agreement on (b) and (c) is reported;
  10. the head math at full ``xc_linear`` width (run after phase 5),
      counters reset just before and read just after: on
      benchmarks/bench_snr.py's conditional problem (256 contexts, p_D =
@@ -1521,7 +1546,436 @@ def serve_path(dev, seed):
         "serving_peak_mem_gib": peak_gib,
         "plain_forward_s": plain_s, "kernel_vs_plain": errs,
         "rel_rms_tol": SERVE_REL_RMS_TOL}}))
-    return launches
+    return launches, (cfg, params, state, hcfg)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9b: the continuous-batching engine at full h2o-danube-3-4b width.
+# ---------------------------------------------------------------------------
+
+ENGINE_SLOTS, ENGINE_PAGE_LEN = 8, 256
+ENGINE_BURST_PROMPT, ENGINE_GEN = 4096, 32
+# (b): prompt lengths from 256 to 4,096 tokens, most just short of a page
+# boundary so that decoding crosses it (on-demand growth); two waves, the
+# second of a higher class, so that admission preempts (spill and restore).
+ENGINE_MIXED_PROMPTS = (256, 1000, 2040, 3070, 4090)
+ENGINE_MIXED_GENS = (8, 16, 32)
+ENGINE_MIXED_WAVES = (16, 8)
+ENGINE_MIXED_PAGES_SHARE = 0.6   # of the full reservation (n_slots x max_pages)
+# (c): on one engine, a cold pass, then a warm one that finds every prompt in
+# the trie (shared pages, copy-on-write tails) and every context in the draft
+# store (multi-token verify steps), joined after its first step by the first
+# 8 requests again in a class above the generator's two, which preempt lanes (no 8 lanes can
+# retire in one step: at most 1 + 4 tokens a step, at least 8 a request); a
+# restored lane's pages come off the free list in the reverse of the order
+# they went on.
+ENGINE_SHARED = dict(n_requests=24, template_len=2048, suffix_len=64, n_templates=3,
+                     exact_repeat_frac=0.5, burst=8, gen_tokens=16,
+                     gen_tokens_choices=(8, 16, 32))
+ENGINE_MAX_DRAFT = 4
+ENGINE_KERNELS = ("flash_attention", "tree_logprob_all", "gather_scores")
+ENGINE_SPANS = ("serve/phase/prefill", "serve/phase/decode", "serve/phase/select",
+                "serve/phase/descent")
+
+
+# The kernels' wrappers, which hold the counts: a run may swap a recorder in
+# for ``ops.flash_attention``.
+ENGINE_KERNEL_FNS = {name: getattr(ops, name) for name in ENGINE_KERNELS}
+
+
+def reset_engine_counters() -> None:
+    torch.cuda.synchronize()
+    for fn in ENGINE_KERNEL_FNS.values():
+        fn.launches = 0
+    fa = ENGINE_KERNEL_FNS["flash_attention"]
+    fa.decode_launches = fa.fma_launches = fa.tensor_core_launches = fa.paged_launches = 0
+    gs = ENGINE_KERNEL_FNS["gather_scores"]
+    gs.rows_launches = gs.split_launches = 0
+
+
+def engine_counts() -> dict:
+    torch.cuda.synchronize()
+    out = {name: fn.launches for name, fn in ENGINE_KERNEL_FNS.items()}
+    fa = ENGINE_KERNEL_FNS["flash_attention"]
+    out["flash_attention_by_kernel"] = dict(
+        decode=fa.decode_launches, tensor_cores=fa.tensor_core_launches,
+        fma=fa.fma_launches, paged=fa.paged_launches)
+    return out
+
+
+def wants_record(token_rows, table, kv_lens, sink) -> bool:
+    """Whether a paged step's host-built inputs show all three things the
+    recorded check needs: a row whose mapped pages are out of order, ragged
+    key counts among the live rows, and a free lane whose table is all sink."""
+    live = [r for r in range(table.shape[0]) if (table[r] != sink).any()]
+    free = [r for r in range(table.shape[0]) if (table[r] == sink).all()]
+    out_of_order = any(
+        (np.diff(table[r][table[r] != sink].astype(np.int64)) < 0).any() for r in live)
+    ragged = len({int(kv_lens[r]) for r in live}) > 1
+    return bool(free) and out_of_order and ragged and token_rows > 0
+
+
+class PagedRecorder:
+    """Records the first ``flash_attention`` call through a page table of a
+    step that ``wants_record`` picks (layer 0 of that step): q, one layer's
+    arenas, the key counts and the table, cloned, with the call's output."""
+
+    def __init__(self, eng, attr: str, name: str, max_rows: int = 1 << 30):
+        self.name, self.call, self.armed = name, None, False
+        step = getattr(eng, attr)
+        sink = eng.pool.sink
+
+        def watched(*args):
+            if self.call is None:
+                tokens = np.asarray(args[1])
+                if attr == "_decode":       # (params, token, arena, cache_pos, table)
+                    lens, table = np.asarray(args[3]) + 1, np.asarray(args[4])
+                else:                       # (params, tokens, start, lengths, arena, table)
+                    lens, table = np.asarray(args[2]) + tokens.shape[1], np.asarray(args[5])
+                self.armed = (tokens.shape[1] <= max_rows
+                              and wants_record(tokens.shape[0], table, lens, sink))
+            try:
+                return step(*args)
+            finally:
+                self.armed = False
+        setattr(eng, attr, watched)
+
+    def wrap(self, fn):
+        def attention(q, k, v, **kw):
+            out = fn(q, k, v, **kw)
+            if self.armed and self.call is None and kw.get("page_table") is not None:
+                self.call = dict(q=q.clone(), k=k.clone(), v=v.clone(), out=out.clone(),
+                                 kw={n: (t.clone() if isinstance(t, torch.Tensor) else t)
+                                     for n, t in kw.items()})
+            return out
+        return attention
+
+
+def check_recorded(rec: PagedRecorder, flush) -> dict:
+    """The kernel against its plain version on a recorded engine call, with
+    check_flash_attention's tolerances; the call again gives the engine's
+    bits; its time beside its bound (q, the output and the K/V of the keys
+    each row's queries see, against 4*hd operations per (query, key) pair)
+    and the plain version's."""
+    check(rec.call is not None, f"{rec.name}: no engine call had pages out of order, "
+                                "ragged lengths and a free lane")
+    c = rec.call
+    q, k, v, kw = c["q"], c["k"], c["v"], c["kw"]
+    before = attn_launches_by_kernel()
+    got = ops.flash_attention(q, k, v, **kw)
+    path = [n for n, m in attn_launches_by_kernel().items() if m > before[n]]
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    errs = attn_errors(got, want)
+    what = (f"{rec.name}: paged flash_attention on an engine call (B={q.shape[0]} "
+            f"Sq={q.shape[2]} lens={kw['kv_lens'].tolist()} page_len={k.shape[1]} "
+            f"q {str(q.dtype)[6:]}, cache {str(k.dtype)[6:]}; {path} kernel)")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(attn_close(errs, q.dtype), f"{what}: kernel disagrees with the plain version "
+                                     f"({errs})")
+    check(torch.equal(got, c["out"]), f"{what}: the call again differs from the engine's")
+    lens = kw["kv_lens"].tolist()
+    b, h, sq, hd = q.shape
+    kvh = k.shape[2]
+    pairs = seen = 0
+    for n in lens:
+        p_, s_ = band_pairs(sq, n, True, kw.get("window", 0))
+        pairs, seen = pairs + p_, seen + s_
+    n_bytes = (2 * q.numel() * q.element_size() + 2 * seen * kvh * hd * k.element_size()
+               + kw["kv_lens"].numel() * 4 + kw["page_table"].numel() * 4)
+    peak = (BF16_FLOP_PER_S if q.dtype == k.dtype == torch.bfloat16 else FP32_FLOP_PER_S)
+    n_flop = 4 * hd * h * pairs
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / peak
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), flush)
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), flush)
+    row = dict(path=path[0] if len(path) == 1 else str(path), rows=b, sq=sq, kv_lens=lens,
+               page_len=k.shape[1], q_dtype=str(q.dtype)[6:], cache_dtype=str(k.dtype)[6:],
+               max_abs_err=errs["max_abs_err"], worst_ratio=errs["worst_ratio"],
+               rel_rms=errs["rel_rms"], ms=ms, plain_ms=plain, library_ms=None,
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=n_bytes)
+    print(f"{what}: max_abs_err={errs['max_abs_err']:.3e} (worst error/bound "
+          f"{errs['worst_ratio']:.3f}), kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def run_engine_case(name, eng, submit_waves):
+    """Drives ``eng`` over the waves of requests (a wave is submitted, then
+    the engine steps ``steps`` times before the next, the last runs to the
+    end), counters reset just before and read just after; the pool's
+    invariants and no leaked lane or page afterwards. Returns the run's
+    line (printed) and the handles."""
+    host_s = collections.Counter()
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host_s[name] += time.perf_counter() - t
+        return call
+    eng._admit = timed("admission", eng._admit)          # prefill launches included
+    eng._emit_token = timed("retire", eng._emit_token)    # token append, stops, release
+    torch.cuda.reset_peak_memory_stats()
+    reset_engine_counters()
+    t0 = time.perf_counter()
+    handles = []
+    for wave, steps in submit_waves:
+        handles += [eng.submit(r) for r in wave]
+        if steps is None:
+            eng.run()
+        else:
+            for _ in range(steps):
+                eng.step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    del eng._admit, eng._emit_token
+    counts = engine_counts()
+    pool = eng.pool
+    pool.check_invariants()
+    check(pool.num_free_lanes == pool.n_lanes and pool.num_mapped_pages == 0
+          and eng.num_active == 0 and eng.num_pending == 0,
+          f"{name}: leaked lanes or pages ({pool.num_free_lanes} of {pool.n_lanes} lanes "
+          f"free, {pool.num_mapped_pages} pages mapped)")
+    check(all(h.done and h.status == "ok" for h in handles), f"{name}: a request failed")
+    check(counts["flash_attention_by_kernel"]["paged"] > 0,
+          f"{name}: no flash_attention launch read through a page table")
+    tokens = sum(len(h.tokens) for h in handles)
+    st = eng.stats()
+    ttft = st["latency"]["ttft"]
+    line = dict(
+        requests=len(handles), tokens=tokens, wall_ms=wall_ms,
+        tokens_per_s=1e3 * tokens / wall_ms, ttft_p50_ms=1e3 * ttft["p50"],
+        ttft_p95_ms=1e3 * ttft["p95"], decode_steps=eng.decode_steps,
+        prefill_calls=eng.prefill_calls,
+        share_hits=st.get("prefix", {}).get("hits", 0),
+        prefill_tokens_saved=st.get("prefix", {}).get("prefill_tokens_saved", 0),
+        cow_copies=st.get("prefix", {}).get("cow_copies", 0),
+        drafts_proposed=st.get("spec", {}).get("drafts_proposed", 0),
+        drafts_accepted=st.get("spec", {}).get("drafts_accepted", 0),
+        verify_steps=st.get("spec", {}).get("verify_steps", 0),
+        preemptions=st["sched"]["preemptions"], restores=st["sched"]["restores"],
+        page_grows=st["sched"]["page_grows"], n_pages=pool.n_pages,
+        peak_pages=st["peak_pages_in_use"], peak_active=st["peak_active"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, launches=counts,
+        phase_host_s=dict({n: eng.registry.histogram(n).total for n in ENGINE_SPANS},
+                          **host_s))
+    return line, handles
+
+
+def lockstep_agreement(cfg, hcfg, params, state, handles, beam) -> float:
+    """Share of the engine's tokens that the port's lock-step decode gives
+    for the same prompts and head path (grouped by prompt length, each group
+    one batch). Reported, not checked: the engine pads prompts to a power of
+    two, batches other rows beside them and runs multi-token paged steps,
+    so its bf16 roundings differ from the lock-step's, near-ties may go the
+    other way, and a request's tokens after a flip differ."""
+    from repro_torch.serve import lockstep_decode
+    groups: dict = {}
+    for h in handles:
+        groups.setdefault(h.request.prompt.size, []).append(h)
+    same = total = 0
+    for group in groups.values():
+        gen_len = max(h.request.max_new_tokens for h in group)
+        out = lockstep_decode(cfg, hcfg, params, state,
+                              np.stack([h.request.prompt for h in group]), gen_len,
+                              topk_beam=beam, cache_dtype=torch.bfloat16)
+        for h, row in zip(group, out):
+            n = len(h.tokens)
+            same += int((row[:n] == np.asarray(h.tokens)).sum())
+            total += n
+    return same / max(total, 1)
+
+
+def engine_path(dev, seed, card, model) -> dict:
+    """Phase 9b: the port's continuous-batching engine at full
+    h2o-danube-3-4b width, bf16 cache, 8 lanes, pages of 256 positions:
+    (a) a burst of 8 prompts of 4,096 tokens, 32 tokens each, dense and beam
+    64, token for token against the lock-step launcher at batch 8 on the
+    same prompts; (b) 24 mixed-length requests in two waves under on-demand
+    page growth and preemption with 60% of the full page reservation; (c) a
+    shared-prefix burst (templates of 2,048 tokens, suffixes of 64) with
+    prefix sharing and speculative decode. Counters reset just before and
+    read just after each run. The paged kernel against its plain version on
+    calls recorded from the engine: a bf16 decode step from (b), a
+    multi-token step from (c), and a decode step of a float32 cache (the
+    reference's default) from a short run (d)."""
+    from repro_torch.serve import (Engine, Request, ServeConfig, TrafficConfig,
+                                   make_shared_prefix_burst, make_workload)
+    cfg, params, state, hcfg = model
+    t_phase = time.perf_counter()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    max_len = ENGINE_BURST_PROMPT + ENGINE_GEN
+    base = dict(n_slots=ENGINE_SLOTS, max_len=max_len, page_len=ENGINE_PAGE_LEN,
+                cache_dtype=torch.bfloat16)
+    runs, recorded, total = {}, {}, collections.Counter()
+
+    def show(name, line):
+        print(json.dumps({"engine_run": dict(name=name, card=card, **line)}))
+        return line
+
+    def add(counts):
+        for name in ENGINE_KERNELS:
+            total[name] += counts[name]
+
+    # (a) burst against the lock-step launcher.
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    burst = torch.randint(0, cfg.vocab_size, (ENGINE_SLOTS, ENGINE_BURST_PROMPT),
+                          generator=gen, device=dev).cpu().numpy()
+    for path, beam in (("dense", 0), ("beam", SERVE_BEAM)):
+        args = serve.parse_args(["--lockstep", "--full", "--arch", SERVE_ARCH,
+                                 "--batch", str(ENGINE_SLOTS), "--prompt-len",
+                                 str(ENGINE_BURST_PROMPT), "--gen", str(ENGINE_GEN),
+                                 "--topk-beam", str(beam), "--seed", str(seed)])
+        hiddens = {"lockstep": [], "engine": []}
+        forward = transformer.forward
+
+        def rec_forward(*a, _into=None, **kw):
+            out = forward(*a, **kw)
+            if out[0].shape[1] == 1:                 # decode steps
+                _into.append(out[0][:, -1].float().clone())
+            return out
+
+        with swapped(serve, _prompts=lambda *_: torch.as_tensor(burst, device=dev)), \
+                swapped(transformer, forward=lambda *a, **kw: rec_forward(
+                    *a, _into=hiddens["lockstep"], **kw)):
+            want = serve.run_lockstep(args, cfg, params, state, hcfg, dev)
+        eng = Engine(cfg, hcfg, params, state, ServeConfig(beam=beam, **base))
+        with swapped(transformer, forward=lambda *a, **kw: rec_forward(
+                *a, _into=hiddens["engine"], **kw)):
+            line, handles = run_engine_case(
+                f"burst_{path}", eng, [([Request(prompt=p, max_new_tokens=ENGINE_GEN)
+                                         for p in burst], None)])
+        got = np.stack([h.result() for h in handles])
+        check(np.array_equal(got, want["tokens"]),
+              f"burst_{path}: the engine's tokens differ from the lock-step's "
+              f"({int((got != want['tokens']).sum())} of {got.size})")
+        check(line["prefill_calls"] == 1, f"burst_{path}: the burst took "
+                                          f"{line['prefill_calls']} prefill launches, not 1")
+        by = line["launches"]["flash_attention_by_kernel"]
+        check(by["tensor_cores"] == cfg.num_layers and
+              by["decode"] == cfg.num_layers * ENGINE_GEN == by["paged"],
+              f"burst_{path}: admission prefill not on the tensor-core kernel or decode "
+              f"not on the paged decode kernel: {by}")
+        head_kernel = "gather_scores" if beam else "tree_logprob_all"
+        check(line["launches"][head_kernel] >= ENGINE_GEN,
+              f"burst_{path}: {head_kernel} launched {line['launches'][head_kernel]} times")
+        line["last_hidden_max_abs_diff"] = max(
+            float((a - b).abs().max()) for a, b in zip(hiddens["engine"],
+                                                        hiddens["lockstep"]))
+        line["lockstep_tokens_equal"] = True
+        add(line["launches"])
+        runs[f"burst_{path}"] = show(f"burst_{path}", line)
+        del eng, want, hiddens
+
+    # (b) mixed lengths, on-demand growth, preemption, 60% of the pages.
+    full = ENGINE_SLOTS * -(-max_len // ENGINE_PAGE_LEN)
+    n_pages = int(round(ENGINE_MIXED_PAGES_SHARE * full))
+    work = [r for _, r in make_workload(TrafficConfig(
+        n_requests=sum(ENGINE_MIXED_WAVES), prompt_len=ENGINE_MIXED_PROMPTS[0],
+        gen_tokens=ENGINE_GEN, prompt_len_choices=ENGINE_MIXED_PROMPTS,
+        gen_tokens_choices=ENGINE_MIXED_GENS, vocab_size=cfg.vocab_size, seed=seed + 12))]
+    first, second = ENGINE_MIXED_WAVES
+    wave2 = [dataclasses.replace(r, priority=1) for r in work[first:]]
+    eng = Engine(cfg, hcfg, params, state, ServeConfig(
+        beam=SERVE_BEAM, n_pages=n_pages, preemption=True, page_growth="ondemand", **base))
+    rec_b = PagedRecorder(eng, "_decode", "mixed decode (bf16 cache)")
+    with swapped(ops, flash_attention=rec_b.wrap(ops.flash_attention)):
+        line, handles = run_engine_case("mixed", eng, [(work[:first], 4), (wave2, None)])
+    check(line["preemptions"] >= 1 and line["restores"] >= 1 and line["page_grows"] >= 1,
+          f"mixed: no preemption or no page growth ({line['preemptions']} preemptions, "
+          f"{line['page_grows']} page grows)")
+    for h in handles:
+        check(len(h.tokens) == h.request.max_new_tokens and
+              all(0 <= t < cfg.vocab_size for t in h.tokens), "mixed: a bad token stream")
+    # One steady-state engine step profiled by kernel and phase.
+    for r in work[:ENGINE_SLOTS]:
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+    eng.registry.annotate = True
+    by_name, n_kernels, host_ms, inside, _ = profile_by_kernel(eng.step, ranges=ENGINE_SPANS)
+    eng.registry.annotate = False
+    eng.run()
+    device_ms = sum(by_name.values())
+    line["step_profile"] = dict(
+        active=ENGINE_SLOTS, host_ms=host_ms, device_ms=device_ms, kernels=n_kernels,
+        idle_share=1.0 - device_ms / host_ms,
+        device_ms_by_phase={n: sum(v.values()) for n, v in inside.items()},
+        flash_attention_device_ms=sum(v for k, v in by_name.items() if "flash_attention" in k),
+        top_ms=[[k[:60], v] for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]])
+    line["lockstep_token_agreement"] = lockstep_agreement(cfg, hcfg, params, state, handles,
+                                                         SERVE_BEAM)
+    add(line["launches"])
+    runs["mixed"] = show("mixed", line)
+    recorded["decode_bf16"] = check_recorded(rec_b, flush)
+    del eng, rec_b
+
+    # (c) shared-prefix burst with sharing and speculative decode.
+    work = [r for _, r in make_shared_prefix_burst(TrafficConfig(
+        vocab_size=cfg.vocab_size, seed=seed + 13, **ENGINE_SHARED))]
+    shared_len = ENGINE_SHARED["template_len"] + ENGINE_SHARED["suffix_len"] + ENGINE_GEN
+    eng = Engine(cfg, hcfg, params, state, ServeConfig(
+        beam=SERVE_BEAM, prefix_sharing=True, spec_decode=True, max_draft=ENGINE_MAX_DRAFT,
+        preemption=True, **dict(base, max_len=shared_len)))
+    # A step of more than one token a row and at most 64 (a verify step with
+    # drafts, or a suffix prefill): the plain version's logits of a padded
+    # 4,096-token first prefill would not fit.
+    # Last, a few requests on a mostly idle engine whose free list the
+    # preemptions have permuted: one of each prompt length, so lanes are
+    # free and key counts ragged while drafts replay.
+    tail = [dataclasses.replace(r) for n in sorted({r.prompt.size for r in work})
+            for r in [next(r for r in work if r.prompt.size == n)]] * 2
+    rec_c = PagedRecorder(eng, "_paged_prefill", "multi-token paged step (bf16 cache)",
+                          max_rows=64)
+    rec_c_wrap, ops_flash = rec_c.wrap(ops.flash_attention), ops.flash_attention
+
+    def multi_only(q, k, v, **kw):
+        return ops_flash(q, k, v, **kw) if q.shape[2] == 1 else rec_c_wrap(q, k, v, **kw)
+    with swapped(ops, flash_attention=multi_only):
+        line, handles = run_engine_case(
+            "shared_prefix", eng,
+            [(work, None), ([dataclasses.replace(r) for r in work], 1),
+             ([dataclasses.replace(r, priority=2) for r in work[:ENGINE_SLOTS]], None),
+             (tail, None)])
+    check(line["share_hits"] >= 1 and line["verify_steps"] >= 1,
+          f"shared_prefix: {line['share_hits']} share hits, "
+          f"{line['verify_steps']} verify steps")
+    check(line["launches"]["flash_attention_by_kernel"]["fma"] >= 1,
+          "shared_prefix: no multi-token paged step reached the FMA kernel")
+    line["lockstep_token_agreement"] = lockstep_agreement(cfg, hcfg, params, state, handles,
+                                                         SERVE_BEAM)
+    add(line["launches"])
+    runs["shared_prefix"] = show("shared_prefix", line)
+    recorded["multi_token_bf16"] = check_recorded(rec_c, flush)
+    del eng, rec_c
+
+    # (d) the reference's default float32 cache: a short run whose second
+    # wave reuses the first's pages in LIFO order.
+    eng = Engine(cfg, hcfg, params, state, ServeConfig(
+        n_slots=ENGINE_SLOTS, max_len=1024, page_len=ENGINE_PAGE_LEN, beam=SERVE_BEAM))
+    rng = np.random.default_rng(seed + 14)
+    waves = [[Request(prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                      max_new_tokens=g) for n, g in lens]
+             for lens in (((300, 4), (700, 4), (520, 4)), ((610, 6), (260, 6), (900, 6)))]
+    rec_d = PagedRecorder(eng, "_decode", "decode (float32 cache)")
+    with swapped(ops, flash_attention=rec_d.wrap(ops.flash_attention)):
+        line, _ = run_engine_case("f32_cache", eng, [(waves[0], None), (waves[1], None)])
+    check(line["launches"]["flash_attention_by_kernel"]["fma"] >= 1,
+          "f32_cache: the float32 cache's decode did not reach the FMA kernel")
+    add(line["launches"])
+    runs["f32_cache"] = show("f32_cache", line)
+    recorded["decode_f32_cache"] = check_recorded(rec_d, flush)
+    del eng, rec_d, flush
+
+    print(json.dumps({"engine_path": {
+        "arch": SERVE_ARCH, "card": card, "slots": ENGINE_SLOTS, "page_len": ENGINE_PAGE_LEN,
+        "cache": "bfloat16 (f32_cache: float32)", "wall_s": time.perf_counter() - t_phase,
+        "launches": dict(total), "paged_kernel_checks": recorded,
+        "runs": sorted(runs)}}))
+    return dict(total)
 
 
 # ---------------------------------------------------------------------------
@@ -2271,7 +2725,11 @@ def main() -> int:
     pipeline_small(dev, args.seed)
     launches.update(segment_stats=genfit_path(dev, args.seed, cfg)["segment_stats"])
     small_fits(dev, args.seed)
-    launches.update(flash_attention=serve_path(dev, args.seed)["flash_attention"])
+    serve_launches, model = serve_path(dev, args.seed)
+    launches.update(flash_attention=serve_launches["flash_attention"])
+    for name, n in engine_path(dev, args.seed, card, model).items():
+        launches[name] += n
+    del model
     for name, n in lm_train_path(dev, args.seed, card).items():
         if name in launches:
             launches[name] += n

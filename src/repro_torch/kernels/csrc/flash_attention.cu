@@ -36,6 +36,18 @@
 //   FMAs over tiles staged in shared memory, so its own ceiling is the 67
 //   TFLOP/s of float32; decode in it is bound by its bytes.
 //
+// Per-row key counts and paged K/V (the serving engine): with kv_lens, row b
+// has kv_lens[b] keys and its query i sits at kv_lens[b] - Sq + i; with a
+// page table as well, key j of row b is arena row page_table[b, j /
+// page_len] * page_len + j % page_len of the (P, page_len, KV, hd) arenas
+// that k and v point at. Every K/V load of the decode and FMA kernels goes
+// through key_slot (the identity without a table), so no page is copied;
+// the tensor-core kernel takes neither (the entry point refuses them). A
+// block's band and its split of the band depend only on its row's key
+// count and n_split, so a row gives the same bits paged and contiguous, and
+// a split past a short row's band leaves the neutral state (m = -1e30,
+// l = 0) that combine_kernel weighs 0.
+//
 // Design of the FMA kernel (right and simple first):
 // - GQA without expanding K/V: a block serves one (b, kv head) and packs the
 //   G = H / KV query heads of that group as rows, row r = i * G + g, so each
@@ -97,7 +109,31 @@ struct Params {
   int n_split;       // blocks that share one tile's KV range (split-KV)
   float* part_ml;    // n_split > 1: each split's running max and sum per row
   float* part_acc;   // and its unnormalised accumulator (rows x hd)
+  const int* kv_lens;     // (B,): row b has kv_lens[b] keys; null: Skv each
+  const int* page_table;  // (B, max_pages): key j of row b is arena row
+                          // page_table[b, j / page_len] * page_len + j % page_len;
+                          // null: key j is row j of the row's own k and v
+  int max_pages;
+  int page_len;
 };
+
+// The keys of row b: its own count, or Skv for every row. Query row i of
+// row b sits at row_keys - Sq + i.
+__device__ __forceinline__ int64_t row_keys(const Params& p, int b) {
+  return p.kv_lens != nullptr ? (int64_t)__ldg(p.kv_lens + b) : (int64_t)p.Skv;
+}
+
+// Where key `key` of row b lies along k's and v's sequence dimension: every
+// K/V load goes through here. Contiguous: the key itself. Paged: the arena
+// row of the key's page; a logical page past the table (a padded query of
+// a multi-token step, whose output the caller drops) reads the table's last
+// entry, as the reference's gather clamps.
+__device__ __forceinline__ int64_t key_slot(const Params& p, int b, int64_t key) {
+  if (p.page_table == nullptr) return key;
+  const int64_t lp = min(key / p.page_len, (int64_t)p.max_pages - 1);
+  return (int64_t)__ldg(p.page_table + (int64_t)b * p.max_pages + lp) * p.page_len +
+         key % p.page_len;
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -168,7 +204,8 @@ flash_attention_kernel(const Params p) {
   const int64_t r0 = (int64_t)blockIdx.x * L::BQ;
   const int b = blockIdx.y / p.KV;
   const int kvh = blockIdx.y % p.KV;
-  const int64_t off = (int64_t)p.Skv - p.Sq;  // row i sits at off + i
+  const int64_t skv = row_keys(p, b);
+  const int64_t off = skv - p.Sq;  // row i sits at off + i
 
   const TQ* __restrict__ qb = (const TQ*)p.q + b * p.q_sb;
   const TKV* __restrict__ kb = (const TKV*)p.k + b * p.k_sb + kvh * p.k_sh;
@@ -203,11 +240,14 @@ flash_attention_kernel(const Params p) {
   // The keys the tile's rows can see.
   const int64_t r_last = min(r0 + L::BQ, R) - 1;
   const int64_t qa_lo = r0 / G + off, qa_hi = r_last / G + off;
-  int64_t k_begin = 0, k_end = p.Skv;
+  int64_t k_begin = 0, k_end = skv;
   if (!(p.causal && qa_lo < 0)) {  // else some row sees no key: visit all
-    if (p.causal) k_end = min((int64_t)p.Skv, qa_hi + 1);
+    if (p.causal) k_end = min(skv, qa_hi + 1);
     if (p.window > 0) k_begin = max((int64_t)0, qa_lo - p.window + 1);
   }
+  // A run's bounds depend on the row's own band and n_split alone, so a
+  // row gives the same bits whatever the other rows' lengths and wherever
+  // its keys lie. A run past the band is empty: it leaves m = -1e30, l = 0.
   if (p.n_split > 1) {
     const int64_t n_tiles = (k_end - k_begin + kBK - 1) / kBK;
     const int64_t per = (n_tiles + p.n_split - 1) / p.n_split;
@@ -238,9 +278,10 @@ flash_attention_kernel(const Params p) {
         const int idx = tid + (c0 + u) * kThreads;
         const int row = idx / HDP, d = idx % HDP;
         const int64_t key = k0 + row;
-        const bool ok = key < p.Skv && d < p.hd;
-        kval[u] = ok ? to_float(kb[key * p.k_ss + d]) : 0.f;
-        vval[u] = ok ? to_float(vb[key * p.v_ss + d]) : 0.f;
+        const bool ok = key < skv && d < p.hd;
+        const int64_t slot = ok ? key_slot(p, b, key) : 0;
+        kval[u] = ok ? to_float(kb[slot * p.k_ss + d]) : 0.f;
+        vval[u] = ok ? to_float(vb[slot * p.v_ss + d]) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
@@ -292,7 +333,7 @@ flash_attention_kernel(const Params p) {
         const int64_t delta = qa[i] - key;
         const bool valid = (!p.causal || delta >= 0) &&
                            (p.window <= 0 || delta < p.window);
-        x = key < p.Skv ? (valid ? x : kMasked) : -INFINITY;
+        x = key < skv ? (valid ? x : kMasked) : -INFINITY;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -301,7 +342,7 @@ flash_attention_kernel(const Params p) {
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < kKeysPerThread; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);  // a key past Skv gives exactly 0
+        s[i][j] = expf(s[i][j] - m_new);  // a key past the row's gives exactly 0
         sum += s[i][j];
       }
       l[i] = alpha * l[i] + row_sum(sum);
@@ -838,12 +879,13 @@ struct Cfg {
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// A query at absolute position qa sees keys [band_begin, band_end).
+// A query at absolute position qa of a row with skv keys sees keys
+// [band_begin, band_end).
 __device__ __forceinline__ int64_t band_begin(int64_t qa, const Params& p) {
   return p.window > 0 ? qa - p.window + 1 : 0;
 }
-__device__ __forceinline__ int64_t band_end(int64_t qa, const Params& p) {
-  return p.causal ? qa + 1 : p.Skv;
+__device__ __forceinline__ int64_t band_end(int64_t qa, int64_t skv, const Params& p) {
+  return p.causal ? qa + 1 : skv;
 }
 
 __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
@@ -874,18 +916,19 @@ flash_attention_decode_kernel(const Params p) {
   const int64_t r0 = (int64_t)blockIdx.x * RB;
   const int b = blockIdx.y / p.KV;
   const int kvh = blockIdx.y % p.KV;
-  const int64_t off = (int64_t)p.Skv - p.Sq;   // row i sits at off + i
+  const int64_t skv = row_keys(p, b);
+  const int64_t off = skv - p.Sq;   // row i sits at off + i
 
   // The rows' q slices, scaled, and each row's own band.
   float q[RB][8];
-  int lo[RB], hi[RB];   // within [0, Skv]
+  int lo[RB], hi[RB];   // within [0, skv]
   const bf16* qb = (const bf16*)p.q + b * p.q_sb;
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
     const int64_t row = min(r0 + r, R - 1);
     const int64_t qa = row / G + off;
     lo[r] = (int)max((int64_t)0, band_begin(qa, p));
-    hi[r] = (int)min((int64_t)p.Skv, max((int64_t)0, band_end(qa, p)));
+    hi[r] = (int)min(skv, max((int64_t)0, band_end(qa, skv, p)));
 #pragma unroll
     for (int e = 0; e < 8; ++e) q[r][e] = 0.f;
     if (r0 + r < R && has_vec) {
@@ -900,13 +943,15 @@ flash_attention_decode_kernel(const Params p) {
   }
 
   // The keys the block's rows see (all of them if some row sees none),
-  // then this block's split of them.
+  // then this block's split of them: its bounds depend on the row's own
+  // band and n_split alone. A split past the band is empty and leaves
+  // m = -1e30, l = 0, which combine_kernel weighs 0.
   const int64_t r_last = min(r0 + RB, R) - 1;
   const int64_t qa_lo = r0 / G + off, qa_hi = r_last / G + off;
-  int64_t k_begin = 0, k_end = p.Skv;
+  int64_t k_begin = 0, k_end = skv;
   if (!(p.causal && qa_lo < 0)) {
     k_begin = max((int64_t)0, band_begin(qa_lo, p));
-    k_end = min((int64_t)p.Skv, band_end(qa_hi, p));
+    k_end = min(skv, band_end(qa_hi, skv, p));
   }
   const int64_t per = (k_end - k_begin + p.n_split - 1) / p.n_split;
   const int64_t kz_begin = k_begin + (int64_t)blockIdx.z * per;
@@ -940,8 +985,9 @@ flash_attention_decode_kernel(const Params p) {
     for (int u = 0; u < U; ++u) {
       const int key = k0 + u;
       if (key < kz_end && has_vec) {
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + (int64_t)key * p.k_ss));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + (int64_t)key * p.v_ss));
+        const int64_t slot = key_slot(p, b, key);
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(kb + slot * p.k_ss));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(vb + slot * p.v_ss));
       } else {
         kr[u] = make_uint4(0u, 0u, 0u, 0u);
         vr[u] = kr[u];
@@ -1117,8 +1163,13 @@ int dispatch(const Params& p, cudaStream_t stream) {
 // n_split * Sq * G * 2 floats) and part_acc (the same rows x hd floats).
 // kernel: 0 = the FMA kernel, 1 = the tensor-core kernel, 2 = the decode
 // kernel; 1 and 2 are refused unless the operands meet their rule (see the
-// top of this file). Returns cudaGetLastError() after the launches (0 when
-// accepted).
+// top of this file). kv_lens (B int32 on the card, each in [1, Skv]) gives
+// every row its own key count; Skv is then the largest of them, which
+// n_split was computed from. page_table (B x max_pages int32 on the card)
+// needs kv_lens and reads K/V through the table from the arena that k and
+// v point at (k_sb = v_sb = 0, k_ss the stride of an arena row). The
+// tensor-core kernel takes neither. Returns cudaGetLastError() after the
+// launches (0 when accepted).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, int64_t q_sb,
     int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
@@ -1126,17 +1177,24 @@ extern "C" int flash_attention_fwd(
     int64_t o_ss, int64_t B, int64_t H, int64_t KV, int64_t Sq, int64_t Skv,
     int64_t hd, float scale, int causal, int64_t window, float softcap,
     int q_dtype, int kv_dtype, int n_split, int kernel, void* part_ml,
-    void* part_acc, void* stream) {
+    void* part_acc, const void* kv_lens, const void* page_table, int64_t max_pages,
+    int64_t page_len, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (H <= 0 || KV <= 0 || H % KV != 0 || Skv <= 0 || hd <= 0 || hd > 256 ||
       n_split < 1 || n_split > 65535 ||
       (n_split > 1 && (part_ml == nullptr || part_acc == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (page_table != nullptr &&
+      (kv_lens == nullptr || max_pages < 1 || page_len < 1 || k_sb != 0 || v_sb != 0))
+    return (int)cudaErrorInvalidValue;
+  if (kernel == 1 && (kv_lens != nullptr || page_table != nullptr))
+    return (int)cudaErrorInvalidValue;
   const Params p{q,    k,    v,    out,  q_sb,          q_sh,     q_ss,
                  k_sb, k_sh, k_ss, v_sb, v_sh,          v_ss,     o_sb,
                  o_sh, o_ss, (int)B, (int)H, (int)KV,   (int)Sq,  (int)Skv,
                  (int)hd, scale, causal, window, softcap, n_split,
-                 (float*)part_ml, (float*)part_acc};
+                 (float*)part_ml, (float*)part_acc, (const int*)kv_lens,
+                 (const int*)page_table, (int)max_pages, (int)page_len};
   cudaStream_t s = (cudaStream_t)stream;
   const bool bf16_aligned =
       q_dtype == 1 && kv_dtype == 1 && hd % 8 == 0 &&

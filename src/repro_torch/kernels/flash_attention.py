@@ -41,7 +41,20 @@ alone:
   second kernel merges their partial softmax states in a fixed order
   (split-KV), as it does for the decode kernel.
 
-Neither uses atomics: two calls give the same bits. The wrapper takes any
+Per-row key counts and a page table (the serving engine's paged cache):
+``kv_lens`` (B,) gives row b its own ``Skv_b`` (its query i sits at
+``Skv_b - Sq + i``; keys at or past ``Skv_b`` are never read), and
+``page_table`` (B, max_pages) with the arenas (P, page_len, KV, hd) as k
+and v reads key j of row b from arena row ``page_table[b, j // page_len] *
+page_len + j % page_len``, inside the kernel: no page is copied. The decode
+and FMA kernels take both, through one address helper every K/V load goes
+through; the tensor-core kernel takes neither, so such a call goes to the
+decode kernel when it has at most 16 packed rows and to the FMA kernel
+otherwise. Splits are computed from ``max_kv_len``, which the caller knows
+on the host, and a row's split bounds depend only on its own key count and
+the split count, so a row gives the same bits paged and contiguous.
+
+None uses atomics: two calls give the same bits. The wrapper takes any
 Sq, Skv and hd <= 256 and any strides over (b, h, s) with the last
 dimension contiguous, so the model passes its (B, S, KV, hd) cache slices as
 permuted views without copying.
@@ -54,7 +67,8 @@ differentiable one. Training runs ``models.layers.plain_attention``.
 CPU tensors go to the plain version (:func:`..ref.flash_attention_ref`);
 CUDA tensors launch a kernel or raise. ``flash_attention.launches`` counts
 launches; ``decode_launches``, ``tensor_core_launches`` and ``fma_launches``
-split it by kernel.
+split it by kernel, and ``paged_launches`` counts the launches that read
+through a page table.
 """
 from __future__ import annotations
 
@@ -88,7 +102,8 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 18
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int64, ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -123,20 +138,23 @@ def decode_splits(b, h, kv, sq, skv, causal, window, sm_count) -> int:
 
 
 def _bf16_aligned(q, k, v) -> bool:
-    """q, k and v all bf16, hd % 8 == 0, every base pointer and (b, h, s)
-    stride 16-byte aligned. The output takes q's strides, or dense ones,
-    which are multiples of hd."""
+    """q, k and v all bf16, hd % 8 == 0, every base pointer and every
+    stride but the last 16-byte aligned. The output takes q's strides, or
+    dense ones, which are multiples of hd."""
     return (q.dtype == k.dtype == v.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
-            and all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+            and all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:-1])
                     for t in (q, k, v)))
 
 
-def decode_path(q, k, v) -> bool:
+def decode_path(q, k, v, kv_heads=None) -> bool:
     """Whether a call takes the decode kernel: q, k and v all bf16, at most
     16 packed rows (``Sq * G <= 16``), ``hd % 8 == 0`` (hd <= 256), every
-    base pointer and (b, h, s) stride 16-byte aligned."""
+    base pointer and stride but the last 16-byte aligned. ``kv_heads``
+    defaults to k's dimension 1 (k is (B, KV, Skv, hd)); pass it for an
+    arena (P, page_len, KV, hd)."""
     _, h, sq, _ = q.shape
-    return sq * (h // k.shape[1]) <= _FEW_ROWS and _bf16_aligned(q, k, v)
+    kv = k.shape[1] if kv_heads is None else kv_heads
+    return sq * (h // kv) <= _FEW_ROWS and _bf16_aligned(q, k, v)
 
 
 def tensor_core_path(q, k, v, split: int) -> bool:
@@ -149,37 +167,86 @@ def tensor_core_path(q, k, v, split: int) -> bool:
             and _bf16_aligned(q, k, v) and split == 1)
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, kv_lens, page_table, max_kv_len):
+    """Checks shapes, dtypes and devices; returns (KV, Skv) of the call,
+    Skv the largest row's key count."""
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_attention: q, k and v lie on different devices")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q must be (B, H, Sq, hd) and k, v "
                          f"(B, KV, Skv, hd), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, h, _, hd = q.shape
-    kv, skv = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != hd or kv == 0 or h % kv:
-        raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not fit q "
-                         f"{tuple(q.shape)} (same B and hd, H a multiple of KV)")
-    if skv == 0:
-        raise ValueError("flash_attention: no keys (Skv = 0)")
     if q.dtype not in _DTYPE_CODES or k.dtype not in _DTYPE_CODES or v.dtype != k.dtype:
         raise TypeError(f"flash_attention: q in {tuple(_DTYPE_CODES)} and k, v of one "
                         f"dtype in it, got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, h, _, hd = q.shape
+    paged = page_table is not None
+    if paged:   # k, v: arenas (P, page_len, KV, hd)
+        kv = k.shape[2]
+        if kv_lens is None:
+            raise ValueError("flash_attention: a page table needs kv_lens")
+        if (page_table.dim() != 2 or page_table.shape[0] != b or page_table.shape[1] == 0
+                or page_table.dtype != torch.int32 or page_table.device != q.device):
+            raise ValueError(f"flash_attention: page_table must be ({b}, max_pages) int32 "
+                             f"on {q.device}, got {tuple(page_table.shape)} "
+                             f"{page_table.dtype} on {page_table.device}")
+        if k.shape[3] != hd or k.shape[1] == 0:
+            raise ValueError(f"flash_attention: arenas {tuple(k.shape)} do not fit q "
+                             f"{tuple(q.shape)} (P, page_len, KV, hd)")
+        for name, t in (("k", k), ("v", v)):
+            if t.stride(0) != t.shape[1] * t.stride(1):
+                raise ValueError(f"flash_attention: {name}'s pages must follow each "
+                                 "other (stride(0) == page_len * stride(1))")
+        skv_cap = page_table.shape[1] * k.shape[1]
+    else:
+        kv, skv_cap = k.shape[1], k.shape[2]
+        if k.shape[0] != b or k.shape[3] != hd:
+            raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not fit q "
+                             f"{tuple(q.shape)} (same B and hd, H a multiple of KV)")
+    if kv == 0 or h % kv:
+        raise ValueError(f"flash_attention: H = {h} is not a multiple of KV = {kv}")
+    if kv_lens is None:
+        skv = skv_cap
+    else:
+        if (kv_lens.shape != (b,) or kv_lens.dtype != torch.int32
+                or kv_lens.device != q.device):
+            raise ValueError(f"flash_attention: kv_lens must be ({b},) int32 on "
+                             f"{q.device}, got {tuple(kv_lens.shape)} {kv_lens.dtype} "
+                             f"on {kv_lens.device}")
+        if max_kv_len is None:
+            raise ValueError("flash_attention: kv_lens needs max_kv_len, their largest, "
+                             "known on the host")
+        skv = int(max_kv_len)
+        if not paged and skv > skv_cap:
+            raise ValueError(f"flash_attention: max_kv_len {skv} exceeds the cache's "
+                             f"{skv_cap} positions")
+    if skv <= 0:
+        raise ValueError("flash_attention: no keys (Skv = 0)")
+    return kv, skv
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, scale=None):
+                    softcap: float = 0.0, scale=None, kv_lens=None, page_table=None,
+                    max_kv_len=None):
     """q: (B, H, Sq, hd), k/v: (B, KV, Skv, hd) with H % KV == 0 ->
     (B, H, Sq, hd) in q's dtype. Query head j reads KV head j // (H / KV).
     Query row i sits at absolute position Skv - Sq + i. ``scale`` defaults to
-    1 / sqrt(hd); ``window`` 0 means no window."""
-    _check(q, k, v)
+    1 / sqrt(hd); ``window`` 0 means no window.
+
+    ``kv_lens`` (B,) int32 on q's device gives row b its own key count
+    (each in [1, Skv]); ``max_kv_len``, a host int, is their largest.
+    ``page_table`` (B, max_pages) int32, with ``kv_lens``, makes k and v the
+    arenas (P, page_len, KV, hd) (a page's rows contiguous with the next
+    page's: stride(0) == page_len * stride(1)) read through the table. The
+    page ids are the caller's to keep in [0, P); a logical page past the
+    table reads its last entry."""
+    kv, skv = _check(q, k, v, kv_lens, page_table, max_kv_len)
     window, softcap = int(window), float(softcap)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale)
+                                   softcap=softcap, scale=scale, kv_lens=kv_lens,
+                                   page_table=page_table, max_kv_len=max_kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -187,7 +254,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             "flash_attention: the CUDA kernel is forward-only and its output has no "
             "gradient; train through layers.plain_attention (attention impl='plain')")
     b, h, sq, hd = q.shape
-    kv, skv = k.shape[1], k.shape[2]
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: kernel takes hd <= {MAX_HEAD_DIM}, got {hd}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -198,11 +264,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return out
     lib = _lib()
     sms = _sm_count(q.device.index)
-    if decode_path(q, k, v):
+    paged = page_table is not None
+    if paged:   # (b, h, s) strides of the arenas: no batch, arena rows
+        k_strides = (0, k.stride(2), k.stride(1))
+        v_strides = (0, v.stride(2), v.stride(1))
+        max_pages, page_len = page_table.shape[1], k.shape[1]
+    else:
+        k_strides, v_strides = k.stride()[:3], v.stride()[:3]
+        max_pages = page_len = 0
+    if decode_path(q, k, v, kv_heads=kv):
         kernel, split = _DECODE, decode_splits(b, h, kv, sq, skv, causal, window, sms)
     else:
         split = n_splits(b, h, kv, sq, skv, causal, window, sms)
-        kernel = _TENSOR_CORES if tensor_core_path(q, k, v, split) else _FMA
+        ragged = kv_lens is not None
+        kernel = (_TENSOR_CORES if not ragged and tensor_core_path(q, k, v, split)
+                  else _FMA)
     part_ml = part_acc = None
     if split > 1:
         slots = b * kv * split * sq * (h // kv)
@@ -212,13 +288,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            *q.stride()[:3], *k_strides, *v_strides, *out.stride()[:3],
             b, h, kv, sq, skv, hd, scale, int(causal), window, softcap,
             _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], split, kernel,
             None if part_ml is None else part_ml.data_ptr(),
-            None if part_acc is None else part_acc.data_ptr(), stream)
+            None if part_acc is None else part_acc.data_ptr(),
+            None if kv_lens is None else kv_lens.data_ptr(),
+            None if page_table is None else page_table.data_ptr(),
+            max_pages, page_len, stream)
     build.check_launch(lib, "flash_attention", code)
     flash_attention.launches += 1
+    if paged:
+        flash_attention.paged_launches += 1
     if kernel == _DECODE:
         flash_attention.decode_launches += 1
     elif kernel == _TENSOR_CORES:
@@ -232,3 +313,4 @@ flash_attention.launches = 0
 flash_attention.decode_launches = 0
 flash_attention.tensor_core_launches = 0
 flash_attention.fma_launches = 0
+flash_attention.paged_launches = 0

@@ -1,9 +1,10 @@
-"""Serving launcher: the lock-step decode with the paper's Eq. 5 bias
-removal in the sampling path, as ``repro.launch.serve --lockstep``.
+"""Serving launcher: the continuous-batching engine (default) or the
+lock-step decode, with the paper's Eq. 5 bias removal in the sampling path,
+as ``repro.launch.serve``.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --lockstep \
+  PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch h2o-danube-3-4b --reduced --device cpu \
-      --batch 4 --prompt-len 16 --gen 8 [--topk-beam 32]
+      --batch 4 --prompt-len 16 --gen 8 [--topk-beam 32] [--lockstep]
 
 Decode paths, selected by ``--topk-beam``:
 
@@ -15,10 +16,22 @@ Decode paths, selected by ``--topk-beam``:
   (the ``gather_scores`` kernel on the card), and applies Eq. 5 debiasing on
   the candidate set.
 
-Attention runs through the ``flash_attention`` kernel on the card. The
-weights are random from ``--seed`` and cast once to the config's dtype. The
-continuous-batching engine (the reference's default path) is ROADMAP item
-11: without ``--lockstep`` the launcher exits with status 2.
+By default requests run through ``repro_torch.serve.Engine``: a paged KV
+pool in bf16 (``--slots`` decode lanes, ``--page-len``/``--n-pages`` page
+geometry — the defaults reproduce the one-buffer-per-lane capacity),
+priority-class admission with batched multi-request prefill, per-request
+EOS / max-length retirement (``--eos-id``) with page reclamation, the
+prefix-keyed candidate cache on the beam path, and the opt-in multi-tenant
+features (``--prefix-sharing``, ``--spec-decode``, ``--preemption``,
+``--page-growth ondemand``, ``--max-queue``, ``--enforce-deadlines``).
+``--lockstep`` runs the fixed-batch loop instead; the two emit identical
+tokens. ``--shard-scores`` and ``--model-axis`` above 1 (mesh serving) are
+ROADMAP item 12 and raise.
+
+Attention runs through the ``flash_attention`` kernel on the card (paged in
+the engine). The weights are random from ``--seed`` and cast once to the
+config's dtype; the prompts are drawn from ``--seed`` with a torch
+generator on the device.
 """
 from __future__ import annotations
 
@@ -33,6 +46,12 @@ from repro_torch import configs as cfg_lib
 from repro_torch import device as device_lib
 from repro_torch.models import lm_head, transformer
 from repro_torch.train import make_prefill, make_serve_step
+
+
+def _prompts(args, cfg, dev: torch.device) -> torch.Tensor:
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    return torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                         generator=gen, device=dev)
 
 
 def _sync(dev: torch.device) -> None:
@@ -51,9 +70,7 @@ def run_lockstep(args, cfg, params, head_state, hcfg, dev: torch.device) -> dict
     prefill = make_prefill(cfg)
     serve_step = make_serve_step(cfg, hcfg, topk_beam=args.topk_beam)
 
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=gen, device=dev)
+    prompts = _prompts(args, cfg, dev)
     _sync(dev)
     t0 = time.perf_counter()
     _, cache = prefill(params, prompts, cache)
@@ -97,6 +114,77 @@ def run_lockstep(args, cfg, params, head_state, hcfg, dev: torch.device) -> dict
                 decode_ms=decode_ms, steps=steps, cache=cache, token=token)
 
 
+def run_engine(args, cfg, params, head_state, hcfg, dev: torch.device) -> dict:
+    """The continuous-batching engine over ``--batch`` requests of
+    ``--prompt-len`` tokens and ``--gen`` new tokens each, on ``--slots``
+    lanes. Prints the run's throughput, the engine's stats, the latency
+    percentiles and the console summary of its registry. Returns the
+    engine, the handles, the prompts and the wall ms (host clock ending in a
+    synchronize)."""
+    from repro_torch.obs import JsonlExporter, console_summary, start_metrics_server
+    from repro_torch.obs.trace import ProfileWindow
+    from repro_torch.serve import Engine, Request, ServeConfig
+
+    slots = args.slots or args.batch
+    exporter = JsonlExporter(args.metrics_jsonl) if args.metrics_jsonl else None
+    engine = Engine(cfg, hcfg, params, head_state, ServeConfig(
+        n_slots=slots, max_len=args.prompt_len + args.gen,
+        page_len=args.page_len, n_pages=args.n_pages,
+        beam=args.topk_beam,
+        eos_id=args.eos_id if args.eos_id >= 0 else None,
+        cache_dtype=torch.bfloat16,
+        prefix_sharing=args.prefix_sharing,
+        spec_decode=args.spec_decode, max_draft=args.max_draft,
+        preemption=args.preemption, page_growth=args.page_growth,
+        max_queue=args.max_queue,
+        enforce_deadlines=args.enforce_deadlines),
+        exporter=exporter, metrics_interval=args.metrics_interval)
+    metrics_server = None
+    if args.metrics_port is not None:
+        metrics_server = start_metrics_server(engine.registry, args.metrics_port,
+                                              health_fn=engine.health)
+        print(f"metrics endpoint: http://0.0.0.0:{metrics_server.port}"
+              "/metrics (+ /healthz, /readyz)")
+    if args.profile_dir:
+        engine.registry.annotate = True     # spans label the trace
+    prompts = _prompts(args, cfg, dev).cpu().numpy()
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    handles = [engine.submit(Request(prompt=p, max_new_tokens=args.gen))
+               for p in prompts]
+    profiler = ProfileWindow(args.profile_dir, n_steps=10**9)
+    profiler.tick(0)            # whole-run capture; bounded by --gen
+    engine.run()
+    profiler.stop()
+    _sync(dev)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    tokens = sum(len(h.tokens) for h in handles)
+    path = (f"beam={args.topk_beam}" if args.topk_beam
+            else "dense debiased scores")
+    print(f"engine: {len(handles)} requests over {slots} slots in "
+          f"{wall_ms:.0f} ms ({1e3 * len(handles) / wall_ms:.1f} req/s, "
+          f"{1e3 * tokens / wall_ms:.1f} tok/s) [{path}]")
+    stats = engine.stats()
+    lat = stats["latency"]
+    print("stats:", {k: v for k, v in stats.items() if k not in ("latency", "metrics")})
+    for name in ("admission_wait", "ttft", "total"):
+        s = lat[name]
+        if s["count"]:
+            print(f"  {name}: p50={s['p50'] * 1e3:.1f}ms "
+                  f"p95={s['p95'] * 1e3:.1f}ms p99={s['p99'] * 1e3:.1f}ms "
+                  f"(n={s['count']})")
+    print(console_summary(engine.registry, title="serve metrics"))
+    if exporter is not None:
+        exporter.emit({"event": "summary", "metrics": engine.registry.snapshot()})
+        exporter.close()
+        print(f"metrics JSONL: {args.metrics_jsonl}")
+    if metrics_server is not None:
+        metrics_server.close()
+    print("sample:", handles[0].result().tolist())
+    return dict(engine=engine, handles=handles, prompts=prompts, wall_ms=wall_ms)
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="stablelm-3b", choices=list(cfg_lib.ARCHS))
@@ -104,7 +192,16 @@ def parse_args(argv=None):
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--head", default="adversarial_ns")
     ap.add_argument("--batch", type=int, default=4,
-                    help="number of requests (the lock-step batch size)")
+                    help="number of requests (and the lock-step batch size)")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="engine decode lanes (0 = --batch)")
+    ap.add_argument("--page-len", type=int, default=0,
+                    help="KV page size in positions (0 = one max_len page "
+                         "per request: one buffer a lane)")
+    ap.add_argument("--n-pages", type=int, default=0,
+                    help="KV arena capacity in pages (0 = full per-lane "
+                         "reservation; smaller packs more lanes into the "
+                         "same device bytes on mixed-length traffic)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8, help="max new tokens per request")
     ap.add_argument("--eos-id", type=int, default=-1,
@@ -112,8 +209,47 @@ def parse_args(argv=None):
     ap.add_argument("--topk-beam", type=int, default=0,
                     help="0 = dense O(C) scoring; B > 0 = tree-guided beam "
                          "search over B candidates, O(B k log C) per token")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="model-parallel mesh axis (above 1: ROADMAP item 12)")
+    ap.add_argument("--shard-scores", action="store_true",
+                    help="mesh-sharded candidate scoring (ROADMAP item 12)")
     ap.add_argument("--lockstep", action="store_true",
-                    help="fixed-batch decode (the only path the port has)")
+                    help="fixed-batch decode instead of the engine")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="stream request/serve_step JSONL events "
+                         "(DESIGN.md §10) to this path (engine path only)")
+    ap.add_argument("--metrics-interval", type=int, default=1,
+                    help="emit a 'serve_step' event every N engine iterations")
+    ap.add_argument("--profile-dir", default=None,
+                    help="capture a torch.profiler trace of the engine run "
+                         "into this directory")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve the engine registry as Prometheus text on "
+                         "this port (/metrics, stdlib HTTP thread; 0 = "
+                         "ephemeral port, engine path only)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="share identical prompt-prefix KV pages across "
+                         "requests (radix trie + refcounts + COW tails)")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="speculative decode with the fitted generator "
+                         "tree as draft model (byte-identical outputs)")
+    ap.add_argument("--max-draft", type=int, default=4,
+                    help="draft chain cap per speculative verify step")
+    ap.add_argument("--preemption", action="store_true",
+                    help="allow higher-priority admissions to spill "
+                         "lower-priority lanes (byte-exact restore)")
+    ap.add_argument("--page-growth", default="reserve",
+                    choices=["reserve", "ondemand"],
+                    help="KV page policy: worst-case reservation at "
+                         "admission vs on-demand growth at page boundaries")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="shed (reject with status='shed') submissions "
+                         "once this many requests are pending (0 = "
+                         "unbounded queue)")
+    ap.add_argument("--enforce-deadlines", action="store_true",
+                    help="abort queued/active requests whose deadline_s "
+                         "expired (status='deadline'), reclaiming their "
+                         "lanes and pages")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -121,10 +257,9 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if not args.lockstep:
-        print("the continuous-batching engine is not ported yet (ROADMAP item "
-              "11); pass --lockstep", file=sys.stderr)
-        return 2
+    if args.shard_scores or args.model_axis > 1:
+        raise NotImplementedError("mesh serving (--shard-scores, --model-axis) is "
+                                  "not ported yet (ROADMAP item 12)")
     dev = device_lib.resolve(args.device)
     cfg = (cfg_lib.reduced_config(args.arch) if args.reduced
            else cfg_lib.get_config(args.arch))
@@ -132,7 +267,11 @@ def main(argv=None) -> int:
     params = transformer.cast_params(transformer.init_params(gen, cfg, device=dev), cfg)
     head_state = lm_head.default_head_state(gen, cfg, args.head, device=dev)
     hcfg = lm_head.head_config(cfg, args.head)
-    run_lockstep(args, cfg, params, head_state, hcfg, dev)
+    with torch.no_grad():
+        if args.lockstep:
+            run_lockstep(args, cfg, params, head_state, hcfg, dev)
+        else:
+            run_engine(args, cfg, params, head_state, hcfg, dev)
     return 0
 
 

@@ -12,8 +12,9 @@ Both take float32 logits and softmax; bulk matmuls honour ``cfg.dtype``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -149,10 +150,93 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.view(b, h, s, hd).transpose(1, 2)
 
 
+class CacheIndex(NamedTuple):
+    """The indices of one step through the serving engine's caches: built on
+    the host from ``cache_pos`` (B,) (and a page table), copied to the device
+    in one transfer, and shared by every layer of the step.
+
+    - ``positions`` (B, S) int64: token s of row b sits at cache_pos[b] + s.
+    - ``write_rows`` (B·S,) int64: the flat cache row each token's K/V goes
+      to: ``b * S_max + pos`` in a slotted (B, S_max, KV, hd) cache, the
+      arena row ``page * page_len + pos % page_len`` in a paged one.
+    - ``kv_lens`` (B,) int32: each row's keys after the write,
+      cache_pos + S; ``max_kv_len`` is their largest, a host int.
+    - ``page_table`` (B, max_pages) int32, or None for a slotted cache.
+    """
+    positions: torch.Tensor
+    write_rows: torch.Tensor
+    kv_lens: torch.Tensor
+    page_table: Optional[torch.Tensor]
+    max_kv_len: int
+
+
+def to_host(a) -> np.ndarray:
+    """A numpy copy of an array-like: a tensor (on any device), an array or
+    a list."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def cache_index(cache_pos, batch: int, s: int, device, *, s_max: Optional[int] = None,
+                page_table=None, write_mask=None, page_len: Optional[int] = None,
+                sink: Optional[int] = None) -> CacheIndex:
+    """Build a :class:`CacheIndex` on the host and copy it to ``device``
+    once. ``cache_pos`` is a scalar or (B,) (numpy, a list or a tensor,
+    read to the host if it lies on the card).
+
+    Slotted (no ``page_table``): a (B, ``s_max``, KV, hd) cache, S == 1, as
+    the reference asserts; a position at or past ``s_max`` raises (the
+    reference's scatter would drop it; here it would be a device fault).
+    Paged: ``page_table`` (B, max_pages), arena pages of ``page_len``
+    positions, ``sink`` the sink page. A logical page past the table takes
+    the table's last entry, as the reference's gather clamps, and positions
+    where ``write_mask`` (B, S) is false write to the sink page: torch
+    indexing neither clamps nor drops, so both happen here on the host.
+    """
+    cp = np.broadcast_to(to_host(cache_pos).astype(np.int64).reshape(-1), (batch,))
+    pos = cp[:, None] + np.arange(s, dtype=np.int64)                    # (B, S)
+    if page_table is None:
+        if s != 1:
+            raise ValueError("per-row cache_pos writes one token a row (S == 1)")
+        if (cp < 0).any() or (cp >= s_max).any():
+            raise ValueError(f"cache_pos {cp.tolist()} outside the cache's "
+                             f"{s_max} positions")
+        rows = np.arange(batch, dtype=np.int64)[:, None] * s_max + pos
+        table = np.zeros((batch, 0), np.int64)
+    else:
+        table = to_host(page_table).astype(np.int64)
+        if table.shape[0] != batch:
+            raise ValueError(f"page table {table.shape} for a batch of {batch}")
+        lp = np.minimum(pos // page_len, table.shape[1] - 1)
+        pid = np.take_along_axis(table, lp, axis=1)
+        if write_mask is not None:
+            pid = np.where(to_host(write_mask).astype(bool), pid, sink)
+        rows = pid * page_len + pos % page_len
+    kv_lens = cp + s
+    packed = np.concatenate([pos.reshape(-1), rows.reshape(-1), kv_lens,
+                             table.reshape(-1)]).astype(np.int64)
+    dev = torch.from_numpy(packed).to(device)
+    n = batch * s
+    pos_t, rows_t = dev[:n].view(batch, s), dev[n:2 * n]
+    rest = dev[2 * n:].to(torch.int32)
+    return CacheIndex(
+        positions=pos_t, write_rows=rows_t, kv_lens=rest[:batch],
+        page_table=None if page_table is None else rest[batch:].view(batch, -1),
+        max_kv_len=int(kv_lens.max()))
+
+
+def is_per_row(cache_pos) -> bool:
+    """Whether ``cache_pos`` gives each row its own position: a
+    :class:`CacheIndex`, or an array or tensor with a dimension."""
+    return isinstance(cache_pos, CacheIndex) or getattr(cache_pos, "ndim", 0) > 0
+
+
 def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
               window: int,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_pos=None, impl: str = "kernel"):
+              cache_pos=None, impl: str = "kernel", page_table=None,
+              write_mask=None):
     """GQA attention with causal + per-layer sliding-window mask + softcap.
 
     Training/prefill: ``kv_cache is None`` → self-attention over x; the
@@ -166,9 +250,25 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     kernel's end-aligned query positions are x's absolute positions, so its
     mask is the reference's ``q_pos - k_pos`` mask.
 
-    ``window`` is the layer's Python int (0 = full attention). The
-    reference's per-row ``cache_pos`` (slotted decode) and paged
-    ``page_table`` branches belong to the serving engine (ROADMAP item 11).
+    ``window`` is the layer's Python int (0 = full attention).
+
+    The serving engine's two branches, as the reference's:
+
+    - slotted decode: ``cache_pos`` (B,), S = 1: row b writes its K/V at its
+      own depth ``cache_pos[b]`` and attends over ``cache_pos[b] + 1`` keys
+      (``kv_lens`` of the kernel);
+    - paged: ``page_table`` (B, max_pages), the cache a pair of arenas
+      (P, page_len, KV, hd) with the sink page last, S >= 1: token s of row
+      b writes at logical position ``cache_pos[b] + s`` of its pages
+      (``write_mask`` (B, S) false: the sink page), and the kernel reads the
+      row's ``cache_pos[b] + S`` keys through the page table; no page is
+      copied.
+
+    For either, ``cache_pos`` may be a prebuilt :class:`CacheIndex`
+    (``transformer.forward`` builds one per step for all layers), in which
+    case ``page_table`` and ``write_mask`` are not read again. The writes go
+    IN PLACE (``index_copy_``); free lanes' and padding writes land on the
+    sink page, in no defined order.
 
     Numerics follow the reference: q, k, v in ``cfg.dtype``, RoPE in float32,
     q scaled by 1/sqrt(hd) in ``cfg.dtype`` before the logits (the kernel is
@@ -193,16 +293,31 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
 
     if impl not in ("kernel", "plain"):
         raise ValueError(f"attention impl must be 'kernel' or 'plain', got {impl!r}")
+    paged, ragged = False, {}
     if kv_cache is None:
         k_all, v_all = k, v
         new_cache = (k, v)
     elif impl == "plain":
         raise ValueError("the plain attention is self-attention without a cache")
+    elif is_per_row(cache_pos) or page_table is not None:
+        ck, cv = kv_cache
+        if isinstance(cache_pos, CacheIndex):
+            index = cache_pos
+        elif page_table is not None:
+            index = cache_index(cache_pos, b, s, x.device, page_table=page_table,
+                                write_mask=write_mask, page_len=ck.shape[1],
+                                sink=ck.shape[0] - 1)
+        else:
+            index = cache_index(cache_pos, b, s, x.device, s_max=ck.shape[1])
+        rows = (-1,) + tuple(ck.shape[-2:])
+        ck.view(rows).index_copy_(0, index.write_rows, k.reshape(b * s, kv, hd).to(ck.dtype))
+        cv.view(rows).index_copy_(0, index.write_rows, v.reshape(b * s, kv, hd).to(cv.dtype))
+        k_all, v_all = ck, cv
+        new_cache = (ck, cv)
+        paged = index.page_table is not None
+        ragged = dict(kv_lens=index.kv_lens, page_table=index.page_table,
+                      max_kv_len=index.max_kv_len)
     else:
-        if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() > 0:
-            raise NotImplementedError(
-                "per-row cache_pos (slotted decode) belongs to the serving "
-                "engine, ROADMAP item 11")
         start = int(cache_pos)
         ck, cv = kv_cache
         end = start + s
@@ -220,9 +335,13 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     if impl == "plain":
         out = plain_attention(q, k_all, v_all, cfg, window).reshape(b, s, h * hd)
     else:
-        out = ops.flash_attention(q.transpose(1, 2), k_all.transpose(1, 2),
-                                  v_all.transpose(1, 2), causal=True, window=window,
-                                  softcap=cfg.attn_logit_softcap, scale=1.0)
+        # The arenas go to the kernel as they are; (B, S, KV, hd) caches as
+        # (B, KV, S, hd) views.
+        if not paged:
+            k_all, v_all = k_all.transpose(1, 2), v_all.transpose(1, 2)
+        out = ops.flash_attention(q.transpose(1, 2), k_all, v_all, causal=True,
+                                  window=window, softcap=cfg.attn_logit_softcap, scale=1.0,
+                                  **ragged)
         out = out.transpose(1, 2).reshape(b, s, h * hd)
     out = out @ params["wo"].to(cdt).reshape(h * hd, -1)
     return out, new_cache

@@ -13,6 +13,11 @@ Modes:
                                     single-token decode (S == 1), with a
                                     scalar ``cache_pos``; the cache is
                                     updated in place
+  forward(..., cache, cache_pos=(B,))
+                                  — the serving engine's slotted decode
+  forward(..., arena, cache_pos=(B,), page_table=, write_mask=)
+                                  — its paged steps over
+                                    ``init_paged_cache``'s arena
 
 Training passes ``attn_impl="plain"`` (the reference's attention under
 autograd; the CUDA kernel is forward-only) and, for the sparse embedding
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils import checkpoint as checkpoint_lib
 
@@ -108,6 +114,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def init_paged_cache(cfg: ModelConfig, n_lanes: int, n_pages: int, page_len: int,
+                     dtype=torch.bfloat16, device="cuda") -> Dict[str, torch.Tensor]:
+    """Paged decode cache: the attention K/V live in a shared arena of
+    ``n_pages`` physical pages of ``page_len`` positions (the allocator's
+    sink page included), k and v of shape (L, n_pages, page_len, KV, hd),
+    zeros, addressed through per-lane page tables. The reference's
+    lane-indexed SSM leaves wait for ROADMAP item 9; ``n_lanes`` is kept
+    for its signature."""
+    _check_block(cfg)
+    del n_lanes
+    dev = device_lib.resolve(device)
+    shape = (cfg.num_layers, n_pages, page_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
 # ---------------------------------------------------------------------------
 # Block body
 # ---------------------------------------------------------------------------
@@ -144,18 +166,31 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             vision_embeds: Optional[torch.Tensor] = None,
             cache: Optional[Dict[str, torch.Tensor]] = None,
             cache_pos=None, inputs_embeds: Optional[torch.Tensor] = None,
-            attn_impl: str = "kernel") -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
+            attn_impl: str = "kernel", page_table=None,
+            write_mask=None) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
     """Run the stack. Returns (hidden (B,S,d), cache, metrics).
 
     - training:        cache=None
     - serving prefill: cache=init_cache(...), cache_pos=0, S=prompt len
-    - serving decode:  cache from prefill, cache_pos=current, S=1
+    - serving decode:  cache from prefill, cache_pos=current, S=1;
+      cache_pos may be a (B,) vector (slotted decode, the serving engine):
+      each row writes its K/V at its own depth
+    - paged:           cache=init_paged_cache(...), cache_pos (B,),
+      page_table (B, max_pages) mapping each lane's logical pages onto the
+      shared arena, shared by every layer. S may exceed 1 (shared-prefix
+      suffix prefill and the speculative verify step): row r's tokens take
+      logical positions cache_pos[r] .. cache_pos[r]+S-1, and
+      ``write_mask`` (B, S) sends padding positions' K/V to the sink page
 
-    ``cache_pos`` is a scalar (a Python int or a 0-dim tensor); the cache is
-    written in place and returned. Positions are ``cache_pos + arange(S)``:
-    the kernel's mask is positional by index, so explicit ``positions``
-    (M-RoPE, vision) raise until the vision slice, and a per-row
-    ``cache_pos`` until the serving engine (ROADMAP items 9 and 11).
+    ``cache_pos`` is a scalar (a Python int or a 0-dim tensor) or (B,); the
+    cache is written in place and returned. Positions are ``cache_pos +
+    arange(S)`` per row: the kernel's mask is positional by index, so
+    explicit ``positions`` (M-RoPE, vision) raise until the vision slice
+    (ROADMAP item 9). For a per-row ``cache_pos`` the step's indices
+    (positions, write rows, key counts, the page table) are built on the
+    host and copied to the device once (:func:`layers.cache_index`); pass
+    ``cache_pos`` and ``page_table`` as host arrays to keep the step free of
+    device reads.
 
     ``inputs_embeds`` (B, S, d), already in ``cfg.dtype``, replaces the
     embedding gather: the sparse-embedding training path gathers outside
@@ -170,12 +205,21 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
          else embed_inputs(params, cfg, tokens, vision_embeds))
     bsz, s, _ = h.shape
     base = 0 if cache_pos is None else cache_pos
-    if isinstance(base, torch.Tensor):
-        if base.dim() > 0:
-            raise NotImplementedError("per-row cache_pos belongs to the serving "
-                                      "engine (ROADMAP item 11)")
-        base = int(base)
-    positions = (base + torch.arange(s, device=h.device)).expand(bsz, s)
+    if cache is not None and (L.is_per_row(base) or page_table is not None):
+        ck = cache["k"]
+        if page_table is not None:
+            base = L.cache_index(base, bsz, s, h.device, page_table=page_table,
+                                 write_mask=write_mask, page_len=ck.shape[2],
+                                 sink=ck.shape[1] - 1)
+        else:
+            base = L.cache_index(base, bsz, s, h.device, s_max=ck.shape[2])
+        positions = base.positions
+    else:
+        if isinstance(base, torch.Tensor) or isinstance(base, np.ndarray):
+            if base.ndim > 0:
+                raise ValueError("a per-row cache_pos needs a cache")
+            base = int(base)
+        positions = (base + torch.arange(s, device=h.device)).expand(bsz, s)
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for i, layer_params in enumerate(params["layers"]):
         cache_l = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}

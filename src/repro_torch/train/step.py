@@ -22,13 +22,14 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from repro_torch import device as device_lib
 from repro_torch import tree_util
 from repro_torch.core.heads import HeadConfig, HeadParams, resolve_head_update
-from repro_torch.models import lm_head, transformer
+from repro_torch.models import layers, lm_head, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import OptimizerConfig, apply_updates, global_norm, init_opt_state
 from repro_torch.optim import sparse as sparse_opt
@@ -280,6 +281,113 @@ def make_prefill(cfg: ModelConfig):
         return h, new_cache
 
     return prefill
+
+
+def _on(device, a, dtype=torch.int64) -> torch.Tensor:
+    return torch.as_tensor(a).to(device=device, dtype=dtype)
+
+
+def make_batched_prefill(cfg: ModelConfig, page_len: int, sink_page: int,
+                         cache_dtype=torch.bfloat16):
+    """Prefill a batch of newly admitted requests into their pages (the
+    serving engine): every request admitted in an engine iteration runs
+    through ONE padded forward.
+
+    Returns ``batched_prefill(params, tokens, lengths, lanes, arena,
+    page_tables)`` -> ``(h, arena)``:
+
+    - ``tokens`` (N, S): right-padded prompts. Causal attention never looks
+      forward, so each row's K/V and hiddens are those of an unpadded
+      prefill.
+    - ``lengths`` (N,): true prompt lengths; positions at or past a row's
+      length go to ``sink_page`` instead of a mapped page.
+    - ``lanes`` (N,): the reference's lane of each row, for its
+      lane-indexed SSM leaves; the port's attention-only arena has none, so
+      it is not read.
+    - ``page_tables`` (N, max_pages): each row's logical -> physical page
+      map; logical position p lands at ``(page_tables[n, p // page_len],
+      p % page_len)``, a logical page past the table at its last entry, as
+      the reference's gather clamps.
+
+    ``lengths`` and ``page_tables`` are read on the host (numpy arrays, or
+    tensors that are copied there). The forward runs against a fresh
+    contiguous (N, S) cache — the lock-step prefill's math, on the
+    tensor-core kernel on the card — and one ``index_copy_`` per leaf then
+    writes the K/V into the arena in place (the reference donates the arena;
+    the port updates it), at the rows ``layers.cache_index`` gives the paged
+    steps.
+    """
+
+    def batched_prefill(params, tokens, lengths, lanes, arena, page_tables):
+        del lanes
+        dev = arena["k"].device
+        tokens = _on(dev, tokens)
+        n, s = tokens.shape
+        fresh = transformer.init_cache(cfg, n, s, dtype=cache_dtype, device=dev)
+        h, new_cache, _ = transformer.forward(params, cfg, tokens, cache=fresh, cache_pos=0)
+        index = layers.cache_index(
+            0, n, s, dev, page_table=page_tables, page_len=page_len, sink=sink_page,
+            write_mask=np.arange(s)[None] < layers.to_host(lengths)[:, None])
+        for key in ("k", "v"):     # (L, P, page_len, KV, hd) <- (L, N, S, KV, hd)
+            leaf = arena[key]
+            leaf.view(leaf.shape[0], -1, *leaf.shape[3:]).index_copy_(
+                1, index.write_rows,
+                new_cache[key].reshape(leaf.shape[0], n * s, *leaf.shape[3:]).to(leaf.dtype))
+        return h, arena
+
+    return batched_prefill
+
+
+def make_paged_prefill(cfg: ModelConfig):
+    """Multi-token forward against the paged arena: per-lane start positions
+    and page tables, S tokens a row.
+
+    Returns ``paged_prefill(params, tokens, start, lengths, arena,
+    page_tables)`` -> ``(h (B, S, d), arena)``. The serving engine's
+    shared-prefix suffix prefill and its speculative verify step share it:
+    row r's tokens sit at ``start[r] ..``, attention reads the row's earlier
+    K/V (shared prefix pages, or its own decode writes) through the page
+    table, and positions at or past ``lengths[r]`` write to the sink page
+    (their hiddens are garbage the caller drops). Attention-family models
+    only, as the reference: an SSM branch carries recurrent state that is
+    neither paged nor position-local.
+    """
+    assert cfg.block == "attn", (
+        "paged multi-token steps (prefix sharing / speculative verify) "
+        "need position-local state; SSM/hybrid caches are recurrent")
+
+    def paged_prefill(params, tokens, start, lengths, arena, page_tables):
+        tokens = _on(arena["k"].device, tokens)
+        s = tokens.shape[1]
+        wmask = np.arange(s)[None] < layers.to_host(lengths)[:, None]
+        h, new_arena, _ = transformer.forward(
+            params, cfg, tokens, cache=arena, cache_pos=start,
+            page_table=page_tables, write_mask=wmask)
+        return h, new_arena
+
+    return paged_prefill
+
+
+def make_paged_decode(cfg: ModelConfig):
+    """Masked decode step over a paged pool: per-lane ``cache_pos`` and page
+    tables.
+
+    Returns ``paged_decode(params, token, arena, cache_pos, page_table)`` ->
+    ``(h_last (B, d), arena)``. ``token`` is (B, 1), one in-flight token a
+    lane; ``cache_pos`` (B,) puts each lane at its own depth; ``page_table``
+    (B, max_pages) maps each lane's logical pages onto the arena. Free lanes
+    ride along: their page-table rows point at the sink page, so their
+    writes land there and the caller drops their hiddens. Head scoring is
+    the engine's, so that its candidate cache can skip the tree descent.
+    """
+
+    def paged_decode(params, token, arena, cache_pos, page_table):
+        h, new_arena, _ = transformer.forward(
+            params, cfg, _on(arena["k"].device, token), cache=arena,
+            cache_pos=cache_pos, page_table=page_table)
+        return h[:, -1], new_arena
+
+    return paged_decode
 
 
 def init_train_state(generator: torch.Generator, cfg: ModelConfig,
