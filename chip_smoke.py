@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving (lock-step and engine) and LM-training paths on one NVIDIA card.
+"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving (lock-step and engine), LM-training and backbone-family paths on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
@@ -40,13 +40,14 @@ Phases, each fatal on failure:
      its held-out log-likelihood against uniform; a warm refit on drifted
      features, run twice and bit-equal; at C = 1,024 the fit against the
      numpy oracle, and at C = 4,096 the sharded fit serial against threaded;
-  8. ``flash_attention`` against its plain version on seven shapes
+  8. ``flash_attention`` against its plain version on eleven shapes
      (h2o-danube prefill and decode at B = 4, gemma2's softcap geometry
-     and decode, stablelm-3b's prefill and decode, each laid out and scaled
-     as the model calls it; a ragged float32 case), within one bf16 ulp of
+     and decode, stablelm-3b's, hymba-1.5b's (G = 5, hd 64, window 1,024)
+     and qwen2-vl-7b's (G = 7, hd 128) prefill and decode, each laid out
+     and scaled as the model calls it; a ragged float32 case), within one bf16 ulp of
      each output row and 2^-11 relative RMS, two calls bit-equal, the kernel
-     each shape took (the tensor-core kernel for the three bf16 prefills,
-     the decode kernel for the three decodes, the FMA kernel for float32);
+     each shape took (the tensor-core kernel for the five bf16 prefills,
+     the decode kernel for the five decodes, the FMA kernel for float32);
      kernel, plain and ``scaled_dot_product_attention`` times (phase 3's
      kernel checks run before it);
   9. the LM-serving path at full h2o-danube-3-4b width (24 layers, d 3840,
@@ -116,7 +117,31 @@ Phases, each fatal on failure:
      width and 2 layers, every trunk gradient against dense autograd on the
      same candidates, and 6 straight steps against 3 + preemption + resume,
      bit for bit;
- 12. print the ``kernels`` JSON line and, last, the device line.
+ 12. the backbone's other families at full width (run after phase 11), each
+     built from the seed in bf16 layer by layer and deleted before the
+     next, counters reset just before and read just after each path, each
+     path's prefill ms, decode ms a token or step, one decode step profiled
+     (host and device ms, idle share), peak memory and the card's line:
+     (a) mamba2-370m (48 layers, d 1,024, 32 SSD heads of 64, state 128,
+     chunk 256) through the engine, 8 lanes, 16 requests of 1 to 4,096
+     prompt tokens in three bursts, 32 tokens each, dense and beam 64, each
+     request's tokens equal to its lock-step decode alone at the engine's
+     shapes; ``ssd_chunked`` against ``ssd_sequential`` at S = 4,096
+     (relative RMS <= 1e-4, finite ``dt`` gradient); (b) hymba-1.5b (32
+     layers, d 1,600, 25 heads over 5, hd 64, window 1,024, 50 SSD heads of
+     state 16) the same, bf16 paged cache, pages of 256 (prefills on the
+     tensor-core kernel or, at 1 and 2 tokens, the decode kernel; decodes
+     paged on the decode kernel); (c) deepseek-moe-16b (28 layers, 64
+     routed experts top-6 + 2 shared; 33.8 GB of bf16) lock-step, 4 x 2,048
+     prompt tokens and 32, dense and beam 64, its MoE metrics at capacity
+     factor 1.25, and on layer 0's real prefill input ``moe_ffn`` at
+     capacity factor 8 bit-equal twice and against the dense oracle within
+     2^-6 relative RMS; (d) qwen2-vl-7b, 2 requests of 1,024 vision
+     embeddings and 1,024 tokens under (3, B, S) M-RoPE positions, 32
+     tokens with (3, B, 1), equal streams bit-equal to (B, S) positions;
+     (e) mixtral-8x22b at full width and 8 of its 56 layers (printed as
+     ``reduced``), 2 x 4,096 prompt tokens and 16, dense;
+ 13. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
 """
@@ -214,6 +239,10 @@ ATTN_SHAPES = [
     ("stablelm_prefill", 1, 32, 32, 2048, 2048, 80, True, 0, 0.0, torch.bfloat16, 2080),
     ("gemma2_decode", 4, 32, 16, 1, 2080, 128, True, 4096, 50.0, torch.bfloat16, 2080),
     ("stablelm_decode", 4, 32, 32, 1, 2080, 80, True, 0, 0.0, torch.bfloat16, 2080),
+    ("hymba_prefill", 4, 25, 5, 4096, 4096, 64, True, 1024, 0.0, torch.bfloat16, 4128),
+    ("hymba_decode", 8, 25, 5, 1, 4128, 64, True, 1024, 0.0, torch.bfloat16, 4128),
+    ("qwen2vl_prefill", 2, 28, 4, 2048, 2048, 128, True, 0, 0.0, torch.bfloat16, 2080),
+    ("qwen2vl_decode", 2, 28, 4, 1, 2080, 128, True, 0, 0.0, torch.bfloat16, 2080),
 ]
 ATTN_MAIN = "danube_prefill"     # the shape of the kernels line
 # The kernel each shape takes: the tensor-core kernel (bf16, more than 16
@@ -221,7 +250,9 @@ ATTN_MAIN = "danube_prefill"     # the shape of the kernels line
 # or the FMA kernel (float32).
 ATTN_KERNEL = {"danube_prefill": "tensor_cores", "gemma2_softcap": "tensor_cores",
                "stablelm_prefill": "tensor_cores", "danube_decode": "decode",
-               "gemma2_decode": "decode", "stablelm_decode": "decode", "ragged_fp32": "fma"}
+               "gemma2_decode": "decode", "stablelm_decode": "decode", "ragged_fp32": "fma",
+               "hymba_prefill": "tensor_cores", "hymba_decode": "decode",
+               "qwen2vl_prefill": "tensor_cores", "qwen2vl_decode": "decode"}
 ATTN_F32_TOL = dict(atol=1e-5, rtol=1e-5)
 # bfloat16: kernel and plain version both keep float32 precision until the
 # output and round once to bfloat16, so an output differs by at most one
@@ -2679,6 +2710,435 @@ def head_math_path(dev, seed, cfg, card):
     return launches
 
 
+# Phase 12: the backbone families at full width. Each model is built from
+# the seed in bf16, layer by layer (transformer.init_params(dtype=)), and
+# deleted, with the allocator's cache emptied, before the next.
+FAM_SLOTS, FAM_PAGE_LEN, FAM_GEN, FAM_BEAM = 8, 256, 32, 64
+# The engine's traffic: three bursts, each run to its end before the next
+# (16 requests). The gate is the lock-step decode of each request alone at
+# the engine's shapes: its prompt replicated over the rows of the engine's
+# prefill call and over the 8 decode lanes, since cuBLAS picks its kernels
+# by shape and only equal shapes give equal bits. The decode kernel's split
+# count follows the longest lane (flash_attention.decode_splits), so each
+# burst keeps lanes of one split count: prompts of 1, 2 and 300 stay under
+# 512 keys, the 1,000s and the 4,096s run alone.
+FAM_BURSTS = ((1, 2, 300, 1, 2, 300, 2, 1), (1000,) * 4, (4096,) * 4)
+FAM_SSD_S = 4096
+FAM_SSD_TOL = 1e-4               # relative RMS, chunked against sequential, float32
+FAM_MOE_TOL = 2.0 ** -6          # relative RMS, bf16 dispatch against the float32 oracle
+MOE_BATCH, MOE_PROMPT = 4, 2048
+VL_BATCH, VL_TEXT, VL_GRID = 2, 1024, 32           # 32 x 32 = 1,024 vision embeddings
+MIXTRAL_LAYERS, MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_GEN = 8, 2, 4096, 16
+
+
+def family_model(dev, seed, arch, **over) -> tuple:
+    """(cfg, params, head state, head config, build line) of ``arch`` at full
+    width (``over`` cuts the depth), bf16 matrices."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(configs.get_config(arch), **over)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    params = transformer.init_params(gen, cfg, device=dev, dtype=torch.bfloat16)
+    state = lm_head.default_head_state(gen, cfg, "adversarial_ns", device=dev)
+    torch.cuda.synchronize()
+    leaves = tree_util.flatten(params)[0]
+    build = dict(build_s=time.perf_counter() - t0,
+                 params=sum(t.numel() for t in leaves),
+                 params_gib=sum(t.numel() * t.element_size() for t in leaves) / 2 ** 30,
+                 build_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return cfg, params, state, lm_head.head_config(cfg, "adversarial_ns"), build
+
+
+def step_profile(fn) -> dict:
+    """Host ms, device ms, idle share and kernels of one call of ``fn``."""
+    by_name, n_kernels, host_ms, _, _ = profile_by_kernel(fn)
+    device_ms = sum(by_name.values())
+    return dict(host_ms=host_ms, device_ms=device_ms, idle_share=1.0 - device_ms / host_ms,
+                kernels=n_kernels, top_ms=[[k[:60], v] for k, v in
+                                           sorted(by_name.items(), key=lambda kv: -kv[1])[:6]])
+
+
+def lockstep_alone(cfg, hcfg, params, state, prompt, prefill_rows, rows, gen_len,
+                   beam) -> dict:
+    """The lock-step decode of one request alone, at the engine's shapes:
+    the prompt replicated over ``prefill_rows`` for the prefill (bf16
+    cache, as the engine's) and its cache row over ``rows`` for the decode
+    steps, half of them following dense Eq. 5 and half beam ``beam``: each
+    row's bits depend on the batch's shapes only, so one forward a step
+    serves both paths. Returns each path's ``gen_len`` tokens."""
+    dev = params["embed"].device
+    pl = prompt.size
+    prompts = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None].repeat(prefill_rows, 1)
+    cache = transformer.init_cache(cfg, prefill_rows, pl + gen_len, dtype=torch.bfloat16,
+                                   device=dev)
+    head, half = heads.HeadParams(**params["head"]), rows // 2
+    dense_rows = torch.arange(rows, device=dev) < half
+    with torch.inference_mode():
+        make_prefill(cfg)(params, prompts, cache)
+        cache = {k: v[:, :1].repeat(1, rows, *([1] * (v.ndim - 2))) for k, v in cache.items()}
+        token, out = prompts[:1, -1:].repeat(rows, 1), []
+        for t in range(gen_len):
+            h, cache, _ = transformer.forward(params, cfg, token, cache=cache, cache_pos=pl + t)
+            x = h[:, -1]
+            dense = lm_head.lm_predictive_scores(cfg, hcfg, head, state, x).argmax(dim=-1)
+            _, labels = lm_head.lm_predictive_topk(cfg, hcfg, head, state, x, topk=1, beam=beam)
+            token = torch.where(dense_rows, dense, labels[..., 0])[:, None]
+            out.append(token[[0, half], 0])
+    toks = torch.stack(out, 1).cpu().numpy().astype(np.int32)
+    return {"dense": toks[0], "beam": toks[1]}
+
+
+def family_engine(name, dev, seed, card, model) -> tuple:
+    """The engine over FAM_BURSTS, dense and beam 64, bf16 paged cache (pages
+    of 256; pure SSM pins one page a lane), 8 lanes; counters reset just
+    before and read just after each path; one decode step of the last burst
+    profiled; then each request's tokens on both paths against
+    ``lockstep_alone``. Returns the launches and the paths' lines."""
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg, params, state, hcfg, _ = model
+    gen = np.random.default_rng(seed + 29)
+    bursts = [[gen.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lengths]
+              for lengths in FAM_BURSTS]
+    total, paths, handles_of, rows_of = collections.Counter(), {}, {}, {}
+    has_attn = cfg.block in ("attn", "hybrid")
+    for path, beam in (("dense", 0), ("beam", FAM_BEAM)):
+        eng = Engine(cfg, hcfg, params, state, ServeConfig(
+            n_slots=FAM_SLOTS, max_len=max(FAM_BURSTS[-1]) + FAM_GEN, page_len=FAM_PAGE_LEN,
+            beam=beam, cache_dtype=torch.bfloat16))
+        prefill = eng._prefill
+
+        def rec_prefill(p, tokens, lengths, lanes, arena, ptab, prefill=prefill, path=path):
+            for r in np.nonzero(lengths)[0]:
+                rows_of[path, tokens[r, :lengths[r]].tobytes()] = tokens.shape[0]
+            return prefill(p, tokens, lengths, lanes, arena, ptab)
+
+        eng._prefill = rec_prefill
+        torch.cuda.reset_peak_memory_stats()
+        reset_engine_counters()
+        t0 = time.perf_counter()
+        handles, profile = [], None
+        for i, burst in enumerate(bursts):
+            handles += [eng.submit(Request(prompt=p, max_new_tokens=FAM_GEN)) for p in burst]
+            if i == len(bursts) - 1:
+                eng.step()                      # admission, prefill, first token
+                eng.step()
+                profile = step_profile(eng.step)
+            eng.run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        counts = engine_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del eng._prefill
+        pool = eng.pool
+        pool.check_invariants()
+        check(pool.num_free_lanes == pool.n_lanes and eng.num_active == 0,
+              f"{name} {path}: leaked lanes")
+        check(all(h.done and h.status == "ok" for h in handles), f"{name} {path}: a request failed")
+        check(counts["tree_logprob_all" if beam == 0 else "gather_scores"] == eng.decode_steps,
+              f"{name} {path}: the Eq. 5 kernel did not launch once a decode step: {counts}")
+        fa = counts["flash_attention_by_kernel"]
+        if has_attn:
+            check(fa["tensor_cores"] > 0 and fa["decode"] > 0 and fa["fma"] == 0
+                  and fa["paged"] > 0,
+                  f"{name} {path}: flash_attention not on the tensor-core kernel for prefill "
+                  f"and the decode kernel for decode: {fa}")
+        else:
+            check(counts["flash_attention"] == 0, f"{name} {path}: attention in an SSM")
+        for k in ENGINE_KERNELS:
+            total[k] += counts[k]
+        spans = {n: eng.registry.histogram(n).total for n in ENGINE_SPANS}
+        decode_s = sum(v for n, v in spans.items() if n != "serve/phase/prefill")
+        tokens = sum(len(h.tokens) for h in handles)
+        paths[path] = dict(
+            requests=len(handles), tokens=tokens, wall_ms=wall_ms,
+            prefill_ms=1e3 * spans["serve/phase/prefill"], prefill_calls=eng.prefill_calls,
+            decode_steps=eng.decode_steps, decode_ms_per_step=1e3 * decode_s / eng.decode_steps,
+            tokens_per_s=1e3 * tokens / wall_ms, decode_step_profile=profile, peak_gib=peak,
+            launches=counts)
+        handles_of[path] = handles
+        print(json.dumps({"family_path": dict(model=name, path=path, card=card,
+                                              **paths[path])}))
+    # The gate: every request against its lock-step decode alone, both paths.
+    t1 = time.perf_counter()
+    mismatched = []
+    for hd, hb in zip(handles_of["dense"], handles_of["beam"]):
+        key = hd.request.prompt.tobytes()
+        check(rows_of["dense", key] == rows_of["beam", key],
+              f"{name}: the two paths prefilled a prompt at different row counts")
+        want = lockstep_alone(cfg, hcfg, params, state, hd.request.prompt,
+                              rows_of["dense", key], FAM_SLOTS, FAM_GEN, FAM_BEAM)
+        for path, h in (("dense", hd), ("beam", hb)):
+            if not np.array_equal(h.result(), want[path]):
+                mismatched.append(dict(path=path, prompt_len=int(h.request.prompt.size),
+                                       got=h.result().tolist(), want=want[path].tolist()))
+    check(not mismatched, f"{name}: tokens differ from the lock-step decode alone: "
+                          f"{mismatched[:2]} ({len(mismatched)} of {2 * len(handles)})")
+    gate = dict(model=name, requests=len(handles), paths=2, matched=2 * len(handles),
+                prefill_rows=sorted({v for (p, _), v in rows_of.items() if p == "dense"}),
+                oracle_s=time.perf_counter() - t1)
+    print(json.dumps({"family_gate": gate}))
+    return total, dict(paths, gate=gate)
+
+
+def ssd_check(dev, seed, cfg, flush) -> dict:
+    """``ssd_chunked`` against ``ssd_sequential`` at S = 4,096 and the
+    config's chunk, float32, at its heads and state; the chunked version's
+    ``dt`` gradient finite (the decay over a chunk passes 88, where the
+    reference's is NaN); the chunked forward timed at the prefill's shape
+    (B = 4) beside its bound."""
+    from repro_torch.models import ssm as ssm_lib
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+
+    def inputs(b):
+        x = torch.randn((b, FAM_SSD_S, h, p), generator=gen, device=dev)
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, FAM_SSD_S, h), generator=gen, device=dev) - 0.5)
+        a = -torch.exp(0.3 * torch.randn((h,), generator=gen, device=dev))
+        bm = torch.randn((b, FAM_SSD_S, n), generator=gen, device=dev) / n ** 0.5
+        cm = torch.randn((b, FAM_SSD_S, n), generator=gen, device=dev) / n ** 0.5
+        return x, dt, a, bm, cm, torch.ones((h,), device=dev)
+
+    x, dt, a, bm, cm, d = inputs(1)
+    dt.requires_grad_()
+    y, st = ssm_lib.ssd_chunked(x, dt, a, bm, cm, d, cfg.ssm_chunk)
+    (g_dt,) = torch.autograd.grad(y.sum(), dt)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        y_ref, st_ref = ssm_lib.ssd_sequential(x, dt, a, bm, cm, d)
+        torch.cuda.synchronize()
+        seq_ms = 1e3 * (time.perf_counter() - t0)
+    chunk_decay = float((dt * -a).detach().reshape(1, -1, cfg.ssm_chunk, h).sum(2).max())
+    out = dict(rel_rms=rel_rms(y.detach(), y_ref), state_rel_rms=rel_rms(st.detach(), st_ref),
+               dt_grad_finite=bool(torch.isfinite(g_dt).all()),
+               max_decay_over_a_chunk=chunk_decay, sequential_ms=seq_ms)
+    check(out["rel_rms"] <= FAM_SSD_TOL and out["state_rel_rms"] <= FAM_SSD_TOL,
+          f"ssd_chunked against ssd_sequential: {out}")
+    check(out["dt_grad_finite"], "ssd_chunked: non-finite dt gradient at chunk 256")
+    del x, dt, y, st, g_dt, y_ref, st_ref
+    args = inputs(MOE_BATCH)
+    with torch.no_grad():
+        out["chunked_ms_b4"] = time_ms(lambda: ssm_lib.ssd_chunked(*args, cfg.ssm_chunk), flush, 5)
+    b, s, q = MOE_BATCH, FAM_SSD_S, cfg.ssm_chunk
+    n_bytes = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n)
+    n_flop = (2 * b * (s // q) * q * q * (n + h * p)          # C·Bᵀ and the masked P·x̄
+              + 4 * b * s * n * h * p)                       # chunk states and y_inter
+    out["chunked_bound_ms"], out["chunked_bound_by"] = bound_ms(n_bytes, n_flop)
+    print(json.dumps({"ssd_check": dict(S=FAM_SSD_S, chunk=q, heads=h, head_dim=p, state=n,
+                                        **out)}))
+    return out
+
+
+def moe_check(cfg, moe_params, x, flush) -> dict:
+    """On one layer's real prefill input: ``moe_ffn`` at capacity factor 8
+    twice (bit-equal, nothing dropped) and against ``moe_ffn_dense_oracle``
+    within FAM_MOE_TOL relative RMS; ``moe_ffn`` at the config's capacity
+    factor timed beside the oracle and its bound."""
+    from repro_torch.models import moe as moe_lib
+    cf8 = dataclasses.replace(cfg, capacity_factor=8.0)
+    with torch.no_grad():
+        y1, m1 = moe_lib.moe_ffn(moe_params, cf8, x)
+        y2, m2 = moe_lib.moe_ffn(moe_params, cf8, x)
+        err = rel_rms(y1, moe_lib.moe_ffn_dense_oracle(moe_params, cf8, x))
+        check(torch.equal(y1, y2) and all(torch.equal(m1[k], m2[k]) for k in m1),
+              "moe_ffn: two calls differ")
+        check(float(m1["moe_dropped_frac"]) == 0.0, "moe_ffn dropped at capacity factor 8")
+        check(err <= FAM_MOE_TOL, f"moe_ffn against the dense oracle: rel RMS {err}")
+        del y1, y2
+        ms = time_ms(lambda: moe_lib.moe_ffn(moe_params, cfg, x), flush, 5)
+        oracle_ms = time_ms(lambda: moe_lib.moe_ffn_dense_oracle(moe_params, cfg, x), flush, 2)
+        _, m = moe_lib.moe_ffn(moe_params, cfg, x)
+    b, s, d = x.shape
+    kept = (1.0 - float(m["moe_dropped_frac"])) * b * s * cfg.top_k
+    fs = cfg.d_ff * cfg.n_shared_experts
+    n_bytes = (3 * cfg.n_experts * d * cfg.d_ff + 3 * d * fs) * 2 + 4 * d * cfg.n_experts \
+        + 2 * b * s * d * 2
+    n_flop = 6 * d * cfg.d_ff * kept + 6 * d * fs * b * s + 2 * d * cfg.n_experts * b * s
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / BF16_FLOP_PER_S
+    out = dict(rel_rms_vs_oracle=err, tol=FAM_MOE_TOL, bit_equal=True, ms=ms,
+               oracle_ms=oracle_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               tokens=b * s, dropped_frac=float(m["moe_dropped_frac"]))
+    print(json.dumps({"moe_check": dict(model=cfg.name, **out)}))
+    return out
+
+
+def family_lockstep(name, dev, seed, card, model, batch, prompt_len, gen_len, beams):
+    """The lock-step launcher over ``batch`` prompts, dense (and beam 64),
+    counters reset just before and read just after each path; the forward's
+    MoE metrics and layer 0's MoE input recorded from the prefill; one
+    decode step profiled."""
+    from repro_torch.models import moe as moe_lib
+    cfg, params, state, hcfg, _ = model
+    total, paths, moe_in = collections.Counter(), {}, {}
+    for beam in beams:
+        path = "beam" if beam else "dense"
+        args = serve.parse_args(["--lockstep", "--full", "--arch", cfg.name, "--batch",
+                                 str(batch), "--prompt-len", str(prompt_len), "--gen",
+                                 str(gen_len), "--topk-beam", str(beam), "--seed", str(seed)])
+        metrics, forward, ffn = [], transformer.forward, moe_lib.moe_ffn
+
+        def rec_forward(*a, **kw):
+            out = forward(*a, **kw)
+            metrics.append(out[2])              # read after the run: no sync a step
+            return out
+
+        def rec_ffn(p, c, x):
+            if "x" not in moe_in and x.shape[1] > 1:
+                moe_in["x"] = x.clone()
+            return ffn(p, c, x)
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_engine_counters()
+        with swapped(transformer, forward=rec_forward), swapped(moe_lib, moe_ffn=rec_ffn):
+            run = serve.run_lockstep(args, cfg, params, state, hcfg, dev)
+        counts = engine_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+        fa = counts["flash_attention_by_kernel"]
+        check(fa == dict(decode=cfg.num_layers * gen_len, tensor_cores=cfg.num_layers, fma=0,
+                         paged=0),
+              f"{name} {path}: flash_attention launches {fa}")
+        check(counts["tree_logprob_all" if beam == 0 else "gather_scores"] == gen_len,
+              f"{name} {path}: the Eq. 5 kernel did not launch once a step: {counts}")
+        check(run["tokens"].shape == (batch, gen_len) and bool(
+            ((run["tokens"] >= 0) & (run["tokens"] < cfg.vocab_size)).all()),
+              f"{name} {path}: tokens")
+        for k in ENGINE_KERNELS:
+            total[k] += counts[k]
+        step = make_serve_step(cfg, hcfg, topk_beam=beam)
+        last = prompt_len + gen_len - 1
+        profile = step_profile(lambda: step(params, state, run["token"], run["cache"], last))
+        line = dict(batch=batch, prompt=prompt_len, gen=gen_len, beam=beam,
+                    prefill_ms=run["prefill_ms"], decode_ms_per_token=run["decode_ms"] / run["steps"],
+                    prefill_metrics=metrics[0] if metrics else {},
+                    decode_metrics_mean={k: float(np.mean([m[k] for m in metrics[1:]]))
+                                         for k in (metrics[0] if metrics else {})},
+                    decode_step_profile=profile, peak_gib=peak, launches=counts)
+        print(json.dumps({"family_path": dict(model=name, path=path, card=card, **line)}))
+        paths[path] = line
+        del run
+    return total, paths, moe_in.get("x")
+
+
+def vision_path(dev, seed, card, model) -> tuple:
+    """qwen2-vl-7b: a lock-step prefill of 2 requests of 1,024 seeded vision
+    embeddings and 1,024 text tokens under (3, B, S) M-RoPE positions (the
+    temporal stream the index; height and width a 32 x 32 grid over the
+    image, the index over the text), then 32 decode tokens with (3, B, 1)
+    positions; counters reset just before and read just after. Gate: with
+    the three streams set to the index the hiddens equal those of (B, S)
+    positions, bit for bit."""
+    cfg, params, state, hcfg, _ = model
+    gen = torch.Generator(device=dev).manual_seed(seed + 37)
+    nv = VL_GRID * VL_GRID
+    s = nv + VL_TEXT
+    vision = (0.02 * torch.randn((VL_BATCH, nv, cfg.d_model), generator=gen, device=dev)
+              ).bfloat16()
+    tokens = torch.randint(0, cfg.vocab_size, (VL_BATCH, VL_TEXT), generator=gen, device=dev)
+    idx = torch.arange(s, device=dev)
+    grid = torch.arange(nv, device=dev)
+    hh = torch.cat([grid // VL_GRID, idx[nv:]])
+    ww = torch.cat([grid % VL_GRID, idx[nv:]])
+    positions = torch.stack([idx, hh, ww])[:, None].expand(3, VL_BATCH, s)
+    prefill, step = make_prefill(cfg), make_serve_step(cfg, hcfg)
+    cache = transformer.init_cache(cfg, VL_BATCH, s + FAM_GEN, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_engine_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h, cache = prefill(params, tokens, cache, vision_embeds=vision, positions=positions)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    token, out = tokens[:, -1:], []
+    t0 = time.perf_counter()
+    for t in range(FAM_GEN):
+        token, cache = step(params, state, token, cache, s + t,
+                            positions=np.full((3, VL_BATCH, 1), s + t))
+        out.append(token)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0)
+    counts = engine_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fa = counts["flash_attention_by_kernel"]
+    check(fa == dict(decode=cfg.num_layers * FAM_GEN, tensor_cores=cfg.num_layers, fma=0,
+                     paged=0), f"qwen2-vl: flash_attention launches {fa}")
+    check(counts["tree_logprob_all"] == FAM_GEN, f"qwen2-vl: Eq. 5 launches {counts}")
+    check(bool(torch.isfinite(h).all()) and h.shape == (VL_BATCH, s, cfg.d_model),
+          "qwen2-vl: prefill hiddens")
+    toks = torch.cat(out, 1)
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "qwen2-vl: tokens")
+    last = s + FAM_GEN - 1
+    profile = step_profile(lambda: step(params, state, token, cache, last,
+                                        positions=np.full((3, VL_BATCH, 1), last)))
+    del cache
+    same = idx[None].expand(VL_BATCH, s)
+    h3, _ = prefill(params, tokens, transformer.init_cache(cfg, VL_BATCH, s, device=dev),
+                    vision_embeds=vision, positions=same[None].expand(3, VL_BATCH, s))
+    h2, _ = prefill(params, tokens, transformer.init_cache(cfg, VL_BATCH, s, device=dev),
+                    vision_embeds=vision, positions=same)
+    check(torch.equal(h3, h2), "qwen2-vl: M-RoPE with equal streams differs from RoPE")
+    line = dict(batch=VL_BATCH, vision=nv, text=VL_TEXT, gen=FAM_GEN, prefill_ms=prefill_ms,
+                decode_ms_per_token=decode_ms / FAM_GEN, decode_step_profile=profile,
+                peak_gib=peak, launches=counts, equal_streams_bit_equal=True)
+    print(json.dumps({"family_path": dict(model=cfg.name, path="dense", card=card, **line)}))
+    return collections.Counter({k: counts[k] for k in ENGINE_KERNELS}), line
+
+
+def backbone_path(dev, seed, card) -> dict:
+    """Phase 12: (a) mamba2-370m and (b) hymba-1.5b through the engine, (c)
+    deepseek-moe-16b, (d) qwen2-vl-7b and (e) mixtral-8x22b (8 of 56 layers)
+    through the lock-step path, at full width; the SSD scan and the MoE
+    dispatch checked on the card. Returns the launches by kernel."""
+    t_phase = time.perf_counter()
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    total, lines = collections.Counter(), {}
+
+    def build(arch, **over):
+        model = family_model(dev, seed, arch, **over)
+        line = dict(model=arch, card=card, **model[4])
+        if over:
+            line["reduced"] = {k: [getattr(configs.get_config(arch), k), v]
+                               for k, v in over.items()}
+        print(json.dumps({"family_model": line}))
+        lines[arch] = {"build": line}
+        return model
+
+    model = build("mamba2-370m")
+    lines["mamba2-370m"]["ssd"] = ssd_check(dev, seed, model[0], flush)
+    counts, lines["mamba2-370m"]["paths"] = family_engine("mamba2-370m", dev, seed, card, model)
+    total.update(counts)
+    del model
+    model = build("hymba-1.5b")
+    counts, lines["hymba-1.5b"]["paths"] = family_engine("hymba-1.5b", dev, seed, card, model)
+    total.update(counts)
+    del model
+    model = build("deepseek-moe-16b")
+    counts, lines["deepseek-moe-16b"]["paths"], x0 = family_lockstep(
+        "deepseek-moe-16b", dev, seed, card, model, MOE_BATCH, MOE_PROMPT, FAM_GEN,
+        (0, FAM_BEAM))
+    total.update(counts)
+    check(x0 is not None, "deepseek-moe-16b: no MoE input recorded from the prefill")
+    lines["deepseek-moe-16b"]["moe"] = moe_check(model[0], model[1]["layers"][0]["moe"], x0,
+                                                 flush)
+    del model, x0
+    model = build("qwen2-vl-7b")
+    counts, lines["qwen2-vl-7b"]["paths"] = vision_path(dev, seed, card, model)
+    total.update(counts)
+    del model
+    model = build("mixtral-8x22b", num_layers=MIXTRAL_LAYERS)
+    counts, lines["mixtral-8x22b"]["paths"], _ = family_lockstep(
+        "mixtral-8x22b", dev, seed, card, model, MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_GEN, (0,))
+    total.update(counts)
+    del model, flush
+    torch.cuda.empty_cache()
+    print(json.dumps({"backbone_path": dict(card=card, wall_s=time.perf_counter() - t_phase,
+                                            launches=dict(total))}))
+    return dict(total)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2733,6 +3193,8 @@ def main() -> int:
     for name, n in lm_train_path(dev, args.seed, card).items():
         if name in launches:
             launches[name] += n
+    for name, n in backbone_path(dev, args.seed, card).items():
+        launches[name] += n
     src = "src/repro_torch/kernels/csrc"
     kernels = [
         dict(name="gather_scores", route="cuda", source=f"{src}/gather_scores.cu",

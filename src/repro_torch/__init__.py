@@ -44,4 +44,12 @@ AdamW with its exact lazy catch-up, SM3 and bf16/int8 head state in
 as ``torch.profiler`` ranges, exporters, fault injection). It adds no
 kernel: its training steps run ``sampled_head_loss`` and its SNR tables
 ``tree_logprob_all``.
+
+Slice 8 completes the LM backbone: the Mamba-2 SSD block
+(:mod:`repro_torch.models.ssm`), the mixture-of-experts FFN
+(:mod:`repro_torch.models.moe`), hymba's hybrid block, M-RoPE and vision
+inputs, meta-device specs (:mod:`repro_torch.models.specs`) and the
+configs of all ten architectures, served by the engine's lane-indexed SSM
+rows. It adds no kernel: the scan, the dispatch and M-RoPE are plain torch,
+as in the reference.
 """

@@ -2,13 +2,13 @@
 ``--arch <id>``, and the paper's own linear extreme classifier
 (:mod:`repro_torch.configs.xc_linear`).
 
-The registry names every architecture of the JAX package's
-``repro.configs``; the port holds copies of the ``block="attn"`` configs
-without experts, which its model runs. ``reduced_config(name)`` gives the
-CPU-test shrink of the same family.
+One module per architecture, copies of the JAX package's
+``repro.configs`` (sources cited in each file). ``reduced_config(name)``
+gives the CPU-test shrink of the same family.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from typing import Dict
 
@@ -28,23 +28,18 @@ SHAPES: Dict[str, tuple] = {
     "long_500k": (524_288, 1, "decode"),
 }
 
-# The archs whose blocks the port does not have yet, and why.
-NOT_PORTED = {
-    "mamba2-370m": "Mamba-2 SSD blocks",
-    "hymba-1.5b": "parallel attention and SSM blocks",
-    "mixtral-8x22b": "mixture-of-experts blocks",
-    "deepseek-moe-16b": "mixture-of-experts blocks",
-    "qwen2-vl-7b": "vision inputs and M-RoPE positions",
+# long_500k needs sub-quadratic attention or a bounded state.
+LONG_CONTEXT_OK = {
+    "mamba2-370m": True, "hymba-1.5b": True, "h2o-danube-3-4b": True,
+    "mixtral-8x22b": True, "gemma2-27b": True,
+    "stablelm-3b": False, "deepseek-7b": False, "qwen2-vl-7b": False,
+    "deepseek-moe-16b": False, "musicgen-medium": False,
 }
 
 
 def _module(name: str):
     if name not in ARCHS:
         raise ValueError(f"unknown arch {name!r}; expected one of {ARCHS}")
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} needs {NOT_PORTED[name]}, which the port does not have yet "
-            "(ROADMAP item 9)")
     mod = name.replace("-", "_").replace(".", "_")
     return importlib.import_module("repro_torch.configs." + mod)
 
@@ -56,3 +51,18 @@ def get_config(name: str) -> ModelConfig:
 def reduced_config(name: str) -> ModelConfig:
     """Small same-family config for CPU tests."""
     return _module(name).reduced()
+
+
+def shape_cells(name: str):
+    """The (shape_name -> spec) cells of this arch; a skipped cell is None."""
+    cells = {}
+    for shape, (seq, batch, mode) in SHAPES.items():
+        if shape == "long_500k" and not LONG_CONTEXT_OK[name]:
+            cells[shape] = None
+        else:
+            cells[shape] = {"seq_len": seq, "global_batch": batch, "mode": mode}
+    return cells
+
+
+def _shrink(cfg: ModelConfig, **over) -> ModelConfig:
+    return dataclasses.replace(cfg, **over)

@@ -5,9 +5,9 @@ one frozen dataclass describes dense GQA transformers, SWA / local-global
 alternation (gemma2, mixtral, h2o-danube), logit softcaps (gemma2), M-RoPE
 (qwen2-vl), MoE with shared + fine-grained routed experts (deepseek-moe,
 mixtral), Mamba-2 SSD blocks (mamba2), and parallel attn∥SSM hybrid blocks
-(hymba). The port's model runs the ``block="attn"`` configs without experts
-(:mod:`repro_torch.models.transformer`); per-layer heterogeneity (e.g.
-alternating window sizes) is read per layer with :meth:`window_for_layer`.
+(hymba). The port's model (:mod:`repro_torch.models.transformer`) runs
+them all; per-layer heterogeneity (e.g. alternating window sizes) is read
+per layer with :meth:`window_for_layer`.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Core layers: RMSNorm, RoPE, GQA attention (SWA / softcap), SwiGLU.
+"""Core layers: RMSNorm, (M-)RoPE, GQA attention (SWA / softcap), SwiGLU.
 
 Parameter-dict style, as the JAX package's ``repro.models.layers``: each
 layer is an ``init_*`` returning a dict of tensors under the reference's key
@@ -29,7 +29,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def normal_init(generator: torch.Generator, shape, fan_in: int,
                 dtype=torch.float32, device=None) -> torch.Tensor:
     """N(0, 1 / fan_in) drawn on ``generator``'s device, moved to ``device``
-    (default: the generator's)."""
+    (default: the generator's). On the meta device nothing is drawn: an
+    empty meta tensor of the shape (:mod:`repro_torch.models.specs`)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32) / math.sqrt(float(max(fan_in, 1)))
     return w.to(device=device or generator.device, dtype=dtype)
@@ -61,13 +64,28 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
                             / half))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd). positions: (B, S). Computed in float32 and cast
-    back to x's dtype. The reference's M-RoPE sections (qwen2-vl) wait for
-    the vision slice (ROADMAP item 9)."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """x: (B, S, H, hd). positions: (B, S), or (n_sections, B, S) for M-RoPE.
+    Computed in float32 and cast back to x's dtype.
+
+    M-RoPE (qwen2-vl): the rotary half-dims are split into ``sections``
+    (temporal/height/width), each rotated by its own position stream. With
+    identical streams this is standard RoPE, bit for bit.
+    """
     half = x.shape[-1] // 2
     inv_freq = rope_frequencies(x.shape[-1], theta, device=x.device)    # (half,)
-    angles = positions.float()[..., None] * inv_freq          # (B, S, half)
+    if positions.ndim == 2:
+        pos = positions.float()[..., None]                    # (B, S, 1)
+    else:
+        sections = sections or (half,)
+        if sum(sections) != half:
+            raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+        sec_id = torch.repeat_interleave(
+            torch.arange(len(sections), device=x.device),
+            torch.tensor(sections, device=x.device))           # (half,)
+        pos = positions[sec_id].permute(1, 2, 0).float()      # (B, S, half)
+    angles = pos * inv_freq                                   # (B, S, half)
     cos = torch.cos(angles)[:, :, None, :]                    # (B,S,1,half)
     sin = torch.sin(angles)[:, :, None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
@@ -110,8 +128,19 @@ def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap) if cap and cap > 0.0 else x
 
 
+def position_mask(pos: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, S, S) bool validity mask from explicit (B, S) positions, as the
+    reference masks self-attention: 0 <= q_pos - k_pos (< window if set)."""
+    delta = pos[:, :, None] - pos[:, None, :]
+    valid = delta >= 0
+    if window > 0:
+        valid &= delta < window
+    return valid
+
+
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    cfg: ModelConfig, window: int) -> torch.Tensor:
+                    cfg: ModelConfig, window: int,
+                    mask_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal self-attention as the reference computes it in training
     (``src/repro/models/layers.py:238-264``), under autograd.
 
@@ -140,7 +169,10 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = _softcap(logits, cap)
     capped = cap > 0.0
     neg = -1e4 if capped else torch.finfo(sm_dt).min / 2
-    logits.masked_fill_(~causal_window_mask(s, window, device=q.device), neg)
+    if mask_pos is None:
+        logits.masked_fill_(~causal_window_mask(s, window, device=q.device), neg)
+    else:
+        logits.view(b, h, s, s).masked_fill_(~position_mask(mask_pos, window)[:, None], neg)
     if capped:
         ex = torch.exp(logits)
         probs = (ex / ex.sum(dim=-1, keepdim=True)).to(cdt)
@@ -236,7 +268,7 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
               window: int,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_pos=None, impl: str = "kernel", page_table=None,
-              write_mask=None):
+              write_mask=None, mask_pos: Optional[torch.Tensor] = None):
     """GQA attention with causal + per-layer sliding-window mask + softcap.
 
     Training/prefill: ``kv_cache is None`` → self-attention over x; the
@@ -280,6 +312,11 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     reference's training math, differentiable, for self-attention without a
     cache. The kernel is forward-only and refuses inputs that need
     gradients.
+
+    ``positions`` (B, S), or (n_sections, B, S) under M-RoPE, rotate q and
+    k. The kernel masks by index; the plain path masks by ``mask_pos``
+    (B, S) when given (explicit positions: the reference masks by
+    ``positions[0]``), else by index.
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -288,8 +325,8 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     q = _project(x, params["wq"], cdt)
     k = _project(x, params["wk"], cdt)
     v = _project(x, params["wv"], cdt)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
 
     if impl not in ("kernel", "plain"):
         raise ValueError(f"attention impl must be 'kernel' or 'plain', got {impl!r}")
@@ -333,7 +370,7 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     scale = (1.0 / torch.sqrt(torch.tensor(float(hd)))).to(cdt).item()
     q = q * scale
     if impl == "plain":
-        out = plain_attention(q, k_all, v_all, cfg, window).reshape(b, s, h * hd)
+        out = plain_attention(q, k_all, v_all, cfg, window, mask_pos).reshape(b, s, h * hd)
     else:
         # The arenas go to the kernel as they are; (B, S, KV, hd) caches as
         # (B, KV, S, hd) views.

@@ -10,8 +10,9 @@ attention K/V leaves are a shared *arena* (L, n_pages + 1, page_len, ...)
 of fixed-size pages (the extra physical page is the **sink** — the
 designated garbage target for free lanes and padded prefill rows; one
 page of deliberate overhead traded for simple, always-in-bounds
-addressing). The reference's lane-indexed SSM conv/state leaves wait for
-ROADMAP item 9, so every leaf here is paged.
+addressing). SSM conv/state leaves have no sequence dimension to page:
+they stay lane-indexed (L, n_lanes, ...), and spill/restore carry a lane's
+rows with it, byte for byte.
 
 A request borrows two resources for its lifetime: a decode *lane* (a row of
 the static decode batch) and some number of *pages*. A physical
@@ -67,8 +68,8 @@ _PAGE_KEYS = ("k", "v")
 @dataclasses.dataclass
 class PageSpill:
     """Host-side byte image of one lane: its pages in logical order (CPU
-    tensors of the arena's dtype). ``lane_rows`` holds the reference's
-    lane-indexed SSM rows, which the attention-only port never has."""
+    tensors of the arena's dtype). ``lane_rows`` holds the lane's rows of
+    the lane-indexed SSM leaves (float32)."""
     n_pages: int
     pages: Dict[str, torch.Tensor]      # key -> (L, n_pages, page_len, ...)
     lane_rows: Dict[str, torch.Tensor]  # key -> (L, ...) single-lane rows
@@ -319,7 +320,9 @@ class PagedPool:
             if key in _PAGE_KEYS:
                 out_pages[key] = leaf.index_select(1, idx).cpu()
             else:
-                out_rows[key] = leaf[:, lane].cpu()
+                # A copy on every device: on the CPU, .cpu() would return a
+                # view that the lane's next occupant overwrites.
+                out_rows[key] = leaf[:, lane].to("cpu", copy=True)
         return PageSpill(n_pages=len(pages), pages=out_pages,
                          lane_rows=out_rows)
 

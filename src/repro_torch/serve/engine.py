@@ -252,10 +252,6 @@ class Engine:
                  registry: Optional[Registry] = None,
                  exporter: Optional[JsonlExporter] = None,
                  metrics_interval: int = 1):
-        if cfg.block != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: SSM and hybrid serving are not ported yet "
-                "(ROADMAP item 9)")
         _no_mesh(serve_cfg.mesh)
         self.cfg = cfg
         self.hcfg = hcfg
@@ -284,6 +280,11 @@ class Engine:
         page_len = serve_cfg.page_len or serve_cfg.max_len
         max_pages = -(-serve_cfg.max_len // page_len)
         n_pages = serve_cfg.n_pages or serve_cfg.n_slots * max_pages
+        if cfg.block == "ssm":
+            # Pure SSM: there is no K/V arena, so pages back no device
+            # bytes and must never gate admission. One nominal page per
+            # lane; lanes alone bound concurrency.
+            page_len, n_pages = serve_cfg.max_len, serve_cfg.n_slots
         self.pool = PagedPool(cfg, serve_cfg.n_slots, n_pages, page_len,
                               serve_cfg.max_len,
                               dtype=serve_cfg.cache_dtype, device=self.device)

@@ -49,13 +49,24 @@ def _leaves_requiring_grad(tree):
 def loss_fn(params, cfg: ModelConfig, hcfg: HeadConfig, head_state,
             batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
             sampler=None):
-    """Dense-path loss under autograd. Returns (loss, metrics)."""
-    h, _, fwd_metrics = transformer.forward(params, cfg, batch["tokens"],
-                                            attn_impl="plain")
+    """Dense-path loss under autograd. Returns (loss, metrics). A vision
+    batch's ``vision_embeds`` and ``positions`` go to the forward; the
+    vision prefix carries no next-token loss."""
+    h, _, fwd_metrics = transformer.forward(
+        params, cfg, batch["tokens"], positions=batch.get("positions"),
+        vision_embeds=batch.get("vision_embeds"), attn_impl="plain")
+    h = h[:, _n_vis(cfg, h, batch):]
     loss, head_metrics = lm_head.lm_head_loss(
         cfg, hcfg, _head(params), head_state, h, batch["labels"], generator,
         mask=batch.get("mask"), sampler=sampler)
     return loss, {"loss": loss, **fwd_metrics, **head_metrics}
+
+
+def _n_vis(cfg: ModelConfig, h: torch.Tensor, batch) -> int:
+    """The vision prefix's length: the hiddens past the labels."""
+    if cfg.modality == "vision" and batch["labels"].shape[1] != h.shape[1]:
+        return h.shape[1] - batch["labels"].shape[1]
+    return 0
 
 
 def _detached(metrics: dict) -> dict:
@@ -99,20 +110,28 @@ def make_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, head_update: str = "auto",
         drop = {"head", "embed"} if embed_sparse else {"head"}
         trunk = _leaves_requiring_grad({k: v for k, v in params.items() if k not in drop})
         leaves, spec = tree_util.flatten(trunk)
+        vision, positions = batch.get("vision_embeds"), batch.get("positions")
         with torch.enable_grad(), record_function("train/forward"):
             if embed_sparse:
                 h0 = transformer.embed_inputs(params, cfg, tokens).requires_grad_()
                 inputs = leaves + [h0]
+                ie = h0 if vision is None else torch.cat(
+                    [vision.to(h0.dtype), h0], dim=1)
                 h, _, fwd_metrics = transformer.forward(
-                    trunk, cfg, tokens, inputs_embeds=h0, attn_impl="plain")
+                    trunk, cfg, tokens, positions=positions, inputs_embeds=ie,
+                    attn_impl="plain")
             else:
                 inputs = leaves
-                h, _, fwd_metrics = transformer.forward(trunk, cfg, tokens,
-                                                        attn_impl="plain")
+                h, _, fwd_metrics = transformer.forward(
+                    trunk, cfg, tokens, positions=positions, vision_embeds=vision,
+                    attn_impl="plain")
+        n_vis = _n_vis(cfg, h, batch)
         with record_function("train/head"):
             loss, head_metrics, head_rows, dh = lm_head.lm_sparse_head_loss(
-                cfg, hcfg, _head(params), state.head_state, h, batch["labels"],
-                generator, mask=batch.get("mask"), sampler=sampler)
+                cfg, hcfg, _head(params), state.head_state, h[:, n_vis:],
+                batch["labels"], generator, mask=batch.get("mask"), sampler=sampler)
+        if n_vis:       # the vision prefix carries no next-token loss
+            dh = torch.nn.functional.pad(dh, (0, 0, n_vis, 0))
         with record_function("train/backward"):
             outs = torch.autograd.grad(h, inputs, dh.to(h.dtype))
         grads = {**tree_util.unflatten(spec, list(outs[:len(leaves)])), "head": head_rows}
@@ -222,8 +241,10 @@ def make_eval_step(cfg: ModelConfig, hcfg: HeadConfig):
 
     def eval_step(state: TrainState, batch):
         with torch.no_grad():
-            h, _, _ = transformer.forward(state.params, cfg, batch["tokens"],
-                                          attn_impl="plain")
+            h, _, _ = transformer.forward(
+                state.params, cfg, batch["tokens"], positions=batch.get("positions"),
+                vision_embeds=batch.get("vision_embeds"), attn_impl="plain")
+            h = h[:, _n_vis(cfg, h, batch):]
             scores = lm_head.lm_predictive_scores(
                 cfg, hcfg, _head(state.params), state.head_state,
                 h.reshape(-1, h.shape[-1])).reshape(h.shape[:-1] + (-1,))
@@ -301,38 +322,45 @@ def make_batched_prefill(cfg: ModelConfig, page_len: int, sink_page: int,
       prefill.
     - ``lengths`` (N,): true prompt lengths; positions at or past a row's
       length go to ``sink_page`` instead of a mapped page.
-    - ``lanes`` (N,): the reference's lane of each row, for its
-      lane-indexed SSM leaves; the port's attention-only arena has none, so
-      it is not read.
+    - ``lanes`` (N,): each row's decode lane, for the lane-indexed SSM conv
+      and state leaves. Padding rows carry an out-of-range lane and are
+      dropped: the reference's scatter drops them, torch indexing would
+      not, so they are filtered on the host.
     - ``page_tables`` (N, max_pages): each row's logical -> physical page
       map; logical position p lands at ``(page_tables[n, p // page_len],
       p % page_len)``, a logical page past the table at its last entry, as
       the reference's gather clamps.
 
-    ``lengths`` and ``page_tables`` are read on the host (numpy arrays, or
-    tensors that are copied there). The forward runs against a fresh
-    contiguous (N, S) cache — the lock-step prefill's math, on the
+    ``lengths``, ``lanes`` and ``page_tables`` are read on the host (numpy
+    arrays, or tensors that are copied there). The forward runs against a
+    fresh contiguous (N, S) cache — the lock-step prefill's math, on the
     tensor-core kernel on the card — and one ``index_copy_`` per leaf then
-    writes the K/V into the arena in place (the reference donates the arena;
-    the port updates it), at the rows ``layers.cache_index`` gives the paged
-    steps.
+    writes the K/V into the arena's pages and the SSM rows into their lanes,
+    in place (the reference donates the arena; the port updates it), at the
+    rows ``layers.cache_index`` gives the paged steps.
     """
 
     def batched_prefill(params, tokens, lengths, lanes, arena, page_tables):
-        del lanes
-        dev = arena["k"].device
+        dev = next(iter(arena.values())).device
         tokens = _on(dev, tokens)
         n, s = tokens.shape
         fresh = transformer.init_cache(cfg, n, s, dtype=cache_dtype, device=dev)
         h, new_cache, _ = transformer.forward(params, cfg, tokens, cache=fresh, cache_pos=0)
-        index = layers.cache_index(
-            0, n, s, dev, page_table=page_tables, page_len=page_len, sink=sink_page,
-            write_mask=np.arange(s)[None] < layers.to_host(lengths)[:, None])
-        for key in ("k", "v"):     # (L, P, page_len, KV, hd) <- (L, N, S, KV, hd)
-            leaf = arena[key]
-            leaf.view(leaf.shape[0], -1, *leaf.shape[3:]).index_copy_(
-                1, index.write_rows,
-                new_cache[key].reshape(leaf.shape[0], n * s, *leaf.shape[3:]).to(leaf.dtype))
+        if "k" in arena:
+            index = layers.cache_index(
+                0, n, s, dev, page_table=page_tables, page_len=page_len, sink=sink_page,
+                write_mask=np.arange(s)[None] < layers.to_host(lengths)[:, None])
+            for key in ("k", "v"):     # (L, P, page_len, KV, hd) <- (L, N, S, KV, hd)
+                leaf = arena[key]
+                leaf.view(leaf.shape[0], -1, *leaf.shape[3:]).index_copy_(
+                    1, index.write_rows,
+                    new_cache[key].reshape(leaf.shape[0], n * s, *leaf.shape[3:]).to(leaf.dtype))
+        if "conv" in arena:
+            lane = layers.to_host(lanes).astype(np.int64)
+            rows = np.nonzero(lane < arena["conv"].shape[1])[0]
+            dst, src = _on(dev, lane[rows]), _on(dev, rows)
+            for key in ("conv", "state"):  # (L, n_lanes, ...) <- (L, N, ...)
+                arena[key].index_copy_(1, dst, new_cache[key].index_select(1, src))
         return h, arena
 
     return batched_prefill
@@ -357,7 +385,7 @@ def make_paged_prefill(cfg: ModelConfig):
         "need position-local state; SSM/hybrid caches are recurrent")
 
     def paged_prefill(params, tokens, start, lengths, arena, page_tables):
-        tokens = _on(arena["k"].device, tokens)
+        tokens = _on(next(iter(arena.values())).device, tokens)
         s = tokens.shape[1]
         wmask = np.arange(s)[None] < layers.to_host(lengths)[:, None]
         h, new_arena, _ = transformer.forward(
@@ -377,13 +405,15 @@ def make_paged_decode(cfg: ModelConfig):
     lane; ``cache_pos`` (B,) puts each lane at its own depth; ``page_table``
     (B, max_pages) maps each lane's logical pages onto the arena. Free lanes
     ride along: their page-table rows point at the sink page, so their
-    writes land there and the caller drops their hiddens. Head scoring is
+    writes land there and the caller drops their hiddens. An SSM branch
+    steps every lane's row of the lane-indexed conv and state leaves (a free
+    lane's garbage too, which its next prefill overwrites). Head scoring is
     the engine's, so that its candidate cache can skip the tree descent.
     """
 
     def paged_decode(params, token, arena, cache_pos, page_table):
         h, new_arena, _ = transformer.forward(
-            params, cfg, _on(arena["k"].device, token), cache=arena,
+            params, cfg, _on(next(iter(arena.values())).device, token), cache=arena,
             cache_pos=cache_pos, page_table=page_table)
         return h[:, -1], new_arena
 

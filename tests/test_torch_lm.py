@@ -75,8 +75,15 @@ def test_configs_are_copies(arch):
 @pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b", "mixtral-8x22b",
                                   "deepseek-moe-16b", "qwen2-vl-7b"])
 def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        tconfigs.get_config(arch)
+    """The five architectures the model once refused are copies now, and
+    the model builds them (``tests/test_torch_model_families.py`` holds them
+    against JAX)."""
+    for fn in ("get_config", "reduced_config"):
+        assert (dataclasses.asdict(getattr(tconfigs, fn)(arch))
+                == dataclasses.asdict(getattr(jconfigs, fn)(arch)))
+    cfg = tconfigs.reduced_config(arch)
+    params = ttransformer.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert len(params["layers"]) == cfg.num_layers
 
 
 def test_carried_params_have_the_port_layout():
@@ -227,8 +234,8 @@ def test_serve_step_scores_match_jax(arch):
 def test_attention_raises_for_other_serving_branches():
     """A per-row ``cache_pos`` (the serving engine's slotted decode) runs and
     gives each row what a decode at its own scalar position gives; explicit
-    positions still wait for ROADMAP item 9, and a write past the cache
-    raises."""
+    positions reach the kernel only where they equal the index (the
+    kernel's mask), and a write past the cache raises."""
     cfg = tconfigs.reduced_config("h2o-danube-3-4b")
     gen = torch.Generator().manual_seed(0)
     params = ttransformer.init_params(gen, cfg, device="cpu")
@@ -244,8 +251,16 @@ def test_attention_raises_for_other_serving_branches():
                                           cache_pos=pos)
         np.testing.assert_allclose(h[row].float().numpy(), want[0].float().numpy(),
                                    **SELF_TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        ttransformer.forward(params, cfg, tokens, positions=torch.zeros((2, 1)))
+    with pytest.raises(ValueError, match="masks by index"):
+        ttransformer.forward(params, cfg, tokens, positions=torch.zeros((2, 1)),
+                             cache={k: v.clone() for k, v in cache.items()}, cache_pos=3)
+    at_index, _, _ = ttransformer.forward(params, cfg, tokens,
+                                          cache={k: v.clone() for k, v in cache.items()},
+                                          cache_pos=3, positions=torch.full((2, 1), 3))
+    default, _, _ = ttransformer.forward(params, cfg, tokens,
+                                         cache={k: v.clone() for k, v in cache.items()},
+                                         cache_pos=3)
+    assert torch.equal(at_index, default)
     with pytest.raises(ValueError, match="cache holds 8"):
         ttransformer.forward(params, cfg, tokens, cache=cache, cache_pos=8)
 

@@ -420,9 +420,14 @@ class TestRetirement:
 
 
 def test_unported_configurations_raise():
-    """Mesh serving is ROADMAP item 12, SSM and hybrid serving item 9."""
+    """Mesh serving is ROADMAP item 12. SSM serving is ported: an SSM
+    engine builds, with one nominal page per lane, and refuses prefix
+    sharing (its state is recurrent, not position-local)."""
     with pytest.raises(NotImplementedError, match="item 12"):
         Engine(CFG, HCFG, PARAMS, HEAD_STATE, ServeConfig(mesh=object()))
-    ssm = dataclasses.replace(CFG, block="ssm", ssm_state=16)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Engine(ssm, HCFG, PARAMS, HEAD_STATE, ServeConfig())
+    ssm = dataclasses.replace(CFG, block="ssm", ssm_state=16, ssm_head_dim=16)
+    params = transformer.init_params(torch.Generator().manual_seed(0), ssm, device="cpu")
+    eng = Engine(ssm, HCFG, params, HEAD_STATE, ServeConfig(n_slots=2, max_len=8, page_len=2))
+    assert (eng.pool.page_len, eng.pool.n_pages) == (8, 2)
+    with pytest.raises(AssertionError, match="recurrent state"):
+        Engine(ssm, HCFG, params, HEAD_STATE, ServeConfig(prefix_sharing=True))
