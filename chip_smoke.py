@@ -138,9 +138,13 @@ Phases, each fatal on failure:
      capacity factor 8 bit-equal twice and against the dense oracle within
      2^-6 relative RMS; (d) qwen2-vl-7b, 2 requests of 1,024 vision
      embeddings and 1,024 tokens under (3, B, S) M-RoPE positions, 32
-     tokens with (3, B, 1), equal streams bit-equal to (B, S) positions;
+     tokens with (3, B, 1), equal streams bit-equal to (B, S) positions,
+     and distinct streams against the plain forward over 4 layers (2^-5
+     relative RMS, and 4 times closer than plain RoPE);
      (e) mixtral-8x22b at full width and 8 of its 56 layers (printed as
-     ``reduced``), 2 x 4,096 prompt tokens and 16, dense;
+     ``reduced``), 2 x 4,096 prompt tokens and 16, dense, and its layer 0
+     ``moe_ffn`` (the ``topk_softmax`` router) checked as (c)'s. Every model
+     is built by the serving launcher's ``serve.build``;
  13. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
@@ -1408,17 +1412,14 @@ def rel_rms(got, want) -> float:
 def serve_path(dev, seed):
     """The lock-step launcher at full h2o-danube-3-4b width, dense and beam;
     counters around each run; the kernel path against the plain forward."""
-    cfg = configs.get_config(SERVE_ARCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(seed + 6)
-    params = transformer.cast_params(transformer.init_params(gen, cfg, device=dev), cfg)
-    state = lm_head.default_head_state(gen, cfg, "adversarial_ns", device=dev)
-    hcfg = lm_head.head_config(cfg, "adversarial_ns")
+    cfg, params, state, hcfg = serve.build(SERVE_ARCH, reduced=False, head="adversarial_ns",
+                                           seed=seed + 6, device=dev)   # the launcher's build
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    setup_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30   # float32 weights, then bf16
+    setup_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30   # bf16, a layer at a time
     torch.cuda.reset_peak_memory_stats()
     kernels = ("flash_attention", "tree_logprob_all", "gather_scores")
 
@@ -2710,8 +2711,8 @@ def head_math_path(dev, seed, cfg, card):
     return launches
 
 
-# Phase 12: the backbone families at full width. Each model is built from
-# the seed in bf16, layer by layer (transformer.init_params(dtype=)), and
+# Phase 12: the backbone families at full width. Each model is built by the
+# serving launcher's own build (serve.build: bf16, a layer at a time), and
 # deleted, with the allocator's cache emptied, before the next.
 FAM_SLOTS, FAM_PAGE_LEN, FAM_GEN, FAM_BEAM = 8, 256, 32, 64
 # The engine's traffic: three bursts, each run to its end before the next
@@ -2728,27 +2729,29 @@ FAM_SSD_TOL = 1e-4               # relative RMS, chunked against sequential, flo
 FAM_MOE_TOL = 2.0 ** -6          # relative RMS, bf16 dispatch against the float32 oracle
 MOE_BATCH, MOE_PROMPT = 4, 2048
 VL_BATCH, VL_TEXT, VL_GRID = 2, 1024, 32           # 32 x 32 = 1,024 vision embeddings
+# The distinct-stream prefill against the plain forward: over the first 4
+# layers, within SERVE_REL_RMS_TOL and 4 times closer to it than plain RoPE is.
+VL_PLAIN_LAYERS, VL_PLAIN_MARGIN = 4, 4.0
 MIXTRAL_LAYERS, MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_GEN = 8, 2, 4096, 16
 
 
-def family_model(dev, seed, arch, **over) -> tuple:
+def family_model(dev, seed, arch, num_layers=None) -> tuple:
     """(cfg, params, head state, head config, build line) of ``arch`` at full
-    width (``over`` cuts the depth), bf16 matrices."""
+    width (``num_layers`` cuts the depth), built by the serving launcher's
+    ``serve.build``: bf16 matrices, a layer at a time."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = dataclasses.replace(configs.get_config(arch), **over)
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(seed + 23)
-    params = transformer.init_params(gen, cfg, device=dev, dtype=torch.bfloat16)
-    state = lm_head.default_head_state(gen, cfg, "adversarial_ns", device=dev)
+    cfg, params, state, hcfg = serve.build(arch, reduced=False, head="adversarial_ns",
+                                           seed=seed + 23, device=dev, num_layers=num_layers)
     torch.cuda.synchronize()
     leaves = tree_util.flatten(params)[0]
     build = dict(build_s=time.perf_counter() - t0,
                  params=sum(t.numel() for t in leaves),
                  params_gib=sum(t.numel() * t.element_size() for t in leaves) / 2 ** 30,
                  build_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    return cfg, params, state, lm_head.head_config(cfg, "adversarial_ns"), build
+    return cfg, params, state, hcfg, build
 
 
 def step_profile(fn) -> dict:
@@ -3028,9 +3031,10 @@ def vision_path(dev, seed, card, model) -> tuple:
     embeddings and 1,024 text tokens under (3, B, S) M-RoPE positions (the
     temporal stream the index; height and width a 32 x 32 grid over the
     image, the index over the text), then 32 decode tokens with (3, B, 1)
-    positions; counters reset just before and read just after. Gate: with
+    positions; counters reset just before and read just after. Gates: with
     the three streams set to the index the hiddens equal those of (B, S)
-    positions, bit for bit."""
+    positions, bit for bit; with distinct streams the first layers' hiddens
+    agree with the plain forward's (``VL_PLAIN_LAYERS``)."""
     cfg, params, state, hcfg, _ = model
     gen = torch.Generator(device=dev).manual_seed(seed + 37)
     nv = VL_GRID * VL_GRID
@@ -3080,9 +3084,31 @@ def vision_path(dev, seed, card, model) -> tuple:
     h2, _ = prefill(params, tokens, transformer.init_cache(cfg, VL_BATCH, s, device=dev),
                     vision_embeds=vision, positions=same)
     check(torch.equal(h3, h2), "qwen2-vl: M-RoPE with equal streams differs from RoPE")
+    del h3, h2
+    # The distinct-stream prefill over the first VL_PLAIN_LAYERS layers against
+    # the plain forward on the same inputs; its distance from plain RoPE (the
+    # index in every stream) shows that a wrong section split or stream order
+    # would be seen.
+    cfg_n = dataclasses.replace(cfg, num_layers=VL_PLAIN_LAYERS)
+    params_n = {**params, "layers": params["layers"][:VL_PLAIN_LAYERS]}
+    with torch.no_grad():
+        hk, _ = make_prefill(cfg_n)(params_n, tokens,
+                                    transformer.init_cache(cfg_n, VL_BATCH, s, device=dev),
+                                    vision_embeds=vision, positions=positions)
+        hp = transformer.forward(params_n, cfg_n, tokens, positions=positions,
+                                 vision_embeds=vision, attn_impl="plain")[0]
+        hr = transformer.forward(params_n, cfg_n, tokens, positions=same,
+                                 vision_embeds=vision, attn_impl="plain")[0]
+    plain = dict(layers=VL_PLAIN_LAYERS, rel_rms=rel_rms(hk, hp), tol=SERVE_REL_RMS_TOL,
+                 rope_rel_rms=rel_rms(hr, hp))
+    print(json.dumps({"qwen2_vl_plain": plain}))
+    check(plain["rel_rms"] <= SERVE_REL_RMS_TOL
+          and plain["rel_rms"] <= plain["rope_rel_rms"] / VL_PLAIN_MARGIN,
+          f"qwen2-vl: distinct-stream prefill against the plain forward {plain}")
     line = dict(batch=VL_BATCH, vision=nv, text=VL_TEXT, gen=FAM_GEN, prefill_ms=prefill_ms,
                 decode_ms_per_token=decode_ms / FAM_GEN, decode_step_profile=profile,
-                peak_gib=peak, launches=counts, equal_streams_bit_equal=True)
+                peak_gib=peak, launches=counts, equal_streams_bit_equal=True,
+                distinct_streams_vs_plain=plain)
     print(json.dumps({"family_path": dict(model=cfg.name, path="dense", card=card, **line)}))
     return collections.Counter({k: counts[k] for k in ENGINE_KERNELS}), line
 
@@ -3096,12 +3122,11 @@ def backbone_path(dev, seed, card) -> dict:
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     total, lines = collections.Counter(), {}
 
-    def build(arch, **over):
-        model = family_model(dev, seed, arch, **over)
+    def build(arch, num_layers=None):
+        model = family_model(dev, seed, arch, num_layers)
         line = dict(model=arch, card=card, **model[4])
-        if over:
-            line["reduced"] = {k: [getattr(configs.get_config(arch), k), v]
-                               for k, v in over.items()}
+        if num_layers is not None:
+            line["reduced"] = {"num_layers": [configs.get_config(arch).num_layers, num_layers]}
         print(json.dumps({"family_model": line}))
         lines[arch] = {"build": line}
         return model
@@ -3129,10 +3154,13 @@ def backbone_path(dev, seed, card) -> dict:
     total.update(counts)
     del model
     model = build("mixtral-8x22b", num_layers=MIXTRAL_LAYERS)
-    counts, lines["mixtral-8x22b"]["paths"], _ = family_lockstep(
+    counts, lines["mixtral-8x22b"]["paths"], x0 = family_lockstep(
         "mixtral-8x22b", dev, seed, card, model, MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_GEN, (0,))
     total.update(counts)
-    del model, flush
+    check(x0 is not None, "mixtral-8x22b: no MoE input recorded from the prefill")
+    lines["mixtral-8x22b"]["moe"] = moe_check(model[0], model[1]["layers"][0]["moe"], x0,
+                                              flush)
+    del model, x0, flush
     torch.cuda.empty_cache()
     print(json.dumps({"backbone_path": dict(card=card, wall_s=time.perf_counter() - t_phase,
                                             launches=dict(total))}))

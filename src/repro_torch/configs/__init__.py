@@ -8,7 +8,6 @@ gives the CPU-test shrink of the same family.
 """
 from __future__ import annotations
 
-import dataclasses
 import importlib
 from typing import Dict
 
@@ -62,7 +61,3 @@ def shape_cells(name: str):
         else:
             cells[shape] = {"seq_len": seq, "global_batch": batch, "mode": mode}
     return cells
-
-
-def _shrink(cfg: ModelConfig, **over) -> ModelConfig:
-    return dataclasses.replace(cfg, **over)

@@ -36,8 +36,10 @@ generator on the device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,6 +48,23 @@ from repro_torch import configs as cfg_lib
 from repro_torch import device as device_lib
 from repro_torch.models import lm_head, transformer
 from repro_torch.train import make_prefill, make_serve_step
+
+
+def build(arch: str, *, reduced: bool, head: str, seed: int, device="cuda",
+          num_layers: Optional[int] = None) -> tuple:
+    """(cfg, params, head state, head config) of ``arch``: the full config,
+    or the reduced one; ``num_layers`` cuts the depth. The weights are drawn
+    from ``seed`` on ``device`` and each layer is cast to the config's dtype
+    as it is drawn (``init_params(cast=True)``), so the model never exists
+    whole in float32."""
+    dev = device_lib.resolve(device)
+    cfg = cfg_lib.reduced_config(arch) if reduced else cfg_lib.get_config(arch)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = transformer.init_params(gen, cfg, device=dev, cast=True)
+    head_state = lm_head.default_head_state(gen, cfg, head, device=dev)
+    return cfg, params, head_state, lm_head.head_config(cfg, head)
 
 
 def _prompts(args, cfg, dev: torch.device) -> torch.Tensor:
@@ -261,12 +280,8 @@ def main(argv=None) -> int:
         raise NotImplementedError("mesh serving (--shard-scores, --model-axis) is "
                                   "not ported yet (ROADMAP item 12)")
     dev = device_lib.resolve(args.device)
-    cfg = (cfg_lib.reduced_config(args.arch) if args.reduced
-           else cfg_lib.get_config(args.arch))
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = transformer.cast_params(transformer.init_params(gen, cfg, device=dev), cfg)
-    head_state = lm_head.default_head_state(gen, cfg, args.head, device=dev)
-    hcfg = lm_head.head_config(cfg, args.head)
+    cfg, params, head_state, hcfg = build(args.arch, reduced=args.reduced, head=args.head,
+                                          seed=args.seed, device=dev)
     with torch.no_grad():
         if args.lockstep:
             run_lockstep(args, cfg, params, head_state, hcfg, dev)

@@ -91,25 +91,27 @@ def _cast_layer(lp: Dict[str, Any], cdt: torch.dtype) -> Dict[str, Any]:
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device="cuda", dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                device="cuda", cast: bool = False) -> Dict[str, Any]:
     """Parameters drawn on ``generator``'s device, put on ``device``:
     ``embed`` (V_pad, d), ``layers`` (a list of per-layer dicts),
     ``final_norm``, ``head`` {w (V_pad, d), b (V_pad,)}, all float32.
 
-    With ``dtype`` the embedding and each layer's matrices come cast to it
-    (:func:`cast_params`'s result), each layer as soon as it is drawn: the
-    model never exists whole in float32 (deepseek-moe-16b is 67.5 GB in
-    float32, 33.8 GB in bf16).
+    With ``cast`` the embedding and each layer's matrices come cast to
+    ``cfg.dtype`` (:func:`cast_params`'s result, bit for bit), each layer as
+    soon as it is drawn: the model never exists whole in float32
+    (deepseek-moe-16b is 67.5 GB in float32, 33.8 GB in bf16). Serving
+    builds this way; :func:`cast_params` is for converted parameters.
     """
     dev = device_lib.resolve(device)
+    cdt = L._dtype(cfg)
     vp, d = cfg.padded_vocab, cfg.d_model
     embed = L.normal_init(generator, (vp, d), d, device=dev)
-    if dtype is not None:
-        embed = embed.to(dtype)
+    if cast:
+        embed = embed.to(cdt)
     layers = []
     for _ in range(cfg.num_layers):
         lp = init_layer(generator, cfg, dev)
-        layers.append(lp if dtype is None else _cast_layer(lp, dtype))
+        layers.append(_cast_layer(lp, cdt) if cast else lp)
     return {
         "embed": embed,
         "layers": layers,
@@ -123,8 +125,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 
 def cast_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     """The parameters with the embedding and every layer's matrices cast once
-    to ``cfg.dtype``, for serving (:func:`_cast_layer`); norms, the router,
-    the SSM's small parameters and the head stay float32.
+    to ``cfg.dtype``, for serving converted parameters (:func:`_cast_layer`;
+    ``init_params(cast=True)`` builds so directly); norms, the router, the
+    SSM's small parameters and the head stay float32.
 
     The reference keeps float32 weights and casts each to ``cfg.dtype`` at
     every use; both frameworks round float32 to bfloat16 to nearest even, so

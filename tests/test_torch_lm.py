@@ -270,12 +270,9 @@ def test_run_lockstep_on_cpu(capsys, beam):
     args = tserve.parse_args(["--lockstep", "--arch", "h2o-danube-3-4b", "--device", "cpu",
                               "--batch", "3", "--prompt-len", "12", "--gen", "4",
                               "--topk-beam", str(beam)])
-    cfg = tconfigs.reduced_config(args.arch)
-    gen = torch.Generator().manual_seed(0)
-    params = ttransformer.cast_params(ttransformer.init_params(gen, cfg, device="cpu"), cfg)
-    state = tlm_head.default_head_state(gen, cfg, args.head, device="cpu")
-    out = tserve.run_lockstep(args, cfg, params, state, tlm_head.head_config(cfg, args.head),
-                              torch.device("cpu"))
+    cfg, params, state, hcfg = tserve.build(args.arch, reduced=True, head=args.head,
+                                            seed=args.seed, device="cpu")
+    out = tserve.run_lockstep(args, cfg, params, state, hcfg, torch.device("cpu"))
     assert out["tokens"].shape == (3, 4) and out["steps"] == 4
     assert ((out["tokens"] >= 0) & (out["tokens"] < cfg.vocab_size)).all()
     assert "decode 4 steps" in capsys.readouterr().out

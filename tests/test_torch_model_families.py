@@ -182,14 +182,14 @@ def test_param_count_sane():
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b", "deepseek-moe-16b"])
 def test_init_params_dtype_casts_each_layer(arch):
-    """``init_params(dtype=)`` draws the same numbers and casts as
+    """``init_params(cast=True)`` draws the same numbers and casts as
     ``cast_params`` does: bit for bit, norms, router and SSM scalars in
     float32."""
     cfg = tconfigs.reduced_config(arch)
     want = ttransformer.cast_params(
         ttransformer.init_params(torch.Generator().manual_seed(5), cfg, device="cpu"), cfg)
     got = ttransformer.init_params(torch.Generator().manual_seed(5), cfg, device="cpu",
-                                   dtype=torch.bfloat16)
+                                   cast=True)
     got_l, got_s = tree_util.flatten(got)
     want_l, want_s = tree_util.flatten(want)
     assert got_s == want_s
@@ -202,6 +202,21 @@ def test_init_params_dtype_casts_each_layer(arch):
     if "moe" in lp:
         assert lp["moe"]["router"].dtype == torch.float32
         assert lp["moe"]["shared"]["w_down"].dtype == torch.bfloat16
+
+
+def test_serve_build_cuts_depth_and_casts():
+    """The serving launcher's build: the config's depth cut by
+    ``num_layers``, the expert matrices in bf16 and the router in float32,
+    as ``init_params(cast=True)`` draws them."""
+    from repro_torch.launch import serve as tserve
+    cfg, params, _, _ = tserve.build("mixtral-8x22b", reduced=True, head="adversarial_ns",
+                                     seed=3, device="cpu", num_layers=1)
+    assert cfg.num_layers == 1 and len(params["layers"]) == 1
+    moe = params["layers"][0]["moe"]
+    assert moe["w_up"].dtype == torch.bfloat16 and moe["router"].dtype == torch.float32
+    want = ttransformer.init_params(torch.Generator().manual_seed(3), cfg, device="cpu",
+                                    cast=True)
+    assert torch.equal(params["embed"], want["embed"])
 
 
 def test_remat_carries_moe_metrics():
