@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving (lock-step and engine), LM-training and backbone-family paths on one NVIDIA card.
+"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving (lock-step and engine), LM-training, backbone-family and process-mesh paths on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
@@ -145,7 +145,32 @@ Phases, each fatal on failure:
      ``reduced``), 2 x 4,096 prompt tokens and 16, dense, and its layer 0
      ``moe_ffn`` (the ``topk_softmax`` router) checked as (c)'s. Every model
      is built by the serving launcher's ``serve.build``;
- 13. print the ``kernels`` JSON line and, last, the device line.
+ 13. the vocab-sharded head on a ("data", "model") process mesh over
+     ``torch.distributed`` (run after phase 12), every rank on the one card
+     over gloo, each world started by ``torchrun``, any rank's failure or a
+     wait past the time limit fatal: (a) one world of 4 ranks (this script
+     with ``--mesh-worker``) at full ``xc_linear`` width on a (1, 4) mesh,
+     ``sharded_candidate_scores`` for 256 queries × 64 candidates against
+     the unsharded ``gather_scores`` kernel (bit-equal, else within its
+     tolerance) and ``apply_updates(mesh=)`` (``sharded_rows_update``) for
+     adagrad, sm3 (bf16) and adamw (int8) over 3 steps against the
+     unsharded update, bit-equal; ms a rank and the ``all_reduce``'s share;
+     then, in the same world on a (2, 2) mesh, stablelm-3b at full width,
+     2 layers, float32: 3 sharded steps on a global batch of 4 × 256
+     against 3 one-rank steps from the same seed (loss within 1e-5
+     relative, parameters within 1e-3 relative + 1e-4, the reference's
+     bounds), ``sampled_head_loss`` and ``segment_stats`` launches a rank,
+     a checkpoint written under the mesh restored by one rank bit-equal;
+     (b) the serving launcher, ``torchrun --nproc-per-node 2 -m
+     repro_torch.launch.serve --model-axis 2 --shard-scores --device
+     cuda:0``, at full h2o-danube-3-4b width: phase 9's lock-step shapes
+     (4 × 4,608 + 32) dense and beam 64, and an engine burst of 8 × 4,096 +
+     32 at beam 64, each rank's tokens equal to the one-rank run of the
+     same flags here, each rank's launches and ms a token; (d) the serving
+     launcher as a one-rank NCCL world, its tokens equal to this process's;
+     lines ``mesh_collectives``, ``mesh_train``, ``mesh_serve``,
+     ``mesh_path``; every rank's launches join the ``kernels`` line;
+ 14. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
 """
@@ -3167,14 +3192,319 @@ def backbone_path(dev, seed, card) -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the vocab-sharded head on a (data, model) process mesh.
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4                   # (a) and (c): one world of 4 ranks on the one card
+MESH_DEVICE = "cuda:0"           # every rank shares it: gloo (NCCL refuses two ranks)
+MESH_TIMEOUT_S = 300             # the group's timeout; the world's own limit is above it
+MESH_OPT_CASES = (("adagrad", "fp32"), ("sm3", "bf16"), ("adamw", "int8"))
+MESH_ROWS_STEPS = 3
+MESH_TRAIN_LAYERS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 2, 4, 256, 3
+# SGD: the check holds the data-parallel sum of the gradients, and SGD's
+# update is linear in it. Adagrad's first step, -lr·g/(|g| + eps), turns
+# float32 reordering at |g| near eps into 1e-4 parameter differences.
+MESH_TRAIN_OPT = dict(name="sgd", learning_rate=0.05, clip_norm=1.0)
+MESH_LOSS_RTOL = 1e-5
+MESH_PARAM_TOL = dict(atol=1e-4, rtol=1e-3)          # tests/test_parallel.py:65-70
+MESH_SERVE_RANKS = 2
+MESH_ENGINE_BATCH, MESH_ENGINE_PROMPT = 8, 4096
+
+
+def mesh_ms(fn, iters: int = TIMING_ITERS) -> float:
+    """Host ms a call, each ending in a synchronize, after one untimed: a
+    rank's collective waits for the others, so device events would time
+    the wait inside gloo's host copies, not the call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def mesh_collectives(mesh, dev, seed) -> dict:
+    """(a) at full xc_linear width over (1, 4): sharded_candidate_scores
+    against the unsharded gather_scores kernel, and sharded_rows_update
+    (through apply_updates(mesh=)) against the unsharded update."""
+    import torch.distributed as dist
+    from repro_torch.parallel import collectives, gather_head, shard_head, sharding
+    cfg = xc_linear.config()
+    c, kdim = cfg.num_labels, cfg.feature_dim
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+    w = 0.05 * torch.randn((c, kdim), generator=gen, device=dev)
+    b = 0.1 * torch.randn((c,), generator=gen, device=dev)
+    h = torch.randn((BATCH, kdim), generator=gen, device=dev)
+    ids = torch.randint(0, c, (BATCH, BEAM), generator=gen, device=dev)
+    lo, hi = sharding.row_range(c, mesh)
+    w_l, b_l = w[lo:hi].clone(), b[lo:hi].clone()
+    torch.cuda.synchronize()
+    ops.gather_scores.launches = 0
+    got = collectives.sharded_candidate_scores(mesh, w_l, b_l, h, ids)
+    torch.cuda.synchronize()
+    launches = ops.gather_scores.launches
+    want = heads.kernel_scores(heads.HeadParams(w, b), h, ids)
+    bit_equal = bool(torch.equal(got, want))
+    check(bit_equal or close(got, want, GATHER_TOL),
+          "sharded_candidate_scores disagrees with the unsharded gather_scores kernel")
+    buf = torch.zeros_like(got)
+    g_model = sharding.group(mesh, "model")
+    ms = mesh_ms(lambda: collectives.sharded_candidate_scores(mesh, w_l, b_l, h, ids))
+    reduce_ms = mesh_ms(lambda: dist.all_reduce(buf, group=g_model))
+    rows = {}
+    for rule, sd in MESH_OPT_CASES:
+        ocfg = optim.OptimizerConfig(name=rule, learning_rate=0.05, state_dtype=sd,
+                                     weight_decay=0.1 if rule == "adamw" else 0.0)
+        full = heads.HeadParams(w.clone(), b.clone())
+        full_state = init_opt_state(ocfg, full)
+        own = tree_util.tree_map(  # the column cover is whole: no tensor shared with full
+            lambda x: x.clone() if isinstance(x, torch.Tensor) else x, (full, full_state))
+        local, local_state = shard_head(own, mesh)
+        step_ms = []
+        for t in range(MESH_ROWS_STEPS):
+            r_ids = torch.unique(torch.randint(0, c, (2 * BATCH,), generator=gen, device=dev))
+            g = sparse_lib.SparseRows(
+                r_ids, torch.randn((r_ids.numel(), kdim), generator=gen, device=dev),
+                torch.randn((r_ids.numel(),), generator=gen, device=dev))
+            full, full_state, _ = apply_updates(ocfg, full, g, full_state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            local, local_state, _ = apply_updates(ocfg, local, g, local_state, mesh=mesh)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        back = tree_util.leaves(gather_head((local, local_state), mesh))
+        ref = tree_util.leaves((full, full_state))
+        equal = all(torch.equal(x, y) if isinstance(y, torch.Tensor) else x == y
+                    for x, y in zip(back, ref))
+        check(equal, f"sharded {rule}/{sd} row update differs from the unsharded update")
+        rows[f"{rule}_{sd}"] = dict(bit_equal=equal, ms_per_step=step_ms)
+    return dict(scores=dict(shape=[BATCH, BEAM], c=c, k=kdim, rows_per_rank=hi - lo,
+                            bit_equal=bit_equal, max_abs_err=float((got - want).abs().max()),
+                            ms=ms, allreduce_ms=reduce_ms, collective_share=reduce_ms / ms,
+                            gather_scores_launches=launches),
+                rows_update=rows)
+
+
+def mesh_train(mesh, dev, seed, out_dir) -> dict:
+    """(c) stablelm-3b at full width, 2 layers, float32, mesh (2, 2): 3
+    sharded steps on the global batch against 3 one-rank steps from the same
+    seed (on rank 0), launches counted; a checkpoint written under the mesh
+    restored by one rank bit-equal."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.parallel import gather_train_state, shard_train_state
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), num_layers=MESH_TRAIN_LAYERS,
+                              dtype="float32")
+    hcfg = lm_head.head_config(cfg, "adversarial_ns", reg=1e-4)
+    ocfg = optim.OptimizerConfig(**MESH_TRAIN_OPT)
+
+    def fresh():
+        return train_lib.init_train_state(torch.Generator(device=dev).manual_seed(seed + 41),
+                                          cfg, ocfg, "adversarial_ns", device=dev)
+
+    make = lm_batch_fn(cfg.vocab_size, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, seed=seed)
+    batch = lambda s: {k: torch.as_tensor(v).to(dev) for k, v in make(s).items()}  # noqa: E731
+    state = shard_train_state(fresh(), mesh)
+    step = train_lib.make_train_step(cfg, hcfg, ocfg, mesh=mesh)
+    names = ("sampled_head_loss", "segment_stats")
+    torch.cuda.synchronize()
+    for name in names:
+        getattr(ops, name).launches = 0
+    losses, step_ms = [], []
+    for s in range(MESH_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch(s), step_generator(seed, s, dev))
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = {name: getattr(ops, name).launches for name in names}
+    full = gather_train_state(state, mesh)
+    ckpt = str(Path(out_dir) / "ckpt")
+    lead = dist.get_rank() == 0
+    if lead:
+        save_checkpoint(ckpt, MESH_TRAIN_STEPS, full.as_pytree())
+    dist.barrier()
+    out = dict(arch=LM_ARCH, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+               batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ, optimizer=MESH_TRAIN_OPT,
+               loss=losses, ms_per_step=step_ms, launches=launches)
+    if lead:
+        restored, _ = restore_checkpoint(ckpt, full.as_pytree(), step=MESH_TRAIN_STEPS)
+        pairs = list(zip(tree_util.leaves(restored), tree_util.leaves(full.as_pytree())))
+        out["checkpoint_bit_equal"] = all(
+            torch.equal(x, y) if isinstance(y, torch.Tensor) else x == y for x, y in pairs)
+        check(out["checkpoint_bit_equal"], "a checkpoint written under the mesh did not "
+              "restore bit-equal in one process")
+        del restored
+        one, one_step, one_losses = fresh(), train_lib.make_train_step(cfg, hcfg, ocfg), []
+        for s in range(MESH_TRAIN_STEPS):
+            one, m = one_step(one, batch(s), step_generator(seed, s, dev))
+            one_losses.append(float(m["loss"]))
+        out["one_rank_loss"] = one_losses
+        out["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+        worst = 0.0
+        for x, y in zip(tree_util.leaves(full.params), tree_util.leaves(one.params)):
+            excess = (x - y).abs() - (MESH_PARAM_TOL["atol"] + MESH_PARAM_TOL["rtol"] * y.abs())
+            worst = max(worst, float(excess.max()))
+        out["param_excess_over_tol"] = worst
+        check(out["loss_rel_err"] <= MESH_LOSS_RTOL,
+              f"sharded losses {losses} against one rank's {one_losses}")
+        check(worst <= 0.0, "sharded parameters differ from one rank's beyond the reference's "
+                            "bounds")
+        del one
+    dist.barrier()
+    return out
+
+
+def mesh_worker(out_dir: str, seed: int) -> int:
+    """One rank of phase 13's world (started by ``torchrun``): (a) on a
+    (1, 4) mesh, (c) on a (2, 2) mesh; its results to ``rank<r>.json``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device(MESH_DEVICE)
+    mesh = make_host_mesh(MESH_RANKS, MESH_DEVICE, timeout_s=MESH_TIMEOUT_S)
+    res = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "collectives": mesh_collectives(mesh, dev, seed)}
+    torch.cuda.empty_cache()
+    mesh22 = make_host_mesh(MESH_RANKS // 2, MESH_DEVICE, timeout_s=MESH_TIMEOUT_S)
+    res["train"] = mesh_train(mesh22, dev, seed, out_dir)
+    Path(out_dir, f"rank{res['rank']}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def torchrun(n: int, argv: list, timeout: float) -> str:
+    """Run ``torchrun --standalone --nproc-per-node n argv`` in its own
+    session; any rank's failure, or the time limit, is fatal, and the whole
+    session is killed then."""
+    import os
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n)] + argv
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        check(False, f"{' '.join(argv[:3])}: no result within {timeout} s")
+    check(proc.returncode == 0, f"{' '.join(argv[:3])} exited {proc.returncode}:\n"
+                                f"{err[-3000:]}")
+    return out
+
+
+def mesh_serve_args(path: str, seed: int) -> list:
+    base = ["--arch", SERVE_ARCH, "--full", "--gen", str(SERVE_GEN), "--seed", str(seed + 42)]
+    if path == "engine":
+        return base + ["--batch", str(MESH_ENGINE_BATCH), "--prompt-len",
+                       str(MESH_ENGINE_PROMPT), "--topk-beam", str(SERVE_BEAM)]
+    return base + ["--lockstep", "--batch", str(SERVE_BATCH), "--prompt-len",
+                   str(SERVE_PROMPT), "--topk-beam", str(SERVE_BEAM if path == "beam" else 0)]
+
+
+def mesh_path(dev, seed, card) -> dict:
+    """Phase 13: (a) and (c) in one world of 4 ranks on the card; (b) the
+    serving launcher under torchrun, 2 ranks, against the one-rank run of
+    the same flags here; (d) the serving launcher as a one-rank NCCL
+    world. Returns the launches of every rank of every world."""
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torchrun(MESH_RANKS, [__file__, "--mesh-worker", tmp, "--seed", str(seed)],
+                 timeout=MESH_TIMEOUT_S + 120)
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+    for r in ranks:
+        check(r["backend"] == "gloo", f"rank {r['rank']} ran on {r['backend']}")
+        total["gather_scores"] += r["collectives"]["scores"]["gather_scores_launches"]
+        check(r["train"]["launches"]["sampled_head_loss"] == MESH_TRAIN_STEPS,
+              f"rank {r['rank']}: sampled_head_loss {r['train']['launches']}")
+        check(r["train"]["launches"]["segment_stats"] > 0, "no segment_stats in the mesh step")
+        for name, n in r["train"]["launches"].items():
+            total[name] += n
+    print(json.dumps({"mesh_collectives": dict(card=card, ranks=[
+        dict(rank=r["rank"], **r["collectives"]) for r in ranks])}))
+    print(json.dumps({"mesh_train": dict(card=card, lead=ranks[0]["train"], ranks=[
+        dict(rank=r["rank"], loss=r["train"]["loss"], ms_per_step=r["train"]["ms_per_step"],
+             launches=r["train"]["launches"]) for r in ranks])}))
+
+    # (b) the one-rank runs here, then the same flags under torchrun.
+    cfg, params, state, hcfg = serve.build(SERVE_ARCH, reduced=False, head="adversarial_ns",
+                                           seed=seed + 42, device=dev)
+    one = {}
+    for path in ("dense", "beam", "engine"):
+        args = serve.parse_args(mesh_serve_args(path, seed) + ["--device", "cuda"])
+        with torch.no_grad(), contextlib.redirect_stdout(sys.stderr):
+            if path == "engine":
+                run = serve.run_engine(args, cfg, params, state, hcfg, dev)
+                one[path] = [[int(x) for x in h.tokens] for h in run["handles"]]
+            else:
+                one[path] = serve.run_lockstep(args, cfg, params, state, hcfg, dev)[
+                    "tokens"].tolist()
+    del params, state
+    torch.cuda.empty_cache()
+    served = {}
+    for path in ("dense", "beam", "engine"):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = torchrun(MESH_SERVE_RANKS, [
+                "-m", "repro_torch.launch.serve", *mesh_serve_args(path, seed), "--device",
+                MESH_DEVICE, "--model-axis", str(MESH_SERVE_RANKS), "--shard-scores",
+                "--report-dir", tmp], timeout=600)
+            reports = [json.loads(Path(tmp, f"serve_rank{r}.json").read_text())
+                       for r in range(MESH_SERVE_RANKS)]
+        check("backend gloo" in out, f"serve {path}: {out[:200]}")
+        for rep in reports:
+            check(rep["tokens"] == one[path],
+                  f"serve {path}: rank {rep['rank']}'s tokens differ from the one-rank run's")
+            for name, n in rep["launches"].items():
+                total[name] += n
+        served[path] = dict(tokens_equal=True, ranks=[
+            dict(rank=rep["rank"], launches=rep["launches"],
+                 ms_per_token=rep["decode_ms"] / rep["steps"] if "steps" in rep else None,
+                 prefill_ms=rep.get("prefill_ms"), wall_ms=rep.get("wall_ms"))
+            for rep in reports])
+        want_scores = 0 if path == "dense" else 1
+        check(all((rep["launches"]["gather_scores"] > 0) == bool(want_scores)
+                  and (rep["launches"]["tree_logprob_all"] > 0) != bool(want_scores)
+                  for rep in reports), f"serve {path}: launches {reports}")
+    print(json.dumps({"mesh_serve": dict(card=card, arch=SERVE_ARCH, served=served)}))
+
+    # (d) one rank of NCCL.
+    with tempfile.TemporaryDirectory() as tmp:
+        flags = ["--arch", SERVE_ARCH, "--reduced", "--lockstep", "--topk-beam", "8",
+                 "--seed", str(seed)]
+        out = torchrun(1, ["-m", "repro_torch.launch.serve", *flags, "--device", "cuda",
+                           "--report-dir", tmp], timeout=300)
+        nccl = json.loads(Path(tmp, "serve_rank0.json").read_text())
+    check("backend nccl" in out, f"one-rank world not on NCCL: {out[:200]}")
+    small = serve.build(SERVE_ARCH, reduced=True, head="adversarial_ns", seed=seed, device=dev)
+    with torch.no_grad(), contextlib.redirect_stdout(sys.stderr):
+        want = serve.run_lockstep(serve.parse_args(flags), *small, dev)["tokens"].tolist()
+    check(nccl["tokens"] == want, "the NCCL world's tokens differ from the one-process run's")
+    for name, n in nccl["launches"].items():
+        total[name] += n
+    result = dict(card=card, wall_s=time.perf_counter() - t_phase, launches=dict(total),
+                  nccl=dict(tokens_equal=True, launches=nccl["launches"]))
+    print(json.dumps({"mesh_path": result}))
+    return dict(total)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--mesh-worker", default=None,
+                        help="run as one rank of phase 13's world (under torchrun)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 2
+    if args.mesh_worker:
+        return mesh_worker(args.mesh_worker, args.seed)
     dev = device_lib.resolve("cuda")
     card = card_line()
     print(card)
@@ -3222,6 +3552,8 @@ def main() -> int:
         if name in launches:
             launches[name] += n
     for name, n in backbone_path(dev, args.seed, card).items():
+        launches[name] += n
+    for name, n in mesh_path(dev, args.seed, card).items():
         launches[name] += n
     src = "src/repro_torch/kernels/csrc"
     kernels = [

@@ -272,7 +272,8 @@ def _sampled_metrics(cfg: HeadConfig, xi: torch.Tensor, mean) -> dict:
 def sparse_candidate_loss(cfg: HeadConfig, params: HeadParams, h: torch.Tensor,
                           ids: torch.Tensor, slot_logp: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
-                          softcap: float = 0.0):
+                          softcap: float = 0.0,
+                          denom: Optional[torch.Tensor] = None):
     """The sampled loss of given candidates with O(B·K·n_neg) analytic
     gradients — no (C, K) buffer anywhere.
 
@@ -282,7 +283,8 @@ def sparse_candidate_loss(cfg: HeadConfig, params: HeadParams, h: torch.Tensor,
     CUDA kernel on the card); the head gradient is the per-unique-row sums
     of the rank-1 terms ``coeff · h`` (``optim.sparse.accumulate_rows``).
     ``softcap`` applies the final-logit softcap, its chain rule folded into
-    the coefficients.
+    the coefficients. ``denom`` replaces the mask count as the loss's
+    normaliser (a data-parallel rank passes the global batch's count).
 
     Returns ``(loss, metrics, SparseRows, dh)`` with dh = dL/dh (float32).
     """
@@ -290,7 +292,8 @@ def sparse_candidate_loss(cfg: HeadConfig, params: HeadParams, h: torch.Tensor,
     kdim = h.shape[-1]
     if mask is None:
         mask = torch.ones(batch_shape, dtype=torch.float32, device=h.device)
-    denom = mask.sum().clamp(min=1.0)
+    if denom is None:
+        denom = mask.sum().clamp(min=1.0)
     h2 = h.reshape(-1, kdim).float().contiguous()
     ids2 = ids.reshape(-1, m).contiguous()
     loss_vec, coeff, xi, dh2 = ops.sampled_head_loss(

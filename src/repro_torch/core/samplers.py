@@ -15,6 +15,8 @@ Every sampler implements three methods:
       Proposal log-probability of given labels.
   log_prob_all(x_gen) -> (..., C)
       Dense log p_n(·|x) for all labels — full-vocab Eq. 5 bias removal.
+  uniform_shape(shape) -> the shape of the uniforms ``u`` of ``sample``
+      (a data-parallel step draws the global batch's and keeps its rows).
 
 Implementations:
 
@@ -110,6 +112,9 @@ class TreeSampler(NamedTuple):
     balanced probabilistic tree, O(k log C) per draw (§3)."""
     tree: tree_lib.Tree
 
+    def uniform_shape(self, shape):
+        return tuple(shape) + (self.tree.depth,)
+
     def sample(self, generator, x_gen, shape, u=None):
         return tree_lib.sample(self.tree, _align(x_gen, shape),
                                generator=generator, u=u)
@@ -124,6 +129,9 @@ class TreeSampler(NamedTuple):
 class UniformSampler(NamedTuple):
     """Uniform over the C real labels (baseline i)."""
     num_labels: int
+
+    def uniform_shape(self, shape):
+        return tuple(shape)
 
     def sample(self, generator, x_gen, shape, u=None):
         shape = tuple(shape)
@@ -158,6 +166,9 @@ class UnigramSampler(NamedTuple):
     """
     freq_log: torch.Tensor   # (C,) smoothed log-frequencies (debiasing)
     freq_cdf: torch.Tensor   # (C,) unsmoothed inclusive CDF (sampling)
+
+    def uniform_shape(self, shape):
+        return tuple(shape)
 
     def sample(self, generator, x_gen, shape, u=None):
         u = _uniforms(generator, u, tuple(shape), self.freq_cdf.device)
@@ -244,6 +255,9 @@ class LshSampler(NamedTuple):
     def log_prob_all(self, x_gen):
         code = self._code(x_gen)[..., None]                     # (..., 1)
         return self._mixture(self._bucket_prob(code, self.label_code == code))
+
+    def uniform_shape(self, shape):
+        return tuple(shape) + (3,)
 
     def sample(self, generator, x_gen, shape, u=None):
         shape = tuple(shape)
@@ -344,6 +358,9 @@ class RffSampler(NamedTuple):
         e, mz, den = self._features(x_gen)
         num = e @ torch.exp(self.log_z - mz).T                     # (..., C)
         return self._mixture_log_prob(num, den[..., None])
+
+    def uniform_shape(self, shape):
+        return tuple(shape) + (4,)
 
     def sample(self, generator, x_gen, shape, u=None):
         shape = tuple(shape)

@@ -25,8 +25,24 @@ prefix-keyed candidate cache on the beam path, and the opt-in multi-tenant
 features (``--prefix-sharing``, ``--spec-decode``, ``--preemption``,
 ``--page-growth ondemand``, ``--max-queue``, ``--enforce-deadlines``).
 ``--lockstep`` runs the fixed-batch loop instead; the two emit identical
-tokens. ``--shard-scores`` and ``--model-axis`` above 1 (mesh serving) are
-ROADMAP item 12 and raise.
+tokens.
+
+Under ``torchrun`` every rank serves the same requests on a ("data",
+"model") mesh of ``--model-axis`` model ranks (:mod:`repro_torch.launch.
+mesh`); rank 0 alone prints:
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --model-axis 2 --shard-scores \
+      --device cpu|cuda|cuda:0 ...
+
+The embedding's and the head's rows are sharded over ``model`` (as the
+reference's ``param_spec`` shards them), so the beam path always scores
+through ``sharded_candidate_scores`` and the dense path merges each rank's
+argmax; the trunk and the KV cache are whole on every rank.
+``--shard-scores`` selects that lowering, the only one the port has, and
+is kept so that the reference's command lines run. ``--model-axis`` above
+1 without ``torchrun`` raises. ``--report-dir`` makes each rank write its
+tokens, times and kernel launches to ``serve_rank<r>.json`` there.
 
 Attention runs through the ``flash_attention`` kernel on the card (paged in
 the engine). The weights are random from ``--seed`` and cast once to the
@@ -37,6 +53,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import sys
 import time
 from typing import Optional
@@ -46,8 +64,13 @@ import torch
 
 from repro_torch import configs as cfg_lib
 from repro_torch import device as device_lib
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm_head, transformer
+from repro_torch.parallel import shard_train_state
 from repro_torch.train import make_prefill, make_serve_step
+
+KERNELS = ("flash_attention", "gather_scores", "tree_logprob_all")
 
 
 def build(arch: str, *, reduced: bool, head: str, seed: int, device="cuda",
@@ -78,16 +101,18 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_lockstep(args, cfg, params, head_state, hcfg, dev: torch.device) -> dict:
+def run_lockstep(args, cfg, params, head_state, hcfg, dev: torch.device,
+                 mesh=None) -> dict:
     """Fixed-batch decode: one lock-step batch, no admission. Rows that emit
     ``--eos-id`` are frozen (their subsequent tokens pinned to EOS) and the
     loop exits early once every row has finished. Returns the prompts, the
     generated tokens (B, steps), the prefill ms and the decode ms, each on
-    the host clock ending in a synchronize, and the cache and last token."""
+    the host clock ending in a synchronize, and the cache and last token.
+    Under ``mesh`` the params are this rank's."""
     max_len = args.prompt_len + args.gen
     cache = transformer.init_cache(cfg, args.batch, max_len, device=dev)
-    prefill = make_prefill(cfg)
-    serve_step = make_serve_step(cfg, hcfg, topk_beam=args.topk_beam)
+    prefill = make_prefill(cfg, mesh=mesh)
+    serve_step = make_serve_step(cfg, hcfg, topk_beam=args.topk_beam, mesh=mesh)
 
     prompts = _prompts(args, cfg, dev)
     _sync(dev)
@@ -133,7 +158,8 @@ def run_lockstep(args, cfg, params, head_state, hcfg, dev: torch.device) -> dict
                 decode_ms=decode_ms, steps=steps, cache=cache, token=token)
 
 
-def run_engine(args, cfg, params, head_state, hcfg, dev: torch.device) -> dict:
+def run_engine(args, cfg, params, head_state, hcfg, dev: torch.device,
+               mesh=None) -> dict:
     """The continuous-batching engine over ``--batch`` requests of
     ``--prompt-len`` tokens and ``--gen`` new tokens each, on ``--slots``
     lanes. Prints the run's throughput, the engine's stats, the latency
@@ -156,7 +182,7 @@ def run_engine(args, cfg, params, head_state, hcfg, dev: torch.device) -> dict:
         spec_decode=args.spec_decode, max_draft=args.max_draft,
         preemption=args.preemption, page_growth=args.page_growth,
         max_queue=args.max_queue,
-        enforce_deadlines=args.enforce_deadlines),
+        enforce_deadlines=args.enforce_deadlines, mesh=mesh),
         exporter=exporter, metrics_interval=args.metrics_interval)
     metrics_server = None
     if args.metrics_port is not None:
@@ -229,9 +255,14 @@ def parse_args(argv=None):
                     help="0 = dense O(C) scoring; B > 0 = tree-guided beam "
                          "search over B candidates, O(B k log C) per token")
     ap.add_argument("--model-axis", type=int, default=1,
-                    help="model-parallel mesh axis (above 1: ROADMAP item 12)")
+                    help="model ranks of the (data, model) mesh under torchrun; "
+                         "the head's and the embedding's rows shard over them")
     ap.add_argument("--shard-scores", action="store_true",
-                    help="mesh-sharded candidate scoring (ROADMAP item 12)")
+                    help="score beam candidates with sharded_candidate_scores: "
+                         "the only lowering of a mesh, selected under one anyway")
+    ap.add_argument("--report-dir", default=None,
+                    help="each rank writes serve_rank<r>.json (tokens, ms, kernel "
+                         "launches) into this directory")
     ap.add_argument("--lockstep", action="store_true",
                     help="fixed-batch decode instead of the engine")
     ap.add_argument("--metrics-jsonl", default=None,
@@ -274,19 +305,45 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def _report(args, mesh, out: dict, tokens, launches: dict) -> None:
+    """This rank's ``serve_rank<r>.json`` in ``--report-dir``: the tokens of
+    each request, the kernel launches of the run, its host-clock times."""
+    r = torch.distributed.get_rank() if mesh is not None else 0
+    os.makedirs(args.report_dir, exist_ok=True)
+    rec = {"rank": r, "path": "lockstep" if args.lockstep else "engine",
+           "beam": args.topk_beam, "tokens": [[int(x) for x in row] for row in tokens],
+           "launches": launches,
+           **{k: out[k] for k in ("prefill_ms", "decode_ms", "steps", "wall_ms") if k in out}}
+    with open(os.path.join(args.report_dir, f"serve_rank{r}.json"), "w") as f:
+        json.dump(rec, f)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.shard_scores or args.model_axis > 1:
-        raise NotImplementedError("mesh serving (--shard-scores, --model-axis) is "
-                                  "not ported yet (ROADMAP item 12)")
-    dev = device_lib.resolve(args.device)
+    mesh = mesh_lib.launcher_mesh(args.model_axis, args.device, "repro_torch.launch.serve")
+    dev = (mesh_lib.rank_device(args.device) if mesh is not None
+           else device_lib.resolve(args.device))
+    if not mesh_lib.is_lead(mesh):
+        sys.stdout = open(os.devnull, "w")
+    if mesh is not None:
+        print(mesh_lib.describe(mesh))
     cfg, params, head_state, hcfg = build(args.arch, reduced=args.reduced, head=args.head,
                                           seed=args.seed, device=dev)
+    if mesh is not None:
+        params = shard_train_state(params, mesh)
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
     with torch.no_grad():
         if args.lockstep:
-            run_lockstep(args, cfg, params, head_state, hcfg, dev)
+            out = run_lockstep(args, cfg, params, head_state, hcfg, dev, mesh=mesh)
+            tokens = out["tokens"]
         else:
-            run_engine(args, cfg, params, head_state, hcfg, dev)
+            out = run_engine(args, cfg, params, head_state, hcfg, dev, mesh=mesh)
+            tokens = [h.tokens for h in out["handles"]]
+    if args.report_dir:
+        _report(args, mesh, out, tokens, {n: getattr(ops, n).launches for n in KERNELS})
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return 0
 
 

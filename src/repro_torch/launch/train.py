@@ -1,5 +1,5 @@
 """Training launcher: build the model, the step and the fault-tolerant loop,
-as ``repro.launch.train`` on one device.
+as ``repro.launch.train``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --reduced --device cpu --steps 20 --head adversarial_ns --ckpt /tmp/ckpt
@@ -9,18 +9,33 @@ raises rather than falling back to the CPU). On the card the sparse head
 path always runs the ``sampled_head_loss`` kernel, the generator fits sum
 through ``segment_stats``, and attention is the plain differentiable one
 (the ``flash_attention`` kernel is forward-only). The reference's
-``--head-kernel`` switch has no counterpart, and ``--model-axis`` with the
-mesh shardings waits for the parallel slice (ROADMAP item 12).
+``--head-kernel`` switch has no counterpart.
+
+Under ``torchrun`` the run is data-parallel over a ("data", "model") mesh
+with ``--model-axis`` model ranks, the embedding's and the head's rows
+sharded over ``model`` (:mod:`repro_torch.launch.mesh`); rank 0 alone
+prints:
+
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --model-axis 2 --device cpu|cuda|cuda:0 ...
+
+Every rank builds the full state from the seed and keeps its rows; the
+step takes the global batch (``--batch``) and splits it over ``data``, so
+the run equals the one-rank run. ``--model-axis`` above 1 without
+``torchrun`` raises.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 
 import torch
 
 from repro_torch import configs as cfg_lib
 from repro_torch import device as device_lib
 from repro_torch.data import lm_batch_fn
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm_head
 from repro_torch.optim import OptimizerConfig
 from repro_torch.train import LoopConfig, init_train_state, make_train_step, run_loop
@@ -53,7 +68,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--device", default="cuda",
-                    help="where the model trains (default cuda; cpu for tests)")
+                    help="where the model trains (default cuda; cpu for tests); "
+                         "under torchrun cuda is each rank's own card, cuda:N one "
+                         "card for every rank")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="model ranks of the (data, model) mesh under torchrun")
     ap.add_argument("--head", default="adversarial_ns")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
@@ -144,10 +163,12 @@ def loop_config(args) -> LoopConfig:
                       gen_fit_timeout_s=args.gen_fit_timeout)
 
 
-def setup(args):
+def setup(args, mesh=None):
     """Everything ``main`` runs: (cfg, hcfg, state, train_step, batch_fn,
-    gen_fit_fn, loop config)."""
-    dev = device_lib.resolve(args.device)
+    gen_fit_fn, loop config). Under ``mesh`` the state is this rank's and
+    ``batch_fn`` gives the global batches."""
+    dev = (mesh_lib.rank_device(args.device) if mesh is not None
+           else device_lib.resolve(args.device))
     cfg, hcfg, opt = build(args)
     state = init_train_state(torch.Generator(device=dev).manual_seed(PARAM_SEED), cfg,
                              opt, args.head, device=dev)
@@ -164,25 +185,33 @@ def setup(args):
         print(f"sampler: {type(sampler).__name__} (--sampler {args.sampler})")
     train_step = make_train_step(cfg, hcfg, opt, head_update=args.head_update,
                                  sampler=sampler,
-                                 skip_nonfinite=args.nonfinite_policy == "skip")
+                                 skip_nonfinite=args.nonfinite_policy == "skip", mesh=mesh)
     gen_cb = None
     if args.gen_warmup and args.head in ("adversarial_ns", "nce", "sampled_softmax",
                                          "freq_ns"):
         gen_cb = make_gen_fit_fn(cfg, batch_fn, kind=args.head, max_tokens=8192,
                                  method=args.gen_method)
+    if mesh is not None:
+        from repro_torch.parallel import shard_train_state
+        state = shard_train_state(state, mesh)
     return cfg, hcfg, state, train_step, batch_fn, gen_cb, loop_config(args)
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    cfg, hcfg, state, train_step, batch_fn, gen_cb, loop = setup(args)
+    mesh = mesh_lib.launcher_mesh(args.model_axis, args.device, "repro_torch.launch.train")
+    if not mesh_lib.is_lead(mesh):
+        sys.stdout = open(os.devnull, "w")
+    if mesh is not None:
+        print(mesh_lib.describe(mesh))
+    cfg, hcfg, state, train_step, batch_fn, gen_cb, loop = setup(args, mesh)
     print(f"model: {cfg.name} ({'reduced' if args.reduced else 'full'}), "
           f"{cfg.param_count() / 1e6:.1f}M params on {args.device}")
     from repro_torch.obs import Registry, console_summary
     registry = Registry() if (args.metrics_jsonl or args.profile_dir) else None
     state, hist = run_loop(
         state, train_step, batch_fn, loop, LOOP_SEED, gen_fit_fn=gen_cb,
-        registry=registry,
+        registry=registry, mesh=mesh,
         on_step=lambda s, m: print(f"step {s:4d} loss={m['loss']:.4f} "
                                    f"{m['step_time'] * 1e3:.0f}ms", flush=True))
     print(f"final loss {hist['loss'][-1]:.4f}; stragglers={hist['stragglers']}")
@@ -193,6 +222,8 @@ def main(argv=None):
         if args.profile_dir:
             print(f"profile: {args.profile_dir} (a torch.profiler Chrome trace; host "
                   f"spans annotate it)")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return state, hist
 
 

@@ -66,24 +66,33 @@ def _softcap_score_fn(cap: float, base: heads_lib.ScoreFn) -> heads_lib.ScoreFn:
     return fn
 
 
-def serving_score_fn(cfg: ModelConfig) -> heads_lib.ScoreFn:
+def serving_score_fn(cfg: ModelConfig, mesh=None) -> heads_lib.ScoreFn:
     """Candidate scorer of the beam path, final softcap included: the
     ``gather_scores`` kernel on the card (its plain version on the CPU).
-    The reference's vocab-sharded scorer (``mesh=``) waits for ROADMAP
-    item 12."""
+    With ``mesh`` the head's params are this rank's rows and the scorer is
+    ``parallel.collectives.sharded_candidate_scores``: each ``model`` rank
+    scores the candidates it owns, one ``all_reduce`` of the scores."""
+    base = heads_lib.kernel_scores
+    if mesh is not None:
+        from repro_torch.parallel.collectives import sharded_candidate_scores
+
+        def base(p: HeadParams, hh, ids):
+            return sharded_candidate_scores(mesh, p.w, p.b, hh, ids)
     if cfg.final_logit_softcap:
-        return _softcap_score_fn(cfg.final_logit_softcap, heads_lib.kernel_scores)
-    return heads_lib.kernel_scores
+        return _softcap_score_fn(cfg.final_logit_softcap, base)
+    return base
 
 
-def masked_full_logits(cfg: ModelConfig, params: HeadParams, h: torch.Tensor
-                       ) -> torch.Tensor:
-    """(…, V_pad) logits with padded rows masked and final softcap applied."""
+def masked_full_logits(cfg: ModelConfig, params: HeadParams, h: torch.Tensor,
+                       lo: int = 0) -> torch.Tensor:
+    """(…, V_pad) logits with padded rows masked and final softcap applied;
+    with ``params`` the rows [lo, lo + n) of a row-sharded head, that
+    (…, n) slice (rows masked by their global index)."""
     logits = heads_lib.full_logits(params, h)
     if cfg.final_logit_softcap:
         logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
-    pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
-    return torch.where(pad_mask, logits, -1e30)
+    rows = torch.arange(lo, lo + params.w.shape[0], device=logits.device)
+    return torch.where(rows < cfg.vocab_size, logits, -1e30)
 
 
 def lm_head_loss(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
@@ -136,6 +145,51 @@ def lm_sparse_head_loss(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
         mask=mask, softcap=cfg.final_logit_softcap, sampler=sampler, u=u)
 
 
+def lm_sharded_head_loss(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
+                         state: LMHeadState, h: torch.Tensor, labels: torch.Tensor,
+                         generator: torch.Generator, mesh, global_shape: Tuple[int, ...],
+                         mask: Optional[torch.Tensor] = None, sampler=None):
+    """:func:`lm_sparse_head_loss` of one rank of a ``("data", "model")``
+    mesh: h and labels are its ``data`` slice of a global batch whose
+    labels have ``global_shape``, ``params`` its rows of the head.
+
+    The uniforms are the global batch's, drawn from ``generator`` (the one
+    draw a one-rank step makes), and the rank keeps its rows. Its candidate
+    rows are gathered from their owners into a compact (U, K) table
+    (``collectives.sharded_gather_rows``) and the ``sampled_head_loss``
+    kernel runs on it with the ids remapped; the ``SparseRows`` come back in
+    global ids. The loss, the metrics, the coefficients and dh are
+    normalised by the global mask count, so each data rank returns its
+    share of the global values (their sum over ``data`` is the one-rank
+    step's). Returns (loss, metrics, SparseRows, dh)."""
+    import torch.distributed as dist
+    from repro_torch.core import samplers as samplers_lib
+    from repro_torch.optim.sparse import SparseRows
+    from repro_torch.parallel import collectives, sharding
+    x_gen = gen_features(state, h)
+    labels = labels.long()
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    if sampler is None:
+        sampler = samplers_lib.sampler_from_config(hcfg, state.gen)
+    draw = tuple(global_shape) + (hcfg.n_neg,)
+    u = torch.rand(sampler.uniform_shape(draw), generator=generator,
+                   device=generator.device)
+    u = u[sharding.batch_slice(draw[0], mesh)].to(h.device)
+    ids, slot_logp, _ = heads_lib._sample_candidates(hcfg, state.gen, x_gen, labels, None,
+                                                     sampler=sampler, u=u)
+    uniq, inv = torch.unique(ids, return_inverse=True)
+    table = HeadParams(w=collectives.sharded_gather_rows(mesh, params.w, uniq),
+                       b=collectives.sharded_gather_rows(mesh, params.b, uniq))
+    denom = mask.float().sum().reshape(1)
+    if sharding.size(mesh, "data") > 1:
+        dist.all_reduce(denom, group=sharding.group(mesh, "data"))
+    loss, metrics, rows, dh = heads_lib.sparse_candidate_loss(
+        hcfg, table, h.detach(), inv.reshape(ids.shape), slot_logp, mask=mask,
+        softcap=cfg.final_logit_softcap, denom=denom[0].clamp(min=1.0))
+    return loss, metrics, SparseRows(ids=uniq[rows.ids], dw=rows.dw, db=rows.db), dh
+
+
 def lm_predictive_topk(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
                        state: LMHeadState, h: torch.Tensor, topk: int,
                        beam: Optional[int] = None,
@@ -160,15 +214,40 @@ def lm_predictive_topk(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
 
 
 def lm_predictive_scores(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
-                         state: LMHeadState, h: torch.Tensor) -> torch.Tensor:
-    """Full-vocab scores with Eq. 5 bias removal (adversarial head)."""
-    scores = masked_full_logits(cfg, params, h)
+                         state: LMHeadState, h: torch.Tensor, lo: int = 0) -> torch.Tensor:
+    """Full-vocab scores with Eq. 5 bias removal (adversarial head).
+
+    With ``params`` the rows [lo, lo + n) of a row-sharded head, the
+    (…, n) slice of the scores: the padding mask and the debias are taken
+    at the global rows (the tree's pass runs whole and is sliced)."""
+    hi = lo + params.w.shape[0]
+    scores = masked_full_logits(cfg, params, h, lo)
     if not hcfg.debias:
         return scores
     pad = cfg.padded_vocab - cfg.vocab_size
     if hcfg.kind == "adversarial_ns" and state.gen.tree is not None:
         log_pn = tree_lib.log_prob_all(state.gen.tree, gen_features(state, h))
-        return scores + torch.nn.functional.pad(log_pn, (0, pad))
+        return scores + torch.nn.functional.pad(log_pn, (0, pad))[..., lo:hi]
     if hcfg.kind == "freq_ns":
-        return scores + torch.nn.functional.pad(state.gen.freq_log, (0, pad))
+        return scores + torch.nn.functional.pad(state.gen.freq_log, (0, pad))[lo:hi]
     return scores
+
+
+def sharded_argmax(mesh, scores: torch.Tensor, lo: int) -> torch.Tensor:
+    """The global argmax over ``model`` of row-sliced scores (…, V/tp)
+    starting at global row ``lo``: each rank's (max, index) are gathered
+    and the largest wins, ties to the lowest index as ``torch.argmax``
+    breaks them, so the result equals the one-rank argmax."""
+    import torch.distributed as dist
+    from repro_torch.parallel import sharding
+    idx = scores.argmax(dim=-1)
+    val = torch.gather(scores, -1, idx[..., None])[..., 0]
+    g = sharding.group(mesh, "model")
+    n = dist.get_world_size(g)
+    vals = [torch.empty_like(val) for _ in range(n)]
+    idxs = [torch.empty_like(idx) for _ in range(n)]
+    dist.all_gather(vals, val.contiguous(), group=g)
+    dist.all_gather(idxs, (idx + lo).contiguous(), group=g)
+    vals, idxs = torch.stack(vals, -1), torch.stack(idxs, -1)
+    best = vals.argmax(dim=-1, keepdim=True)   # first max: the lowest rank's
+    return torch.gather(idxs, -1, best)[..., 0]

@@ -18,8 +18,9 @@ Where the port differs in form from the reference, each for a reason:
   kept assignments in choice order. A scatter-add on the card adds with
   atomics in no fixed order; the gather gives the same bits every call;
 - the reference's sharding hints around the expert matmuls are no-ops
-  without a mesh and are left out until the parallel slice (ROADMAP item
-  12).
+  without a mesh and are left out until the trunk is sharded (ROADMAP
+  item 12, slice 10: the port's mesh shards only the embedding and the
+  head so far).
 """
 from __future__ import annotations
 

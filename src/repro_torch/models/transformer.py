@@ -231,11 +231,17 @@ def _block(layer_params, cfg: ModelConfig, h, positions, window: int,
 # ---------------------------------------------------------------------------
 
 def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
-                 vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 vision_embeds: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Token embedding in ``cfg.dtype``; a vision frontend's precomputed
-    (B, n_vis, d) embeddings are prepended (the modality stub)."""
+    (B, n_vis, d) embeddings are prepended (the modality stub). Under a
+    ``mesh`` the table holds this rank's rows and the gather is
+    ``collectives.sharded_gather_rows`` (a collective over ``model``)."""
     cdt = L._dtype(cfg)
-    h = params["embed"][tokens].to(cdt)
+    if mesh is not None:
+        from repro_torch.parallel.collectives import sharded_gather_rows
+        h = sharded_gather_rows(mesh, params["embed"], tokens).to(cdt)
+    else:
+        h = params["embed"][tokens].to(cdt)
     if vision_embeds is not None:
         h = torch.cat([vision_embeds.to(device=h.device, dtype=cdt), h], dim=1)
     return h
@@ -261,7 +267,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Optional[Dict[str, torch.Tensor]] = None,
             cache_pos=None, inputs_embeds: Optional[torch.Tensor] = None,
             attn_impl: str = "kernel", page_table=None,
-            write_mask=None) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
+            write_mask=None, mesh=None) -> Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]:
     """Run the stack. Returns (hidden (B,S,d), cache, metrics).
 
     - training:        cache=None
@@ -301,11 +307,14 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     gradients itself. ``attn_impl`` is ``"kernel"`` (serving) or
     ``"plain"`` (training, see :func:`repro_torch.models.layers.attention`).
 
+    ``mesh``: the embedding is row-sharded over its ``model`` dim
+    (:func:`embed_inputs`); the rest of the stack is whole on every rank.
+
     ``metrics``: a mixture-of-experts model's ``moe_dropped_frac`` and
     ``moe_router_entropy``, each the mean over layers; otherwise empty.
     """
     h = (inputs_embeds if inputs_embeds is not None
-         else embed_inputs(params, cfg, tokens, vision_embeds))
+         else embed_inputs(params, cfg, tokens, vision_embeds, mesh=mesh))
     bsz, s, _ = h.shape
     base = 0 if cache_pos is None else cache_pos
     mask_pos = None

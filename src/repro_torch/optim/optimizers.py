@@ -41,8 +41,17 @@ Memory-cheap head state:
 
 Scalars follow the JAX package's float32 arithmetic: bias corrections are
 float32 powers, the catch-up's per-row learning rates come from the
-float32 tensor form of :func:`schedule`. Vocab-sharded row updates
-(``mesh=``) are not ported yet (ROADMAP Queue 1 item 12).
+float32 tensor form of :func:`schedule`.
+
+Under a ``("data", "model")`` mesh (``mesh=``) the head's and the
+embedding's tables are row-sharded (:mod:`repro_torch.parallel.sharding`)
+and their sparse rows go through
+:func:`repro_torch.parallel.collectives.sharded_rows_update`: a rank
+writes only the rows it owns, SM3's column cover is recombined by an
+``all_reduce`` MAX, and AdamW's catch-up skips the clamped rows a rank
+does not own. The gradients arrive already summed over ``data``, the same
+on every rank, so the clip norm is too. Dense leaves (the trunk, whole on
+every rank) update as without a mesh.
 """
 from __future__ import annotations
 
@@ -259,7 +268,7 @@ def _rows(x: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 def _adamw_catch_up(cfg: OptimizerConfig, lr_now: float, t: int, p, m, v,
-                    last):
+                    last, live=None):
     """Replay the AdamW steps a row missed while untouched.
 
     A row idle since its step ``last`` missed ``gap = t-1-last`` updates in
@@ -272,11 +281,14 @@ def _adamw_catch_up(cfg: OptimizerConfig, lr_now: float, t: int, p, m, v,
     (b1^extra, b2^extra, (1-lr·wd)^extra) survive. Exact for gap <= the
     horizon; the tail also assumes a constant LR over the skipped range.
 
-    p/m/v fp32 (any rank); ``last`` int32 aligned to axis 0. Returns
-    (p, m, v) caught up to step t - 1.
+    p/m/v fp32 (any rank); ``last`` int32 aligned to axis 0; ``live``
+    optionally masks rows out of the replay (a sharded update's clamped
+    rows of another rank). Returns (p, m, v) caught up to step t - 1.
     """
     h = _lazy_horizon(cfg)
     gap = torch.clamp(t - 1 - last, min=0)
+    if live is not None:
+        gap = torch.where(live, gap, torch.zeros_like(gap))
     nd = p.dim()
     n_replay = min(int(gap.max()), h) if gap.numel() else 0
     for j in range(n_replay):
@@ -396,6 +408,65 @@ def _sparse_leaf_update(cfg, name, lr, t, ids, p, g, m, n, last) -> None:
         last.index_fill_(0, ids, t)
 
 
+def _sharded_leaf_update(cfg, name, lr, t, ids, p, g, m, n, last, mesh) -> None:
+    """:func:`_sparse_leaf_update` on this rank's rows of a row-sharded
+    leaf, through ``collectives.sharded_rows_update``: the param and every
+    row-indexed piece of its state ride one gather and one owned-rows
+    write; SM3's column cover is the one replicated piece."""
+    from repro_torch.parallel.collectives import sharded_rows_update
+    dense, reps = [p], []
+    for x in (m, n):
+        if isinstance(x, QuantizedRows):
+            dense += [x.q, x.scale]
+        elif isinstance(x, Sm3Cover):
+            dense.append(x.row)
+            reps.append(x.col)
+        elif x is not None:
+            dense.append(x)
+    if last is not None:
+        dense.append(last)
+
+    def row_math(rows, vals, reps_in, mine):
+        rows = list(rows)
+        (gv,) = vals
+        g32 = gv.float()
+        p32 = rows.pop(0).float()
+        if isinstance(n, Sm3Cover):
+            r = rows.pop(0).float()
+            nu = torch.minimum(r[:, None], reps_in[0][None, :]) + torch.square(g32)
+            u = -lr * g32 / (torch.sqrt(nu) + cfg.eps)
+            col = reps_in[0].clone()
+            if ids.numel():
+                own = torch.where(mine[:, None], nu, torch.zeros_like(nu))
+                torch.maximum(col, own.amax(dim=0), out=col)
+            return [p32 + u, torch.maximum(r, nu.amax(dim=1))], [col]
+
+        def load(x):
+            if isinstance(x, QuantizedRows):
+                q, scale = rows.pop(0), rows.pop(0)
+                return compression.dequantize_rows(QuantizedRows(q=q, scale=scale))
+            return None if x is None else rows.pop(0).float()
+
+        m32, n32 = load(m), load(n)
+        if name == "adamw" and last is not None:
+            p32, m32, n32 = _adamw_catch_up(cfg, lr, t, p32, m32, n32, rows[-1], live=mine)
+        p2, m2, n2 = _leaf_update(cfg, name, lr, t, p32, g32, m32, n32)
+        out = [p2]
+        for x, x2 in ((m, m2), (n, n2)):
+            if isinstance(x, QuantizedRows):
+                out += list(compression.quantize_rows(x2))
+            elif x is not None:
+                out.append(x2)
+        if last is not None:
+            out.append(torch.full_like(rows[-1], t))
+        return out, []
+
+    _, new_reps = sharded_rows_update(mesh, row_math, ids, (g,), dense, reps,
+                                      with_mask=True)
+    if isinstance(n, Sm3Cover):
+        n.col.copy_(new_reps[0])
+
+
 def _dense_leaf_update(cfg, name, sd, lr, t, p, g, m, n, last):
     """One leaf's dense update; returns new (p, m, n, last)."""
     if isinstance(n, Sm3Cover):
@@ -434,9 +505,11 @@ def _aligned(tree, n: int):
     return leaves
 
 
-def _apply_tree(cfg: OptimizerConfig, params, grads, state: OptState, lr, t: int) -> None:
+def _apply_tree(cfg: OptimizerConfig, params, grads, state: OptState, lr, t: int,
+                mesh=None) -> None:
     """The update of a tree of params (module docstring), every leaf in
-    place; ``grads`` already clipped."""
+    place; ``grads`` already clipped. Under ``mesh`` the sparse leaves are
+    this rank's rows."""
     flat_p = _named_leaves(params)
     n = len(flat_p)
     idx_of = {path: i for i, (path, _) in enumerate(flat_p)}
@@ -458,8 +531,8 @@ def _apply_tree(cfg: OptimizerConfig, params, grads, state: OptState, lr, t: int
                 raise ValueError(f"a SparseRows at {path} must stand for a {{w, b}} "
                                  f"pair or, without db, one table; it covers {len(sub)}")
             for i, gv in pairs:
-                _sparse_leaf_update(cfg, rules[sub[0]][0], lr, t, g.ids, flat_p[i][1], gv,
-                                    ms[i], ns[i], ls[i])
+                _row_update(cfg, rules[sub[0]][0], lr, t, g.ids, flat_p[i][1], gv,
+                            ms[i], ns[i], ls[i], mesh)
                 covered.add(i)
             continue
         i = idx_of[path]
@@ -475,6 +548,13 @@ def _apply_tree(cfg: OptimizerConfig, params, grads, state: OptState, lr, t: int
                          f"missing {missing[:5]}")
 
 
+def _row_update(cfg, name, lr, t, ids, p, g, m, n, last, mesh) -> None:
+    if mesh is None:
+        _sparse_leaf_update(cfg, name, lr, t, ids, p, g, m, n, last)
+    else:
+        _sharded_leaf_update(cfg, name, lr, t, ids, p, g, m, n, last, mesh)
+
+
 def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
                   mesh=None, norm: Optional[torch.Tensor] = None):
     """One optimizer step. Returns (params, state, metrics).
@@ -486,10 +566,16 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
     sparse. ``norm``, if given, is ``global_norm(grads)`` computed by the
     caller (a training step reads it before any write) and is not taken
     again.
+
+    ``mesh`` (a ``("data", "model")`` ``DeviceMesh``) makes the sparse
+    updates shard-local: the params given are this rank's rows of the
+    head (and of the embedding in a tree), the ``SparseRows`` the summed
+    global gradient, replicated (module docstring). A dense gradient of a
+    standalone head under a mesh raises.
     """
     if mesh is not None:
-        raise NotImplementedError("vocab-sharded row updates (mesh=) come with "
-                                  "the parallel slice (ROADMAP Queue 1 item 12)")
+        from repro_torch.parallel.sharding import check_mesh
+        check_mesh(mesh)
     name, sd = _rule(cfg)
     metrics = {}
     if cfg.clip_norm:
@@ -501,7 +587,7 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
     t = state.step + 1
     if _is_tree(params):
         with torch.no_grad():
-            _apply_tree(cfg, params, grads, state, lr, t)
+            _apply_tree(cfg, params, grads, state, lr, t, mesh)
         return params, state._replace(step=t), metrics
     n_leaves = len(params)
     mus, nus, lasts = ((None,) * n_leaves if x is None else x
@@ -509,8 +595,11 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
     with torch.no_grad():
         if sparse_lib.is_sparse(grads):
             for leaf in zip(params, (grads.dw, grads.db), mus, nus, lasts):
-                _sparse_leaf_update(cfg, name, lr, t, grads.ids, *leaf)
+                _row_update(cfg, name, lr, t, grads.ids, *leaf, mesh)
             return params, state._replace(step=t), metrics
+        if mesh is not None:
+            raise ValueError("a row-sharded head takes sparse gradients (SparseRows); "
+                             "a dense gradient has no rows to shard")
         out = [_dense_leaf_update(cfg, name, sd, lr, t, *leaf)
                for leaf in zip(params, grads, mus, nus, lasts)]
 

@@ -1,4 +1,13 @@
-"""Host-level work division for the port (``torch.distributed`` coordinates)."""
-from repro_torch.parallel.work import round_robin_shard
+"""Work division and the vocab-sharded head on a ``("data", "model")``
+process mesh over ``torch.distributed``: placement
+(:mod:`repro_torch.parallel.sharding`) and collectives
+(:mod:`repro_torch.parallel.collectives`)."""
+from repro_torch.parallel.sharding import (batch_slice, check_mesh, gather_head,
+                                           gather_rows, gather_train_state, mesh_axes,
+                                           row_range, shard_batch, shard_head, shard_rows,
+                                           shard_train_state)
+from repro_torch.parallel.work import merge_disjoint, round_robin_shard
 
-__all__ = ["round_robin_shard"]
+__all__ = ["batch_slice", "check_mesh", "gather_head", "gather_rows", "gather_train_state",
+           "merge_disjoint", "mesh_axes", "round_robin_shard", "row_range", "shard_batch",
+           "shard_head", "shard_rows", "shard_train_state"]

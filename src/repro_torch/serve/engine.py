@@ -61,6 +61,14 @@ split of a row's keys depends only on that row's key count and the
 launch's shape, so a row gives the same bits paged and contiguous. The candidate cache can
 only skip work, never change results: a prefix hit implies a bit-identical
 hidden state, hence identical re-scored argmax.
+
+Under a ``("data", "model")`` mesh (``ServeConfig.mesh``) every rank runs
+the same engine on the same requests: the embedding's and the head's rows
+are sharded over ``model`` (the token gather and the candidate scores are
+collectives, the dense path merges each rank's argmax) and the paged arena
+is whole on every rank. The engine's clock is rank 0's, broadcast at every
+reading, so deadline and admission decisions, which call different
+collectives when they differ, are taken alike on every rank.
 """
 from __future__ import annotations
 
@@ -85,16 +93,10 @@ from repro_torch.serve.cache_pool import PagedPool
 from repro_torch.serve.candidate_cache import CandidateCache
 from repro_torch.serve.prefix_index import PrefixIndex
 from repro_torch.serve.spec import NullDraft, ReplayDraft
-from repro_torch.train.step import (make_batched_prefill, make_paged_decode,
-                                    make_paged_prefill, make_prefill,
-                                    make_serve_step)
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded scoring and a sharded arena are not ported yet "
-            "(ROADMAP item 12)")
+from repro_torch.parallel.sharding import check_mesh
+from repro_torch.train.step import (dense_next_token, make_batched_prefill,
+                                    make_paged_decode, make_paged_prefill,
+                                    make_prefill, make_serve_step)
 
 
 def lockstep_decode(cfg: ModelConfig, hcfg: HeadConfig, params, head_state,
@@ -106,14 +108,17 @@ def lockstep_decode(cfg: ModelConfig, hcfg: HeadConfig, params, head_state,
     THE byte-identity oracle for the engine: tests and examples compare
     ``Engine`` outputs against this exact loop, so it is defined once here.
     Runs on the parameters' device. Returns the (batch, gen_tokens)
-    generated ids.
+    generated ids. Under ``mesh`` the params are a rank's
+    (``parallel.shard_train_state``) and every rank decodes the same
+    prompts.
     """
-    _no_mesh(mesh)
+    if mesh is not None:
+        check_mesh(mesh)
     dev = params["embed"].device
     prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int64).to(dev)
     b, pl = prompts.shape
-    prefill = make_prefill(cfg)
-    step = make_serve_step(cfg, hcfg, topk_beam=topk_beam)
+    prefill = make_prefill(cfg, mesh=mesh)
+    step = make_serve_step(cfg, hcfg, topk_beam=topk_beam, mesh=mesh)
     cache = transformer.init_cache(cfg, b, pl + gen_tokens,
                                    dtype=cache_dtype, device=dev)
     token, toks = prompts[:, -1:], []
@@ -127,13 +132,13 @@ def lockstep_decode(cfg: ModelConfig, hcfg: HeadConfig, params, head_state,
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Engine knobs, the reference's fields and defaults with two
-    exceptions: ``mesh`` must stay None (mesh serving is ROADMAP item 12),
-    and there is no ``use_kernel``: as in the lock-step path, the card
+    """Engine knobs, the reference's fields and defaults with one
+    exception: there is no ``use_kernel``: as in the lock-step path, the card
     always scores the beam's candidates with the ``gather_scores`` kernel
     (and debiases the dense path with ``tree_logprob_all``), and the CPU
     uses their plain versions. The engine runs on the parameters' device;
-    ``cache_dtype`` is a torch dtype."""
+    ``cache_dtype`` is a torch dtype. ``mesh`` is a ``("data", "model")``
+    ``DeviceMesh`` (the params then a rank's, module docstring) or None."""
     n_slots: int = 8             # concurrent decode lanes
     max_len: int = 256           # per-request KV capacity (prompt + new)
     page_len: int = 0            # KV page size; 0 = max_len (one page per
@@ -148,7 +153,7 @@ class ServeConfig:
     #                               False = one call per request (same
     #                               bytes out — oracle-tested)
     beam: int = 0                # 0 = dense O(C) scoring; >0 = tree beam
-    mesh: Any = None             # ROADMAP item 12: must be None
+    mesh: Any = None             # DeviceMesh: row-sharded embedding and head
     use_candidate_cache: bool = True   # prefix-keyed descent skipping
     candidate_cache_capacity: int = 4096
     eos_id: Optional[int] = None       # engine-wide default stop token
@@ -252,7 +257,9 @@ class Engine:
                  registry: Optional[Registry] = None,
                  exporter: Optional[JsonlExporter] = None,
                  metrics_interval: int = 1):
-        _no_mesh(serve_cfg.mesh)
+        self.mesh = serve_cfg.mesh
+        if self.mesh is not None:
+            check_mesh(self.mesh)
         self.cfg = cfg
         self.hcfg = hcfg
         self.params = params
@@ -360,12 +367,12 @@ class Engine:
         # returns it; they run under ``step``'s ``torch.no_grad``.
         self._prefill = make_batched_prefill(
             cfg, self.pool.page_len, self.pool.sink,
-            cache_dtype=serve_cfg.cache_dtype)
-        self._decode = make_paged_decode(cfg)
+            cache_dtype=serve_cfg.cache_dtype, mesh=self.mesh)
+        self._decode = make_paged_decode(cfg, mesh=self.mesh)
         # Multi-token paged forward: shared-prefix suffix prefill AND the
         # speculative verify step share this one function.
         self._paged_prefill = (
-            make_paged_prefill(cfg)
+            make_paged_prefill(cfg, mesh=self.mesh)
             if (serve_cfg.prefix_sharing or serve_cfg.spec_decode)
             else None)
         self._select_dense = self._build_dense_select()
@@ -376,12 +383,10 @@ class Engine:
     # -- head-path builders ---------------------------------------------
 
     def _build_dense_select(self):
-        cfg, hcfg = self.cfg, self.hcfg
+        cfg, hcfg, mesh = self.cfg, self.hcfg, self.mesh
 
         def dense_select(params, head_state, h):
-            scores = lm_head.lm_predictive_scores(
-                cfg, hcfg, HeadParams(**params["head"]), head_state, h)
-            return scores.argmax(dim=-1).to(torch.int32)
+            return dense_next_token(cfg, hcfg, params, head_state, h, mesh).to(torch.int32)
 
         return dense_select
 
@@ -397,7 +402,7 @@ class Engine:
 
     def _build_score(self):
         hcfg = self.hcfg
-        score_fn = lm_head.serving_score_fn(self.cfg)
+        score_fn = lm_head.serving_score_fn(self.cfg, mesh=self.mesh)
 
         def score(params, h, cand, log_pn):
             # heads.rescore_candidates is the same tail predictive_topk
@@ -409,6 +414,16 @@ class Engine:
             return labels[..., 0].to(torch.int32)
 
         return score
+
+    def _now(self) -> float:
+        """The engine's clock: ``time.perf_counter``, rank 0's under a mesh
+        (broadcast at every reading, which every rank makes at the same
+        point of the same control flow)."""
+        now = time.perf_counter()
+        if self.mesh is None:
+            return now
+        from repro_torch.parallel.collectives import broadcast_value
+        return broadcast_value(now, self.device)
 
     # -- public API ------------------------------------------------------
 
@@ -426,7 +441,7 @@ class Engine:
                 f"({request.max_new_tokens}) exceeds slot capacity "
                 f"({self.scfg.max_len})")
         request = dataclasses.replace(request, prompt=prompt)
-        handle = ResultStream(request, self._next_id, time.perf_counter())
+        handle = ResultStream(request, self._next_id, self._now())
         handle._eos = (request.eos_id if request.eos_id is not None
                        else self.scfg.eos_id)
         self._next_id += 1
@@ -737,7 +752,7 @@ class Engine:
         a prefill; running lanes past theirs are aborted mid-decode,
         reclaiming lane + pages for requests that can still make their
         SLA. Requests without a deadline are untouched."""
-        now = time.perf_counter()
+        now = self._now()
 
         def expired(h: ResultStream) -> bool:
             return (h.request.deadline_s is not None
@@ -896,7 +911,7 @@ class Engine:
         """Post-flush bookkeeping, in admission order. Runs after the
         prefill launches so trie registration only ever exposes pages
         whose KV bytes are already valid."""
-        now = time.perf_counter()
+        now = self._now()
         for h in admitted:
             if h.done:
                 continue        # failed in isolation during its prefill
@@ -1023,7 +1038,7 @@ class Engine:
                 faults.fire("serve/prefill")
                 ok.append(h)
             except Exception:
-                self._terminate(h, "error", time.perf_counter())
+                self._terminate(h, "error", self._now())
         return ok
 
     def _flush_prefill(self, handles: List[ResultStream]) -> None:
@@ -1034,7 +1049,7 @@ class Engine:
             self._launch_prefill(handles)
         except Exception:
             if len(handles) == 1:
-                self._terminate(handles[0], "error", time.perf_counter())
+                self._terminate(handles[0], "error", self._now())
                 return
             # Poison isolation: the batched launch raised — re-run one
             # request per launch so only the raiser fails and the rest
@@ -1084,7 +1099,7 @@ class Engine:
             self._launch_suffix_prefill(jobs)
         except Exception:
             if len(jobs) == 1:
-                self._terminate(jobs[0], "error", time.perf_counter())
+                self._terminate(jobs[0], "error", self._now())
                 return
             for h in jobs:          # poison isolation, as in the full path
                 self._flush_suffix_prefill([h])
@@ -1131,7 +1146,7 @@ class Engine:
         with span("serve/phase/select", self.registry):
             next_tokens = self._select(h)
 
-        now = time.perf_counter()
+        now = self._now()
         n_live = len(self._active)
         for slot in list(self._active):
             st = self._active[slot]
@@ -1250,7 +1265,7 @@ class Engine:
         with span("serve/phase/select", self.registry):
             sel = self._select(h, multi=True)               # (n, s_pad)
 
-        now = time.perf_counter()
+        now = self._now()
         emitted = 0
         for slot in list(self._active):
             st = self._active[slot]

@@ -41,6 +41,19 @@ Randomness: step ``s`` samples from a ``torch.Generator`` seeded from
 (``seed``, ``s``) on the parameters' device, so a resumed run draws what
 the uninterrupted one drew. The port's row sums are deterministic
 (:mod:`repro_torch.optim.sparse`), so a resume on the card is bit-exact too.
+
+Under a ``("data", "model")`` mesh (``mesh=``) every rank runs this loop
+on its local state (:func:`repro_torch.parallel.shard_train_state`) and
+the global batches. Every host decision that may differ between ranks is
+agreed on, since ranks that decide differently call different
+collectives and hang: a fit's outcome (a failure, a retry exhausted, the
+watchdog) counts as a success only if it is one on every rank, and a
+preemption on any rank stops them all. The generator fit reads the full
+embedding and head (gathered on the training thread) and the global
+batches, so the fitted generator is bit-equal on every rank and to a
+one-rank run's. A checkpoint (and a ``gensnap``) holds the full arrays,
+as a one-rank run's: every rank gathers, rank 0 writes, all wait; a
+restore reads the full arrays on every rank and re-slices them.
 """
 from __future__ import annotations
 
@@ -61,6 +74,7 @@ from repro_torch.genfit.refresh import (AsyncRefresher, drop_snapshot,
 from repro_torch.obs import NULL_REGISTRY, JsonlExporter, ProfileWindow, Registry
 from repro_torch.obs.trace import span
 from repro_torch.optim import head_state_bytes
+from repro_torch.parallel import sharding
 from repro_torch.resilience import faults
 from repro_torch.train.state import TrainState, snr_reset_pair
 from repro_torch.train.step import publish_step_metrics
@@ -78,7 +92,7 @@ def _fit_with_retries(fit_fn, state, retries: int, backoff_s: float):
             time.sleep(backoff_s * (2 ** attempt))
 
 
-def _fit_snapshot(state: TrainState) -> TrainState:
+def _fit_snapshot(state: TrainState, mesh=None) -> TrainState:
     """Clone the leaves a background generator fit reads.
 
     The training step writes the parameters in place, so a background fit
@@ -88,10 +102,21 @@ def _fit_snapshot(state: TrainState) -> TrainState:
     those leaves are copied. The clones are launched on the calling (the
     training) thread's stream before the fit thread starts; the fit thread
     launches on the same stream, so it reads them after they are written.
+    Under ``mesh`` the embedding and the head are gathered whole (a
+    collective, here on the training thread), so the fit runs no
+    collective.
     """
     clone = lambda t: t.clone() if isinstance(t, torch.Tensor) else t  # noqa: E731
-    return state._replace(params=tree_util.tree_map(clone, state.params),
+    return state._replace(params=tree_util.tree_map(clone, _full_params(state, mesh).params),
                           head_state=tree_util.tree_map(clone, state.head_state))
+
+
+def _full_params(state: TrainState, mesh) -> TrainState:
+    """``state`` with the full embedding and head (a collective under a
+    mesh; the state itself without one)."""
+    if mesh is None:
+        return state
+    return state._replace(params=sharding.gather_train_state(state.params, mesh))
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -204,7 +229,7 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
              preemption: Optional[Preemption] = None,
              gen_fit_fn: Optional[Callable[[TrainState], Any]] = None,
              on_step: Optional[Callable[[int, Dict], None]] = None,
-             registry: Optional[Registry] = None):
+             registry: Optional[Registry] = None, mesh=None):
     """Run (or resume) training. Returns (state, history dict).
 
     ``batch_fn(step) -> batch`` must be deterministic in step.
@@ -222,9 +247,35 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
     ``step_times`` holds steady-state steps only, the first executed step
     of the process (kernel builds and allocator warm-up) lands in
     ``history["compile_time_s"]`` instead.
+
+    ``mesh``: ``state`` is this rank's, ``batch_fn`` gives the global
+    batches and ``train_step`` was built with the mesh (module docstring).
     """
     preemption = preemption or Preemption()
     device = state.snr_ewma.device
+    if mesh is not None:
+        import torch.distributed as dist
+        from repro_torch.parallel import collectives
+        lead = dist.get_rank() == 0
+
+    def agreed(ok: bool) -> bool:
+        return ok if mesh is None else collectives.agree(ok, device)
+
+    def save(save_fn, directory, step, st, **kw):
+        """Write the full state: rank 0 under a mesh, after every rank
+        gathered; all ranks wait for the write."""
+        tree = st if mesh is None else sharding.gather_train_state(st, mesh)
+        if mesh is None or lead:
+            save_fn(directory, step, tree.as_pytree(), **kw)
+        if mesh is not None:
+            dist.barrier()
+
+    def template(st: TrainState):
+        return (st if mesh is None else sharding.gather_train_state(st, mesh)).as_pytree()
+
+    def local(tree) -> TrainState:
+        st = TrainState(**tree)
+        return st if mesh is None else sharding.shard_train_state(st, mesh)
     monitor = StragglerMonitor(cfg.straggler_factor, cfg.ewma_alpha)
     if registry is None:
         registry = (Registry() if (cfg.metrics_jsonl or cfg.profile_dir)
@@ -260,9 +311,8 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
     if cfg.checkpoint_dir:
         ck = latest_step(cfg.checkpoint_dir)
         if ck is not None and ck > start_step:
-            state, _ = restore_checkpoint(cfg.checkpoint_dir,
-                                          state.as_pytree(), step=ck)
-            state = TrainState(**state)
+            restored, _ = restore_checkpoint(cfg.checkpoint_dir, template(state), step=ck)
+            state = local(restored)
             start_step = int(state.step)
 
     # ---- re-establish an async refresh that was in flight ---------------
@@ -303,11 +353,10 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
             # parameters at the recorded step.
             if (cfg.checkpoint_dir
                     and snapshot_path_exists(cfg.checkpoint_dir, s_sub)):
-                snap = load_snapshot(cfg.checkpoint_dir, s_sub,
-                                     state.as_pytree())
-                snap_state = TrainState(**snap)   # disk copy: not aliased
+                snap = load_snapshot(cfg.checkpoint_dir, s_sub, template(state))
+                snap_state = TrainState(**snap)   # disk copy, full: not aliased
             else:
-                snap_state = _fit_snapshot(state)
+                snap_state = _fit_snapshot(state, mesh)
             refresher.submit(snap_state, s_sub)
             registry.counter("genfit/submits").inc()
             emit({"event": "gen_submit", "step": s_sub, "resumed": True})
@@ -337,11 +386,12 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
             return
         if force or (cfg.checkpoint_every
                      and step % cfg.checkpoint_every == 0 and step > 0):
-            save_checkpoint(cfg.checkpoint_dir, step, state.as_pytree(),
-                            keep=cfg.keep_checkpoints)
+            save(save_checkpoint, cfg.checkpoint_dir, step, state,
+                 keep=cfg.keep_checkpoints)
             for s_sub, s_swap in list(snaps_to_drop):
                 if step > s_swap:
-                    drop_snapshot(cfg.checkpoint_dir, s_sub)
+                    if mesh is None or lead:
+                        drop_snapshot(cfg.checkpoint_dir, s_sub)
                     snaps_to_drop.remove((s_sub, s_swap))
 
     # Resilience counters (DESIGN.md §13): consecutive non-finite steps
@@ -360,9 +410,14 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
                 # step is config-determined, never timing-determined).
                 old_fit = int(state.gen_fit_step)
                 s_sub_val = refresher.submit_step
+                err = None
                 try:
                     head, s_sub = refresher.result()
                 except Exception as e:
+                    err = e
+                if not agreed(err is None) and err is None:
+                    err = RuntimeError("the generator fit failed on another rank")
+                if err is not None:
                     # Degradation ladder: the fit failed (retries
                     # exhausted) or hung (watchdog). Keep serving the
                     # stale generator; clearing pending_swap drops the
@@ -374,7 +429,7 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
                     history.setdefault("gen_refresh_failed_steps",
                                        []).append(step)
                     emit({"event": "gen_refresh_failed", "step": step,
-                          "submit_step": s_sub_val, "reason": repr(e)})
+                          "submit_step": s_sub_val, "reason": repr(err)})
                     if cfg.checkpoint_dir:
                         snaps_to_drop.append((s_sub_val, step))
                     pending_swap = None
@@ -433,9 +488,8 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
                             f"generator refresh submitted at step {step} "
                             f"while one is in flight")
                     if cfg.checkpoint_dir:
-                        save_snapshot(cfg.checkpoint_dir, step,
-                                      state.as_pytree())
-                    refresher.submit(_fit_snapshot(state), step)
+                        save(save_snapshot, cfg.checkpoint_dir, step, state)
+                    refresher.submit(_fit_snapshot(state, mesh), step)
                     pending_swap = step + cfg.gen_swap_delay
                     history.setdefault("gen_submit_steps", []).append(step)
                     registry.counter("genfit/submits").inc()
@@ -443,18 +497,23 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
                 else:
                     old_fit = int(state.gen_fit_step)
                     t_fit = time.perf_counter()
+                    err = None
                     try:
                         new_head = _fit_with_retries(
-                            gen_fit_fn, state, cfg.gen_fit_retries,
-                            cfg.gen_fit_backoff_s)
+                            gen_fit_fn, _full_params(state, mesh),
+                            cfg.gen_fit_retries, cfg.gen_fit_backoff_s)
                     except Exception as e:
+                        err = e
+                    if not agreed(err is None) and err is None:
+                        err = RuntimeError("the generator fit failed on another rank")
+                    if err is not None:
                         # Same ladder as the async swap: keep the stale
                         # generator, record the failure, train on.
                         registry.counter("genfit/refresh_failed").inc()
                         history.setdefault("gen_refresh_failed_steps",
                                            []).append(step)
                         emit({"event": "gen_refresh_failed", "step": step,
-                              "submit_step": step, "reason": repr(e)})
+                              "submit_step": step, "reason": repr(err)})
                     else:
                         fit_s = time.perf_counter() - t_fit
                         ewma0, ref0 = snr_reset_pair(state.snr_ewma.device)
@@ -565,8 +624,8 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
                            f"rollback budget {cfg.max_rollbacks} "
                            f"exhausted") + ")")
                 restored, _ = restore_checkpoint(
-                    cfg.checkpoint_dir, state.as_pytree(), step=ck)
-                state = TrainState(**restored)
+                    cfg.checkpoint_dir, template(state), step=ck)
+                state = local(restored)
                 registry.counter("train/rollbacks").inc()
                 history.setdefault("rollback_steps", []).append([step, ck])
                 emit({"event": "rollback_restore", "step": step,
@@ -598,7 +657,7 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
                     state = state._replace(snr_ref=state.snr_ewma.clone())
 
         maybe_checkpoint(step + 1)
-        if preemption.requested:
+        if not agreed(not preemption.requested):
             maybe_checkpoint(step + 1, force=True)
             history["preempted_at"] = step + 1
             break

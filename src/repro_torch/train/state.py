@@ -11,7 +11,7 @@ import torch
 from repro_torch.models.lm_head import LMHeadState
 
 
-def snr_reset_pair(device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+def snr_reset_pair(device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fresh (snr_ewma, snr_ref) = (-1.0, -1.0): two distinct float32
     scalars on ``device`` (the training step updates ``snr_ewma``, the loop
     arms ``snr_ref`` from it)."""

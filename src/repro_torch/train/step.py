@@ -11,6 +11,19 @@ Every forward of training and evaluation runs the reference's attention in
 plain torch (``attn_impl="plain"``): the CUDA ``flash_attention`` kernel is
 forward-only and serves the decode path alone.
 
+Every ``make_*`` function takes a ``mesh`` (a ``("data", "model")`` ``DeviceMesh``,
+:mod:`repro_torch.launch.mesh`): the embedding's and the head's rows are
+then sharded over ``model`` (:mod:`repro_torch.parallel.sharding`) and the
+trunk is whole on every rank. Serving gathers the token rows and scores
+through :mod:`repro_torch.parallel.collectives`; the dense Eq. 5 path
+scores each rank's slice of the vocabulary and merges the argmax. The
+training step takes the global batch and equals the one-rank step on it:
+each rank runs its ``data`` slice, draws the global batch's uniforms and
+keeps its rows, assembles its candidates' rows from their owners, and
+normalises by the global mask count; the trunk's gradients and the
+head's and embedding's ``SparseRows`` are summed over ``data`` before the
+update, so the clip and the non-finite guard decide alike on every rank.
+
 The sparse training step marks its phases as ``record_function`` ranges
 (``train/forward``, ``train/head``, ``train/backward``,
 ``train/embed_rows``, ``train/optimizer``), so a ``torch.profiler``
@@ -33,6 +46,7 @@ from repro_torch.models import layers, lm_head, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import OptimizerConfig, apply_updates, global_norm, init_opt_state
 from repro_torch.optim import sparse as sparse_opt
+from repro_torch.parallel import sharding
 from repro_torch.train.state import TrainState, snr_reset_pair
 
 
@@ -74,12 +88,15 @@ def _detached(metrics: dict) -> dict:
 
 
 def make_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, head_update: str = "auto",
-                 sampler=None, embed_update: str = "auto"):
+                 sampler=None, embed_update: str = "auto", mesh=None):
     """``grad_fn(state, batch, generator) -> (grads, metrics)``: the loss and
     gradient half of :func:`make_train_step`, exposed for tests and for the
     card's gradient checks. ``grads`` mirrors ``state.params``; on the
     sparse path its ``head`` (and, with sparse embedding updates, its
-    ``embed``) is a ``SparseRows``."""
+    ``embed``) is a ``SparseRows``. Under ``mesh`` (module docstring) the
+    grads are the global batch's, the same on every rank, and the step
+    must be the sparse one with sparse embedding rows: a dense gradient of
+    a row-sharded table is not ported."""
     mode = resolve_head_update(head_update, hcfg.kind)
     if embed_update not in ("auto", "sparse", "dense"):
         raise ValueError(f"embed_update must be auto, sparse or dense, got {embed_update!r}")
@@ -88,6 +105,13 @@ def make_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, head_update: str = "auto",
     if emode == "sparse" and mode == "dense":
         raise ValueError("sparse embedding updates ride the sparse-head step; the "
                          "dense autograd path cannot deliver them")
+    if mesh is not None:
+        sharding.check_mesh(mesh)
+        if mode != "sparse" or emode != "sparse":
+            raise ValueError("under a mesh the row-sharded head and embedding train "
+                             "through sparse rows: head_update and embed_update must "
+                             "resolve to 'sparse'")
+        return _sharded_grad_fn(cfg, hcfg, sampler, mesh)
 
     def dense_grads(state: TrainState, batch, generator):
         params = _leaves_requiring_grad(state.params)
@@ -146,9 +170,63 @@ def make_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, head_update: str = "auto",
     return dense_grads if mode == "dense" else sparse_grads
 
 
+def _sharded_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, sampler, mesh):
+    """The sparse step's gradients under a mesh (module docstring)."""
+    from repro_torch.parallel import collectives
+
+    def grad_fn(state: TrainState, batch, generator):
+        params = state.params
+        local = sharding.shard_batch(batch, mesh)
+        tokens = local["tokens"]
+        trunk = _leaves_requiring_grad(
+            {k: v for k, v in params.items() if k not in ("head", "embed")})
+        leaves, spec = tree_util.flatten(trunk)
+        vision = local.get("vision_embeds")
+        with torch.enable_grad(), record_function("train/forward"):
+            h0 = transformer.embed_inputs(params, cfg, tokens, mesh=mesh).requires_grad_()
+            ie = h0 if vision is None else torch.cat([vision.to(h0.dtype), h0], dim=1)
+            h, _, fwd_metrics = transformer.forward(
+                trunk, cfg, tokens, positions=local.get("positions"), inputs_embeds=ie,
+                attn_impl="plain")
+        n_vis = _n_vis(cfg, h, local)
+        with record_function("train/head"):
+            loss, head_metrics, head_rows, dh = lm_head.lm_sharded_head_loss(
+                cfg, hcfg, _head(params), state.head_state, h[:, n_vis:],
+                local["labels"], generator, mesh, tuple(batch["labels"].shape),
+                mask=local.get("mask"), sampler=sampler)
+        if n_vis:
+            dh = torch.nn.functional.pad(dh, (0, 0, n_vis, 0))
+        with record_function("train/backward"):
+            outs = torch.autograd.grad(h, leaves + [h0], dh.to(h.dtype))
+        trunk_grads = list(outs[:len(leaves)])
+        dh0 = outs[-1]
+        with record_function("train/embed_rows"):
+            embed_rows = sparse_opt.accumulate_embed_rows(
+                tokens.reshape(-1), dh0.reshape(-1, dh0.shape[-1]), 0)
+        with record_function("train/data_sum"):
+            collectives.all_reduce_over_data(mesh, trunk_grads)
+            head_rows = collectives.sum_rows_over_data(mesh, head_rows)
+            embed_rows = collectives.sum_rows_over_data(mesh, embed_rows)
+            # Each data rank's loss and head metrics are its share of the
+            # global means; the forward's metrics are per-rank means.
+            summed = {"loss": loss, **head_metrics}
+            scalars = torch.stack([v.float() for v in summed.values()]
+                                  + [v.float() for v in fwd_metrics.values()])
+            collectives.all_reduce_over_data(mesh, [scalars])
+            n_sum = len(summed)
+            metrics = dict(zip(summed, scalars[:n_sum]))
+            metrics.update(zip(fwd_metrics, scalars[n_sum:] / sharding.size(mesh, "data")))
+        grads = {**tree_util.unflatten(spec, trunk_grads), "head": head_rows,
+                 "embed": embed_rows}
+        return grads, metrics
+
+    return grad_fn
+
+
 def make_train_step(cfg: ModelConfig, hcfg: HeadConfig, opt_cfg: OptimizerConfig,
                     head_update: str = "auto", sampler=None, snr_alpha: float = 0.1,
-                    embed_update: str = "auto", skip_nonfinite: bool = False):
+                    embed_update: str = "auto", skip_nonfinite: bool = False,
+                    mesh=None):
     """Returns ``train_step(state, batch, generator) -> (state, metrics)``.
 
     ``head_update`` picks the head-gradient path: ``dense`` is autograd end
@@ -168,9 +246,12 @@ def make_train_step(cfg: ModelConfig, hcfg: HeadConfig, opt_cfg: OptimizerConfig
     step leaves params, optimizer state and ``snr_ewma`` bit for bit as
     they were, advances ``step`` by 1 (the data and sampling streams are
     step-indexed) and reports ``metrics["nonfinite"] = 1``.
+
+    ``mesh``: the state is a rank's (:func:`repro_torch.parallel.
+    shard_train_state`), the batch the global one (module docstring).
     """
     grad_fn = make_grad_fn(cfg, hcfg, head_update, sampler=sampler,
-                           embed_update=embed_update)
+                           embed_update=embed_update, mesh=mesh)
 
     def train_step(state: TrainState, batch, generator):
         grads, metrics = grad_fn(state, batch, generator)
@@ -197,7 +278,7 @@ def make_train_step(cfg: ModelConfig, hcfg: HeadConfig, opt_cfg: OptimizerConfig
                     metrics["grad_norm"] = norm
                 return state._replace(step=state.step + 1), metrics
         params, opt_state, opt_metrics = apply_updates(
-            opt_cfg, state.params, grads, state.opt_state, norm=norm)
+            opt_cfg, state.params, grads, state.opt_state, mesh=mesh, norm=norm)
         metrics.update(opt_metrics)
         return state._replace(step=state.step + 1, params=params, opt_state=opt_state,
                               snr_ewma=snr_ewma), metrics
@@ -234,10 +315,15 @@ def publish_step_metrics(registry, host_metrics: Dict[str, float],
         registry.gauge("train/head_state_bytes").set(head_state_bytes)
 
 
-def make_eval_step(cfg: ModelConfig, hcfg: HeadConfig):
+def make_eval_step(cfg: ModelConfig, hcfg: HeadConfig, mesh=None):
     """Debiased predictive log-likelihood and accuracy (the paper's Fig. 1
     axes): Eq. 5 over the whole vocabulary, whose tree term is the
-    ``tree_logprob_all`` kernel on the card."""
+    ``tree_logprob_all`` kernel on the card. Under ``mesh`` each rank
+    scores its ``data`` slice of the global batch over its slice of the
+    vocabulary; the softmax's normaliser, the label's score and the argmax
+    are reduced over ``model``, the sums over ``data``."""
+    if mesh is not None:
+        return _sharded_eval_step(cfg, hcfg, mesh)
 
     def eval_step(state: TrainState, batch):
         with torch.no_grad():
@@ -262,7 +348,59 @@ def make_eval_step(cfg: ModelConfig, hcfg: HeadConfig):
     return eval_step
 
 
-def make_serve_step(cfg: ModelConfig, hcfg: HeadConfig, topk_beam: int = 0):
+def _sharded_eval_step(cfg: ModelConfig, hcfg: HeadConfig, mesh):
+    import torch.distributed as dist
+    from repro_torch.parallel import collectives
+    lo, hi = sharding.row_range(cfg.padded_vocab, mesh)
+    g_model = sharding.group(mesh, "model")
+
+    def eval_step(state: TrainState, batch):
+        local = sharding.shard_batch(batch, mesh)
+        with torch.no_grad():
+            h, _, _ = transformer.forward(
+                state.params, cfg, local["tokens"], positions=local.get("positions"),
+                vision_embeds=local.get("vision_embeds"), attn_impl="plain", mesh=mesh)
+            h = h[:, _n_vis(cfg, h, local):]
+            scores = lm_head.lm_predictive_scores(
+                cfg, hcfg, _head(state.params), state.head_state,
+                h.reshape(-1, h.shape[-1]), lo=lo)
+            labels = local["labels"].long().reshape(-1)
+            mask = local.get("mask")
+            mask = (torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+                    if mask is None else mask.reshape(-1).float())
+            top = scores.amax(dim=-1)
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g_model)
+            total = torch.exp(scores - top[:, None]).sum(dim=-1)
+            dist.all_reduce(total, group=g_model)
+            local_label = labels - lo
+            mine = (local_label >= 0) & (local_label < hi - lo)
+            pos = torch.gather(scores, -1, local_label.clamp(0, hi - lo - 1)[:, None])[:, 0]
+            pos = torch.where(mine, pos, torch.zeros_like(pos))
+            dist.all_reduce(pos, group=g_model)
+            logp = pos - (top + torch.log(total))
+            acc = (lm_head.sharded_argmax(mesh, scores, lo) == labels).float()
+            sums = torch.stack([(logp * mask).sum(), (acc * mask).sum(), mask.sum()])
+            collectives.all_reduce_over_data(mesh, [sums])
+            denom = sums[2].clamp(min=1.0)
+            return {"eval_loglik": sums[0] / denom, "eval_acc": sums[1] / denom}
+
+    return eval_step
+
+
+def dense_next_token(cfg: ModelConfig, hcfg: HeadConfig, params, head_state,
+                     h: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The dense Eq. 5 argmax of final hiddens h (B, d): one rank's scores
+    over the vocabulary, or under ``mesh`` each rank's slice and the merged
+    argmax (equal to the one-rank argmax)."""
+    if mesh is None:
+        scores = lm_head.lm_predictive_scores(cfg, hcfg, _head(params), head_state, h)
+        return scores.argmax(dim=-1)
+    lo, _ = sharding.row_range(cfg.padded_vocab, mesh)
+    scores = lm_head.lm_predictive_scores(cfg, hcfg, _head(params), head_state, h, lo=lo)
+    return lm_head.sharded_argmax(mesh, scores, lo)
+
+
+def make_serve_step(cfg: ModelConfig, hcfg: HeadConfig, topk_beam: int = 0, mesh=None):
     """Greedy decode step: one token in, one token out, cache updated in
     place.
 
@@ -274,31 +412,34 @@ def make_serve_step(cfg: ModelConfig, hcfg: HeadConfig, topk_beam: int = 0):
     O(beam·k·log C) and only those are scored (the ``gather_scores`` kernel
     on the card) and debiased. Both paths pick the same argmax whenever the
     true top-1 label survives the beam.
+
+    Under ``mesh`` the beam's candidates are scored by
+    ``sharded_candidate_scores`` (the head is always row-sharded there) and
+    the dense path by :func:`dense_next_token`'s merged argmax.
     """
+    score_fn = lm_head.serving_score_fn(cfg, mesh=mesh)
+
     def serve_step(params, head_state, token, cache, cache_pos, positions=None):
         h, new_cache, _ = transformer.forward(
             params, cfg, token, positions=positions, cache=cache,
-            cache_pos=cache_pos)
-        head_params = _head(params)
+            cache_pos=cache_pos, mesh=mesh)
         if topk_beam:
             _, labels = lm_head.lm_predictive_topk(
-                cfg, hcfg, head_params, head_state, h[:, -1], topk=1,
-                beam=topk_beam)
+                cfg, hcfg, _head(params), head_state, h[:, -1], topk=1,
+                beam=topk_beam, score_fn=score_fn)
             next_token = labels[..., 0]
         else:
-            scores = lm_head.lm_predictive_scores(
-                cfg, hcfg, head_params, head_state, h[:, -1])
-            next_token = scores.argmax(dim=-1)
+            next_token = dense_next_token(cfg, hcfg, params, head_state, h[:, -1], mesh)
         return next_token[:, None], new_cache
 
     return serve_step
 
 
-def make_prefill(cfg: ModelConfig):
+def make_prefill(cfg: ModelConfig, mesh=None):
     def prefill(params, tokens, cache, vision_embeds=None, positions=None):
         h, new_cache, _ = transformer.forward(
             params, cfg, tokens, positions=positions,
-            vision_embeds=vision_embeds, cache=cache, cache_pos=0)
+            vision_embeds=vision_embeds, cache=cache, cache_pos=0, mesh=mesh)
         return h, new_cache
 
     return prefill
@@ -309,7 +450,7 @@ def _on(device, a, dtype=torch.int64) -> torch.Tensor:
 
 
 def make_batched_prefill(cfg: ModelConfig, page_len: int, sink_page: int,
-                         cache_dtype=torch.bfloat16):
+                         cache_dtype=torch.bfloat16, mesh=None):
     """Prefill a batch of newly admitted requests into their pages (the
     serving engine): every request admitted in an engine iteration runs
     through ONE padded forward.
@@ -345,7 +486,8 @@ def make_batched_prefill(cfg: ModelConfig, page_len: int, sink_page: int,
         tokens = _on(dev, tokens)
         n, s = tokens.shape
         fresh = transformer.init_cache(cfg, n, s, dtype=cache_dtype, device=dev)
-        h, new_cache, _ = transformer.forward(params, cfg, tokens, cache=fresh, cache_pos=0)
+        h, new_cache, _ = transformer.forward(params, cfg, tokens, cache=fresh, cache_pos=0,
+                                              mesh=mesh)
         if "k" in arena:
             index = layers.cache_index(
                 0, n, s, dev, page_table=page_tables, page_len=page_len, sink=sink_page,
@@ -366,7 +508,7 @@ def make_batched_prefill(cfg: ModelConfig, page_len: int, sink_page: int,
     return batched_prefill
 
 
-def make_paged_prefill(cfg: ModelConfig):
+def make_paged_prefill(cfg: ModelConfig, mesh=None):
     """Multi-token forward against the paged arena: per-lane start positions
     and page tables, S tokens a row.
 
@@ -390,13 +532,13 @@ def make_paged_prefill(cfg: ModelConfig):
         wmask = np.arange(s)[None] < layers.to_host(lengths)[:, None]
         h, new_arena, _ = transformer.forward(
             params, cfg, tokens, cache=arena, cache_pos=start,
-            page_table=page_tables, write_mask=wmask)
+            page_table=page_tables, write_mask=wmask, mesh=mesh)
         return h, new_arena
 
     return paged_prefill
 
 
-def make_paged_decode(cfg: ModelConfig):
+def make_paged_decode(cfg: ModelConfig, mesh=None):
     """Masked decode step over a paged pool: per-lane ``cache_pos`` and page
     tables.
 
@@ -414,7 +556,7 @@ def make_paged_decode(cfg: ModelConfig):
     def paged_decode(params, token, arena, cache_pos, page_table):
         h, new_arena, _ = transformer.forward(
             params, cfg, _on(next(iter(arena.values())).device, token), cache=arena,
-            cache_pos=cache_pos, page_table=page_table)
+            cache_pos=cache_pos, page_table=page_table, mesh=mesh)
         return h[:, -1], new_arena
 
     return paged_decode

@@ -420,10 +420,11 @@ class TestRetirement:
 
 
 def test_unported_configurations_raise():
-    """Mesh serving is ROADMAP item 12. SSM serving is ported: an SSM
-    engine builds, with one nominal page per lane, and refuses prefix
+    """Mesh serving is ported (tests/test_torch_parallel_serve.py): a
+    ``mesh`` that is not a ``DeviceMesh`` raises. SSM serving is ported: an
+    SSM engine builds, with one nominal page per lane, and refuses prefix
     sharing (its state is recurrent, not position-local)."""
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Engine(CFG, HCFG, PARAMS, HEAD_STATE, ServeConfig(mesh=object()))
     ssm = dataclasses.replace(CFG, block="ssm", ssm_state=16, ssm_head_dim=16)
     params = transformer.init_params(torch.Generator().manual_seed(0), ssm, device="cpu")

@@ -341,15 +341,16 @@ def test_global_norm_and_clipping_match_jax():
 
 @pytest.mark.parametrize("bad", ["adamw", "sm3", "bf16_state", "mesh"])
 def test_later_slice_optimizers_raise(bad):
-    """Every rule and state dtype is ported; what still raises is the
-    vocab-sharded row update (mesh=), which waits for the parallel slice."""
+    """Every rule and state dtype is ported, and so is the vocab-sharded row
+    update (``mesh=``, tests/test_torch_parallel.py); what raises is a
+    ``mesh`` that is not a ``DeviceMesh``, for every rule."""
     params = theads.HeadParams(torch.zeros(4, 3), torch.zeros(4))
     cfg = topt.OptimizerConfig(
         name={"adamw": "adamw", "sm3": "sgd"}.get(bad, "adagrad"),
         head_name="sm3" if bad == "sm3" else None,
         state_dtype="bf16" if bad == "bf16_state" else "fp32")
     state = topt.init_opt_state(cfg, params)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         topt.apply_updates(cfg, params, params, state, mesh=object())
 
 
