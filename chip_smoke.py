@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving (lock-step and engine), LM-training, backbone-family and process-mesh paths on one NVIDIA card.
+"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving (lock-step and engine), LM-training, backbone-family, process-mesh and sharded-trunk paths on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
@@ -161,16 +161,50 @@ Phases, each fatal on failure:
      relative, parameters within 1e-3 relative + 1e-4, the reference's
      bounds), ``sampled_head_loss`` and ``segment_stats`` launches a rank,
      a checkpoint written under the mesh restored by one rank bit-equal;
-     (b) the serving launcher, ``torchrun --nproc-per-node 2 -m
-     repro_torch.launch.serve --model-axis 2 --shard-scores --device
-     cuda:0``, at full h2o-danube-3-4b width: phase 9's lock-step shapes
-     (4 × 4,608 + 32) dense and beam 64, and an engine burst of 8 × 4,096 +
-     32 at beam 64, each rank's tokens equal to the one-rank run of the
-     same flags here, each rank's launches and ms a token; (d) the serving
-     launcher as a one-rank NCCL world, its tokens equal to this process's;
-     lines ``mesh_collectives``, ``mesh_train``, ``mesh_serve``,
-     ``mesh_path``; every rank's launches join the ``kernels`` line;
- 14. print the ``kernels`` JSON line and, last, the device line.
+     (b), the serving launcher on 2 ranks, is phase 14's (a) now that the
+     trunk is sharded; (d) the serving launcher as a one-rank NCCL world,
+     its tokens equal to this process's; lines ``mesh_collectives``,
+     ``mesh_train``, ``mesh_path``; every rank's launches join the
+     ``kernels`` line;
+ 14. the trunk sharded over the mesh's ``model`` axis (run after phase 13),
+     every rank on the one card over gloo, each world started by
+     ``torchrun``, any rank's failure or a wait past the time limit fatal;
+     the one-rank reference values come from this process before each
+     world starts, through a temporary file, and are freed: (a)
+     h2o-danube-3-4b at full width and depth through the serving launcher
+     (``--device cuda:0 --model-axis M --time-collectives``) on (1, 2):
+     phase 9's lock-step shapes (4 × 4,608 + 32) dense and beam 64 and an
+     engine burst of 8 × 4,096 + 32 at beam 64, and on (1, 4) the dense
+     lock-step; (b) deepseek-moe-16b at full width and depth on (1, 4), 16
+     of its 64 experts a rank (this script with ``--tp-worker``): lock-step
+     4 × 2,048 + 32, dense; (c) hymba-1.5b at full width, 8 of its 32
+     layers (printed as ``reduced``), on (1, 2), 25
+     heads whole on each rank and its 50 SSD heads split, under
+     ``sharding_hints``: the engine (8 lanes, pages of 256) on a burst of 8
+     requests of 1 to 4,096 prompt tokens, 32 tokens each, dense, and a
+     (2, 4,096) prefill with and without the hints. Fatal: every rank's
+     tokens equal to every other rank's; each rank's trunk bytes the
+     one-rank trunk's split leaves ÷ tp plus its whole leaves, exactly;
+     each rank's launches by route (beam: ``gather_scores``, dense:
+     ``tree_logprob_all``); for the lock-step paths of (a) and for (b), the
+     prefill's last hiddens and 32 decode steps fed the one-rank tokens
+     (``--teacher-tokens``), each step's dense Eq. 5 scores, within 2^-5
+     relative RMS of the one-rank run; for the engines of (a) and (c),
+     each prefilled row's last hidden and each request's hidden at its
+     first decode step (``serve.HiddenTap``: the batched prefill, the
+     arena split by KV heads or whole, the paged reads) within 2^-5 of the
+     one-rank engine's; (b) layer 0's routing (top-k ids and drops)
+     bit-equal to one rank's on the same input and its MoE output within
+     2^-5, and, since near-tie routings flip between any two orders of
+     its bf16 sums, its prefill's last hiddens held in float32 (the same
+     model at 4 layers, prefill and scores within 2^-5); (c) the
+     hinted prefill within 2^-5 of the unhinted and of one rank's, in bf16
+     and in float32. Printed for each path
+     (line ``tp_path``): the share of free-running tokens equal to the
+     one-rank run's, each rank's ms a token, the trunk collectives' calls,
+     bytes and share of the run, peak memory and launches (which join the
+     ``kernels`` line); line ``sharded_trunk_path``;
+ 15. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
 """
@@ -181,6 +215,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -3013,10 +3048,10 @@ def family_lockstep(name, dev, seed, card, model, batch, prompt_len, gen_len, be
             metrics.append(out[2])              # read after the run: no sync a step
             return out
 
-        def rec_ffn(p, c, x):
+        def rec_ffn(p, c, x, **kw):
             if "x" not in moe_in and x.shape[1] > 1:
                 moe_in["x"] = x.clone()
-            return ffn(p, c, x)
+            return ffn(p, c, x, **kw)
 
         torch.cuda.reset_peak_memory_stats()
         reset_engine_counters()
@@ -3208,7 +3243,6 @@ MESH_TRAIN_LAYERS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_STEPS = 2, 4, 25
 MESH_TRAIN_OPT = dict(name="sgd", learning_rate=0.05, clip_norm=1.0)
 MESH_LOSS_RTOL = 1e-5
 MESH_PARAM_TOL = dict(atol=1e-4, rtol=1e-3)          # tests/test_parallel.py:65-70
-MESH_SERVE_RANKS = 2
 MESH_ENGINE_BATCH, MESH_ENGINE_PROMPT = 8, 4096
 
 
@@ -3393,8 +3427,9 @@ def torchrun(n: int, argv: list, timeout: float) -> str:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
         check(False, f"{' '.join(argv[:3])}: no result within {timeout} s")
+    first = err.find("Traceback")        # a rank's own error, before torchrun's summary
     check(proc.returncode == 0, f"{' '.join(argv[:3])} exited {proc.returncode}:\n"
-                                f"{err[-3000:]}")
+                                f"{err[max(first, 0):max(first, 0) + 4000]}\n...\n{err[-1500:]}")
     return out
 
 
@@ -3408,10 +3443,10 @@ def mesh_serve_args(path: str, seed: int) -> list:
 
 
 def mesh_path(dev, seed, card) -> dict:
-    """Phase 13: (a) and (c) in one world of 4 ranks on the card; (b) the
-    serving launcher under torchrun, 2 ranks, against the one-rank run of
-    the same flags here; (d) the serving launcher as a one-rank NCCL
-    world. Returns the launches of every rank of every world."""
+    """Phase 13: (a) and (c) in one world of 4 ranks on the card; (d) the
+    serving launcher as a one-rank NCCL world ((b), the serving launcher on
+    2 ranks, is phase 14's (a) since the trunk is sharded). Returns the
+    launches of every rank of every world."""
     t_phase = time.perf_counter()
     total = collections.Counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3431,47 +3466,6 @@ def mesh_path(dev, seed, card) -> dict:
     print(json.dumps({"mesh_train": dict(card=card, lead=ranks[0]["train"], ranks=[
         dict(rank=r["rank"], loss=r["train"]["loss"], ms_per_step=r["train"]["ms_per_step"],
              launches=r["train"]["launches"]) for r in ranks])}))
-
-    # (b) the one-rank runs here, then the same flags under torchrun.
-    cfg, params, state, hcfg = serve.build(SERVE_ARCH, reduced=False, head="adversarial_ns",
-                                           seed=seed + 42, device=dev)
-    one = {}
-    for path in ("dense", "beam", "engine"):
-        args = serve.parse_args(mesh_serve_args(path, seed) + ["--device", "cuda"])
-        with torch.no_grad(), contextlib.redirect_stdout(sys.stderr):
-            if path == "engine":
-                run = serve.run_engine(args, cfg, params, state, hcfg, dev)
-                one[path] = [[int(x) for x in h.tokens] for h in run["handles"]]
-            else:
-                one[path] = serve.run_lockstep(args, cfg, params, state, hcfg, dev)[
-                    "tokens"].tolist()
-    del params, state
-    torch.cuda.empty_cache()
-    served = {}
-    for path in ("dense", "beam", "engine"):
-        with tempfile.TemporaryDirectory() as tmp:
-            out = torchrun(MESH_SERVE_RANKS, [
-                "-m", "repro_torch.launch.serve", *mesh_serve_args(path, seed), "--device",
-                MESH_DEVICE, "--model-axis", str(MESH_SERVE_RANKS), "--shard-scores",
-                "--report-dir", tmp], timeout=600)
-            reports = [json.loads(Path(tmp, f"serve_rank{r}.json").read_text())
-                       for r in range(MESH_SERVE_RANKS)]
-        check("backend gloo" in out, f"serve {path}: {out[:200]}")
-        for rep in reports:
-            check(rep["tokens"] == one[path],
-                  f"serve {path}: rank {rep['rank']}'s tokens differ from the one-rank run's")
-            for name, n in rep["launches"].items():
-                total[name] += n
-        served[path] = dict(tokens_equal=True, ranks=[
-            dict(rank=rep["rank"], launches=rep["launches"],
-                 ms_per_token=rep["decode_ms"] / rep["steps"] if "steps" in rep else None,
-                 prefill_ms=rep.get("prefill_ms"), wall_ms=rep.get("wall_ms"))
-            for rep in reports])
-        want_scores = 0 if path == "dense" else 1
-        check(all((rep["launches"]["gather_scores"] > 0) == bool(want_scores)
-                  and (rep["launches"]["tree_logprob_all"] > 0) != bool(want_scores)
-                  for rep in reports), f"serve {path}: launches {reports}")
-    print(json.dumps({"mesh_serve": dict(card=card, arch=SERVE_ARCH, served=served)}))
 
     # (d) one rank of NCCL.
     with tempfile.TemporaryDirectory() as tmp:
@@ -3493,11 +3487,497 @@ def mesh_path(dev, seed, card) -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the trunk sharded over the mesh's model axis.
+# ---------------------------------------------------------------------------
+
+# (a): the serving launcher on h2o-danube-3-4b, (model ranks, path).
+TP_PATHS = ((2, "dense"), (2, "beam"), (2, "engine"), (4, "dense"))
+TP_MOE_ARCH, TP_MOE_RANKS = "deepseek-moe-16b", 4
+TP_HYB_ARCH, TP_HYB_RANKS = "hymba-1.5b", 2
+TP_HYB_LENGTHS = (1, 586, 1171, 1756, 2341, 2926, 3511, 4096)   # one burst, 8 lanes
+TP_HYB_LAYERS = 8                # of 32, full width: (c)'s depth, cut for the time limit
+TP_HYB_PREFILL = (2, 4096)       # the hinted prefill's (B, S): S even, so the hint splits it
+# Sharded against one rank, bf16: each rank's part of a sum over heads,
+# d_ff or experts is a float32 partial (a bf16 GEMM writing float32), the
+# parts are summed in float32 and rounded once, as one rank's GEMM rounds
+# its output once; only the order of the float32 sums differs. Held to the
+# bound served requests meet against the cache-free forward (phase 9).
+TP_REL_RMS_TOL = SERVE_REL_RMS_TOL
+# deepseek-moe-16b's bf16 run flips near-tie routings between any two
+# orders of its sums, and a flipped token's hidden moves far: with the
+# partials rounded once its prefill's last hiddens still lie 0.15 from one
+# rank's (0.064 with them rounded twice), though 99.97% of layer 0's top-k
+# ids in the run agree. So they are not held in bf16: its float32 model,
+# at full width cut to TP_F32_LAYERS layers (a float32 copy of all 28
+# would not fit the card beside the ranks'), holds them and the decode's
+# scores to TP_REL_RMS_TOL of one rank's; bf16 holds the scores. hymba's
+# (c) prefill is checked in float32 as well as in bf16.
+TP_F32_LAYERS = 4
+
+
+def tp_expected_bytes(cfg, tp: int) -> dict:
+    """The one-rank trunk's bytes (bf16 matrices, as ``serve.build`` casts
+    them), split over ``model`` and whole, and what a rank of ``tp`` holds."""
+    from repro_torch.parallel import sharding
+    full = transformer.init_params(torch.Generator(), cfg, device="meta", cast=True)
+    split, whole = sharding.split_trunk_bytes(full, cfg, (1, tp))
+    return dict(one_rank=sharding.trunk_bytes(full), split=split, whole=whole,
+                rank=split // tp + whole)
+
+
+def tp_scores_gate(ref: dict, parts: list, vocab: int) -> dict:
+    """The prefill's last hiddens of every rank and the teacher-forced
+    dense scores (the ranks' vocabulary slices put together) against the
+    one-rank run's, relative RMS (the largest over ranks and steps)."""
+    parts = sorted(parts, key=lambda p: p["lo"])
+    scores = torch.cat([p["scores"] for p in parts], dim=-1)[..., :vocab]
+    want = ref["scores"][..., :vocab]
+    step_rms = [rel_rms(scores[t], want[t]) for t in range(want.shape[0])]
+    prefill = max(rel_rms(p["prefill_last"], ref["prefill_last"]) for p in parts)
+    return dict(prefill_rel_rms=prefill, scores_rel_rms_max=max(step_rms),
+                scores_rel_rms_mean=sum(step_rms) / len(step_rms), steps=len(step_rms))
+
+
+def tp_engine_gate(ref: dict, parts: list) -> dict:
+    """An engine's ``HiddenTap`` tensors on every rank against the one-rank
+    run's: each prefilled row's last hidden and each request's hidden at
+    its first decode step, relative RMS (the largest over ranks)."""
+    out = {}
+    for key in ("prefill_last", "decode_first"):
+        for p in parts:
+            check(p[key].shape == ref[key].shape,
+                  f"{key}: {tuple(p[key].shape)} against one rank's {tuple(ref[key].shape)}")
+        out[f"{key}_rel_rms"] = max(rel_rms(p[key], ref[key]) for p in parts)
+    return out
+
+
+def tp_rank_rows(reports: list, run_s) -> list:
+    """Each rank's ms a token, collective share, peak GiB and launches."""
+    rows = []
+    for rep in reports:
+        tc = rep["trunk_collectives"]
+        secs = run_s(rep)
+        rows.append(dict(rank=rep["rank"], trunk_bytes=rep["bytes"]["trunk"],
+                         params_bytes=rep["bytes"]["params"],
+                         ms_per_token=rep.get("ms_per_token"),
+                         ms_per_step=rep.get("ms_per_step"), run_s=secs,
+                         collective_calls=tc["calls"], collective_bytes=tc["bytes"],
+                         collective_s=tc["seconds"], collective_share=tc["seconds"] / secs,
+                         peak_gib=(rep["peak_bytes"] or 0) / 2 ** 30,
+                         launches=rep["launches"]))
+    return rows
+
+
+def tp_common_gates(name: str, reports: list, one_tokens, expected: dict) -> float:
+    """Every rank's tokens equal to every other rank's, every rank's trunk
+    bytes the split leaves' share plus the whole ones. Returns the share of
+    the tokens equal to the one-rank run's (printed, not gated)."""
+    for rep in reports:
+        check(rep["tokens"] == reports[0]["tokens"],
+              f"{name}: rank {rep['rank']}'s tokens differ from rank 0's")
+        check(rep["bytes"]["trunk"] == expected["rank"],
+              f"{name}: rank {rep['rank']} holds {rep['bytes']['trunk']} trunk bytes, "
+              f"not {expected['rank']} ({expected})")
+    got = [x for row in reports[0]["tokens"] for x in row]
+    want = [x for row in one_tokens for x in row]
+    check(len(got) == len(want), f"{name}: {len(got)} tokens against {len(want)}")
+    return sum(a == b for a, b in zip(got, want)) / len(want)
+
+
+def tp_danube(dev, seed, card, total) -> list:
+    """(a) h2o-danube-3-4b at full width and depth through the serving
+    launcher, every rank on the card: (1, 2) dense, beam 64 and the engine
+    burst, (1, 4) dense; the one-rank runs of the same flags here first."""
+    cfg, params, state, hcfg = serve.build(SERVE_ARCH, reduced=False, head="adversarial_ns",
+                                           seed=seed + 42, device=dev)
+    one, one_ms, ref = {}, {}, {}
+    for path in ("dense", "beam", "engine"):
+        args = serve.parse_args(mesh_serve_args(path, seed) + ["--device", "cuda"])
+        with torch.no_grad(), contextlib.redirect_stdout(sys.stderr):
+            if path == "engine":
+                run = serve.run_engine(args, cfg, params, state, hcfg, dev, tap=True)
+                one[path] = [[int(x) for x in h.tokens] for h in run["handles"]]
+                ref[path] = run["hiddens"]
+            else:
+                run = serve.run_lockstep(args, cfg, params, state, hcfg, dev)
+                one[path] = run["tokens"].tolist()
+                one_ms[path] = run["decode_ms"] / run["steps"]
+                if path == "dense":
+                    ref[path] = serve.teacher_forced(args, cfg, params, state, hcfg, dev,
+                                                     run["tokens"], run=run)
+    del params, state
+    torch.cuda.empty_cache()
+    rows = []
+    for tp, path in TP_PATHS:
+        expected = tp_expected_bytes(cfg, tp)
+        name = f"{SERVE_ARCH} {path} (1, {tp})"
+        with tempfile.TemporaryDirectory() as tmp:
+            teacher = []
+            if path == "dense":
+                np.save(Path(tmp, "teacher.npy"), np.asarray(one[path], np.int64))
+                teacher = ["--teacher-tokens", str(Path(tmp, "teacher.npy"))]
+            out = torchrun(tp, ["-m", "repro_torch.launch.serve", *mesh_serve_args(path, seed),
+                                "--device", MESH_DEVICE, "--model-axis", str(tp),
+                                "--shard-scores", "--time-collectives", "--report-dir", tmp,
+                                *teacher], timeout=600)
+            reports = [json.loads(Path(tmp, f"serve_rank{r}.json").read_text())
+                       for r in range(tp)]
+            forced = ([torch.load(Path(tmp, f"serve_rank{r}.pt"), weights_only=False)
+                       for r in range(tp)]
+                      if path in ref else None)
+        check(f"over {tp} ranks, backend gloo" in out, f"{name}: {out[:300]}")
+        equal_share = tp_common_gates(name, reports, one[path], expected)
+        row = dict(arch=SERVE_ARCH, path=path, mesh=[1, tp], card=card,
+                   tokens_equal_one_rank_share=equal_share, bytes=expected,
+                   one_rank_ms_per_token=one_ms.get(path))
+        if path == "engine":
+            row.update(tp_engine_gate(ref[path], forced))
+        elif forced is not None:
+            row.update(tp_scores_gate(ref[path], forced, cfg.vocab_size))
+            row["teacher_collective_s"] = [f["trunk_collectives"]["seconds"] for f in forced]
+        for rep in reports:
+            if "steps" in rep:
+                rep["ms_per_token"] = rep["decode_ms"] / rep["steps"]
+            for k, n in rep["launches"].items():
+                total[k] += n
+        row["ranks"] = tp_rank_rows(reports, lambda rep: 1e-3 * (
+            rep["wall_ms"] if "wall_ms" in rep else rep["prefill_ms"] + rep["decode_ms"]))
+        print(json.dumps({"tp_path": row}))
+        beam = path != "dense"      # the engine burst runs at beam 64
+        for rep in reports:
+            check((rep["launches"]["gather_scores"] > 0) == beam
+                  and (rep["launches"]["tree_logprob_all"] > 0) != beam,
+                  f"{name}: rank {rep['rank']}'s launches {rep['launches']}")
+        if path == "engine":
+            check(row["prefill_last_rel_rms"] <= TP_REL_RMS_TOL
+                  and row["decode_first_rel_rms"] <= TP_REL_RMS_TOL,
+                  f"{name}: the engine's prefill {row['prefill_last_rel_rms']}, first decode "
+                  f"step {row['decode_first_rel_rms']} relative RMS from one rank")
+        elif forced is not None:
+            check(row["prefill_rel_rms"] <= TP_REL_RMS_TOL
+                  and row["scores_rel_rms_max"] <= TP_REL_RMS_TOL,
+                  f"{name}: prefill {row['prefill_rel_rms']}, scores "
+                  f"{row['scores_rel_rms_max']} relative RMS from one rank")
+        rows.append(row)
+    return rows
+
+
+def route_recorder(store: list):
+    """A stand-in for ``moe._route`` that keeps its first call's input and
+    top-k ids (layer 0 of a prefill) on the host."""
+    from repro_torch.models import moe as moe_lib
+    route = moe_lib._route
+
+    def rec(cfg, params, xt):
+        out = route(cfg, params, xt)
+        if not store:
+            store.append((xt.detach().cpu(), out[1].detach().cpu()))
+        return out
+
+    return rec
+
+
+def moe_drops(cfg, idx: torch.Tensor) -> int:
+    """Assignments past their expert's capacity, each row a group, from the
+    (B, S, k) top-k ids."""
+    from repro_torch.models import moe as moe_lib
+    b, s, _ = idx.shape
+    flat = idx.reshape(b, -1).long()
+    counts = torch.zeros((b, cfg.n_experts), dtype=torch.int64).scatter_add_(
+        1, flat, torch.ones_like(flat))
+    return int((counts - moe_lib._capacity(cfg, s)).clamp(min=0).sum())
+
+
+def tp_moe_args(seed: int, device: str) -> list:
+    return ["--arch", TP_MOE_ARCH, "--full", "--lockstep", "--batch", str(MOE_BATCH),
+            "--prompt-len", str(MOE_PROMPT), "--gen", str(SERVE_GEN), "--seed",
+            str(seed + 43), "--device", device]
+
+
+def tp_moe_f32(args, dev, seed: int, tokens=None, mesh=None) -> tuple:
+    """deepseek-moe-16b in float32 at full width, TP_F32_LAYERS layers: the
+    lock-step run's tokens and the decode fed ``tokens`` (its own when
+    None), as ``serve.teacher_forced`` gives it. Everything is freed after."""
+    cfg, params, state, hcfg = serve.build(
+        TP_MOE_ARCH, reduced=False, head="adversarial_ns", seed=seed, device=dev, mesh=mesh,
+        num_layers=TP_F32_LAYERS, dtype="float32")
+    with torch.no_grad(), contextlib.redirect_stdout(sys.stderr):
+        run = serve.run_lockstep(args, cfg, params, state, hcfg, dev, mesh=mesh)
+        forced = serve.teacher_forced(args, cfg, params, state, hcfg, dev,
+                                      run["tokens"] if tokens is None else tokens,
+                                      mesh=mesh, run=run)
+    out = run["tokens"], forced
+    del params, state, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_worker(out_dir: str, case: str, seed: int) -> int:
+    """One rank of a phase 14 world (started by ``torchrun``): (b) the
+    MoE model on (1, 4) or (c) the hybrid one on (1, 2), under the hints;
+    its results to ``rank<r>.json`` and ``rank<r>.pt``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.parallel.collectives import TRUNK
+    from repro_torch.parallel.hints import sharding_hints
+    dev = torch.device(MESH_DEVICE)
+    tp = TP_MOE_RANKS if case == "moe" else TP_HYB_RANKS
+    mesh = make_host_mesh(tp, MESH_DEVICE, timeout_s=MESH_TIMEOUT_S)
+    r = dist.get_rank()
+    ref = torch.load(Path(out_dir, "ref.pt"), weights_only=False)
+    arch, build_seed = (TP_MOE_ARCH, seed + 43) if case == "moe" else (TP_HYB_ARCH, seed + 44)
+    big = {}
+    if case == "moe":        # the small float32 check first: nothing else on the card yet
+        args = serve.parse_args(tp_moe_args(seed, MESH_DEVICE))
+        big["forced_f32"] = tp_moe_f32(args, dev, build_seed, ref["tokens_f32"], mesh)[1]
+    cfg, params, state, hcfg = serve.build(
+        arch, reduced=False, head="adversarial_ns", seed=build_seed, device=dev, mesh=mesh,
+        num_layers=None if case == "moe" else TP_HYB_LAYERS)
+    res = {"rank": r, "backend": dist.get_backend(),
+           "bytes": serve.param_bytes(cfg, params, mesh)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_engine_counters()
+    TRUNK.reset()
+    TRUNK.timed = True
+    if case == "moe":
+        routes = []
+        with swapped(moe_lib, _route=route_recorder(routes)), torch.no_grad(), \
+                contextlib.redirect_stdout(sys.stderr):
+            run = serve.run_lockstep(args, cfg, params, state, hcfg, dev, mesh=mesh)
+        res.update(tokens=run["tokens"].tolist(), prefill_ms=run["prefill_ms"],
+                   decode_ms=run["decode_ms"], steps=run["steps"],
+                   ms_per_token=run["decode_ms"] / run["steps"],
+                   run_layer0_route_share=float((routes[0][1] == ref["idx0"]).float().mean()))
+    else:
+        from repro_torch.serve import Engine, Request, ServeConfig
+        eng = Engine(cfg, hcfg, params, state, ServeConfig(
+            n_slots=FAM_SLOTS, max_len=max(TP_HYB_LENGTHS) + FAM_GEN, page_len=FAM_PAGE_LEN,
+            cache_dtype=torch.bfloat16, mesh=mesh))
+        tap = serve.HiddenTap(eng)
+        t0 = time.perf_counter()
+        with sharding_hints(mesh), torch.no_grad():
+            handles = [eng.submit(Request(prompt=p, max_new_tokens=FAM_GEN))
+                       for p in ref["prompts"]]
+            eng.run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        eng.pool.check_invariants()
+        big["engine"] = tap.tensors()
+        tokens = sum(len(h.tokens) for h in handles)
+        res.update(tokens=[[int(x) for x in h.tokens] for h in handles], wall_ms=wall_ms,
+                   decode_steps=eng.decode_steps, tokens_per_s=1e3 * tokens / wall_ms,
+                   ms_per_step=wall_ms / eng.decode_steps,
+                   arena_bytes=eng.stats()["arena_bytes_this_rank"])
+    torch.cuda.synchronize()
+    res.update(launches={k: v for k, v in engine_counts().items() if k in ENGINE_KERNELS},
+               trunk_collectives=dataclasses.asdict(TRUNK),
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    TRUNK.timed = False
+    with torch.no_grad():
+        if case == "moe":
+            big["forced"] = serve.teacher_forced(args, cfg, params, state, hcfg, dev,
+                                                 ref["tokens"], mesh=mesh, run=run)
+            routes = []
+            with swapped(moe_lib, _route=route_recorder(routes)):
+                y = moe_lib.moe_ffn(params["layers"][0]["moe"], cfg, ref["x0"].to(dev),
+                                    mesh=mesh)[0]
+            res.update(layer0_route_equal=bool(torch.equal(routes[0][1], ref["idx0"])),
+                       layer0_drops=moe_drops(cfg, routes[0][1]),
+                       layer0_out_rel_rms=rel_rms(y.cpu(), ref["y0"]))
+        else:
+            toks = ref["prefill_tokens"].to(dev)
+            b, s = TP_HYB_PREFILL
+
+            def run_prefill(model_cfg, model):
+                cache = transformer.init_cache(model_cfg, b, s, device=dev, mesh=mesh)
+                return make_prefill(model_cfg, mesh=mesh)(model, toks, cache)[0]
+
+            plain = run_prefill(cfg, params)
+            with sharding_hints(mesh):
+                hinted = run_prefill(cfg, params)
+            res.update(hint_vs_plain_rel_rms=rel_rms(hinted, plain),
+                       bf16_vs_one_bf16_rel_rms=rel_rms(hinted[:, -1].cpu(), ref["last_bf16"]),
+                       bf16_vs_one_f32_rel_rms=rel_rms(hinted[:, -1].cpu(), ref["last_f32"]))
+            del params, plain, hinted
+            torch.cuda.empty_cache()
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            params32 = transformer.init_params(torch.Generator(device=dev).manual_seed(
+                build_seed), cfg32, device=dev, cast=True, mesh=mesh)
+            with sharding_hints(mesh):
+                h32 = run_prefill(cfg32, params32)
+            res["f32_vs_one_f32_rel_rms"] = rel_rms(h32[:, -1].cpu(), ref["last_f32"])
+    Path(out_dir, f"rank{r}.json").write_text(json.dumps(res))
+    if big:
+        torch.save(big, Path(out_dir, f"rank{r}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_moe(dev, seed, card, total) -> dict:
+    """(b) deepseek-moe-16b at full width and depth on (1, 4), 16 of its 64
+    experts a rank: the one-rank lock-step run here (layer 0's routing and
+    MoE output recorded on its real prefill input), then the world."""
+    from repro_torch.models import moe as moe_lib
+    cfg, params, state, hcfg = serve.build(TP_MOE_ARCH, reduced=False, head="adversarial_ns",
+                                           seed=seed + 43, device=dev)
+    args = serve.parse_args(tp_moe_args(seed, "cuda"))
+    routes = []
+    with swapped(moe_lib, _route=route_recorder(routes)), torch.no_grad(), \
+            contextlib.redirect_stdout(sys.stderr):
+        run = serve.run_lockstep(args, cfg, params, state, hcfg, dev)
+    x0, idx0 = routes[0]
+    with torch.no_grad():
+        y0 = moe_lib.moe_ffn(params["layers"][0]["moe"], cfg, x0.to(dev))[0].cpu()
+        forced = serve.teacher_forced(args, cfg, params, state, hcfg, dev, run["tokens"],
+                                      run=run)
+    one_ms = run["decode_ms"] / run["steps"]
+    del run["cache"]
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens32, forced32 = tp_moe_f32(args, dev, seed + 43)
+    held_gib = torch.cuda.memory_reserved() / 2 ** 30     # this process's, during the world
+    expected = tp_expected_bytes(cfg, TP_MOE_RANKS)
+    name = f"{TP_MOE_ARCH} dense (1, {TP_MOE_RANKS})"
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dict(tokens=run["tokens"], x0=x0, idx0=idx0, y0=y0, tokens_f32=tokens32),
+                   Path(tmp, "ref.pt"))
+        torchrun(TP_MOE_RANKS, [__file__, "--tp-worker", tmp, "--tp-case", "moe", "--seed",
+                                str(seed)], timeout=600)
+        reports = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                   for r in range(TP_MOE_RANKS)]
+        parts = [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(TP_MOE_RANKS)]
+    equal_share = tp_common_gates(name, reports, run["tokens"].tolist(), expected)
+    row = dict(arch=TP_MOE_ARCH, path="dense", mesh=[1, TP_MOE_RANKS], card=card,
+               experts_per_rank=cfg.n_experts // TP_MOE_RANKS, reference_process_gib=held_gib,
+               tokens_equal_one_rank_share=equal_share, bytes=expected, one_rank_ms_per_token=one_ms,
+               layer0_drops_one_rank=moe_drops(cfg, idx0),
+               bf16=tp_scores_gate(forced, [p["forced"] for p in parts], cfg.vocab_size),
+               f32=dict(layers=TP_F32_LAYERS, **tp_scores_gate(
+                   forced32, [p["forced_f32"] for p in parts], cfg.vocab_size)),
+               layer0_out_rel_rms=[rep["layer0_out_rel_rms"] for rep in reports],
+               run_layer0_route_share=[rep["run_layer0_route_share"] for rep in reports],
+               ranks=tp_rank_rows(reports, lambda rep: 1e-3 * (rep["prefill_ms"]
+                                                                + rep["decode_ms"])))
+    print(json.dumps({"tp_path": row}))
+    for rep in reports:
+        check(rep["layer0_route_equal"] and rep["layer0_drops"] == row["layer0_drops_one_rank"],
+              f"{name}: rank {rep['rank']}'s layer 0 routing differs from one rank's on the "
+              "same input")
+        check(rep["layer0_out_rel_rms"] <= TP_REL_RMS_TOL,
+              f"{name}: layer 0's MoE output {rep['layer0_out_rel_rms']} from one rank's")
+        for k, n in rep["launches"].items():
+            total[k] += n
+    f32, bf16 = row["f32"], row["bf16"]
+    check(max(f32["prefill_rel_rms"], f32["scores_rel_rms_max"]) <= TP_REL_RMS_TOL,
+          f"{name}: float32 at {TP_F32_LAYERS} layers: prefill {f32['prefill_rel_rms']}, "
+          f"scores {f32['scores_rel_rms_max']} from one rank's")
+    check(bf16["scores_rel_rms_max"] <= TP_REL_RMS_TOL,
+          f"{name}: bf16 teacher-forced scores {bf16['scores_rel_rms_max']} from one rank's")
+    return row
+
+
+def tp_hybrid(dev, seed, card, total) -> dict:
+    """(c) hymba-1.5b at full width on (1, 2), attention whole on each rank
+    (25 heads), its 50 SSD heads split: the engine burst under
+    ``sharding_hints``, and a (2, 4,096) prefill with and without the
+    hints, against the one-rank run here."""
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg, params, state, hcfg = serve.build(TP_HYB_ARCH, reduced=False, head="adversarial_ns",
+                                           seed=seed + 44, device=dev, num_layers=TP_HYB_LAYERS)
+    rng = np.random.default_rng(seed + 44)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in TP_HYB_LENGTHS]
+    prefill_tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, TP_HYB_PREFILL))
+    eng = Engine(cfg, hcfg, params, state, ServeConfig(
+        n_slots=FAM_SLOTS, max_len=max(TP_HYB_LENGTHS) + FAM_GEN, page_len=FAM_PAGE_LEN,
+        cache_dtype=torch.bfloat16))
+    tap = serve.HiddenTap(eng)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        handles = [eng.submit(Request(prompt=p, max_new_tokens=FAM_GEN)) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        one_ms = 1e3 * (time.perf_counter() - t0) / eng.decode_steps
+        one_tokens = [[int(x) for x in h.tokens] for h in handles]
+        one_engine = tap.tensors()
+        cache = transformer.init_cache(cfg, *TP_HYB_PREFILL, device=dev)
+        last_bf16 = make_prefill(cfg)(params, prefill_tokens.to(dev), cache)[0][:, -1].cpu()
+    del params, state, eng, cache
+    torch.cuda.empty_cache()
+    # The same weights unrounded, in float32 (serve.build's draws, not cast).
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = transformer.init_params(torch.Generator(device=dev).manual_seed(seed + 44),
+                                       cfg32, device=dev, cast=True)
+    with torch.no_grad():
+        cache = transformer.init_cache(cfg32, *TP_HYB_PREFILL, device=dev)
+        last_f32 = make_prefill(cfg32)(params32, prefill_tokens.to(dev), cache)[0][:, -1].cpu()
+    one_bf16_vs_f32 = rel_rms(last_bf16, last_f32)
+    del params32, cache
+    torch.cuda.empty_cache()
+    expected = tp_expected_bytes(cfg, TP_HYB_RANKS)
+    name = f"{TP_HYB_ARCH} engine (1, {TP_HYB_RANKS}) hinted"
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dict(prompts=prompts, prefill_tokens=prefill_tokens, last_bf16=last_bf16,
+                        last_f32=last_f32), Path(tmp, "ref.pt"))
+        torchrun(TP_HYB_RANKS, [__file__, "--tp-worker", tmp, "--tp-case", "hybrid", "--seed",
+                                str(seed)], timeout=600)
+        reports = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                   for r in range(TP_HYB_RANKS)]
+        parts = [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)["engine"]
+                 for r in range(TP_HYB_RANKS)]
+    equal_share = tp_common_gates(name, reports, one_tokens, expected)
+    row = dict(arch=TP_HYB_ARCH, path="engine dense, hinted", mesh=[1, TP_HYB_RANKS],
+               card=card, reduced={"num_layers": [configs.get_config(TP_HYB_ARCH).num_layers,
+                                                  TP_HYB_LAYERS]},
+               prompt_lengths=list(TP_HYB_LENGTHS), gen=FAM_GEN,
+               tokens_equal_one_rank_share=equal_share, bytes=expected,
+               one_rank_ms_per_step=one_ms, engine=tp_engine_gate(one_engine, parts),
+               prefill=dict(one_bf16_vs_one_f32_rel_rms=one_bf16_vs_f32, **{k: [
+                   rep[k] for rep in reports] for k in (
+                   "hint_vs_plain_rel_rms", "bf16_vs_one_bf16_rel_rms", "bf16_vs_one_f32_rel_rms",
+                   "f32_vs_one_f32_rel_rms")}),
+               arena_bytes=[rep["arena_bytes"] for rep in reports],
+               tokens_per_s=[rep["tokens_per_s"] for rep in reports],
+               ranks=tp_rank_rows(reports, lambda rep: 1e-3 * rep["wall_ms"]))
+    print(json.dumps({"tp_path": row}))
+    for rep in reports:
+        check(max(rep["hint_vs_plain_rel_rms"], rep["bf16_vs_one_bf16_rel_rms"],
+                  rep["f32_vs_one_f32_rel_rms"]) <= TP_REL_RMS_TOL,
+              f"{name}: rank {rep['rank']}'s prefill: hinted against plain "
+              f"{rep['hint_vs_plain_rel_rms']}; against one rank's, bf16 "
+              f"{rep['bf16_vs_one_bf16_rel_rms']}, float32 {rep['f32_vs_one_f32_rel_rms']}")
+        for k, n in rep["launches"].items():
+            total[k] += n
+    check(max(row["engine"].values()) <= TP_REL_RMS_TOL,
+          f"{name}: the engine's hiddens {row['engine']} relative RMS from one rank's")
+    return row
+
+
+def sharded_trunk_path(dev, seed, card) -> dict:
+    """Phase 14: (a), (b) and (c). Returns the launches of every rank."""
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    rows = tp_danube(dev, seed, card, total)
+    rows.append(tp_moe(dev, seed, card, total))
+    rows.append(tp_hybrid(dev, seed, card, total))
+    print(json.dumps({"sharded_trunk_path": dict(card=card, wall_s=time.perf_counter() - t_phase,
+                                                 paths=len(rows), launches=dict(total))}))
+    return dict(total)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--mesh-worker", default=None,
                         help="run as one rank of phase 13's world (under torchrun)")
+    parser.add_argument("--tp-worker", default=None,
+                        help="run as one rank of a phase 14 world (under torchrun)")
+    parser.add_argument("--tp-case", default="moe", choices=("moe", "hybrid"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3505,6 +3985,8 @@ def main() -> int:
         return 2
     if args.mesh_worker:
         return mesh_worker(args.mesh_worker, args.seed)
+    if args.tp_worker:
+        return tp_worker(args.tp_worker, args.tp_case, args.seed)
     dev = device_lib.resolve("cuda")
     card = card_line()
     print(card)
@@ -3554,6 +4036,8 @@ def main() -> int:
     for name, n in backbone_path(dev, args.seed, card).items():
         launches[name] += n
     for name, n in mesh_path(dev, args.seed, card).items():
+        launches[name] += n
+    for name, n in sharded_trunk_path(dev, args.seed, card).items():
         launches[name] += n
     src = "src/repro_torch/kernels/csrc"
     kernels = [

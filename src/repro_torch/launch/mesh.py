@@ -14,8 +14,13 @@ rank has a card of its own, gloo on the CPU and where ranks share a card
 Every group of the mesh gets a finite timeout, so a rank left waiting on a
 collective fails instead of hanging.
 
-The reference's ``make_production_mesh`` and its roofline constants are
-a TPU pod's; the port's wait for its roofline analysis (ROADMAP item 12).
+What a rank holds is the launcher's: serving shards the whole model over
+``model`` (the trunk's heads, ``d_ff``, experts and SSM heads, the
+embedding's and the head's rows, the cache by KV heads), training only the
+embedding and the head (its trunk over ``model`` and FSDP over ``data``
+are slice 11). The reference's ``make_production_mesh`` and its roofline
+constants are a TPU pod's; the port's production mesh, with the H100's
+constants, waits for its roofline analysis (slice 12).
 """
 from __future__ import annotations
 

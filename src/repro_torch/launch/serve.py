@@ -35,14 +35,27 @@ mesh`); rank 0 alone prints:
       -m repro_torch.launch.serve --model-axis 2 --shard-scores \
       --device cpu|cuda|cuda:0 ...
 
-The embedding's and the head's rows are sharded over ``model`` (as the
-reference's ``param_spec`` shards them), so the beam path always scores
-through ``sharded_candidate_scores`` and the dense path merges each rank's
-argmax; the trunk and the KV cache are whole on every rank.
-``--shard-scores`` selects that lowering, the only one the port has, and
-is kept so that the reference's command lines run. ``--model-axis`` above
-1 without ``torchrun`` raises. ``--report-dir`` makes each rank write its
-tokens, times and kernel launches to ``serve_rank<r>.json`` there.
+Each rank builds only its part of the model, as the reference's
+``param_spec`` places it over ``model`` (``parallel.sharding``): the
+embedding's and the head's rows, the attention heads, the MLP's and the
+experts' ``d_ff`` or the experts themselves, the SSM heads; the KV cache
+and the paged arena are split by KV heads where they divide. Each block's
+partial sums are reduced over ``model``; the beam path scores through
+``sharded_candidate_scores`` and the dense path merges each rank's argmax.
+The ``mesh:`` line gives every rank's parameter and trunk bytes beside the
+one-rank trunk's. ``--shard-scores`` selects the head's lowering, the only
+one the port has, and is kept so that the reference's command lines run.
+``--model-axis`` above 1 without ``torchrun`` raises. ``--report-dir``
+makes each rank write its tokens, times, bytes, peak memory, kernel
+launches and the trunk's collectives to ``serve_rank<r>.json`` there;
+``--time-collectives`` times those collectives (the device synchronized
+around each), and ``--teacher-tokens`` makes a lock-step run decode its
+prompts again fed the given tokens, writing the prefill's last hiddens and
+each step's dense Eq. 5 scores (a rank's vocabulary rows) to
+``serve_rank<r>.pt``; the engine writes there each prefilled row's last
+hidden and each request's hidden at its first decode step
+(:class:`HiddenTap`). These are what a sharded deployment is checked
+against one rank with.
 
 Attention runs through the ``flash_attention`` kernel on the card (paged in
 the engine). The weights are random from ``--seed`` and cast once to the
@@ -64,28 +77,34 @@ import torch
 
 from repro_torch import configs as cfg_lib
 from repro_torch import device as device_lib
+from repro_torch import tree_util
+from repro_torch.core.heads import HeadParams
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm_head, transformer
-from repro_torch.parallel import shard_train_state
+from repro_torch.parallel import collectives, sharding
 from repro_torch.train import make_prefill, make_serve_step
 
 KERNELS = ("flash_attention", "gather_scores", "tree_logprob_all")
 
 
 def build(arch: str, *, reduced: bool, head: str, seed: int, device="cuda",
-          num_layers: Optional[int] = None) -> tuple:
+          num_layers: Optional[int] = None, mesh=None, dtype: Optional[str] = None) -> tuple:
     """(cfg, params, head state, head config) of ``arch``: the full config,
-    or the reduced one; ``num_layers`` cuts the depth. The weights are drawn
+    or the reduced one; ``num_layers`` cuts the depth, ``dtype`` replaces the
+    config's compute dtype (the same draws, unrounded in float32). The weights are drawn
     from ``seed`` on ``device`` and each layer is cast to the config's dtype
     as it is drawn (``init_params(cast=True)``), so the model never exists
-    whole in float32."""
+    whole in float32. Under ``mesh`` the params are this rank's part, each
+    layer cut as soon as it is drawn (``init_params(mesh=)``)."""
     dev = device_lib.resolve(device)
     cfg = cfg_lib.reduced_config(arch) if reduced else cfg_lib.get_config(arch)
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = transformer.init_params(gen, cfg, device=dev, cast=True)
+    params = transformer.init_params(gen, cfg, device=dev, cast=True, mesh=mesh)
     head_state = lm_head.default_head_state(gen, cfg, head, device=dev)
     return cfg, params, head_state, lm_head.head_config(cfg, head)
 
@@ -107,19 +126,22 @@ def run_lockstep(args, cfg, params, head_state, hcfg, dev: torch.device,
     ``--eos-id`` are frozen (their subsequent tokens pinned to EOS) and the
     loop exits early once every row has finished. Returns the prompts, the
     generated tokens (B, steps), the prefill ms and the decode ms, each on
-    the host clock ending in a synchronize, and the cache and last token.
+    the host clock ending in a synchronize, the cache and last token, and
+    the prefill's last hiddens (B, d) on the host.
     Under ``mesh`` the params are this rank's."""
     max_len = args.prompt_len + args.gen
-    cache = transformer.init_cache(cfg, args.batch, max_len, device=dev)
+    cache = transformer.init_cache(cfg, args.batch, max_len, device=dev, mesh=mesh)
     prefill = make_prefill(cfg, mesh=mesh)
     serve_step = make_serve_step(cfg, hcfg, topk_beam=args.topk_beam, mesh=mesh)
 
     prompts = _prompts(args, cfg, dev)
     _sync(dev)
     t0 = time.perf_counter()
-    _, cache = prefill(params, prompts, cache)
+    h, cache = prefill(params, prompts, cache)
     _sync(dev)
     prefill_ms = 1e3 * (time.perf_counter() - t0)
+    prefill_last = h[:, -1].float().cpu()
+    del h
     print(f"prefill {args.batch}x{args.prompt_len}: {prefill_ms:.0f} ms")
 
     token = prompts[:, -1:]
@@ -155,17 +177,107 @@ def run_lockstep(args, cfg, params, head_state, hcfg, dev: torch.device,
           f"({1e3 * real / decode_ms:.1f} tok/s) [{path}, lock-step]")
     print("sample:", out[0].tolist())
     return dict(prompts=prompts, tokens=out, prefill_ms=prefill_ms,
-                decode_ms=decode_ms, steps=steps, cache=cache, token=token)
+                decode_ms=decode_ms, steps=steps, cache=cache, token=token,
+                prefill_last=prefill_last)
+
+
+def teacher_forced(args, cfg, params, head_state, hcfg, dev: torch.device, tokens,
+                   mesh=None, run: Optional[dict] = None) -> dict:
+    """The lock-step decode of the run's prompts fed ``tokens`` (B, steps)
+    instead of its own choices, as ``run_lockstep`` feeds them (the last
+    prompt token first, at position ``prompt_len``): the prefill's last
+    hiddens (B, d), each step's dense Eq. 5 scores (steps, B, n) of this
+    rank's vocabulary rows [lo, lo + n), float32 on the host, and the
+    decode's ms (host clock ending in a synchronize).
+
+    ``run``, a ``run_lockstep`` result of an attention model, lends its
+    prefill: its cache holds the prompts' K/V below ``prompt_len``, and
+    each step writes its own position before it reads (an SSM's state is
+    not positional, so there ``run`` raises)."""
+    tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64, device=dev)
+    steps = tokens.shape[1]
+    prompts = _prompts(args, cfg, dev)
+    lo = 0 if mesh is None else sharding.row_range(cfg.padded_vocab, mesh)[0]
+    head = HeadParams(**params["head"])
+    if run is not None:
+        if cfg.block != "attn":
+            raise ValueError("a recurrent state cannot be rewound: run the prefill again")
+        cache, last = run["cache"], run["prefill_last"]
+    else:
+        cache = transformer.init_cache(cfg, args.batch, args.prompt_len + steps, device=dev,
+                                       mesh=mesh)
+        h, cache, _ = transformer.forward(params, cfg, prompts, cache=cache, cache_pos=0,
+                                          mesh=mesh)
+        last = h[:, -1].float().cpu()
+    token, scores = prompts[:, -1:], []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for t in range(steps):
+        h, cache, _ = transformer.forward(params, cfg, token, cache=cache,
+                                          cache_pos=args.prompt_len + t, mesh=mesh)
+        scores.append(lm_head.lm_predictive_scores(cfg, hcfg, head, head_state, h[:, -1],
+                                                   lo=lo).float().cpu())
+        token = tokens[:, t:t + 1]
+    _sync(dev)
+    return dict(prefill_last=last, scores=torch.stack(scores), lo=lo,
+                decode_ms=1e3 * (time.perf_counter() - t0))
+
+
+class HiddenTap:
+    """Wraps an engine's prefill and decode steps so that they also keep,
+    float32 on the host, what a sharded engine is held to one rank's with:
+    each prefilled row's last hidden, in launch order, and each request's
+    hidden at its first decode step (whose input is the prompt's last
+    token, so no choice of the run has entered it yet), by request id."""
+
+    def __init__(self, engine):
+        self.prefill_last, self.decode_first = [], {}
+        batched, paged, decode = engine._prefill, engine._paged_prefill, engine._decode
+
+        def keep_last(h, lengths):
+            n = np.asarray(lengths).astype(np.int64)
+            rows = np.nonzero(n > 0)[0]
+            self.prefill_last.append(h[torch.as_tensor(rows, device=h.device),
+                                       torch.as_tensor(n[rows] - 1, device=h.device)]
+                                     .float().cpu())
+
+        def tapped_batched(params, tokens, lengths, lanes, arena, tables):
+            h, arena = batched(params, tokens, lengths, lanes, arena, tables)
+            keep_last(h, lengths)
+            return h, arena
+
+        def tapped_paged(params, tokens, start, lengths, arena, tables):
+            h, arena = paged(params, tokens, start, lengths, arena, tables)
+            keep_last(h, lengths)
+            return h, arena
+
+        def tapped_decode(params, token, arena, cache_pos, table):
+            h, arena = decode(params, token, arena, cache_pos, table)
+            for slot, st in engine._active.items():
+                if not st.tokens and st.request_id not in self.decode_first:
+                    self.decode_first[st.request_id] = h[slot].float().cpu()
+            return h, arena
+
+        engine._prefill, engine._decode = tapped_batched, tapped_decode
+        if paged is not None:
+            engine._paged_prefill = tapped_paged
+
+    def tensors(self) -> dict:
+        """``prefill_last`` (rows, d) and ``decode_first`` (requests, d)."""
+        return dict(prefill_last=torch.cat(self.prefill_last),
+                    decode_first=torch.stack([self.decode_first[i]
+                                              for i in sorted(self.decode_first)]))
 
 
 def run_engine(args, cfg, params, head_state, hcfg, dev: torch.device,
-               mesh=None) -> dict:
+               mesh=None, tap: bool = False) -> dict:
     """The continuous-batching engine over ``--batch`` requests of
     ``--prompt-len`` tokens and ``--gen`` new tokens each, on ``--slots``
     lanes. Prints the run's throughput, the engine's stats, the latency
     percentiles and the console summary of its registry. Returns the
     engine, the handles, the prompts and the wall ms (host clock ending in a
-    synchronize)."""
+    synchronize); with ``tap``, also the :class:`HiddenTap` tensors of the
+    run (``hiddens``)."""
     from repro_torch.obs import JsonlExporter, console_summary, start_metrics_server
     from repro_torch.obs.trace import ProfileWindow
     from repro_torch.serve import Engine, Request, ServeConfig
@@ -193,6 +305,7 @@ def run_engine(args, cfg, params, head_state, hcfg, dev: torch.device,
     if args.profile_dir:
         engine.registry.annotate = True     # spans label the trace
     prompts = _prompts(args, cfg, dev).cpu().numpy()
+    hidden_tap = HiddenTap(engine) if tap else None
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -227,7 +340,10 @@ def run_engine(args, cfg, params, head_state, hcfg, dev: torch.device,
     if metrics_server is not None:
         metrics_server.close()
     print("sample:", handles[0].result().tolist())
-    return dict(engine=engine, handles=handles, prompts=prompts, wall_ms=wall_ms)
+    out = dict(engine=engine, handles=handles, prompts=prompts, wall_ms=wall_ms)
+    if hidden_tap is not None:
+        out["hiddens"] = hidden_tap.tensors()
+    return out
 
 
 def parse_args(argv=None):
@@ -256,15 +372,24 @@ def parse_args(argv=None):
                          "search over B candidates, O(B k log C) per token")
     ap.add_argument("--model-axis", type=int, default=1,
                     help="model ranks of the (data, model) mesh under torchrun; "
-                         "the head's and the embedding's rows shard over them")
+                         "the model's heads, d_ff, experts and vocab rows shard "
+                         "over them")
     ap.add_argument("--shard-scores", action="store_true",
                     help="score beam candidates with sharded_candidate_scores: "
                          "the only lowering of a mesh, selected under one anyway")
     ap.add_argument("--report-dir", default=None,
                     help="each rank writes serve_rank<r>.json (tokens, ms, kernel "
-                         "launches) into this directory")
+                         "launches) into this directory, and the engine its prefill's "
+                         "and first decode step's hiddens to serve_rank<r>.pt")
     ap.add_argument("--lockstep", action="store_true",
                     help="fixed-batch decode instead of the engine")
+    ap.add_argument("--teacher-tokens", default=None,
+                    help="a .npy of (batch, steps) token ids: after the lock-step run, "
+                         "decode again fed them and write the prefill's last hiddens and "
+                         "each step's dense scores to --report-dir/serve_rank<r>.pt")
+    ap.add_argument("--time-collectives", action="store_true",
+                    help="synchronize the device around each of the trunk's model "
+                         "collectives and report their host seconds")
     ap.add_argument("--metrics-jsonl", default=None,
                     help="stream request/serve_step JSONL events "
                          "(DESIGN.md §10) to this path (engine path only)")
@@ -305,14 +430,41 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _report(args, mesh, out: dict, tokens, launches: dict) -> None:
+def param_bytes(cfg, params, mesh) -> dict:
+    """This process's parameter and trunk bytes, and the one-rank trunk's
+    (from a meta-device build): split over ``model`` and whole, so that a
+    rank of ``tp`` should hold split / tp + whole."""
+    full = transformer.init_params(torch.Generator(), cfg, device="meta", cast=True)
+    split, whole = sharding.split_trunk_bytes(full, cfg, mesh if mesh is not None else (1, 1))
+    return {"params": sum(x.numel() * x.element_size() for x in tree_util.leaves(params)
+                          if isinstance(x, torch.Tensor)),
+            "trunk": sharding.trunk_bytes(params),
+            "trunk_one_rank": sharding.trunk_bytes(full),
+            "trunk_split": split, "trunk_whole": whole}
+
+
+def _mesh_line(mesh, nbytes: dict) -> str:
+    """The ``mesh:`` line with every rank's parameter and trunk bytes."""
+    every = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(every, nbytes)
+    return (f"{mesh_lib.describe(mesh)}; parameter bytes a rank "
+            f"{[b['params'] for b in every]}, trunk bytes a rank "
+            f"{[b['trunk'] for b in every]} (one rank's trunk {nbytes['trunk_one_rank']}: "
+            f"{nbytes['trunk_split']} split over model, {nbytes['trunk_whole']} whole)")
+
+
+def _report(args, mesh, out: dict, tokens, launches: dict, nbytes: dict,
+            dev: torch.device) -> None:
     """This rank's ``serve_rank<r>.json`` in ``--report-dir``: the tokens of
-    each request, the kernel launches of the run, its host-clock times."""
+    each request, the kernel launches of the run, its host-clock times and
+    its parameter bytes."""
     r = torch.distributed.get_rank() if mesh is not None else 0
     os.makedirs(args.report_dir, exist_ok=True)
     rec = {"rank": r, "path": "lockstep" if args.lockstep else "engine",
            "beam": args.topk_beam, "tokens": [[int(x) for x in row] for row in tokens],
-           "launches": launches,
+           "launches": launches, "bytes": nbytes,
+           "trunk_collectives": dataclasses.asdict(collectives.TRUNK),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
            **{k: out[k] for k in ("prefill_ms", "decode_ms", "steps", "wall_ms") if k in out}}
     with open(os.path.join(args.report_dir, f"serve_rank{r}.json"), "w") as f:
         json.dump(rec, f)
@@ -325,23 +477,40 @@ def main(argv=None) -> int:
            else device_lib.resolve(args.device))
     if not mesh_lib.is_lead(mesh):
         sys.stdout = open(os.devnull, "w")
-    if mesh is not None:
-        print(mesh_lib.describe(mesh))
     cfg, params, head_state, hcfg = build(args.arch, reduced=args.reduced, head=args.head,
-                                          seed=args.seed, device=dev)
+                                          seed=args.seed, device=dev, mesh=mesh)
+    nbytes = param_bytes(cfg, params, mesh)
     if mesh is not None:
-        params = shard_train_state(params, mesh)
+        print(_mesh_line(mesh, nbytes))
+    if args.teacher_tokens and not (args.lockstep and args.report_dir):
+        raise ValueError("--teacher-tokens needs --lockstep and --report-dir")
     for name in KERNELS:
         getattr(ops, name).launches = 0
+    collectives.TRUNK.reset()
+    collectives.TRUNK.timed = args.time_collectives
     with torch.no_grad():
         if args.lockstep:
             out = run_lockstep(args, cfg, params, head_state, hcfg, dev, mesh=mesh)
             tokens = out["tokens"]
         else:
-            out = run_engine(args, cfg, params, head_state, hcfg, dev, mesh=mesh)
+            out = run_engine(args, cfg, params, head_state, hcfg, dev, mesh=mesh,
+                             tap=bool(args.report_dir))
             tokens = [h.tokens for h in out["handles"]]
     if args.report_dir:
-        _report(args, mesh, out, tokens, {n: getattr(ops, n).launches for n in KERNELS})
+        _report(args, mesh, out, tokens, {n: getattr(ops, n).launches for n in KERNELS},
+                nbytes, dev)
+        if "hiddens" in out:
+            r = torch.distributed.get_rank() if mesh is not None else 0
+            torch.save(out["hiddens"], os.path.join(args.report_dir, f"serve_rank{r}.pt"))
+    if args.teacher_tokens:
+        collectives.TRUNK.reset()
+        with torch.no_grad():
+            forced = teacher_forced(args, cfg, params, head_state, hcfg, dev,
+                                    np.load(args.teacher_tokens), mesh=mesh,
+                                    run=out if cfg.block == "attn" else None)
+        forced["trunk_collectives"] = dataclasses.asdict(collectives.TRUNK)
+        r = torch.distributed.get_rank() if mesh is not None else 0
+        torch.save(forced, os.path.join(args.report_dir, f"serve_rank{r}.pt"))
     if mesh is not None:
         torch.distributed.destroy_process_group()
     return 0

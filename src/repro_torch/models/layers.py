@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives, hints, sharding
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -33,8 +34,8 @@ def normal_init(generator: torch.Generator, shape, fan_in: int,
     empty meta tensor of the shape (:mod:`repro_torch.models.specs`)."""
     if device is not None and torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
-    w = torch.randn(shape, generator=generator, device=generator.device,
-                    dtype=torch.float32) / math.sqrt(float(max(fan_in, 1)))
+    w = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    w /= math.sqrt(float(max(fan_in, 1)))       # in place: no second copy of a large draw
     return w.to(device=device or generator.device, dtype=dtype)
 
 
@@ -264,11 +265,28 @@ def is_per_row(cache_pos) -> bool:
     return isinstance(cache_pos, CacheIndex) or getattr(cache_pos, "ndim", 0) > 0
 
 
+def kv_heads_for(cfg: ModelConfig, n_heads: int, mesh) -> Tuple[int, int]:
+    """[lo, hi) of the KV heads that this rank's ``n_heads`` query heads
+    read, where the query heads are split over ``model`` and the KV heads
+    are whole (``num_kv_heads`` does not divide): query head j reads KV
+    head j // (H / KV), and the kernel maps its local heads the same way,
+    so the rank's query heads must lie in one group. (Were they whole
+    groups, ``num_kv_heads`` would divide too and the KV heads be split.)"""
+    if mesh is None:
+        raise ValueError("a rank's part of the query heads needs the mesh it was cut on")
+    groups = cfg.num_heads // cfg.num_kv_heads
+    lo = sharding.rank(mesh, "model") * n_heads
+    if groups % n_heads == 0:
+        return lo // groups, lo // groups + 1
+    raise ValueError(f"{n_heads} query heads a rank over groups of {groups}: a rank's "
+                     "heads would read parts of KV groups")
+
+
 def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
               window: int,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_pos=None, impl: str = "kernel", page_table=None,
-              write_mask=None, mask_pos: Optional[torch.Tensor] = None):
+              write_mask=None, mask_pos: Optional[torch.Tensor] = None, mesh=None):
     """GQA attention with causal + per-layer sliding-window mask + softcap.
 
     Training/prefill: ``kv_cache is None`` → self-attention over x; the
@@ -317,9 +335,20 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     k. The kernel masks by index; the plain path masks by ``mask_pos``
     (B, S) when given (explicit positions: the reference masks by
     ``positions[0]``), else by index.
+
+    A rank's part (:func:`repro_torch.parallel.sharding.shard_params`): the
+    heads are read from the weights' shapes. Split query heads give a
+    float32 partial output projection, summed over ``mesh``'s ``model``
+    ranks and rounded once (``collectives.reduce_over_model``); a cache
+    split by KV heads is the rank's, and where the KV heads stay whole the
+    rank writes all of them and reads those its query heads use
+    (:func:`kv_heads_for`). Under the
+    attention hint (:mod:`repro_torch.parallel.hints`) a rank with whole
+    heads takes its part of the queries against the keys up to its last
+    query, and the output is gathered along the sequence.
     """
     b, s, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    h, kv, hd = params["wq"].shape[1], params["wk"].shape[1], cfg.resolved_head_dim
     cdt = _dtype(cfg)
 
     q = _project(x, params["wq"], cdt)
@@ -327,12 +356,18 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     v = _project(x, params["wv"], cdt)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    q, q_part = hints.hint_attn_q(q, cfg.num_heads)
+    sq = q.shape[1]
+    trim = 0 if q_part is None else s - q_part[1]     # keys past the rank's last query
 
     if impl not in ("kernel", "plain"):
         raise ValueError(f"attention impl must be 'kernel' or 'plain', got {impl!r}")
+    if q_part is not None and impl == "plain":
+        raise NotImplementedError("the attention hint under the plain (training) attention "
+                                  "is slice 11's")
     paged, ragged = False, {}
     if kv_cache is None:
-        k_all, v_all = k, v
+        k_all, v_all = k[:, :s - trim], v[:, :s - trim]
         new_cache = (k, v)
     elif impl == "plain":
         raise ValueError("the plain attention is self-attention without a cache")
@@ -352,8 +387,8 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
         k_all, v_all = ck, cv
         new_cache = (ck, cv)
         paged = index.page_table is not None
-        ragged = dict(kv_lens=index.kv_lens, page_table=index.page_table,
-                      max_kv_len=index.max_kv_len)
+        ragged = dict(kv_lens=index.kv_lens - trim if trim else index.kv_lens,
+                      page_table=index.page_table, max_kv_len=index.max_kv_len - trim)
     else:
         start = int(cache_pos)
         ck, cv = kv_cache
@@ -363,14 +398,17 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
                              f"writes up to {end}")
         ck[:, start:end] = k.to(ck.dtype)
         cv[:, start:end] = v.to(cv.dtype)
-        k_all, v_all = ck[:, :end], cv[:, :end]
+        k_all, v_all = ck[:, :end - trim], cv[:, :end - trim]
         new_cache = (ck, cv)
+    if h < cfg.num_heads and kv == cfg.num_kv_heads:
+        lo, hi = kv_heads_for(cfg, h, mesh)       # KV is dim 2 of each layout
+        k_all, v_all = k_all[:, :, lo:hi], v_all[:, :, lo:hi]
 
     # Fold the 1/sqrt(hd) scale into q, rounded to cfg.dtype as the reference.
     scale = (1.0 / torch.sqrt(torch.tensor(float(hd)))).to(cdt).item()
     q = q * scale
     if impl == "plain":
-        out = plain_attention(q, k_all, v_all, cfg, window, mask_pos).reshape(b, s, h * hd)
+        out = plain_attention(q, k_all, v_all, cfg, window, mask_pos).reshape(b, sq, h * hd)
     else:
         # The arenas go to the kernel as they are; (B, S, KV, hd) caches as
         # (B, KV, S, hd) views.
@@ -379,9 +417,13 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
         out = ops.flash_attention(q.transpose(1, 2), k_all, v_all, causal=True,
                                   window=window, softcap=cfg.attn_logit_softcap, scale=1.0,
                                   **ragged)
-        out = out.transpose(1, 2).reshape(b, s, h * hd)
-    out = out @ params["wo"].to(cdt).reshape(h * hd, -1)
-    return out, new_cache
+        out = out.transpose(1, 2).reshape(b, sq, h * hd)
+    wo = params["wo"].to(cdt).reshape(h * hd, -1)
+    if h < cfg.num_heads:
+        out = collectives.reduce_over_model(mesh, collectives.partial_matmul(out, wo), cdt)
+    else:
+        out = out @ wo
+    return hints.hint_attn_out(out, q_part), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -396,7 +438,13 @@ def init_mlp(generator: torch.Generator, d: int, d_ff: int, device=None):
     }
 
 
-def mlp(params, x: torch.Tensor, dtype) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, dtype, mesh=None) -> torch.Tensor:
+    """SwiGLU. ``mesh`` is given where ``params`` hold a rank's part of
+    ``d_ff`` (columns of ``w_gate`` and ``w_up``, rows of ``w_down``): the
+    partial products are then summed over ``model``."""
     g = x @ params["w_gate"].to(dtype)
     u = x @ params["w_up"].to(dtype)
-    return (F.silu(g) * u) @ params["w_down"].to(dtype)
+    a, w_down = F.silu(g) * u, params["w_down"].to(dtype)
+    if mesh is None:
+        return a @ w_down
+    return collectives.reduce_over_model(mesh, collectives.partial_matmul(a, w_down), dtype)

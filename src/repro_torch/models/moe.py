@@ -17,10 +17,20 @@ Where the port differs in form from the reference, each for a reason:
 - the combine gathers instead of scatter-adding: each token sums its ≤ k
   kept assignments in choice order. A scatter-add on the card adds with
   atomics in no fixed order; the gather gives the same bits every call;
-- the reference's sharding hints around the expert matmuls are no-ops
-  without a mesh and are left out until the trunk is sharded (ROADMAP
-  item 12, slice 10: the port's mesh shards only the embedding and the
-  head so far).
+- the reference's FSDP hints around the expert matmuls
+  (``hint_gathered_weight``, ``hint_expert_act``) are training's, slice 11:
+  serving takes none.
+
+On a rank's part (:func:`repro_torch.parallel.sharding.shard_params`), read
+from the weights' shapes: with the experts over ``model`` (their count
+divides) the rank runs only its experts, ``[r·E/tp, (r+1)·E/tp)``, on the
+slots that routing gave them; otherwise each expert's ``d_ff`` is split and
+the rank runs every expert on its part of ``d_ff``; the shared experts'
+``d_ff`` is split either way. Routing is whole and the same on every rank,
+so every rank assigns every token alike. The combine gathers the rank's own
+slots (a zero row for the rest), and one ``reduce_over_model`` sums the
+routed and shared parts of every rank: the experts' down-projections write
+float32 (``collectives.partial_matmul``), so the sum is rounded once.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _dtype, normal_init
+from repro_torch.parallel import collectives, sharding
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig, device=None):
@@ -72,14 +83,18 @@ def _route(cfg: ModelConfig, params, xt: torch.Tensor):
     return gate_vals, top_idx, logits
 
 
-def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor):
+def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, mesh=None):
     """x: (B, S, d) -> (B, S, d), plus the metrics ``moe_dropped_frac`` (the
-    share of assignments past capacity) and ``moe_router_entropy``."""
+    share of assignments past capacity) and ``moe_router_entropy``. With a
+    rank's part of the weights, ``mesh`` is the mesh they were cut on."""
     bsz, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cdt = _dtype(cfg)
     cap = _capacity(cfg, s)
     dev = x.device
+    e_local = params["w_gate"].shape[0]
+    split = e_local < e or params["w_gate"].shape[2] < cfg.d_ff
+    e_lo = sharding.rank(mesh, "model") * e_local if e_local < e else 0
 
     gate_vals, top_idx, logits = _route(cfg, params, x)
     sk = s * k
@@ -103,21 +118,31 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor):
     slot_gate = torch.zeros((bsz, e * cap + 1), dtype=torch.float32, device=dev).scatter_(
         1, slot, torch.where(keep, sgate, 0.0))[:, :-1].reshape(bsz, e, cap)
 
-    xe = torch.gather(x, 1, slot_token[..., None].expand(bsz, e * cap, d))
-    xe = xe.reshape(bsz, e, cap, d) * (slot_gate[..., None] != 0.0)
+    # This rank's experts' slots (all of them unless the experts are split).
+    mine = slice(e_lo * cap, (e_lo + e_local) * cap)
+    slot_token, slot_gate = slot_token[:, mine], slot_gate[:, e_lo:e_lo + e_local]
+    xe = torch.gather(x, 1, slot_token[..., None].expand(bsz, e_local * cap, d))
+    xe = xe.reshape(bsz, e_local, cap, d) * (slot_gate[..., None] != 0.0)
     # (B, cap) folded into one token dim: the expert matmuls are plain
     # batched GEMMs over the experts.
-    xt_e = xe.transpose(0, 1).reshape(e, bsz * cap, d).to(cdt)
+    xt_e = xe.transpose(0, 1).reshape(e_local, bsz * cap, d).to(cdt)
     g = torch.bmm(xt_e, params["w_gate"].to(cdt))
     u = torch.bmm(xt_e, params["w_up"].to(cdt))
-    yt = torch.bmm(F.silu(g) * u, params["w_down"].to(cdt))  # (E, B*cap, d)
-    ye = yt.reshape(e, bsz, cap, d).transpose(0, 1)
-    weighted = (ye.float() * slot_gate[..., None]).reshape(bsz, e * cap, d)
+    # A rank's part leaves each expert's output unrounded, for one rounding
+    # after the sum over model.
+    down = collectives.partial_matmul if split else torch.bmm
+    yt = down(F.silu(g) * u, params["w_down"].to(cdt))        # (E_local, B*cap, d)
+    ye = yt.reshape(e_local, bsz, cap, d).transpose(0, 1)
+    weighted = (ye.float() * slot_gate[..., None]).reshape(bsz, e_local * cap, d)
 
     # Combine by gathering: assignment j of each token reads its slot's row
-    # (a dropped one the zero row appended at e * cap); each token then
-    # sums its k rows in choice order.
+    # (a dropped one, or another rank's, the zero row appended at the end);
+    # each token then sums its k rows in choice order.
     slot_of = torch.empty_like(slot).scatter_(1, order, slot)           # (B, S*k)
+    if e_local < e:
+        slot_of = slot_of - e_lo * cap
+        slot_of = torch.where((slot_of >= 0) & (slot_of < e_local * cap), slot_of,
+                              e_local * cap)
     rows = torch.cat([weighted, weighted.new_zeros((bsz, 1, d))], dim=1)
     picked = torch.gather(rows, 1, slot_of[..., None].expand(bsz, sk, d)).reshape(bsz, s, k, d)
     out = picked[:, :, 0]
@@ -135,7 +160,10 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor):
         xc = x.to(cdt)
         sg = xc @ sp["w_gate"].to(cdt)
         su = xc @ sp["w_up"].to(cdt)
-        out = out + ((F.silu(sg) * su) @ sp["w_down"].to(cdt)).float()
+        a, w_down = F.silu(sg) * su, sp["w_down"].to(cdt)
+        out = out + (collectives.partial_matmul(a, w_down) if split else (a @ w_down).float())
+    if split:
+        return collectives.reduce_over_model(mesh, out, x.dtype), metrics
     return out.to(x.dtype), metrics
 
 

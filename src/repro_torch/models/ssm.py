@@ -18,6 +18,16 @@ Two places differ from the reference in form, not in value:
   0 · inf = NaN. The forward values are the same;
 - the three-operand contraction of the intra-chunk output is a batched
   matmul over j of (C·Bᵀ ⊙ L) and x̄: no (B, nc, Q, Q, H, P) tensor.
+
+On a rank's part (:func:`repro_torch.parallel.sharding.shard_params`) the
+in-projection and the conv are whole; where ``w_out``'s rows are split over
+``model`` (``ssm_inner`` divides), the rank runs SSD on its own heads when
+``ssm_heads`` divides (its part of the state, as ``cache_spec`` places it),
+or on all of them otherwise, and feeds its part of the gated, normed
+output to its rows of ``w_out``. The gated RMSNorm normalises over all of
+``ssm_inner``, so the ranks sum their squares first (one (B, S, 1)
+collective); the row-parallel out-projection's partial sums are reduced
+over ``model``.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch import device as device_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _dtype, normal_init, rmsnorm
+from repro_torch.parallel import collectives, sharding
 
 
 # ---------------------------------------------------------------------------
@@ -143,14 +154,28 @@ def _causal_conv(xbc, conv_w, conv_b):
     return F.silu(out + conv_b)
 
 
+def _gated_norm(params, y, z, di_range, mesh):
+    """RMSNorm over all of ``ssm_inner`` of the gate ``y * silu(z)``, of
+    which this rank holds the columns ``di_range`` (all of them unsplit)."""
+    g = y * F.silu(z.float())
+    if mesh is None or di_range is None:
+        return rmsnorm(params["norm"], g)
+    lo, hi = di_range
+    total = collectives.norm_sum_over_model(mesh, torch.sum(g * g, dim=-1, keepdim=True))
+    var = total / float(params["norm"]["scale"].shape[0])
+    return g * torch.rsqrt(var + 1e-6) * (1.0 + params["norm"]["scale"][lo:hi])
+
+
 def ssm_block(params, cfg: ModelConfig, x: torch.Tensor,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              decode: bool = False):
+              decode: bool = False, mesh=None):
     """Returns (out (B,S,d), new_cache=(conv_state, ssm_state)), both cache
     leaves float32. Prefill (``decode=False``) starts from ``cache``'s state
     (zeros for a fresh cache) and returns the last ``ssm_conv_width - 1``
     pre-conv inputs as the conv state, left-padded with zeros for a prompt
-    shorter than that; decode takes one token (S == 1)."""
+    shorter than that; decode takes one token (S == 1). With a rank's part
+    of the weights, ``mesh`` is the mesh they were cut on (module
+    docstring)."""
     di, n, h, p = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     cdt = _dtype(cfg)
     bsz, s, _ = x.shape
@@ -159,13 +184,23 @@ def ssm_block(params, cfg: ModelConfig, x: torch.Tensor,
     xbc = xbc.float()
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     a_neg = -torch.exp(params["a_log"])
+    d_skip = params["d_skip"]
     width = cfg.ssm_conv_width
+    # A rank's part: its rows of w_out, and its heads where they divide.
+    rows = heads = None
+    if params["w_out"].shape[0] < di:
+        rows = sharding.row_range(di, mesh)
+        if h % sharding.size(mesh, "model") == 0:
+            heads = sharding.row_range(h, mesh)
+            dt, a_neg, d_skip = (t[..., heads[0]:heads[1]] for t in (dt, a_neg, d_skip))
+    h_l = h if heads is None else heads[1] - heads[0]
+    x_cols = slice(0, di) if heads is None else slice(*rows)
 
     if not decode:
         conv = _causal_conv(xbc, params["conv_w"], params["conv_b"])
-        xs = conv[..., :di].reshape(bsz, s, h, p)
+        xs = conv[..., x_cols].reshape(bsz, s, h_l, p)
         y, state = ssd_chunked(xs, dt, a_neg, conv[..., di:di + n], conv[..., di + n:],
-                               params["d_skip"], cfg.ssm_chunk,
+                               d_skip, cfg.ssm_chunk,
                                initial_state=None if cache is None else cache[1])
         # The conv state for serving: the last (width - 1) pre-conv inputs.
         # A prompt shorter than that left-pads with zeros, the fresh
@@ -177,18 +212,25 @@ def ssm_block(params, cfg: ModelConfig, x: torch.Tensor,
         conv_prev, ssm_state = cache
         seq = torch.cat([conv_prev, xbc], dim=1)              # (B, width, conv)
         conv = F.silu(torch.einsum("bwc,wc->bc", seq, params["conv_w"]) + params["conv_b"])
-        xs = conv[:, :di].reshape(bsz, h, p)
+        xs = conv[:, x_cols].reshape(bsz, h_l, p)
         decay = torch.exp(dt[:, 0] * a_neg)                   # (B,H)
         xbar = xs * dt[:, 0, :, None]                         # (B,H,P)
         state = (ssm_state * decay[..., None, None]
                  + conv[:, None, di:di + n, None] * xbar[:, :, None, :])
         y = ((conv[:, None, None, di + n:] @ state)[:, :, 0]
-             + xs * params["d_skip"][None, :, None])[:, None]
+             + xs * d_skip[None, :, None])[:, None]
         conv_state = seq[:, 1:, :]
 
-    y = y.reshape(bsz, s, di)
-    y = rmsnorm(params["norm"], y * F.silu(z.float()))
-    out = y.to(cdt) @ params["w_out"].to(cdt)
+    y = y.reshape(bsz, s, h_l * p)
+    if rows is not None and heads is None:       # whole heads, split rows
+        y = _gated_norm(params, y, z, None, None)[..., rows[0]:rows[1]]
+    else:
+        y = _gated_norm(params, y, z[..., x_cols], rows, mesh)
+    y, w_out = y.to(cdt), params["w_out"].to(cdt)
+    if rows is not None:
+        out = collectives.reduce_over_model(mesh, collectives.partial_matmul(y, w_out), cdt)
+    else:
+        out = y @ w_out
     return out, (conv_state, state)
 
 

@@ -27,6 +27,16 @@ update, ``inputs_embeds`` (the token gather done outside the graph). With
 ``torch.utils.checkpoint`` (non-reentrant): its input is saved, its inside
 recomputed in the backward pass. The forward draws no random numbers, so
 the recompute gives the same bits.
+
+On a ("data", "model") mesh, serving holds a rank's part of the model
+(``init_params(mesh=)`` or ``parallel.sharding.shard_params``) and of the
+caches (``init_cache(mesh=)``, ``init_paged_cache(mesh=)``), and
+``forward(mesh=)`` runs each block on it: the attention heads, the MLP's
+and the experts' ``d_ff``, the experts themselves and the SSM heads are
+split over ``model`` as ``param_spec`` places them, and each row-parallel
+projection's partial sums are reduced over ``model``. Training passes the
+mesh with a whole trunk (only the embedding and the head sharded): every
+block reads from its weights' shapes whether it holds a part.
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding
 
 
 def _has_attn(cfg: ModelConfig) -> bool:
@@ -91,7 +102,7 @@ def _cast_layer(lp: Dict[str, Any], cdt: torch.dtype) -> Dict[str, Any]:
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device="cuda", cast: bool = False) -> Dict[str, Any]:
+                device="cuda", cast: bool = False, mesh=None) -> Dict[str, Any]:
     """Parameters drawn on ``generator``'s device, put on ``device``:
     ``embed`` (V_pad, d), ``layers`` (a list of per-layer dicts),
     ``final_norm``, ``head`` {w (V_pad, d), b (V_pad,)}, all float32.
@@ -101,26 +112,32 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     soon as it is drawn: the model never exists whole in float32
     (deepseek-moe-16b is 67.5 GB in float32, 33.8 GB in bf16). Serving
     builds this way; :func:`cast_params` is for converted parameters.
+
+    With ``mesh`` each rank draws every tensor from the same ``generator``
+    state, so the draws are one model's on every rank, and keeps its part
+    (:func:`repro_torch.parallel.sharding.shard_params`) before it draws the
+    next layer: no rank holds more than one whole layer at a time.
     """
     dev = device_lib.resolve(device)
     cdt = L._dtype(cfg)
     vp, d = cfg.padded_vocab, cfg.d_model
+
+    def own(tree, *prefix):
+        return tree if mesh is None else sharding.shard_params(tree, cfg, mesh, prefix)
+
     embed = L.normal_init(generator, (vp, d), d, device=dev)
     if cast:
         embed = embed.to(cdt)
+    embed = own({"embed": embed})["embed"]
     layers = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):       # no reference to a whole layer outlives its turn
         lp = init_layer(generator, cfg, dev)
-        layers.append(_cast_layer(lp, cdt) if cast else lp)
-    return {
-        "embed": embed,
-        "layers": layers,
-        "final_norm": L.init_rmsnorm(d, dev),
-        "head": {
-            "w": L.normal_init(generator, (vp, d), d, device=dev),
-            "b": torch.zeros((vp,), dtype=torch.float32, device=dev),
-        },
-    }
+        layers.append(own(_cast_layer(lp, cdt) if cast else lp, "layers", str(i)))
+        del lp
+    head = {"w": L.normal_init(generator, (vp, d), d, device=dev),
+            "b": torch.zeros((vp,), dtype=torch.float32, device=dev)}
+    return {"embed": embed, "layers": layers, "final_norm": L.init_rmsnorm(d, dev),
+            "head": own(head, "head")}
 
 
 def cast_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
@@ -144,47 +161,52 @@ def cast_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
 # Caches (stacked over layers)
 # ---------------------------------------------------------------------------
 
+def _cache_leaves(shapes: Dict[str, Tuple[int, ...]], dtype, dev, spec,
+                  mesh) -> Dict[str, torch.Tensor]:
+    """Zeros of each leaf's shape, or under ``mesh`` of a rank's part of it
+    as ``spec`` places it; k and v in ``dtype``, the SSM's float32."""
+    return {key: torch.zeros(shape if mesh is None else sharding.local_shape(
+                shape, spec[key], mesh),
+                dtype=dtype if key in ("k", "v") else torch.float32, device=dev)
+            for key, shape in shapes.items()}
+
+
+def _leaf_shapes(cfg: ModelConfig, rows: int, seq: Tuple[int, int]) -> Dict[str, tuple]:
+    shapes: Dict[str, tuple] = {}
+    ell = cfg.num_layers
+    if _has_attn(cfg):
+        shapes["k"] = shapes["v"] = (ell,) + seq + (cfg.num_kv_heads, cfg.resolved_head_dim)
+    if _has_ssm(cfg):
+        shapes["conv"] = (ell, rows, cfg.ssm_conv_width - 1, cfg.ssm_inner + 2 * cfg.ssm_state)
+        shapes["state"] = (ell, rows, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim)
+    return shapes
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda") -> Dict[str, torch.Tensor]:
+               dtype=torch.bfloat16, device="cuda", mesh=None) -> Dict[str, torch.Tensor]:
     """Decode cache, zeros: k and v of shape (L, B, max_len, KV, hd) in
     ``dtype`` for attention; conv (L, B, W-1, di + 2N) and state
     (L, B, H, N, P) for an SSM branch, float32 whatever ``dtype`` is, as
-    the reference's."""
-    dev = device_lib.resolve(device)
-    cache: Dict[str, torch.Tensor] = {}
-    if _has_attn(cfg):
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
-        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
-    if _has_ssm(cfg):
-        cache.update(_ssm_leaves(cfg, batch, dev))
-    return cache
-
-
-def _ssm_leaves(cfg: ModelConfig, rows: int, dev) -> Dict[str, torch.Tensor]:
-    conv, state = ssm_lib.init_ssm_cache(cfg, rows, device=dev)
-    ell = cfg.num_layers
-    return {"conv": conv[None].repeat(ell, *([1] * conv.ndim)),
-            "state": state[None].repeat(ell, *([1] * state.ndim))}
+    the reference's. With ``mesh``, a rank's part of a cache of ``batch``
+    rows (the batch the rank serves): KV heads and SSM heads split over
+    ``model`` where ``parallel.sharding.cache_spec`` splits them."""
+    spec = None if mesh is None else sharding.cache_spec(cfg, mesh, batch)
+    return _cache_leaves(_leaf_shapes(cfg, batch, (batch, max_len)), dtype,
+                         device_lib.resolve(device), spec, mesh)
 
 
 def init_paged_cache(cfg: ModelConfig, n_lanes: int, n_pages: int, page_len: int,
-                     dtype=torch.bfloat16, device="cuda") -> Dict[str, torch.Tensor]:
+                     dtype=torch.bfloat16, device="cuda", mesh=None) -> Dict[str, torch.Tensor]:
     """Paged decode cache: the attention K/V live in a shared arena of
     ``n_pages`` physical pages of ``page_len`` positions (the allocator's
     sink page included), k and v of shape (L, n_pages, page_len, KV, hd),
     zeros, addressed through per-lane page tables. An SSM branch's conv and
     state have no sequence dimension to page: they stay lane-indexed,
-    (L, n_lanes, ...), float32."""
-    dev = device_lib.resolve(device)
-    cache: Dict[str, torch.Tensor] = {}
-    if _has_attn(cfg):
-        shape = (cfg.num_layers, n_pages, page_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
-        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
-    if _has_ssm(cfg):
-        cache.update(_ssm_leaves(cfg, n_lanes, dev))
-    return cache
+    (L, n_lanes, ...), float32. With ``mesh``, a rank's part as
+    ``parallel.sharding.paged_cache_spec`` places it."""
+    spec = None if mesh is None else sharding.paged_cache_spec(cfg, mesh, n_lanes)
+    return _cache_leaves(_leaf_shapes(cfg, n_lanes, (n_pages, page_len)), dtype,
+                         device_lib.resolve(device), spec, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -193,9 +215,10 @@ def init_paged_cache(cfg: ModelConfig, n_lanes: int, n_pages: int, page_len: int
 
 def _block(layer_params, cfg: ModelConfig, h, positions, window: int,
            cache_l, cache_pos, attn_impl: str = "kernel", decode: bool = False,
-           mask_pos=None):
+           mask_pos=None, mesh=None):
     """One decoder block. Returns (h, metrics); a cache's leaves are
-    written in place."""
+    written in place. On a rank's part of the layer every branch returns
+    the sum over ``model`` (module docstring)."""
     metrics: Dict[str, torch.Tensor] = {}
     mix_in = L.rmsnorm(layer_params["norm_mix"], h)
     mix_out = None
@@ -203,11 +226,11 @@ def _block(layer_params, cfg: ModelConfig, h, positions, window: int,
         kvc = (cache_l["k"], cache_l["v"]) if cache_l is not None else None
         mix_out, _ = L.attention(layer_params["attn"], cfg, mix_in, positions, window,
                                  kv_cache=kvc, cache_pos=cache_pos, impl=attn_impl,
-                                 mask_pos=mask_pos)
+                                 mask_pos=mask_pos, mesh=mesh)
     if _has_ssm(cfg):
         sc = (cache_l["conv"], cache_l["state"]) if cache_l is not None else None
         s_out, (conv, state) = ssm_lib.ssm_block(layer_params["ssm"], cfg, mix_in,
-                                                 cache=sc, decode=decode)
+                                                 cache=sc, decode=decode, mesh=mesh)
         if cache_l is not None:
             cache_l["conv"].copy_(conv)
             cache_l["state"].copy_(state)
@@ -218,10 +241,12 @@ def _block(layer_params, cfg: ModelConfig, h, positions, window: int,
     if cfg.is_moe or cfg.d_ff > 0:
         ffn_in = L.rmsnorm(layer_params["norm_ffn"], h)
         if cfg.is_moe:
-            f_out, moe_metrics = moe_lib.moe_ffn(layer_params["moe"], cfg, ffn_in)
+            f_out, moe_metrics = moe_lib.moe_ffn(layer_params["moe"], cfg, ffn_in, mesh=mesh)
             metrics.update(moe_metrics)
         else:
-            f_out = L.mlp(layer_params["mlp"], ffn_in, L._dtype(cfg))
+            split = layer_params["mlp"]["w_down"].shape[0] < cfg.d_ff
+            f_out = L.mlp(layer_params["mlp"], ffn_in, L._dtype(cfg),
+                          mesh=mesh if split else None)
         h = h + f_out.to(h.dtype)
     return h, metrics
 
@@ -308,7 +333,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     ``"plain"`` (training, see :func:`repro_torch.models.layers.attention`).
 
     ``mesh``: the embedding is row-sharded over its ``model`` dim
-    (:func:`embed_inputs`); the rest of the stack is whole on every rank.
+    (:func:`embed_inputs`), and each block runs on the rank's part of its
+    weights and cache, whole where they are whole (module docstring).
 
     ``metrics``: a mixture-of-experts model's ``moe_dropped_frac`` and
     ``moe_router_entropy``, each the mean over layers; otherwise empty.
@@ -350,11 +376,11 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         if remat:
             h, metrics = checkpoint_lib.checkpoint(
                 lambda lp, x, w=window: _block(lp, cfg, x, positions, w, None, base,
-                                               attn_impl, mask_pos=mask_pos),
+                                               attn_impl, mask_pos=mask_pos, mesh=mesh),
                 layer_params, h, use_reentrant=False)
         else:
             h, metrics = _block(layer_params, cfg, h, positions, window, cache_l, base,
-                                attn_impl, decode=decode, mask_pos=mask_pos)
+                                attn_impl, decode=decode, mask_pos=mask_pos, mesh=mesh)
         layer_metrics.append(metrics)
     h = L.rmsnorm(params["final_norm"], h)
     metrics = {k: torch.stack([m[k] for m in layer_metrics]).mean()

@@ -1,13 +1,14 @@
-"""Work division and the vocab-sharded head on a ``("data", "model")``
-process mesh over ``torch.distributed``: placement
-(:mod:`repro_torch.parallel.sharding`) and collectives
-(:mod:`repro_torch.parallel.collectives`)."""
+"""Work division and the model on a ``("data", "model")`` process mesh over
+``torch.distributed``: placement (:mod:`repro_torch.parallel.sharding`),
+collectives (:mod:`repro_torch.parallel.collectives`) and activation hints
+(:mod:`repro_torch.parallel.hints`)."""
 from repro_torch.parallel.sharding import (batch_slice, check_mesh, gather_head,
-                                           gather_rows, gather_train_state, mesh_axes,
-                                           row_range, shard_batch, shard_head, shard_rows,
-                                           shard_train_state)
+                                           gather_params, gather_rows, gather_train_state,
+                                           mesh_axes, row_range, shard_batch, shard_head,
+                                           shard_params, shard_rows, shard_train_state)
 from repro_torch.parallel.work import merge_disjoint, round_robin_shard
 
-__all__ = ["batch_slice", "check_mesh", "gather_head", "gather_rows", "gather_train_state",
-           "merge_disjoint", "mesh_axes", "round_robin_shard", "row_range", "shard_batch",
-           "shard_head", "shard_rows", "shard_train_state"]
+__all__ = ["batch_slice", "check_mesh", "gather_head", "gather_params", "gather_rows",
+           "gather_train_state", "merge_disjoint", "mesh_axes", "round_robin_shard",
+           "row_range", "shard_batch", "shard_head", "shard_params", "shard_rows",
+           "shard_train_state"]

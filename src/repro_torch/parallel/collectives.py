@@ -1,4 +1,4 @@
-"""Explicit collectives of the vocab-sharded head, as
+"""Explicit collectives of the sharded model, as
 ``repro.parallel.collectives`` over ``torch.distributed``.
 
 Every function runs on every rank of the mesh, in SPMD style: each rank
@@ -21,12 +21,23 @@ and the replicated operands whole.
 - :func:`sum_rows_over_data`, :func:`all_reduce_over_data`, :func:`agree`
   and :func:`broadcast_value`: the data-parallel step's sums and the host
   decisions every rank must take alike.
+- :func:`reduce_over_model`, :func:`norm_sum_over_model` and
+  :func:`gather_seq_over_model`: the trunk's activations. A row-parallel projection (attention's ``wo``, the MLP's
+  and the experts' ``w_down``, the SSM's ``w_out``) leaves each ``model``
+  rank a float32 partial sum (:func:`partial_matmul`), reduced in float32
+  and rounded once to the model's dtype;
+  the attention hint (:mod:`repro_torch.parallel.hints`) leaves each rank
+  a part of the sequence, gathered back along it. :data:`TRUNK` counts
+  their calls and bytes, and with ``TRUNK.timed`` their host seconds
+  (each call then synchronizes the device before and after).
 
 Gloo takes CUDA tensors for every collective used here (checked on the
 card), so nothing is staged through the host.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
@@ -208,3 +219,79 @@ def broadcast_value(value: float, device) -> float:
     t = torch.tensor([value], dtype=torch.float64, device=device)
     dist.broadcast(t, src=0)
     return float(t.item())
+
+
+@dataclasses.dataclass
+class TrunkCounts:
+    """The trunk's ``model`` collectives in this process since the last
+    :meth:`reset`."""
+    calls: int = 0
+    bytes: int = 0
+    seconds: float = 0.0
+    timed: bool = False
+
+    def reset(self) -> None:
+        self.calls, self.bytes, self.seconds = 0, 0, 0.0
+
+
+TRUNK = TrunkCounts()
+
+
+def _trunk_call(x: torch.Tensor, fn: Callable[[], None]) -> None:
+    TRUNK.calls += 1
+    TRUNK.bytes += x.numel() * x.element_size()
+    if not TRUNK.timed:
+        fn()
+        return
+    sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    TRUNK.seconds += time.perf_counter() - t0
+
+
+def partial_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel projection's partial product in float32: ``x @ w``
+    for (..., k) @ (k, n), or batched (E, T, k) @ (E, k, n). The products
+    are summed in float32 and the result is not rounded to the inputs'
+    dtype, so that :func:`reduce_over_model` rounds the sum over ``model``
+    once, as a one-rank GEMM rounds its output once. On the card a bf16 pair
+    runs as one GEMM writing float32 (``out_dtype``); elsewhere the inputs
+    are widened to float32 first, which is exact."""
+    if x.dtype == w.dtype == torch.float32:
+        return x @ w
+    if not x.is_cuda:
+        return x.float() @ w.float()
+    if w.dim() == 3:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    flat = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return flat.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def reduce_over_model(mesh, partial: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The sum over ``model`` of each rank's float32 partial product
+    (B, S, d) (:func:`partial_matmul`), summed in place and rounded once
+    to ``dtype``."""
+    if partial.dtype != torch.float32:
+        raise ValueError(f"a {partial.dtype} partial sum was rounded before its reduction")
+    _trunk_call(partial, lambda: dist.all_reduce(partial, group=sharding.group(mesh, "model")))
+    return partial.to(dtype)
+
+
+def gather_seq_over_model(mesh, part: torch.Tensor, seq_dim: int = 1) -> torch.Tensor:
+    """Every ``model`` rank's part of the sequence, in rank order, along
+    ``seq_dim``: rank r holds positions [r·S/tp, (r+1)·S/tp)."""
+    g = sharding.group(mesh, "model")
+    buf = part.float().contiguous()      # exact; gloo's types need no bf16
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(g))]
+    _trunk_call(buf, lambda: dist.all_gather(parts, buf, group=g))
+    return torch.cat(parts, dim=seq_dim).to(part.dtype)
+
+
+def norm_sum_over_model(mesh, sq_sum: torch.Tensor) -> torch.Tensor:
+    """The sum over ``model`` of each rank's float32 sum of squares
+    (B, S, 1): the gated RMSNorm over a dim split across the ranks."""
+    total = sq_sum.float()
+    _trunk_call(total, lambda: dist.all_reduce(total, group=sharding.group(mesh, "model")))
+    return total

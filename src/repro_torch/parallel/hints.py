@@ -1,0 +1,93 @@
+"""Activation hints, the port of ``repro.parallel.hints``.
+
+Model code takes the hints at the reference's points; with no context
+installed every hint returns its input, so one-rank runs are untouched. A
+caller installs one with :func:`sharding_hints`; no launcher does, as in
+the reference.
+
+In the reference a hint is a sharding constraint that GSPMD lowers. On the
+port's explicit ranks it is the work itself:
+
+- :func:`hint_attn_q`: where the query heads do not divide over ``model``
+  (hymba's 25, qwen2-vl's 28, musicgen's 24 at some ``tp``), attention is
+  whole on every rank; under the hint rank r takes only the queries
+  ``[r·S/tp, (r+1)·S/tp)`` of the sequence (when S divides), so the rank
+  computes 1/tp of the logits. The caller reads the keys ``[0,
+  cache_pos + b)`` for its queries ``[a, b)``: the kernel aligns queries to
+  the end of the keys, so the mask stays the reference's ``q_pos - k_pos``.
+- :func:`hint_attn_out`: the output projection's rows of the rank's part,
+  all-gathered along the sequence back to (B, S, d).
+
+``seq_parallel_residual`` (the reference's ``hint_residual``) and
+``fsdp_gather_weights`` (``hint_gathered_weight``, ``hint_expert_act``)
+belong to sequence-parallel training and FSDP, the port's slice 11: a
+context that asks for them raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Optional
+
+import torch
+
+from repro_torch.parallel import collectives, sharding
+
+_CTX: contextvars.ContextVar = contextvars.ContextVar("repro_torch_sharding_hints",
+                                                      default=None)
+LATER = ("{} is sequence-parallel / FSDP work of slice 11 (training with the sharded "
+         "trunk); the port has no lowering of it yet")
+
+
+class HintContext:
+    """The installed hints on ``mesh``. The reference's ``dp_axes`` and
+    ``model_axis`` are fixed to the port's mesh dims, ("data",) and
+    "model", and its ``seq_shard_attention`` is always on: no caller asks
+    for another value."""
+
+    def __init__(self, mesh, seq_parallel_residual: bool = False,
+                 fsdp_gather_weights: bool = False):
+        sharding.check_mesh(mesh)
+        if seq_parallel_residual:
+            raise NotImplementedError(LATER.format("seq_parallel_residual"))
+        if fsdp_gather_weights:
+            raise NotImplementedError(LATER.format("fsdp_gather_weights"))
+        self.mesh = mesh
+
+
+@contextlib.contextmanager
+def sharding_hints(mesh, seq_parallel_residual: bool = False,
+                   fsdp_gather_weights: bool = False):
+    tok = _CTX.set(HintContext(mesh, seq_parallel_residual, fsdp_gather_weights))
+    try:
+        yield
+    finally:
+        _CTX.reset(tok)
+
+
+def current() -> Optional[HintContext]:
+    return _CTX.get()
+
+
+def hint_attn_q(q: torch.Tensor, num_heads: int):
+    """q: (B, S, H, hd). Returns (q, None), or under the hint (the rank's
+    queries q[:, a:b], (a, b)) where ``num_heads`` does not divide over
+    ``model`` and S does."""
+    ctx = _CTX.get()
+    if ctx is None:
+        return q, None
+    tp = sharding.size(ctx.mesh, "model")
+    s = q.shape[1]
+    if tp == 1 or num_heads % tp == 0 or s % tp != 0:
+        return q, None
+    a, b = sharding.row_range(s, ctx.mesh)
+    return q[:, a:b], (a, b)
+
+
+def hint_attn_out(out: torch.Tensor, rows) -> torch.Tensor:
+    """out: (B, S/tp, d) of the rank's queries ``rows`` back to (B, S, d);
+    ``out`` itself where :func:`hint_attn_q` took no part."""
+    if rows is None:
+        return out
+    return collectives.gather_seq_over_model(_CTX.get().mesh, out)
+

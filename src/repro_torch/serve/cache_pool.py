@@ -85,7 +85,7 @@ class PagedPool:
 
     def __init__(self, cfg: ModelConfig, n_lanes: int, n_pages: int,
                  page_len: int, max_len: int, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         assert n_lanes >= 1 and n_pages >= 1 and page_len >= 1
         assert max_len >= 2
         self.n_lanes = n_lanes
@@ -101,9 +101,11 @@ class PagedPool:
         self.sink = n_pages               # physical garbage page
         self.dtype = dtype
         self.device = device_lib.resolve(device)
+        # Under a mesh, this rank's part of the arena (KV heads split over
+        # ``model`` where they divide): every byte count is a rank's.
         self.cache = transformer.init_paged_cache(
             cfg, n_lanes, n_pages + 1, page_len, dtype=dtype,
-            device=self.device)
+            device=self.device, mesh=mesh)
         # LIFO free lists: recently retired lanes/pages are reused first
         # (warm in whatever memory tier the runtime keeps them in).
         self._free_pages: List[int] = list(range(n_pages - 1, -1, -1))
@@ -121,6 +123,12 @@ class PagedPool:
                                   np.int32)
 
     # -- allocation ------------------------------------------------------
+
+    @property
+    def arena_bytes(self) -> int:
+        """Device bytes of the arena this process holds (under a mesh, one
+        rank's part)."""
+        return sum(a.numel() * a.element_size() for a in self.cache.values())
 
     def pages_needed(self, total_len: int) -> int:
         """Pages covering ``total_len`` positions (prompt + max new)."""

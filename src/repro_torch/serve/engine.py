@@ -63,10 +63,13 @@ only skip work, never change results: a prefix hit implies a bit-identical
 hidden state, hence identical re-scored argmax.
 
 Under a ``("data", "model")`` mesh (``ServeConfig.mesh``) every rank runs
-the same engine on the same requests: the embedding's and the head's rows
+the same engine on the same requests with its part of the model
+(``parallel.sharding.shard_params``): the embedding's and the head's rows
 are sharded over ``model`` (the token gather and the candidate scores are
-collectives, the dense path merges each rank's argmax) and the paged arena
-is whole on every rank. The engine's clock is rank 0's, broadcast at every
+collectives, the dense path merges each rank's argmax), the trunk's heads,
+``d_ff``, experts and SSM heads too, and the paged arena is the rank's
+part (KV heads over ``model`` where they divide): page counts are the
+same on every rank, the ``stats`` bytes a rank's. The engine's clock is rank 0's, broadcast at every
 reading, so deadline and admission decisions, which call different
 collectives when they differ, are taken alike on every rank.
 """
@@ -120,7 +123,7 @@ def lockstep_decode(cfg: ModelConfig, hcfg: HeadConfig, params, head_state,
     prefill = make_prefill(cfg, mesh=mesh)
     step = make_serve_step(cfg, hcfg, topk_beam=topk_beam, mesh=mesh)
     cache = transformer.init_cache(cfg, b, pl + gen_tokens,
-                                   dtype=cache_dtype, device=dev)
+                                   dtype=cache_dtype, device=dev, mesh=mesh)
     token, toks = prompts[:, -1:], []
     with torch.no_grad():
         _, cache = prefill(params, prompts, cache)
@@ -153,7 +156,7 @@ class ServeConfig:
     #                               False = one call per request (same
     #                               bytes out — oracle-tested)
     beam: int = 0                # 0 = dense O(C) scoring; >0 = tree beam
-    mesh: Any = None             # DeviceMesh: row-sharded embedding and head
+    mesh: Any = None             # DeviceMesh: the params a rank's part
     use_candidate_cache: bool = True   # prefix-keyed descent skipping
     candidate_cache_capacity: int = 4096
     eos_id: Optional[int] = None       # engine-wide default stop token
@@ -294,7 +297,8 @@ class Engine:
             page_len, n_pages = serve_cfg.max_len, serve_cfg.n_slots
         self.pool = PagedPool(cfg, serve_cfg.n_slots, n_pages, page_len,
                               serve_cfg.max_len,
-                              dtype=serve_cfg.cache_dtype, device=self.device)
+                              dtype=serve_cfg.cache_dtype, device=self.device,
+                              mesh=self.mesh)
         beam = serve_cfg.beam
         if beam:
             assert hcfg.kind == "adversarial_ns" and \
@@ -638,6 +642,9 @@ class Engine:
                 if self.decode_steps else 0.0),
             "internal_fragmentation": (1.0 - used_pos / mapped_pos
                                        if mapped_pos else 0.0),
+            # Device bytes of this process's arena: under a mesh a rank's
+            # part (KV heads split over ``model``).
+            "arena_bytes_this_rank": pool.arena_bytes,
         }
         out["latency"] = {
             "admission_wait": self._h_admission.snapshot(),

@@ -485,7 +485,7 @@ def make_batched_prefill(cfg: ModelConfig, page_len: int, sink_page: int,
         dev = next(iter(arena.values())).device
         tokens = _on(dev, tokens)
         n, s = tokens.shape
-        fresh = transformer.init_cache(cfg, n, s, dtype=cache_dtype, device=dev)
+        fresh = transformer.init_cache(cfg, n, s, dtype=cache_dtype, device=dev, mesh=mesh)
         h, new_cache, _ = transformer.forward(params, cfg, tokens, cache=fresh, cache_pos=0,
                                               mesh=mesh)
         if "k" in arena:

@@ -1,14 +1,21 @@
-"""The port's serving with the vocab-sharded head on a (1, 2) mesh of gloo
-ranks on the CPU, as ``tests/test_serve_engine.py::TestMeshScoring`` and
+"""The port's serving on a (1, 2) mesh of gloo ranks on the CPU, as
+``tests/test_serve_engine.py::TestMeshScoring`` and
 ``tests/test_parallel.py::test_launcher_entry_points`` check the
 reference's: the lock-step decode (dense Eq. 5, whose argmax is merged
 over the ranks' vocabulary slices, and beam, whose candidates are scored by
 ``sharded_candidate_scores``) and the engine, each rank serving the same
-requests; then the serving launcher under ``torchrun``.
+requests with its part of the model (``parallel.shard_params``: the
+vocabulary rows and the trunk's heads and ``d_ff``); then the serving
+launcher under ``torchrun``.
 
-The weights are the JAX package's, carried across; greedy tokens must be
-equal, token for token, to the port's one-rank decode and to the JAX
-package's ``lockstep_decode`` and engine on the same weights.
+The weights are the JAX package's, carried across. The port's one-rank
+tokens equal the JAX package's ``lockstep_decode`` and engine, token for
+token. On the mesh the trunk's sums are split across the ranks, so it is
+held as the reference holds its sharded runs (``tests/test_parallel.py:65``):
+the dense Eq. 5 scores of a decode fed the one-rank tokens within 1e-5 of
+the one-rank scores, relative to their largest; every rank's tokens equal
+to every other rank's; and the engine's tokens on the mesh equal to the
+lock-step decode of each request alone on the same mesh.
 """
 import os
 import subprocess
@@ -33,16 +40,17 @@ ENGINE = dict(n_slots=2, max_len=MAX_LEN, page_len=3, n_pages=8)
 
 WORLD = """
 import numpy as np
-from repro_torch.models import lm_head
+from repro_torch.core.heads import HeadParams
+from repro_torch.models import lm_head, transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.parallel import shard_train_state
+from repro_torch.parallel import shard_params, sharding
 from repro_torch.serve import Engine, Request, ServeConfig, lockstep_decode
 
 mesh = mesh_of(2)
 inp = torch.load(os.path.join(OUT, "inputs.pt"), weights_only=False)
 cfg = ModelConfig(**inp["cfg"])
 hcfg = lm_head.head_config(cfg, "adversarial_ns")
-params = shard_train_state(inp["params"], mesh)
+params = shard_params(inp["params"], cfg, mesh)
 out = {}
 for beam in (0, inp["beam"]):
     out["lockstep", beam] = lockstep_decode(cfg, hcfg, params, inp["state"], inp["prompts"],
@@ -53,8 +61,50 @@ for beam in (0, inp["beam"]):
     eng.run()
     eng.pool.check_invariants()
     out["engine", beam] = [h.tokens for h in handles]
+    out["alone", beam] = [lockstep_decode(cfg, hcfg, params, inp["state"], p[None], n,
+                                          topk_beam=beam, mesh=mesh)[0].tolist()
+                          for p, n in inp["requests"]]
+
+# The dense Eq. 5 scores of this rank's vocabulary rows, fed the one-rank tokens.
+lo, _ = sharding.row_range(cfg.padded_vocab, mesh)
+head = HeadParams(w=params["head"]["w"], b=params["head"]["b"])
+prompts = torch.as_tensor(inp["prompts"], dtype=torch.int64)
+forced = torch.as_tensor(inp["forced"], dtype=torch.int64)
+b, pl = prompts.shape
+cache = transformer.init_cache(cfg, b, pl + inp["gen"], dtype=torch.float32, device="cpu",
+                               mesh=mesh)
+with torch.no_grad():
+    h, cache, _ = transformer.forward(params, cfg, prompts, cache=cache, cache_pos=0, mesh=mesh)
+    scores = [lm_head.lm_predictive_scores(cfg, hcfg, head, inp["state"], h[:, -1], lo=lo)]
+    for t in range(inp["gen"] - 1):
+        h, cache, _ = transformer.forward(params, cfg, forced[:, t:t + 1], cache=cache,
+                                          cache_pos=pl + t, mesh=mesh)
+        scores.append(lm_head.lm_predictive_scores(cfg, hcfg, head, inp["state"], h[:, -1],
+                                                   lo=lo))
+out["scores"] = (lo, torch.stack(scores, 1))
 save(out)
 """
+SCORES_TOL = 1e-5          # tests/test_parallel.py:65, relative to the largest score
+
+
+def _forced_scores(cfg, params, state, prompts, forced):
+    """The one-rank dense Eq. 5 scores (B, GEN, V_pad) of the decode fed
+    ``forced`` after ``prompts``."""
+    from repro_torch.core.heads import HeadParams
+    from repro_torch.models import transformer
+    hcfg = lm_head.head_config(cfg, "adversarial_ns")
+    head = HeadParams(w=params["head"]["w"], b=params["head"]["b"])
+    prompts, forced = torch.as_tensor(prompts).long(), torch.as_tensor(forced).long()
+    b, pl = prompts.shape
+    cache = transformer.init_cache(cfg, b, pl + GEN, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        h, cache, _ = transformer.forward(params, cfg, prompts, cache=cache, cache_pos=0)
+        scores = [lm_head.lm_predictive_scores(cfg, hcfg, head, state, h[:, -1])]
+        for t in range(GEN - 1):
+            h, cache, _ = transformer.forward(params, cfg, forced[:, t:t + 1], cache=cache,
+                                              cache_pos=pl + t)
+            scores.append(lm_head.lm_predictive_scores(cfg, hcfg, head, state, h[:, -1]))
+    return torch.stack(scores, 1)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -81,13 +131,15 @@ def setup(tmp_path_factory):
     prompts = rng.integers(0, tcfg.vocab_size, (3, 5)).astype(np.int32)
     requests = [(rng.integers(0, tcfg.vocab_size, n).astype(np.int32), g)
                 for n, g in ((2, 3), (6, 4), (4, 1), (3, 4))]
+    forced = lockstep_decode(tcfg, lm_head.head_config(tcfg, "adversarial_ns"), tparams, tstate,
+                             prompts, GEN)
     tmp = tmp_path_factory.mktemp("serve_world")
     torch.save({"cfg": PARITY, "params": tparams, "state": tstate, "prompts": prompts,
-                "requests": requests, "gen": GEN, "beam": BEAM, "engine": ENGINE},
-               tmp / "inputs.pt")
+                "requests": requests, "gen": GEN, "beam": BEAM, "engine": ENGINE,
+                "forced": forced}, tmp / "inputs.pt")
     W.run_world(tmp, N_RANKS, WORLD)
     return dict(jcfg=jcfg, tcfg=tcfg, params=params, state=state, tparams=tparams,
-                tstate=tstate, prompts=prompts, requests=requests,
+                tstate=tstate, prompts=prompts, requests=requests, forced=forced,
                 outs=W.load_outputs(tmp, N_RANKS))
 
 
@@ -103,8 +155,17 @@ def test_mesh_lockstep_matches_one_rank_and_jax(setup, beam):
                       setup["state"], setup["prompts"], GEN, topk_beam=beam,
                       cache_dtype=jnp.float32)
     np.testing.assert_array_equal(want, np.asarray(jwant))
-    for out in setup["outs"]:
-        np.testing.assert_array_equal(out["lockstep", beam], want)
+    outs = setup["outs"]
+    for out in outs:
+        np.testing.assert_array_equal(out["lockstep", beam], outs[0]["lockstep", beam])
+    one = _forced_scores(tcfg, setup["tparams"], setup["tstate"], setup["prompts"],
+                         setup["forced"])[..., :tcfg.vocab_size]
+    for out in outs:
+        lo, got = out["scores"]
+        ref = one[..., lo:lo + got.shape[-1]]
+        n = max(0, min(got.shape[-1], tcfg.vocab_size - lo))
+        err = (got[..., :n] - ref[..., :n]).abs().max()
+        assert err <= SCORES_TOL * one.abs().max(), err
 
 
 @pytest.mark.parametrize("beam", [0, BEAM])
@@ -126,8 +187,10 @@ def test_mesh_engine_matches_one_rank_and_jax(setup, beam):
     jeng.run()
     want = [h.tokens for h in handles]
     assert want == [list(h.tokens) for h in jhandles]
-    for out in setup["outs"]:
-        assert out["engine", beam] == want
+    outs = setup["outs"]
+    for out in outs:
+        assert out["engine", beam] == outs[0]["engine", beam]
+        assert [list(t) for t in out["engine", beam]] == out["alone", beam]
 
 
 def _serve(tmp_path, name, extra, torchrun):
