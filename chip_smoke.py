@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving (lock-step and engine), LM-training, backbone-family, process-mesh and sharded-trunk paths on one NVIDIA card.
+"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving (lock-step and engine), LM-training, backbone-family, process-mesh and sharded-trunk (serving and training) paths on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
@@ -156,11 +156,17 @@ Phases, each fatal on failure:
      adagrad, sm3 (bf16) and adamw (int8) over 3 steps against the
      unsharded update, bit-equal; ms a rank and the ``all_reduce``'s share;
      then, in the same world on a (2, 2) mesh, stablelm-3b at full width,
-     2 layers, float32: 3 sharded steps on a global batch of 4 × 256
+     2 layers, float32, its trunk sharded over ``model``
+     (``init_train_state(mesh=)``): each rank's parameter and
+     optimizer-state bytes the one-rank state's split bytes ÷ 2 plus its
+     whole bytes, exactly; 3 sharded steps on a global batch of 4 × 256
      against 3 one-rank steps from the same seed (loss within 1e-5
      relative, parameters within 1e-3 relative + 1e-4, the reference's
      bounds), ``sampled_head_loss`` and ``segment_stats`` launches a rank,
-     a checkpoint written under the mesh restored by one rank bit-equal;
+     the trunk's gradient sum over ``data`` timed (calls, bytes, seconds,
+     share of the steps); a checkpoint written under the mesh leaf by leaf,
+     every rank's part restored bit-equal and the whole restored by one
+     process bit-equal;
      (b), the serving launcher on 2 ranks, is phase 14's (a) now that the
      trunk is sharded; (d) the serving launcher as a one-rank NCCL world,
      its tokens equal to this process's; lines ``mesh_collectives``,
@@ -204,7 +210,32 @@ Phases, each fatal on failure:
      one-rank run's, each rank's ms a token, the trunk collectives' calls,
      bytes and share of the run, peak memory and launches (which join the
      ``kernels`` line); line ``sharded_trunk_path``;
- 15. print the ``kernels`` JSON line and, last, the device line.
+ 15. training with the trunk sharded over ``model`` (run after phase 14):
+     one world of 4 ranks on the card over gloo (this script with
+     ``--tp-train-worker``), any rank's failure or a wait past the time
+     limit fatal; the one-rank references come first from this process
+     (float32, TF32 off: one step's gradients and the parameters after 3
+     SGD steps, written to a temporary directory that each rank reads
+     mapped and slices, never gathering through gloo) and are freed. At
+     full width, cut in depth (printed as ``reduced``): (a) stablelm-3b, 4
+     of 32 layers, on (1, 4); (b) deepseek-moe-16b, 2 of 28 layers, on
+     (1, 4), 16 experts a rank; (c) hymba-1.5b, 2 of 32 layers, on (2, 2)
+     under ``sharding_hints``. Fatal: each rank's parameter and Adagrad
+     state bytes the one-rank split ÷ tp plus whole, exactly; one step's
+     gradient of every leaf within 1e-4 relative RMS of one rank's
+     (each rank's part against its slice); 3 steps' losses within 1e-5
+     relative and the parameters within the reference's bounds; the
+     leaves a rank holds whole bit-equal across ranks (a digest);
+     (b)'s layer-0 routing bit-equal to one rank's; (c) hinted gradients
+     within 1e-4 of the unhinted; ``sampled_head_loss`` once a step a rank,
+     ``segment_stats`` 3 a step a rank (the head's and the embedding's row
+     sums; 6 on (2, 2), with their sums over ``data``) and no
+     ``flash_attention``. Printed (line ``tp_train``): ms a step a
+     rank, the trunk collectives' calls, bytes and host seconds for the
+     forward, the recompute and the backward, peak memory a rank, the
+     card; line ``tp_train_path``; every rank's launches join the
+     ``kernels`` line;
+ 16. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
 """
@@ -3321,65 +3352,123 @@ def mesh_collectives(mesh, dev, seed) -> dict:
                 rows_update=rows)
 
 
-def mesh_train(mesh, dev, seed, out_dir) -> dict:
-    """(c) stablelm-3b at full width, 2 layers, float32, mesh (2, 2): 3
-    sharded steps on the global batch against 3 one-rank steps from the same
-    seed (on rank 0), launches counted; a checkpoint written under the mesh
-    restored by one rank bit-equal."""
+def timed_data_sum(record: dict):
+    """A stand-in for ``collectives.all_reduce_over_data`` that appends
+    each of the trunk's sums (more than one tensor a call: the step's
+    metrics are one) to ``record``: its float32 bytes and host seconds,
+    the call synchronized before and after."""
+    from repro_torch.parallel import collectives
+    reduce = collectives.all_reduce_over_data
+
+    def rec(mesh, tensors):
+        if len(tensors) < 2:
+            return reduce(mesh, tensors)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(mesh, tensors)
+        torch.cuda.synchronize()
+        record["bytes"].append(4 * sum(t.numel() for t in tensors))
+        record["seconds"].append(time.perf_counter() - t0)
+
+    return rec
+
+
+def write_sharded_checkpoint(path: str, step: int, state, mesh, cfg) -> None:
+    """A checkpoint of a rank's state written leaf by leaf: every rank joins
+    the gather of each leaf, rank 0 writes it."""
     import torch.distributed as dist
-    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.parallel import iter_gathered_leaves
+    tree = state.as_pytree()
+    leaves = iter_gathered_leaves(tree, mesh, cfg)
+    if dist.get_rank() == 0:
+        save_checkpoint(path, step, tree, leaves=leaves)
+    else:
+        for _ in leaves:
+            pass
+    dist.barrier()
+
+
+def mesh_train(mesh, dev, seed, out_dir) -> dict:
+    """(c) stablelm-3b at full width, 2 layers, float32, mesh (2, 2), the
+    trunk sharded over model: 3 steps on the global batch against 3
+    one-rank steps from the same seed (on rank 0), launches counted, each
+    rank's parameter and optimizer-state bytes against the one-rank
+    state's split and whole bytes, the trunk's sum over data timed; a
+    checkpoint written under the mesh leaf by leaf, restored by every rank
+    (its part) and by one process (the whole), each bit-equal."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.data import lm_batch_fn
-    from repro_torch.parallel import gather_train_state, shard_train_state
+    from repro_torch.parallel import collectives, sharding
     cfg = dataclasses.replace(configs.get_config(LM_ARCH), num_layers=MESH_TRAIN_LAYERS,
                               dtype="float32")
     hcfg = lm_head.head_config(cfg, "adversarial_ns", reg=1e-4)
     ocfg = optim.OptimizerConfig(**MESH_TRAIN_OPT)
 
-    def fresh():
+    def fresh(on=None):
         return train_lib.init_train_state(torch.Generator(device=dev).manual_seed(seed + 41),
-                                          cfg, ocfg, "adversarial_ns", device=dev)
+                                          cfg, ocfg, "adversarial_ns", device=dev, mesh=on)
 
     make = lm_batch_fn(cfg.vocab_size, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, seed=seed)
     batch = lambda s: {k: torch.as_tensor(v).to(dev) for k, v in make(s).items()}  # noqa: E731
-    state = shard_train_state(fresh(), mesh)
+    state = fresh(mesh)
+    nbytes = launch_train.state_bytes(cfg, ocfg, state, mesh)
+    tp = sharding.size(mesh, "model")
+    for name, b in nbytes.items():
+        check(b["rank"] == b["split"] // tp + b["whole"],
+              f"{name}: rank {dist.get_rank()} holds {b['rank']} bytes, not "
+              f"{b['split']} / {tp} + {b['whole']}")
     step = train_lib.make_train_step(cfg, hcfg, ocfg, mesh=mesh)
     names = ("sampled_head_loss", "segment_stats")
     torch.cuda.synchronize()
     for name in names:
         getattr(ops, name).launches = 0
     losses, step_ms = [], []
-    for s in range(MESH_TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, m = step(state, batch(s), step_generator(seed, s, dev))
-        losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
+    data_sum = dict(bytes=[], seconds=[])
+    with swapped(collectives, all_reduce_over_data=timed_data_sum(data_sum)):
+        for s in range(MESH_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch(s), step_generator(seed, s, dev))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
     launches = {name: getattr(ops, name).launches for name in names}
-    full = gather_train_state(state, mesh)
     ckpt = str(Path(out_dir) / "ckpt")
-    lead = dist.get_rank() == 0
-    if lead:
-        save_checkpoint(ckpt, MESH_TRAIN_STEPS, full.as_pytree())
-    dist.barrier()
+    write_sharded_checkpoint(ckpt, MESH_TRAIN_STEPS, state, mesh, cfg)
+    tree = state.as_pytree()
+    part, _ = restore_checkpoint(ckpt, tree, step=MESH_TRAIN_STEPS,
+                                 layout=sharding.StateLayout(tree, mesh, cfg))
+    part_equal = all(torch.equal(x, y) if isinstance(y, torch.Tensor) else x == y
+                     for x, y in zip(tree_util.leaves(part), tree_util.leaves(tree)))
+    check(part_equal, f"rank {dist.get_rank()}: its part of the checkpoint written under "
+                      "the mesh does not restore bit-equal")
+    del part
     out = dict(arch=LM_ARCH, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
                batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ, optimizer=MESH_TRAIN_OPT,
-               loss=losses, ms_per_step=step_ms, launches=launches)
-    if lead:
-        restored, _ = restore_checkpoint(ckpt, full.as_pytree(), step=MESH_TRAIN_STEPS)
-        pairs = list(zip(tree_util.leaves(restored), tree_util.leaves(full.as_pytree())))
-        out["checkpoint_bit_equal"] = all(
-            torch.equal(x, y) if isinstance(y, torch.Tensor) else x == y for x, y in pairs)
-        check(out["checkpoint_bit_equal"], "a checkpoint written under the mesh did not "
-              "restore bit-equal in one process")
-        del restored
+               loss=losses, ms_per_step=step_ms, launches=launches, bytes=nbytes,
+               # The first step builds kernels and warms the allocator.
+               data_sum=dict(data_sum, share_of_steps_after_the_first=sum(
+                   data_sum["seconds"][1:]) / (1e-3 * sum(step_ms[1:]))),
+               checkpoint_part_bit_equal=part_equal)
+    if dist.get_rank() == 0:
         one, one_step, one_losses = fresh(), train_lib.make_train_step(cfg, hcfg, ocfg), []
         for s in range(MESH_TRAIN_STEPS):
             one, m = one_step(one, batch(s), step_generator(seed, s, dev))
             one_losses.append(float(m["loss"]))
+        # One process restores the whole checkpoint: one rank's state's shapes.
+        full, _ = restore_checkpoint(ckpt, one.as_pytree(), step=MESH_TRAIN_STEPS)
+        lay = sharding.StateLayout(one.as_pytree(), mesh, cfg)
+        out["checkpoint_bit_equal"] = all(
+            torch.equal(lay.cut(i, x.cpu()).to(dev), y) if isinstance(y, torch.Tensor)
+            else x == y for i, (x, y) in enumerate(zip(tree_util.leaves(full),
+                                                       tree_util.leaves(tree))))
+        check(out["checkpoint_bit_equal"], "a checkpoint written under the mesh did not "
+              "restore bit-equal in one process")
         out["one_rank_loss"] = one_losses
         out["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
         worst = 0.0
-        for x, y in zip(tree_util.leaves(full.params), tree_util.leaves(one.params)):
+        for x, y in zip(tree_util.leaves(full["params"]), tree_util.leaves(one.params)):
             excess = (x - y).abs() - (MESH_PARAM_TOL["atol"] + MESH_PARAM_TOL["rtol"] * y.abs())
             worst = max(worst, float(excess.max()))
         out["param_excess_over_tol"] = worst
@@ -3387,7 +3476,7 @@ def mesh_train(mesh, dev, seed, out_dir) -> dict:
               f"sharded losses {losses} against one rank's {one_losses}")
         check(worst <= 0.0, "sharded parameters differ from one rank's beyond the reference's "
                             "bounds")
-        del one
+        del one, full
     dist.barrier()
     return out
 
@@ -3521,8 +3610,8 @@ def tp_expected_bytes(cfg, tp: int) -> dict:
     them), split over ``model`` and whole, and what a rank of ``tp`` holds."""
     from repro_torch.parallel import sharding
     full = transformer.init_params(torch.Generator(), cfg, device="meta", cast=True)
-    split, whole = sharding.split_trunk_bytes(full, cfg, (1, tp))
-    return dict(one_rank=sharding.trunk_bytes(full), split=split, whole=whole,
+    split, whole = sharding.split_bytes({"layers": full["layers"]}, cfg, (1, tp))
+    return dict(one_rank=sharding.tree_bytes(full["layers"]), split=split, whole=whole,
                 rank=split // tp + whole)
 
 
@@ -3970,6 +4059,313 @@ def sharded_trunk_path(dev, seed, card) -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: training with the trunk sharded over the mesh's model axis.
+# ---------------------------------------------------------------------------
+
+TPT_RANKS = 4                    # one world of 4 ranks on the one card, over gloo
+# (name, arch, layers kept, model ranks, hinted): full width, cut in depth.
+TPT_CASES = (("stablelm", "stablelm-3b", 4, 4, False),
+             ("deepseek_moe", "deepseek-moe-16b", 2, 4, False),
+             ("hymba", "hymba-1.5b", 2, 2, True))
+TPT_BATCH, TPT_SEQ, TPT_STEPS = 2, 256, 3
+# SGD, as phase 13: its update is linear in the gradient (Adagrad's first
+# step turns the float32 reordering of a sum at |g| near eps into
+# parameter differences above the bounds, a property of the rule). The
+# optimizer-state bytes are read on an Adagrad state of the same parts.
+TPT_OPT = MESH_TRAIN_OPT
+TPT_GRAD_REL_RMS = 1e-4          # each leaf's gradient against one rank's
+TPT_TIMEOUT_S = 900
+TPT_COUNTED = ("sampled_head_loss", "segment_stats", "flash_attention")
+
+
+def tpt_launches_a_rank(dp: int) -> dict:
+    """The launches of one rank's TPT_STEPS steps: the head's loss once a
+    step; ``segment_stats`` for the head's row sums (dw and db) and the
+    embedding's (dw), 3 a step, and on a mesh with ``data`` > 1 the 3 sums
+    of those rows over ``data`` (``collectives.sum_rows_over_data``); no
+    ``flash_attention`` (the trunk trains on the plain attention)."""
+    return {"sampled_head_loss": TPT_STEPS, "segment_stats": (3 if dp == 1 else 6) * TPT_STEPS,
+            "flash_attention": 0}
+# The training launcher under torchrun on (1, 2), bf16 (the reduced config's
+# dtype): the row-parallel partial products' gradients on the card (mm and
+# the experts' bmm), SM3's whole covers, the launcher's bytes.
+TPT_LAUNCH = ["--arch", "deepseek-moe-16b", "--reduced", "--device", MESH_DEVICE,
+              "--model-axis", "2", "--optimizer", "sm3", "--steps", "3", "--batch", "2",
+              "--seq", "64"]
+
+
+def tpt_cfg(arch: str, layers: int):
+    return dataclasses.replace(configs.get_config(arch), num_layers=layers, dtype="float32")
+
+
+def tpt_batch(cfg, seed: int, dev):
+    from repro_torch.data import lm_batch_fn
+    make = lm_batch_fn(cfg.vocab_size, TPT_BATCH, TPT_SEQ, seed=seed)
+    return lambda s: {k: torch.as_tensor(v).to(dev) for k, v in make(s).items()}
+
+
+def tpt_reference(name, arch, layers, dev, seed, tmp) -> dict:
+    """One rank's gradients of the first step and parameters after
+    TPT_STEPS steps, written to ``tmp`` for the ranks to slice (read
+    mapped, never gathered), its losses, layer 0's routing and its ms a
+    step; everything on the card freed after."""
+    from repro_torch.models import moe as moe_lib
+    cfg = tpt_cfg(arch, layers)
+    hcfg = lm_head.head_config(cfg, "adversarial_ns", reg=1e-4)
+    ocfg = optim.OptimizerConfig(**TPT_OPT)
+    state = train_lib.init_train_state(torch.Generator(device=dev).manual_seed(seed),
+                                       cfg, ocfg, "adversarial_ns", device=dev)
+    batch = tpt_batch(cfg, seed, dev)
+    routes = []
+    with swapped(moe_lib, _route=route_recorder(routes)):
+        grads, _ = train_step_lib.make_grad_fn(cfg, hcfg)(state, batch(0),
+                                                         step_generator(seed, 0, dev))
+    torch.save(tree_util.tree_map(lambda t: t.cpu(), grads), Path(tmp, f"{name}_grads.pt"))
+    del grads
+    step = train_lib.make_train_step(cfg, hcfg, ocfg)
+    losses, ms = [], []
+    for s in range(TPT_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch(s), step_generator(seed, s, dev))
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    torch.save(tree_util.tree_map(lambda t: t.cpu(), state.params),
+               Path(tmp, f"{name}_params.pt"))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, ms_per_step=ms, idx0=routes[0][1] if routes else None)
+
+
+def tpt_grad_errors(cfg, mesh, grads, ref) -> tuple:
+    """The largest relative RMS over the leaves of a rank's gradients
+    against its slice of one rank's (the head's and the embedding's
+    ``SparseRows``, the same on every rank, whole), and its leaf."""
+    from repro_torch.parallel import sharding
+
+    def err(got, want) -> float:        # a leaf whose reference is all zero: exact
+        if float(want.float().abs().max()) == 0.0:
+            return 0.0 if float(got.float().abs().max()) == 0.0 else float("inf")
+        return rel_rms(got, want)
+
+    worst, at = 0.0, None
+    for key in ("head", "embed"):
+        g, r = grads[key], ref[key]
+        n = int(max(int(g.ids.max()), int(r.ids.max()))) + 1
+        for part in ("dw", "db"):
+            if getattr(r, part) is None:
+                continue
+            a = torch.zeros((n,) + tuple(getattr(g, part).shape[1:]), device=g.ids.device)
+            b = torch.zeros_like(a)
+            a.index_add_(0, g.ids, getattr(g, part))
+            b.index_add_(0, r.ids.to(a.device), getattr(r, part).to(a.device))
+            e = err(a, b)
+            if e > worst:
+                worst, at = e, f"{key}/{part}"
+    trunk = {k: v for k, v in ref.items() if k not in ("head", "embed")}
+    want = sharding.shard_train_state(trunk, mesh, cfg)
+    for (path, r), g in zip(tree_util.flatten_with_paths(want)[0],
+                            tree_util.leaves({k: grads[k] for k in trunk})):
+        e = err(g, r.to(g.device))
+        if e > worst:
+            worst, at = e, "/".join(path)
+    return worst, at
+
+
+def whole_digest(cfg, mesh, params) -> str:
+    """A digest of the bytes of every leaf a rank holds whole."""
+    import hashlib
+    from repro_torch.parallel import sharding
+    h = hashlib.sha256()
+    for (path, x), (_, sp) in zip(tree_util.flatten_with_paths(params)[0],
+                                  sharding.train_state_spec(cfg, mesh, params)):
+        if "model" not in sp:
+            h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tpt_case(name, arch, layers, tp, hinted, dev, seed, tmp, ref) -> dict:
+    """One case on one rank of the world (module docstring's phase 15)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.collectives import TRUNK
+    from repro_torch.parallel.hints import sharding_hints
+    mesh = make_host_mesh(tp, MESH_DEVICE, timeout_s=MESH_TIMEOUT_S)
+    cfg = tpt_cfg(arch, layers)
+    hcfg = lm_head.head_config(cfg, "adversarial_ns", reg=1e-4)
+    ocfg = optim.OptimizerConfig(**TPT_OPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = train_lib.init_train_state(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                       ocfg, "adversarial_ns", device=dev, mesh=mesh)
+    adagrad = optim.OptimizerConfig(name="adagrad")
+    nbytes = launch_train.state_bytes(cfg, adagrad, state._replace(
+        opt_state=init_opt_state(adagrad, state.params)), mesh)
+    batch = tpt_batch(cfg, seed, dev)
+    hint = (lambda: sharding_hints(mesh)) if hinted else contextlib.nullcontext
+    routes = []
+    with swapped(moe_lib, _route=route_recorder(routes)), hint():
+        grads, _ = train_step_lib.make_grad_fn(cfg, hcfg, mesh=mesh)(
+            state, batch(0), step_generator(seed, 0, dev))
+    refs = torch.load(Path(tmp, f"{name}_grads.pt"), mmap=True, weights_only=False)
+    out = dict(rank=dist.get_rank(), bytes=nbytes)
+    out["grad_rel_rms"], out["grad_worst_leaf"] = tpt_grad_errors(cfg, mesh, grads, refs)
+    if hinted:
+        plain, _ = train_step_lib.make_grad_fn(cfg, hcfg, mesh=mesh)(
+            state, batch(0), step_generator(seed, 0, dev))
+        out["hint_vs_plain_rel_rms"] = max(
+            rel_rms(a, b) for a, b in zip(tree_util.leaves({k: v for k, v in grads.items()
+                                                            if k not in ("head", "embed")}),
+                                          tree_util.leaves({k: v for k, v in plain.items()
+                                                            if k not in ("head", "embed")})))
+        del plain
+    if ref["idx0"] is not None:
+        out["layer0_route_equal"] = bool(torch.equal(routes[0][1], ref["idx0"]))
+    del grads, refs
+    step = train_lib.make_train_step(cfg, hcfg, ocfg, mesh=mesh)
+    for k in TPT_COUNTED:
+        getattr(ops, k).launches = 0
+    TRUNK.reset()
+    TRUNK.timed = True
+    losses, ms = [], []
+    with hint():
+        for s in range(TPT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch(s), step_generator(seed, s, dev))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    TRUNK.timed = False
+    out.update(losses=losses, ms_per_step=ms, trunk_collectives=dict(TRUNK.phases),
+               launches={k: getattr(ops, k).launches for k in TPT_COUNTED},
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               whole_digest=whole_digest(cfg, mesh, state.params))
+    want = sharding.shard_train_state(torch.load(Path(tmp, f"{name}_params.pt"), mmap=True,
+                                                 weights_only=False), mesh, cfg)
+    worst = 0.0
+    for x, y in zip(tree_util.leaves(state.params), tree_util.leaves(want)):
+        y = y.to(dev)
+        excess = (x - y).abs() - (MESH_PARAM_TOL["atol"] + MESH_PARAM_TOL["rtol"] * y.abs())
+        worst = max(worst, float(excess.max()))
+    out["param_excess_over_tol"] = worst
+    del state, step, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def tp_train_worker(out_dir: str, seed: int) -> int:
+    """One rank of phase 15's world (started by ``torchrun``): every case on
+    its mesh of the world's 4 ranks; its results to ``rank<r>.json``."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(MESH_DEVICE)
+    refs = torch.load(Path(out_dir, "ref.pt"), weights_only=False)
+    res = {}
+    for name, arch, layers, tp, hinted in TPT_CASES:
+        res[name] = tpt_case(name, arch, layers, tp, hinted, dev, seed + 45, out_dir,
+                             refs[name])
+    Path(out_dir, f"rank{dist.get_rank()}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_train_path(dev, seed, card) -> dict:
+    """Phase 15: the one-rank references here, then the world. Returns the
+    launches of every rank."""
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    rows = []
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = {name: tpt_reference(name, arch, layers, dev, seed + 45, tmp)
+                for name, arch, layers, _, _ in TPT_CASES}
+        torch.save(refs, Path(tmp, "ref.pt"))
+        t_world = time.perf_counter()
+        torchrun(TPT_RANKS, [__file__, "--tp-train-worker", tmp, "--seed", str(seed)],
+                 timeout=TPT_TIMEOUT_S)
+        world_s = time.perf_counter() - t_world
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(TPT_RANKS)]
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    for name, arch, layers, tp, hinted in TPT_CASES:
+        reports = [r[name] for r in ranks]
+        ref = refs[name]
+        what = f"{arch} at {layers} layers on ({TPT_RANKS // tp}, {tp})"
+        loss_err = max(abs(a - b) / abs(b) for rep in reports
+                       for a, b in zip(rep["losses"], ref["losses"]))
+        row = dict(arch=arch, mesh=[TPT_RANKS // tp, tp], hinted=hinted, card=card,
+                   reduced={"num_layers": [configs.get_config(arch).num_layers, layers]},
+                   batch=TPT_BATCH, seq=TPT_SEQ, steps=TPT_STEPS, optimizer=TPT_OPT,
+                   one_rank_losses=ref["losses"], one_rank_ms_per_step=ref["ms_per_step"],
+                   loss_rel_err=loss_err,
+                   grad_rel_rms=max(rep["grad_rel_rms"] for rep in reports),
+                   ranks=[dict(rank=rep["rank"], bytes=rep["bytes"],
+                               ms_per_step=rep["ms_per_step"],
+                               trunk_collectives=rep["trunk_collectives"],
+                               peak_gib=rep["peak_bytes"] / 2 ** 30,
+                               launches=rep["launches"],
+                               grad_worst_leaf=rep["grad_worst_leaf"],
+                               param_excess_over_tol=rep["param_excess_over_tol"],
+                               **{k: rep[k] for k in ("layer0_route_equal",
+                                                      "hint_vs_plain_rel_rms") if k in rep})
+                              for rep in reports])
+        print(json.dumps({"tp_train": row}))
+        check(loss_err <= MESH_LOSS_RTOL, f"{what}: losses {loss_err} from one rank's")
+        for rep in reports:
+            r = rep["rank"]
+            for part, b in rep["bytes"].items():
+                check(b["rank"] == b["split"] // tp + b["whole"],
+                      f"{what}: rank {r} holds {b['rank']} {part} bytes, not "
+                      f"{b['split']} / {tp} + {b['whole']}")
+            check(rep["grad_rel_rms"] <= TPT_GRAD_REL_RMS,
+                  f"{what}: rank {r}'s gradient of {rep['grad_worst_leaf']} "
+                  f"{rep['grad_rel_rms']} relative RMS from one rank's")
+            check(rep["param_excess_over_tol"] <= 0.0,
+                  f"{what}: rank {r}'s parameters beyond the reference's bounds")
+            check(rep.get("layer0_route_equal", True),
+                  f"{what}: rank {r}'s layer 0 routing differs from one rank's")
+            check(rep.get("hint_vs_plain_rel_rms", 0.0) <= TPT_GRAD_REL_RMS,
+                  f"{what}: rank {r}'s hinted gradients {rep.get('hint_vs_plain_rel_rms')} "
+                  "from the unhinted")
+            check(rep["launches"] == tpt_launches_a_rank(TPT_RANKS // tp),
+                  f"{what}: rank {r}'s launches {rep['launches']}, not "
+                  f"{tpt_launches_a_rank(TPT_RANKS // tp)}")
+            check(rep["whole_digest"] == reports[0]["whole_digest"],
+                  f"{what}: rank {r}'s whole leaves differ from rank 0's")
+            for k, n in rep["launches"].items():
+                total[k] += n
+        rows.append(row)
+    import re
+    t_launch = time.perf_counter()
+    out = torchrun(2, ["-m", "repro_torch.launch.train", *TPT_LAUNCH], timeout=300)
+    launch = dict(flags=TPT_LAUNCH, wall_s=time.perf_counter() - t_launch, card=card)
+    for label in ("parameter", "optimizer-state"):
+        m = re.search(label + r" bytes a rank \[(\d+), (\d+)\] \(one rank's (\d+): (\d+) "
+                      r"split over model, (\d+) whole\)", out)
+        check(m is not None, f"the training launcher printed no {label} bytes: {out[:500]}")
+        a, b, _, split, whole = map(int, m.groups())
+        check(a == b == split // 2 + whole,
+              f"the training launcher's {label} bytes a rank {[a, b]}, not {split} / 2 + {whole}")
+        launch[label] = dict(rank=a, split=split, whole=whole)
+    losses = [float(x) for x in re.findall(r"loss=([-0-9.naif]+)", out)]
+    check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+          f"the training launcher's losses {losses}")
+    launch["losses"] = losses
+    print(json.dumps({"tp_train_launcher": launch}))
+    print(json.dumps({"tp_train_path": dict(card=card, wall_s=time.perf_counter() - t_phase,
+                                            world_s=world_s, cases=len(rows),
+                                            launches=dict(total))}))
+    return dict(total)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3978,6 +4374,8 @@ def main() -> int:
     parser.add_argument("--tp-worker", default=None,
                         help="run as one rank of a phase 14 world (under torchrun)")
     parser.add_argument("--tp-case", default="moe", choices=("moe", "hybrid"))
+    parser.add_argument("--tp-train-worker", default=None,
+                        help="run as one rank of phase 15's world (under torchrun)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3987,6 +4385,8 @@ def main() -> int:
         return mesh_worker(args.mesh_worker, args.seed)
     if args.tp_worker:
         return tp_worker(args.tp_worker, args.tp_case, args.seed)
+    if args.tp_train_worker:
+        return tp_train_worker(args.tp_train_worker, args.seed)
     dev = device_lib.resolve("cuda")
     card = card_line()
     print(card)
@@ -4038,6 +4438,8 @@ def main() -> int:
     for name, n in mesh_path(dev, args.seed, card).items():
         launches[name] += n
     for name, n in sharded_trunk_path(dev, args.seed, card).items():
+        launches[name] += n
+    for name, n in tp_train_path(dev, args.seed, card).items():
         launches[name] += n
     src = "src/repro_torch/kernels/csrc"
     kernels = [

@@ -23,6 +23,13 @@ Layout:   <dir>/step_000123/
 
 Trees are the port's state trees (:mod:`repro_torch.tree_util`): tensors,
 numpy arrays and Python numbers as leaves.
+
+A state sharded over a mesh is written and read one leaf at a time: the
+writer takes its leaves from an iterator (``leaves=``, e.g.
+``parallel.iter_gathered_leaves``, which gathers each when it is reached)
+and the reader cuts each full leaf to the rank's part on the host
+(``layout=``, a ``parallel.sharding.StateLayout``), so neither holds more
+than one full leaf. The files are those a one-rank run writes.
 """
 from __future__ import annotations
 
@@ -54,14 +61,15 @@ def _to_host(x) -> Tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
-def _from_saved(arr: np.ndarray, dtype_name: str, like) -> Any:
-    """A loaded array as the type of ``like``: a tensor on its device, a
-    Python number, or a numpy array."""
+def _from_saved(arr: np.ndarray, dtype_name: str, like, cut=None) -> Any:
+    """A loaded array as the type of ``like``: a tensor on its device (cut
+    to a rank's part on the host first, by ``cut``), a Python number, or a
+    numpy array."""
     if isinstance(like, torch.Tensor):
         t = torch.from_numpy(np.require(arr, requirements="CW"))   # keeps a 0-d shape
         if dtype_name == "bfloat16":
             t = t.view(torch.bfloat16)
-        return t.to(like.device)
+        return (t if cut is None else cut(t)).to(like.device)
     if isinstance(like, int):
         return int(arr)
     if isinstance(like, float):
@@ -70,26 +78,37 @@ def _from_saved(arr: np.ndarray, dtype_name: str, like) -> Any:
 
 
 def save_checkpoint(directory: str, step: int, tree: Any, keep: int = 3,
-                    prefix: str = "step_", update_latest: bool = True) -> str:
+                    prefix: str = "step_", update_latest: bool = True,
+                    leaves=None) -> str:
     """Atomically write ``tree`` as checkpoint ``step``. Returns the path.
 
     A non-default ``prefix`` (with ``update_latest=False``) writes a side
     artifact that auto-resume and GC never look at: the generator-refresh
     snapshots (``gensnap_<step>``) use it so an in-flight fit can be
     replayed after a restart without moving the LATEST pointer.
+
+    ``leaves``: an iterable of the leaves to write in ``tree``'s flatten
+    order (``tree`` then gives only the structure), each written and
+    dropped as it comes (module docstring).
     """
     os.makedirs(directory, exist_ok=True)
-    leaves, spec = tree_util.flatten(tree)
+    flat, spec = tree_util.flatten(tree)
+    n = len(flat)
+    leaves = flat if leaves is None else leaves
     final = os.path.join(directory, f"{prefix}{step:08d}")
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
     try:
         meta = {"step": step, "treedef": tree_util.spec_str(spec),
-                "n_leaves": len(leaves), "leaves": []}
+                "n_leaves": n, "leaves": []}
         for i, leaf in enumerate(leaves):
             arr, dtype_name = _to_host(leaf)
+            del leaf
             meta["leaves"].append({"shape": list(arr.shape), "dtype": dtype_name,
                                    "crc32": int(zlib.crc32(np.ascontiguousarray(arr)))})
             np.save(os.path.join(tmp, f"arr_{i:05d}.npy"), arr)
+            del arr
+        if len(meta["leaves"]) != n:
+            raise ValueError(f"{len(meta['leaves'])} leaves written, the tree has {n}")
         # Site "checkpoint/write": arrays are on disk but the manifest — the
         # commit record — is not. A kill held here leaves an unverifiable
         # tmp dir that restore must ignore.
@@ -187,13 +206,18 @@ def latest_step(directory: str, verify: bool = True) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str, tree_like: Any, step: Optional[int] = None,
-                       prefix: str = "step_") -> Tuple[Any, int]:
+                       prefix: str = "step_", layout=None) -> Tuple[Any, int]:
     """Restore into the structure of ``tree_like``: each tensor leaf comes
     back as a tensor on that leaf's device, each Python number as a number.
 
     With ``step=None`` the restore point is the newest verifiable
     checkpoint; an explicit ``step`` that fails verification raises rather
-    than returning bad bytes."""
+    than returning bad bytes.
+
+    ``layout`` (a ``parallel.sharding.StateLayout`` of ``tree_like``, a
+    rank's state): the files hold the full leaves, each checked against
+    the full shape and cut to the rank's part on the host (module
+    docstring)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -210,8 +234,10 @@ def restore_checkpoint(directory: str, tree_like: Any, step: Optional[int] = Non
     out = []
     for i, (info, like) in enumerate(zip(meta["leaves"], leaves_like)):
         arr = np.load(os.path.join(path, f"arr_{i:05d}.npy"))
-        if tuple(arr.shape) != tuple(np.shape(like)):
-            raise ValueError(f"leaf {i}: checkpoint shape {arr.shape}, expected "
-                             f"{tuple(np.shape(like))}")
-        out.append(_from_saved(arr, info["dtype"], like))
+        want = tuple(np.shape(like)) if layout is None else layout.full_shape(i, like)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"leaf {i}: checkpoint shape {arr.shape}, expected {want}")
+        cut = None if layout is None else (lambda t, i=i: layout.cut(i, t))
+        out.append(_from_saved(arr, info["dtype"], like, cut))
+        del arr
     return tree_util.unflatten(spec, out), step

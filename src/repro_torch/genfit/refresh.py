@@ -232,18 +232,19 @@ def snapshot_path_exists(directory: str, step: int) -> bool:
         directory, f"{SNAP_PREFIX}{step:08d}", MANIFEST))
 
 
-def save_snapshot(directory: str, step: int, pytree) -> str:
+def save_snapshot(directory: str, step: int, pytree, leaves=None) -> str:
     """Persist the submit-time state under ``gensnap_<step>`` (atomic,
-    ignored by checkpoint GC and the LATEST pointer)."""
+    ignored by checkpoint GC and the LATEST pointer); ``leaves`` as
+    ``save_checkpoint`` takes them."""
     from repro_torch.checkpoint import save_checkpoint
     return save_checkpoint(directory, step, pytree, keep=0,
-                           prefix=SNAP_PREFIX, update_latest=False)
+                           prefix=SNAP_PREFIX, update_latest=False, leaves=leaves)
 
 
-def load_snapshot(directory: str, step: int, tree_like):
+def load_snapshot(directory: str, step: int, tree_like, layout=None):
     from repro_torch.checkpoint import restore_checkpoint
     state, _ = restore_checkpoint(directory, tree_like, step=step,
-                                  prefix=SNAP_PREFIX)
+                                  prefix=SNAP_PREFIX, layout=layout)
     return state
 
 

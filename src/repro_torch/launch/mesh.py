@@ -14,13 +14,13 @@ rank has a card of its own, gloo on the CPU and where ranks share a card
 Every group of the mesh gets a finite timeout, so a rank left waiting on a
 collective fails instead of hanging.
 
-What a rank holds is the launcher's: serving shards the whole model over
-``model`` (the trunk's heads, ``d_ff``, experts and SSM heads, the
-embedding's and the head's rows, the cache by KV heads), training only the
-embedding and the head (its trunk over ``model`` and FSDP over ``data``
-are slice 11). The reference's ``make_production_mesh`` and its roofline
-constants are a TPU pod's; the port's production mesh, with the H100's
-constants, waits for its roofline analysis (slice 12).
+What a rank holds is the launcher's: both launchers shard the whole model
+over ``model`` (the trunk's heads, ``d_ff``, experts and SSM heads, the
+embedding's and the head's rows), serving its cache by KV heads, training
+its optimizer state with the parameters; nothing is sharded over ``data``
+(FSDP is not ported yet). The reference's ``make_production_mesh`` and its
+roofline constants are a TPU pod's; the port's production mesh, with the
+H100's constants, waits for its roofline analysis (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -62,13 +62,14 @@ def backend_for(device: torch.device, explicit_index: bool) -> str:
     return "nccl" if device.type == "cuda" and not shared else "gloo"
 
 
-def make_host_mesh(model_axis: int = 1, device="cpu", timeout_s: float = TIMEOUT_S,
+def make_host_mesh(model_axis: int = 1, device="cuda", timeout_s: float = TIMEOUT_S,
                    init_method: Optional[str] = None):
     """Join the process group (ranks from the ``torchrun`` environment;
     rendezvous there too, or at ``init_method``, e.g. a ``file://`` store)
     and return the ("data", "model") ``DeviceMesh``. ``device`` is this
     rank's device (:func:`rank_device`'s result, or a device string with
-    ``cuda`` meaning the local rank's card)."""
+    ``cuda``, the default, meaning the local rank's card; pass ``cpu`` for
+    a world of CPU processes). A missing card raises."""
     from torch.distributed.device_mesh import init_device_mesh
     explicit = torch.device(device).index is not None
     dev = rank_device(device)

@@ -77,7 +77,6 @@ import torch
 
 from repro_torch import configs as cfg_lib
 from repro_torch import device as device_lib
-from repro_torch import tree_util
 from repro_torch.core.heads import HeadParams
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
@@ -435,11 +434,11 @@ def param_bytes(cfg, params, mesh) -> dict:
     (from a meta-device build): split over ``model`` and whole, so that a
     rank of ``tp`` should hold split / tp + whole."""
     full = transformer.init_params(torch.Generator(), cfg, device="meta", cast=True)
-    split, whole = sharding.split_trunk_bytes(full, cfg, mesh if mesh is not None else (1, 1))
-    return {"params": sum(x.numel() * x.element_size() for x in tree_util.leaves(params)
-                          if isinstance(x, torch.Tensor)),
-            "trunk": sharding.trunk_bytes(params),
-            "trunk_one_rank": sharding.trunk_bytes(full),
+    split, whole = sharding.split_bytes({"layers": full["layers"]}, cfg,
+                                        mesh if mesh is not None else (1, 1))
+    return {"params": sharding.tree_bytes(params),
+            "trunk": sharding.tree_bytes(params["layers"]),
+            "trunk_one_rank": sharding.tree_bytes(full["layers"]),
             "trunk_split": split, "trunk_whole": whole}
 
 

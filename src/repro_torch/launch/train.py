@@ -12,17 +12,22 @@ through ``segment_stats``, and attention is the plain differentiable one
 ``--head-kernel`` switch has no counterpart.
 
 Under ``torchrun`` the run is data-parallel over a ("data", "model") mesh
-with ``--model-axis`` model ranks, the embedding's and the head's rows
-sharded over ``model`` (:mod:`repro_torch.launch.mesh`); rank 0 alone
-prints:
+with ``--model-axis`` model ranks, the model placed over ``model`` by
+``param_spec`` (the embedding's and the head's rows, the trunk's heads,
+``d_ff``, experts and SSM heads) and the optimizer state with it
+(:mod:`repro_torch.launch.mesh`); rank 0 alone prints:
 
   python -m torch.distributed.run --standalone --nproc-per-node 4 \
       -m repro_torch.launch.train --model-axis 2 --device cpu|cuda|cuda:0 ...
 
-Every rank builds the full state from the seed and keeps its rows; the
-step takes the global batch (``--batch``) and splits it over ``data``, so
-the run equals the one-rank run. ``--model-axis`` above 1 without
-``torchrun`` raises.
+Each rank draws the state from the seed a layer at a time and keeps its
+part (``init_train_state(mesh=)``): no rank holds the whole trunk. The
+``mesh:`` line gives each rank's parameter and optimizer-state bytes
+beside the one-rank state's, split over ``model`` and whole. The step
+takes the global batch (``--batch``) and splits it over ``data``, so the
+run equals the one-rank run. ``--model-axis`` above 1 without
+``torchrun`` raises, and so does a mesh with a head update that resolves
+to ``dense`` (the dense head under a mesh is not ported yet).
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ from repro_torch import configs as cfg_lib
 from repro_torch import device as device_lib
 from repro_torch.data import lm_batch_fn
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models import lm_head
+from repro_torch.core.heads import resolve_head_update
+from repro_torch.models import lm_head, transformer
 from repro_torch.optim import OptimizerConfig
 from repro_torch.train import LoopConfig, init_train_state, make_train_step, run_loop
 from repro_torch.train.generator_fit import fit_lm_sampler, make_gen_fit_fn
@@ -163,6 +169,47 @@ def loop_config(args) -> LoopConfig:
                       gen_fit_timeout_s=args.gen_fit_timeout)
 
 
+def check_mesh_args(args) -> None:
+    """Refuse, before the mesh or anything else is built, a run on a mesh
+    (``--model-axis`` above 1, or any run under ``torchrun``) whose head
+    update resolves to dense."""
+    on_mesh = args.model_axis > 1 or mesh_lib.in_launch()
+    if on_mesh and resolve_head_update(args.head_update, args.head) == "dense":
+        raise ValueError(f"--model-axis with --head {args.head} --head-update "
+                         f"{args.head_update}: the head update resolves to dense, and the "
+                         "dense head under a mesh is not ported yet (ROADMAP Queue 1, "
+                         "slice 12); use a sampled head with --head-update auto|sparse")
+
+
+def state_bytes(cfg, opt, state, mesh) -> dict:
+    """This rank's parameter and optimizer-state bytes, and the one-rank
+    state's (from a meta-device build), split over ``model`` and whole:
+    a rank of ``tp`` should hold split / tp + whole of each."""
+    from repro_torch.optim import init_opt_state
+    from repro_torch.parallel import sharding
+    full = transformer.init_params(torch.Generator(), cfg, device="meta")
+    out = {}
+    for name, one, mine in (("params", full, state.params),
+                            ("opt_state", init_opt_state(opt, full), state.opt_state)):
+        split, whole = sharding.split_bytes(one, cfg, mesh)
+        out[name] = {"rank": sharding.tree_bytes(mine), "split": split, "whole": whole}
+    return out
+
+
+def mesh_line(mesh, nbytes: dict) -> str:
+    """The ``mesh:`` line with every rank's parameter and optimizer-state
+    bytes (a collective)."""
+    every = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(every, nbytes)
+    parts = []
+    for name, label in (("params", "parameter"), ("opt_state", "optimizer-state")):
+        b = nbytes[name]
+        parts.append(f"{label} bytes a rank {[e[name]['rank'] for e in every]} (one rank's "
+                     f"{b['split'] + b['whole']}: {b['split']} split over model, "
+                     f"{b['whole']} whole)")
+    return f"{mesh_lib.describe(mesh)}; " + ", ".join(parts)
+
+
 def setup(args, mesh=None):
     """Everything ``main`` runs: (cfg, hcfg, state, train_step, batch_fn,
     gen_fit_fn, loop config). Under ``mesh`` the state is this rank's and
@@ -171,7 +218,7 @@ def setup(args, mesh=None):
            else device_lib.resolve(args.device))
     cfg, hcfg, opt = build(args)
     state = init_train_state(torch.Generator(device=dev).manual_seed(PARAM_SEED), cfg,
-                             opt, args.head, device=dev)
+                             opt, args.head, device=dev, mesh=mesh)
     make = lm_batch_fn(cfg.vocab_size, args.batch, args.seq, seed=0)
     batch_fn = batch_fn_for(make, dev)
     sampler = None
@@ -181,7 +228,7 @@ def setup(args, mesh=None):
         # Eq. 5 debias see the same features.
         sampler, _ = fit_lm_sampler(args.sampler, state.params, cfg,
                                     (batch_fn(10_000 + i) for i in range(4)),
-                                    proj=state.head_state.proj)
+                                    proj=state.head_state.proj, mesh=mesh)
         print(f"sampler: {type(sampler).__name__} (--sampler {args.sampler})")
     train_step = make_train_step(cfg, hcfg, opt, head_update=args.head_update,
                                  sampler=sampler,
@@ -191,27 +238,25 @@ def setup(args, mesh=None):
                                          "freq_ns"):
         gen_cb = make_gen_fit_fn(cfg, batch_fn, kind=args.head, max_tokens=8192,
                                  method=args.gen_method)
-    if mesh is not None:
-        from repro_torch.parallel import shard_train_state
-        state = shard_train_state(state, mesh)
     return cfg, hcfg, state, train_step, batch_fn, gen_cb, loop_config(args)
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    check_mesh_args(args)
     mesh = mesh_lib.launcher_mesh(args.model_axis, args.device, "repro_torch.launch.train")
     if not mesh_lib.is_lead(mesh):
         sys.stdout = open(os.devnull, "w")
-    if mesh is not None:
-        print(mesh_lib.describe(mesh))
     cfg, hcfg, state, train_step, batch_fn, gen_cb, loop = setup(args, mesh)
+    if mesh is not None:
+        print(mesh_line(mesh, state_bytes(cfg, build(args)[2], state, mesh)))
     print(f"model: {cfg.name} ({'reduced' if args.reduced else 'full'}), "
           f"{cfg.param_count() / 1e6:.1f}M params on {args.device}")
     from repro_torch.obs import Registry, console_summary
     registry = Registry() if (args.metrics_jsonl or args.profile_dir) else None
     state, hist = run_loop(
         state, train_step, batch_fn, loop, LOOP_SEED, gen_fit_fn=gen_cb,
-        registry=registry, mesh=mesh,
+        registry=registry, mesh=mesh, model_cfg=cfg,
         on_step=lambda s, m: print(f"step {s:4d} loss={m['loss']:.4f} "
                                    f"{m['step_time'] * 1e3:.0f}ms", flush=True))
     print(f"final loss {hist['loss'][-1]:.4f}; stragglers={hist['stragglers']}")

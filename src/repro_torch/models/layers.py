@@ -145,19 +145,24 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal self-attention as the reference computes it in training
     (``src/repro/models/layers.py:238-264``), under autograd.
 
-    q: (B, S, H, hd) already scaled by 1/sqrt(hd) in ``cfg.dtype``; k, v:
-    (B, S, KV, hd). Logits in ``cfg.softmax_dtype`` (float32), the softcap,
-    masked entries at -1e4 under a softcap and at finfo.min / 2 otherwise,
-    the softmax (without the max subtraction under a softcap, whose logits
-    are bounded), probabilities rounded to ``cfg.dtype`` before P·V.
-    Returns (B, S, H, hd) in ``cfg.dtype``.
+    q: (B, Sq, H, hd) already scaled by 1/sqrt(hd) in ``cfg.dtype``; k, v:
+    (B, S, KV, hd), Sq <= S. The queries are the last Sq of the S
+    positions (Sq < S: a rank's rows under the attention hint, whose keys
+    end at its last query), so the masks are offset by S - Sq. Logits in
+    ``cfg.softmax_dtype`` (float32), the softcap, masked entries at -1e4
+    under a softcap and at finfo.min / 2 otherwise, the softmax (without
+    the max subtraction under a softcap, whose logits are bounded),
+    probabilities rounded to ``cfg.dtype`` before P·V. ``mask_pos`` (B, S)
+    are the keys' positions (the queries' are its last Sq). Returns
+    (B, Sq, H, hd) in ``cfg.dtype``.
     """
-    b, s, h, hd = q.shape
+    b, sq, h, hd = q.shape
+    s = k.shape[1]
     groups = h // k.shape[2]
     cdt, sm_dt = _dtype(cfg), getattr(torch, cfg.softmax_dtype)
 
     def heads_first(x):                        # (B, S, H, hd) -> (B·H, S, hd)
-        return x.transpose(1, 2).reshape(b * h, s, hd)
+        return x.transpose(1, 2).reshape(b * h, x.shape[1], hd)
 
     kx = k.repeat_interleave(groups, dim=2) if groups > 1 else k
     vx = v.repeat_interleave(groups, dim=2) if groups > 1 else v
@@ -171,16 +176,17 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     capped = cap > 0.0
     neg = -1e4 if capped else torch.finfo(sm_dt).min / 2
     if mask_pos is None:
-        logits.masked_fill_(~causal_window_mask(s, window, device=q.device), neg)
+        logits.masked_fill_(~causal_window_mask(s, window, device=q.device)[s - sq:], neg)
     else:
-        logits.view(b, h, s, s).masked_fill_(~position_mask(mask_pos, window)[:, None], neg)
+        valid = position_mask(mask_pos, window)[:, s - sq:]
+        logits.view(b, h, sq, s).masked_fill_(~valid[:, None], neg)
     if capped:
         ex = torch.exp(logits)
         probs = (ex / ex.sum(dim=-1, keepdim=True)).to(cdt)
     else:
         probs = torch.softmax(logits, dim=-1).to(cdt)
     out = torch.bmm(probs, heads_first(vx.to(cdt)))
-    return out.view(b, h, s, hd).transpose(1, 2)
+    return out.view(b, h, sq, hd).transpose(1, 2)
 
 
 class CacheIndex(NamedTuple):
@@ -336,7 +342,7 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     (B, S) when given (explicit positions: the reference masks by
     ``positions[0]``), else by index.
 
-    A rank's part (:func:`repro_torch.parallel.sharding.shard_params`): the
+    A rank's part (:func:`repro_torch.parallel.sharding.shard_train_state`): the
     heads are read from the weights' shapes. Split query heads give a
     float32 partial output projection, summed over ``mesh``'s ``model``
     ranks and rounded once (``collectives.reduce_over_model``); a cache
@@ -350,21 +356,32 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     b, s, _ = x.shape
     h, kv, hd = params["wq"].shape[1], params["wk"].shape[1], cfg.resolved_head_dim
     cdt = _dtype(cfg)
+    q_part = hints.hinted_rows(cfg.num_heads, s)
+    # A rank's part of the work gives it a partial gradient of the block's
+    # input and of every whole weight it reads in part: those are summed
+    # over model in the backward pass (collectives.copy_to_model).
+    if q_part is not None:
+        mesh = hints.current().mesh
+        x = collectives.copy_to_model(mesh, x)
+        params = {k_: collectives.copy_to_model(mesh, w) for k_, w in params.items()}
+    elif h < cfg.num_heads:
+        x = collectives.copy_to_model(mesh, x)
+        if kv == cfg.num_kv_heads:
+            params = {**params, **{k_: collectives.copy_to_model(mesh, params[k_])
+                                   for k_ in ("wk", "wv")}}
 
     q = _project(x, params["wq"], cdt)
     k = _project(x, params["wk"], cdt)
     v = _project(x, params["wv"], cdt)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    q, q_part = hints.hint_attn_q(q, cfg.num_heads)
+    if q_part is not None:
+        q = q[:, q_part[0]:q_part[1]]
     sq = q.shape[1]
     trim = 0 if q_part is None else s - q_part[1]     # keys past the rank's last query
 
     if impl not in ("kernel", "plain"):
         raise ValueError(f"attention impl must be 'kernel' or 'plain', got {impl!r}")
-    if q_part is not None and impl == "plain":
-        raise NotImplementedError("the attention hint under the plain (training) attention "
-                                  "is slice 11's")
     paged, ragged = False, {}
     if kv_cache is None:
         k_all, v_all = k[:, :s - trim], v[:, :s - trim]
@@ -408,6 +425,8 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     scale = (1.0 / torch.sqrt(torch.tensor(float(hd)))).to(cdt).item()
     q = q * scale
     if impl == "plain":
+        if mask_pos is not None:
+            mask_pos = mask_pos[:, :s - trim]
         out = plain_attention(q, k_all, v_all, cfg, window, mask_pos).reshape(b, sq, h * hd)
     else:
         # The arenas go to the kernel as they are; (B, S, KV, hd) caches as
@@ -441,7 +460,9 @@ def init_mlp(generator: torch.Generator, d: int, d_ff: int, device=None):
 def mlp(params, x: torch.Tensor, dtype, mesh=None) -> torch.Tensor:
     """SwiGLU. ``mesh`` is given where ``params`` hold a rank's part of
     ``d_ff`` (columns of ``w_gate`` and ``w_up``, rows of ``w_down``): the
-    partial products are then summed over ``model``."""
+    partial products are then summed over ``model``, and the input's
+    partial gradients in the backward pass."""
+    x = collectives.copy_to_model(mesh, x)
     g = x @ params["w_gate"].to(dtype)
     u = x @ params["w_up"].to(dtype)
     a, w_down = F.silu(g) * u, params["w_down"].to(dtype)

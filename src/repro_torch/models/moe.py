@@ -18,10 +18,10 @@ Where the port differs in form from the reference, each for a reason:
   kept assignments in choice order. A scatter-add on the card adds with
   atomics in no fixed order; the gather gives the same bits every call;
 - the reference's FSDP hints around the expert matmuls
-  (``hint_gathered_weight``, ``hint_expert_act``) are training's, slice 11:
-  serving takes none.
+  (``hint_gathered_weight``, ``hint_expert_act``) belong to FSDP over
+  ``data``, which the port has not ported yet: no path takes them.
 
-On a rank's part (:func:`repro_torch.parallel.sharding.shard_params`), read
+On a rank's part (:func:`repro_torch.parallel.sharding.shard_train_state`), read
 from the weights' shapes: with the experts over ``model`` (their count
 divides) the rank runs only its experts, ``[r·E/tp, (r+1)·E/tp)``, on the
 slots that routing gave them; otherwise each expert's ``d_ff`` is split and
@@ -31,6 +31,10 @@ so every rank assigns every token alike. The combine gathers the rank's own
 slots (a zero row for the rest), and one ``reduce_over_model`` sums the
 routed and shared parts of every rank: the experts' down-projections write
 float32 (``collectives.partial_matmul``), so the sum is rounded once.
+In training, a rank's gradients of the input and of the router are partial
+sums (its combine reads only its experts' slots, or its part of each
+expert's output), summed over ``model`` in the backward pass
+(``collectives.copy_to_model``).
 """
 from __future__ import annotations
 
@@ -95,6 +99,9 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, mesh=None):
     e_local = params["w_gate"].shape[0]
     split = e_local < e or params["w_gate"].shape[2] < cfg.d_ff
     e_lo = sharding.rank(mesh, "model") * e_local if e_local < e else 0
+    if split:
+        x = collectives.copy_to_model(mesh, x)
+        params = {**params, "router": collectives.copy_to_model(mesh, params["router"])}
 
     gate_vals, top_idx, logits = _route(cfg, params, x)
     sk = s * k

@@ -19,7 +19,7 @@ Two places differ from the reference in form, not in value:
 - the three-operand contraction of the intra-chunk output is a batched
   matmul over j of (C·Bᵀ ⊙ L) and x̄: no (B, nc, Q, Q, H, P) tensor.
 
-On a rank's part (:func:`repro_torch.parallel.sharding.shard_params`) the
+On a rank's part (:func:`repro_torch.parallel.sharding.shard_train_state`) the
 in-projection and the conv are whole; where ``w_out``'s rows are split over
 ``model`` (``ssm_inner`` divides), the rank runs SSD on its own heads when
 ``ssm_heads`` divides (its part of the state, as ``cache_spec`` places it),
@@ -27,7 +27,10 @@ or on all of them otherwise, and feeds its part of the gated, normed
 output to its rows of ``w_out``. The gated RMSNorm normalises over all of
 ``ssm_inner``, so the ranks sum their squares first (one (B, S, 1)
 collective); the row-parallel out-projection's partial sums are reduced
-over ``model``.
+over ``model``. In training, everything a rank reads whole but uses only
+in part (the block's input, ``w_in``, the conv, ``dt_bias``, ``a_log``,
+``d_skip`` and the norm's scale) has a partial gradient on each rank,
+summed over ``model`` in the backward pass (``collectives.copy_to_model``).
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import device as device_lib
+from repro_torch import tree_util
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _dtype, normal_init, rmsnorm
 from repro_torch.parallel import collectives, sharding
@@ -179,6 +183,10 @@ def ssm_block(params, cfg: ModelConfig, x: torch.Tensor,
     di, n, h, p = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     cdt = _dtype(cfg)
     bsz, s, _ = x.shape
+    if params["w_out"].shape[0] < di:
+        x = collectives.copy_to_model(mesh, x)
+        params = {k: v if k == "w_out" else tree_util.tree_map(
+            lambda t: collectives.copy_to_model(mesh, t), v) for k, v in params.items()}
     proj = x @ params["w_in"].to(cdt)
     z, xbc, dt_raw = _split_in(cfg, proj)
     xbc = xbc.float()

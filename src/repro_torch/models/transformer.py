@@ -29,17 +29,21 @@ recomputed in the backward pass. The forward draws no random numbers, so
 the recompute gives the same bits.
 
 On a ("data", "model") mesh, serving holds a rank's part of the model
-(``init_params(mesh=)`` or ``parallel.sharding.shard_params``) and of the
+(``init_params(mesh=)`` or ``parallel.sharding.shard_train_state``) and of the
 caches (``init_cache(mesh=)``, ``init_paged_cache(mesh=)``), and
 ``forward(mesh=)`` runs each block on it: the attention heads, the MLP's
 and the experts' ``d_ff``, the experts themselves and the SSM heads are
 split over ``model`` as ``param_spec`` places them, and each row-parallel
-projection's partial sums are reduced over ``model``. Training passes the
-mesh with a whole trunk (only the embedding and the head sharded): every
-block reads from its weights' shapes whether it holds a part.
+projection's partial sums are reduced over ``model``. Training runs the
+same blocks on the same parts under autograd: the collectives are
+differentiable (:mod:`repro_torch.parallel.collectives`), and where a rank
+does only part of a block's work the partial gradients of its input and of
+the whole leaves it reads in part are summed over ``model``. Every block
+reads from its weights' shapes whether it holds a part.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -51,7 +55,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.parallel import sharding
+from repro_torch.parallel import collectives, hints, sharding
 
 
 def _has_attn(cfg: ModelConfig) -> bool:
@@ -115,7 +119,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 
     With ``mesh`` each rank draws every tensor from the same ``generator``
     state, so the draws are one model's on every rank, and keeps its part
-    (:func:`repro_torch.parallel.sharding.shard_params`) before it draws the
+    (:func:`repro_torch.parallel.sharding.shard_train_state`) before it draws the
     next layer: no rank holds more than one whole layer at a time.
     """
     dev = device_lib.resolve(device)
@@ -123,7 +127,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     vp, d = cfg.padded_vocab, cfg.d_model
 
     def own(tree, *prefix):
-        return tree if mesh is None else sharding.shard_params(tree, cfg, mesh, prefix)
+        return tree if mesh is None else sharding.shard_train_state(tree, mesh, cfg, prefix)
 
     embed = L.normal_init(generator, (vp, d), d, device=dev)
     if cast:
@@ -286,6 +290,20 @@ def _check_positions(positions: torch.Tensor, cache_pos, bsz: int, s: int) -> No
             "attn_impl='plain' (no cache) for other positions")
 
 
+@contextlib.contextmanager
+def _recomputing(hint_ctx):
+    with collectives.recomputing(), hints.installed(hint_ctx):
+        yield
+
+
+def _recompute_contexts(hint_ctx):
+    """The checkpoint's ``context_fn``: its (forward, recompute) contexts.
+    The recomputed layer's collectives count as the recompute's
+    (``collectives.TRUNK``), and it runs under the hints the forward ran
+    under (``hint_ctx``): the recompute may run on another thread."""
+    return lambda: (contextlib.nullcontext(), _recomputing(hint_ctx))
+
+
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             vision_embeds: Optional[torch.Tensor] = None,
@@ -377,7 +395,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             h, metrics = checkpoint_lib.checkpoint(
                 lambda lp, x, w=window: _block(lp, cfg, x, positions, w, None, base,
                                                attn_impl, mask_pos=mask_pos, mesh=mesh),
-                layer_params, h, use_reentrant=False)
+                layer_params, h, use_reentrant=False,
+                context_fn=_recompute_contexts(hints.current()))
         else:
             h, metrics = _block(layer_params, cfg, h, positions, window, cache_l, base,
                                 attn_impl, decode=decode, mask_pos=mask_pos, mesh=mesh)

@@ -50,8 +50,14 @@ and their sparse rows go through
 writes only the rows it owns, SM3's column cover is recombined by an
 ``all_reduce`` MAX, and AdamW's catch-up skips the clamped rows a rank
 does not own. The gradients arrive already summed over ``data``, the same
-on every rank, so the clip norm is too. Dense leaves (the trunk, whole on
-every rank) update as without a mesh.
+on every rank. A dense leaf (the trunk) is a rank's part where the caller
+names it in ``split_dims`` (its path: the dim split over ``model``), else
+whole: :func:`global_norm` sums the split leaves' squares over ``model``
+and counts the whole ones once, so the clip decides alike on every rank;
+Adagrad, AdamW and SGD are elementwise and update a part as they update
+the whole; SM3's covers of a split 2-D leaf are whole, and the cover along
+the unsplit dim, a maximum over the split one, takes an ``all_reduce``
+MAX, as the reference recombines it with ``pmax``.
 """
 from __future__ import annotations
 
@@ -145,8 +151,10 @@ def _leaf_rules(cfg: OptimizerConfig, paths):
             else (cfg.name, "fp32") for path in paths]
 
 
-def _leaf_state(cfg: OptimizerConfig, name: str, sd: str, p):
-    """(mu, nu, last) storage of one leaf under its rule."""
+def _leaf_state(cfg: OptimizerConfig, name: str, sd: str, p, col_len: Optional[int] = None):
+    """(mu, nu, last) storage of one leaf under its rule. ``col_len``: the
+    length of SM3's column cover where ``p`` holds a rank's part of the
+    columns (the cover is whole)."""
     def full(shape, state_dtype, fill=0.0):
         return compression.full_rows(shape, fill, state_dtype, p.device)
     if name == "adamw":
@@ -157,28 +165,34 @@ def _leaf_state(cfg: OptimizerConfig, name: str, sd: str, p):
     if name == "sm3":
         if p.dim() == 2:
             return None, Sm3Cover(row=full(p.shape[:1], _nu_sd(sd)),
-                                  col=full(p.shape[1:2], "fp32")), None
+                                  col=full((col_len or p.shape[1],), "fp32")), None
         # 1-D / 3-D+ leaves: SM3's per-element cover degenerates to the
         # full Adagrad accumulator.
         return None, full(p.shape, _nu_sd(sd)), None
     return None, None, None
 
 
-def init_opt_state(cfg: OptimizerConfig, params) -> OptState:
+def init_opt_state(cfg: OptimizerConfig, params, col_lens=None) -> OptState:
     """Zero step and zero state (Adagrad's accumulators at
     ``adagrad_init``), in the storage ``state_dtype`` names, on the params'
     device (``meta`` params give a state that holds no memory). A tree of
-    params gets state trees of the same structure."""
+    params gets state trees of the same structure. ``col_lens`` maps the
+    path of a leaf that holds a rank's part of its columns to their full
+    count: SM3's column cover stays whole (module docstring)."""
+    col_lens = col_lens or {}
     if _is_tree(params):
         pairs, spec = tree_util.flatten_with_paths(params)
+        paths = [path for path, _ in pairs]
         flat = [p for _, p in pairs]
-        rules = _leaf_rules(cfg, [path for path, _ in pairs])
+        rules = _leaf_rules(cfg, paths)
         rebuild = lambda leaves: tree_util.unflatten(spec, leaves)  # noqa: E731
     else:
         flat = list(params)
+        paths = [None] * len(flat)
         rules = [_rule(cfg)] * len(flat)
         rebuild = lambda leaves: type(params)(*leaves)  # noqa: E731
-    states = [_leaf_state(cfg, name, sd, p) for p, (name, sd) in zip(flat, rules)]
+    states = [_leaf_state(cfg, name, sd, p, col_lens.get(path))
+              for p, path, (name, sd) in zip(flat, paths, rules)]
 
     def pack(i):
         leaves = [st[i] for st in states]
@@ -215,23 +229,35 @@ def schedule(cfg: OptimizerConfig, step):
     return lr
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, mesh=None, split_dims=None) -> torch.Tensor:
     """float32 global norm over dense, SparseRows, Sm3Cover and
     QuantizedRows leaves (quantized leaves are dequantized first, so the
-    norm is of the values, not of the int8 payload)."""
-    sq = []
-    for _, g in _named_leaves(grads):
+    norm is of the values, not of the int8 payload). Under ``mesh`` the
+    leaves at the paths of ``split_dims`` are this rank's parts: their
+    squares are summed over ``model`` (a collective), the others' counted
+    once."""
+    sq, part = [], []
+    split_dims = split_dims or {}
+    for path, g in _named_leaves(grads):
         if g is None:
             continue
         if sparse_lib.is_sparse(g):
-            sq.append(sparse_lib.sq_norm(g))
+            x = sparse_lib.sq_norm(g)
         elif isinstance(g, QuantizedRows):
-            sq.append(torch.square(compression.dequantize_rows(g)).sum())
+            x = torch.square(compression.dequantize_rows(g)).sum()
         elif isinstance(g, Sm3Cover):
-            sq.append(torch.square(g.row.float()).sum() + torch.square(g.col.float()).sum())
+            x = torch.square(g.row.float()).sum() + torch.square(g.col.float()).sum()
         else:
-            sq.append(torch.square(g.float()).sum())
-    return torch.sqrt(torch.stack(sq).sum())
+            x = torch.square(g.float()).sum()
+        (part if path in split_dims else sq).append(x)
+    total = torch.stack(sq).sum() if sq else None
+    if part:
+        import torch.distributed as dist
+        from repro_torch.parallel.sharding import group
+        split = torch.stack(part).sum()
+        dist.all_reduce(split, group=group(mesh, "model"))
+        total = split if total is None else total + split
+    return torch.sqrt(total)
 
 
 def _scaled(grads, s):
@@ -339,19 +365,41 @@ def _leaf_update(cfg: OptimizerConfig, name: str, lr: float, t: int, p, g, m, n)
     return (p.float() + u).to(p.dtype), m2, n2
 
 
-def _sm3_dense_update(cfg: OptimizerConfig, lr: float, p, g, cover: Sm3Cover, sd: str):
+def _sm3_dense_update(cfg: OptimizerConfig, lr: float, p, g, cover: Sm3Cover, sd: str,
+                      mesh=None, split_dim: Optional[int] = None):
     """Dense SM3 on a (C, K) table. ν'_ij = min(row_i, col_j) + g²_ij;
     covers take the monotone max with their previous value, which keeps
     them valid upper bounds and makes the sparse path exact (untouched rows
-    have ν' <= row_i everywhere, so their cover cannot move)."""
+    have ν' <= row_i everywhere, so their cover cannot move).
+
+    ``split_dim``: ``p`` is this rank's part of a table split over
+    ``mesh``'s ``model`` ranks along that dim. The column cover is whole
+    (the reference's placement); so is the row cover where the columns are
+    split, while the rows' split leaves it the rank's rows. A whole cover
+    is updated on the rank's entries and recombined by an ``all_reduce``
+    MAX, exact since every other entry holds its old value, which no
+    update lowers."""
     g32 = g.float()
     r = compression.load_rows(cover.row)
     c = cover.col
-    nu = torch.minimum(r[:, None], c[None, :]) + torch.square(g32)
+    cols = slice(0, c.numel())
+    if split_dim == 1:
+        from repro_torch.parallel.sharding import rank
+        lo = rank(mesh, "model") * p.shape[1]
+        cols = slice(lo, lo + p.shape[1])
+    nu = torch.minimum(r[:, None], c[None, cols]) + torch.square(g32)
     u = -lr * g32 / (torch.sqrt(nu) + cfg.eps)
     p2 = (p.float() + u).to(p.dtype)
     r2 = torch.maximum(r, nu.amax(dim=1))
-    c2 = torch.maximum(c, nu.amax(dim=0))
+    c2 = c.clone()
+    c2[cols] = torch.maximum(c[cols], nu.amax(dim=0))
+    if split_dim is not None:
+        import torch.distributed as dist
+        from repro_torch.parallel.sharding import group
+        whole = torch.cat([r2, c2]) if split_dim == 1 else c2
+        dist.all_reduce(whole, op=dist.ReduceOp.MAX, group=group(mesh, "model"))
+        if split_dim == 1:
+            r2, c2 = whole[:r2.numel()], whole[r2.numel():]
     return p2, Sm3Cover(row=compression.store_rows(r2, _nu_sd(sd)), col=c2)
 
 
@@ -467,10 +515,11 @@ def _sharded_leaf_update(cfg, name, lr, t, ids, p, g, m, n, last, mesh) -> None:
         n.col.copy_(new_reps[0])
 
 
-def _dense_leaf_update(cfg, name, sd, lr, t, p, g, m, n, last):
-    """One leaf's dense update; returns new (p, m, n, last)."""
+def _dense_leaf_update(cfg, name, sd, lr, t, p, g, m, n, last, mesh=None, split_dim=None):
+    """One leaf's dense update; returns new (p, m, n, last). ``split_dim``:
+    ``p`` is a rank's part of a leaf split over ``model`` along that dim."""
     if isinstance(n, Sm3Cover):
-        p2, n2 = _sm3_dense_update(cfg, lr, p, g, n, sd)
+        p2, n2 = _sm3_dense_update(cfg, lr, p, g, n, sd, mesh, split_dim)
         return p2, m, n2, last
     m32 = compression.load_rows(m) if m is not None else None
     n32 = compression.load_rows(n) if n is not None else None
@@ -506,10 +555,12 @@ def _aligned(tree, n: int):
 
 
 def _apply_tree(cfg: OptimizerConfig, params, grads, state: OptState, lr, t: int,
-                mesh=None) -> None:
+                mesh=None, split_dims=None) -> None:
     """The update of a tree of params (module docstring), every leaf in
     place; ``grads`` already clipped. Under ``mesh`` the sparse leaves are
-    this rank's rows."""
+    this rank's rows, and the dense ones at the paths of ``split_dims`` its
+    parts."""
+    split_dims = split_dims or {}
     flat_p = _named_leaves(params)
     n = len(flat_p)
     idx_of = {path: i for i, (path, _) in enumerate(flat_p)}
@@ -538,7 +589,8 @@ def _apply_tree(cfg: OptimizerConfig, params, grads, state: OptState, lr, t: int
         i = idx_of[path]
         name, sd = rules[i]
         p = flat_p[i][1]
-        new = _dense_leaf_update(cfg, name, sd, lr, t, p, g, ms[i], ns[i], ls[i])
+        new = _dense_leaf_update(cfg, name, sd, lr, t, p, g, ms[i], ns[i], ls[i], mesh,
+                                 split_dims.get(path))
         for dst, src in zip((p, ms[i], ns[i], ls[i]), new):
             _assign(dst, src)
         covered.add(i)
@@ -556,7 +608,7 @@ def _row_update(cfg, name, lr, t, ids, p, g, m, n, last, mesh) -> None:
 
 
 def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
-                  mesh=None, norm: Optional[torch.Tensor] = None):
+                  mesh=None, norm: Optional[torch.Tensor] = None, split_dims=None):
     """One optimizer step. Returns (params, state, metrics).
 
     ``grads`` is a dense ``HeadParams`` or one ``SparseRows`` for the whole
@@ -571,7 +623,9 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
     updates shard-local: the params given are this rank's rows of the
     head (and of the embedding in a tree), the ``SparseRows`` the summed
     global gradient, replicated (module docstring). A dense gradient of a
-    standalone head under a mesh raises.
+    standalone head under a mesh raises. ``split_dims`` maps the path of
+    each dense leaf that is a rank's part to the dim split over ``model``
+    (module docstring).
     """
     if mesh is not None:
         from repro_torch.parallel.sharding import check_mesh
@@ -579,7 +633,7 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
     name, sd = _rule(cfg)
     metrics = {}
     if cfg.clip_norm:
-        norm = global_norm(grads) if norm is None else norm
+        norm = global_norm(grads, mesh, split_dims) if norm is None else norm
         grads = _scaled(grads, torch.clamp(cfg.clip_norm / (norm + 1e-12), max=1.0))
         metrics["grad_norm"] = norm
     lr = schedule(cfg, state.step)
@@ -587,7 +641,7 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
     t = state.step + 1
     if _is_tree(params):
         with torch.no_grad():
-            _apply_tree(cfg, params, grads, state, lr, t, mesh)
+            _apply_tree(cfg, params, grads, state, lr, t, mesh, split_dims)
         return params, state._replace(step=t), metrics
     n_leaves = len(params)
     mus, nus, lasts = ((None,) * n_leaves if x is None else x

@@ -21,24 +21,32 @@ and the replicated operands whole.
 - :func:`sum_rows_over_data`, :func:`all_reduce_over_data`, :func:`agree`
   and :func:`broadcast_value`: the data-parallel step's sums and the host
   decisions every rank must take alike.
-- :func:`reduce_over_model`, :func:`norm_sum_over_model` and
-  :func:`gather_seq_over_model`: the trunk's activations. A row-parallel projection (attention's ``wo``, the MLP's
-  and the experts' ``w_down``, the SSM's ``w_out``) leaves each ``model``
-  rank a float32 partial sum (:func:`partial_matmul`), reduced in float32
-  and rounded once to the model's dtype;
-  the attention hint (:mod:`repro_torch.parallel.hints`) leaves each rank
-  a part of the sequence, gathered back along it. :data:`TRUNK` counts
-  their calls and bytes, and with ``TRUNK.timed`` their host seconds
-  (each call then synchronizes the device before and after).
+- :func:`reduce_over_model`, :func:`norm_sum_over_model`,
+  :func:`gather_seq_over_model` and :func:`copy_to_model`: the trunk's
+  activations, differentiable. A row-parallel projection (attention's
+  ``wo``, the MLP's and the experts' ``w_down``, the SSM's ``w_out``)
+  leaves each ``model`` rank a float32 partial sum
+  (:func:`partial_matmul`), reduced in float32 and rounded once to the
+  model's dtype; the attention hint (:mod:`repro_torch.parallel.hints`)
+  leaves each rank a part of the sequence, gathered back along it. In the
+  backward pass the reduction's gradient is the identity (every rank uses
+  the sum alike), the gather's the rank's slice, and the norm's sum and
+  :func:`copy_to_model` (the identity forward, where a replicated tensor
+  enters work a rank does only in part) sum the partial gradients over
+  ``model`` in float32, rounded once. :data:`TRUNK` counts their calls and
+  bytes by phase (forward, the recompute under ``cfg.remat``, backward),
+  and with ``TRUNK.timed`` their host seconds (each call then
+  synchronizes the device before and after).
 
 Gloo takes CUDA tensors for every collective used here (checked on the
 card), so nothing is staged through the host.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -221,25 +229,53 @@ def broadcast_value(value: float, device) -> float:
     return float(t.item())
 
 
+PHASES = ("forward", "recompute", "backward")
+
+
+def _phase_counts() -> Dict[str, Dict[str, float]]:
+    return {p: {"calls": 0, "bytes": 0, "seconds": 0.0} for p in PHASES}
+
+
 @dataclasses.dataclass
 class TrunkCounts:
     """The trunk's ``model`` collectives in this process since the last
-    :meth:`reset`."""
+    :meth:`reset`: in all, and by phase (``phases``): the forward, its
+    recompute in the backward pass under ``cfg.remat`` (the checkpointed
+    layers reissue their forward collectives, :func:`recomputing`), and the
+    backward's own."""
     calls: int = 0
     bytes: int = 0
     seconds: float = 0.0
     timed: bool = False
+    phases: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=_phase_counts)
+    phase: str = "forward"
 
     def reset(self) -> None:
         self.calls, self.bytes, self.seconds = 0, 0, 0.0
+        self.phases = _phase_counts()
 
 
 TRUNK = TrunkCounts()
 
 
-def _trunk_call(x: torch.Tensor, fn: Callable[[], None]) -> None:
+@contextlib.contextmanager
+def recomputing():
+    """Count the collectives issued inside as the recompute's: the context
+    ``torch.utils.checkpoint`` enters around a layer's recomputed forward."""
+    before, TRUNK.phase = TRUNK.phase, "recompute"
+    try:
+        yield
+    finally:
+        TRUNK.phase = before
+
+
+def _trunk_call(x: torch.Tensor, fn: Callable[[], None], phase: Optional[str] = None) -> None:
+    n = x.numel() * x.element_size()
+    counts = TRUNK.phases[phase or TRUNK.phase]
     TRUNK.calls += 1
-    TRUNK.bytes += x.numel() * x.element_size()
+    TRUNK.bytes += n
+    counts["calls"] += 1
+    counts["bytes"] += n
     if not TRUNK.timed:
         fn()
         return
@@ -248,7 +284,71 @@ def _trunk_call(x: torch.Tensor, fn: Callable[[], None]) -> None:
     t0 = time.perf_counter()
     fn()
     sync()
-    TRUNK.seconds += time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    TRUNK.seconds += dt
+    counts["seconds"] += dt
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    """Whether autograd records an operation on ``x`` here."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _sum_grad(mesh, g: torch.Tensor) -> torch.Tensor:
+    """The backward's sum over ``model`` of a partial gradient: in float32
+    (gloo has no bfloat16), rounded once to the gradient's dtype. The
+    incoming gradient is never written."""
+    buf = g.to(torch.float32, copy=True).contiguous()
+    _trunk_call(buf, lambda: dist.all_reduce(buf, group=sharding.group(mesh, "model")),
+                "backward")
+    return buf.to(g.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_grad(ctx.mesh, g), None
+
+
+def copy_to_model(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The identity, whose gradient is summed over ``model``: where a
+    replicated tensor enters work that each rank does only in part (a
+    block's input before its split weights, a whole leaf a rank reads only
+    in part), each rank's gradient of it is a partial sum. Outside autograd
+    (or on one model rank) it returns ``x``."""
+    if mesh is None or sharding.size(mesh, "model") == 1 or not _tracked(x):
+        return x
+    return _CopyToModel.apply(x, mesh)
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One GEMM of a bf16 pair on the card writing float32 (``out_dtype``):
+    (T, k) @ (k, n), or batched (E, T, k) @ (E, k, n)."""
+    if w.dim() == 3:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.mm(x, w, out_dtype=torch.float32)
+
+
+class _PartialMatmul(torch.autograd.Function):
+    """:func:`_mm_f32` under autograd (``out_dtype`` has no derivative). The
+    backward is a one-rank bf16 GEMM's: the output's gradient rounded to
+    the inputs' dtype, then ``g @ wᵀ`` and ``xᵀ @ g`` in that dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w.transpose(-1, -2), x.transpose(-1, -2) @ g
 
 
 def partial_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -263,35 +363,94 @@ def partial_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return x @ w
     if not x.is_cuda:
         return x.float() @ w.float()
+    gemm = _PartialMatmul.apply if _tracked(x) or _tracked(w) else _mm_f32
     if w.dim() == 3:
-        return torch.bmm(x, w, out_dtype=torch.float32)
-    flat = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-    return flat.reshape(*x.shape[:-1], w.shape[-1])
+        return gemm(x, w)
+    # Reshaped outside the GEMM: the sum over model writes its result in place.
+    return gemm(x.reshape(-1, x.shape[-1]), w).reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _all_reduce_model(mesh, x: torch.Tensor) -> None:
+    _trunk_call(x, lambda: dist.all_reduce(x, group=sharding.group(mesh, "model")))
+
+
+class _ReduceOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, partial, mesh):
+        _all_reduce_model(mesh, partial)
+        ctx.mark_dirty(partial)
+        return partial
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None          # the sum is used alike on every rank
 
 
 def reduce_over_model(mesh, partial: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The sum over ``model`` of each rank's float32 partial product
     (B, S, d) (:func:`partial_matmul`), summed in place and rounded once
-    to ``dtype``."""
+    to ``dtype``. Its gradient is the identity: every rank uses the sum
+    alike, so each partial's gradient is the sum's."""
     if partial.dtype != torch.float32:
         raise ValueError(f"a {partial.dtype} partial sum was rounded before its reduction")
-    _trunk_call(partial, lambda: dist.all_reduce(partial, group=sharding.group(mesh, "model")))
+    if _tracked(partial):
+        return _ReduceOverModel.apply(partial, mesh).to(dtype)
+    _all_reduce_model(mesh, partial)
     return partial.to(dtype)
+
+
+def _gather_seq(mesh, buf: torch.Tensor, seq_dim: int) -> torch.Tensor:
+    g = sharding.group(mesh, "model")
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(g))]
+    _trunk_call(buf, lambda: dist.all_gather(parts, buf, group=g))
+    return torch.cat(parts, dim=seq_dim)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, buf, mesh, seq_dim):
+        ctx.mesh, ctx.seq_dim, ctx.n = mesh, seq_dim, buf.shape[seq_dim]
+        return _gather_seq(mesh, buf, seq_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = sharding.rank(ctx.mesh, "model") * ctx.n
+        return g.narrow(ctx.seq_dim, lo, ctx.n), None, None
 
 
 def gather_seq_over_model(mesh, part: torch.Tensor, seq_dim: int = 1) -> torch.Tensor:
     """Every ``model`` rank's part of the sequence, in rank order, along
-    ``seq_dim``: rank r holds positions [r·S/tp, (r+1)·S/tp)."""
-    g = sharding.group(mesh, "model")
+    ``seq_dim``: rank r holds positions [r·S/tp, (r+1)·S/tp). The gradient
+    of a rank's part is its slice of the whole's (the whole is used alike
+    on every rank)."""
     buf = part.float().contiguous()      # exact; gloo's types need no bf16
-    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(g))]
-    _trunk_call(buf, lambda: dist.all_gather(parts, buf, group=g))
-    return torch.cat(parts, dim=seq_dim).to(part.dtype)
+    if _tracked(buf):
+        return _GatherSeq.apply(buf, mesh, seq_dim).to(part.dtype)
+    return _gather_seq(mesh, buf, seq_dim).to(part.dtype)
+
+
+class _NormSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sq_sum, mesh):
+        ctx.mesh = mesh
+        total = sq_sum.to(torch.float32, copy=True)
+        _all_reduce_model(mesh, total)
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        # Each rank scales only its own columns by the total, so the total's
+        # gradient on a rank is partial: the transpose sums it.
+        return _sum_grad(ctx.mesh, g), None
 
 
 def norm_sum_over_model(mesh, sq_sum: torch.Tensor) -> torch.Tensor:
     """The sum over ``model`` of each rank's float32 sum of squares
-    (B, S, 1): the gated RMSNorm over a dim split across the ranks."""
+    (B, S, 1): the gated RMSNorm over a dim split across the ranks. Its
+    gradient is summed over ``model`` too: each rank uses the total only
+    for its own columns."""
+    if _tracked(sq_sum):
+        return _NormSum.apply(sq_sum, mesh)
     total = sq_sum.float()
-    _trunk_call(total, lambda: dist.all_reduce(total, group=sharding.group(mesh, "model")))
+    _all_reduce_model(mesh, total)
     return total

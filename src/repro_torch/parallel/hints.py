@@ -8,7 +8,8 @@ the reference.
 In the reference a hint is a sharding constraint that GSPMD lowers. On the
 port's explicit ranks it is the work itself:
 
-- :func:`hint_attn_q`: where the query heads do not divide over ``model``
+- :func:`hinted_rows` (the reference's ``hint_attn_q``): where the query
+  heads do not divide over ``model``
   (hymba's 25, qwen2-vl's 28, musicgen's 24 at some ``tp``), attention is
   whole on every rank; under the hint rank r takes only the queries
   ``[r·S/tp, (r+1)·S/tp)`` of the sequence (when S divides), so the rank
@@ -18,10 +19,18 @@ port's explicit ranks it is the work itself:
 - :func:`hint_attn_out`: the output projection's rows of the rank's part,
   all-gathered along the sequence back to (B, S, d).
 
+Training takes the same hint under the plain attention: the rank's query
+rows against the keys up to its last one, the masks offset to the rows'
+positions. Each rank's gradient of the block's input and of the attention
+weights is then a partial sum, summed over ``model`` in the backward pass
+(``collectives.copy_to_model``); the gather's gradient is the rank's
+slice.
+
 ``seq_parallel_residual`` (the reference's ``hint_residual``) and
 ``fsdp_gather_weights`` (``hint_gathered_weight``, ``hint_expert_act``)
-belong to sequence-parallel training and FSDP, the port's slice 11: a
-context that asks for them raises ``NotImplementedError``.
+belong to sequence parallelism and to FSDP over ``data``, which the port
+has not ported yet: a context that asks for them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,8 +44,8 @@ from repro_torch.parallel import collectives, sharding
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("repro_torch_sharding_hints",
                                                       default=None)
-LATER = ("{} is sequence-parallel / FSDP work of slice 11 (training with the sharded "
-         "trunk); the port has no lowering of it yet")
+LATER = ("{} belongs to sequence parallelism and to FSDP over the data axis, which "
+         "the port has not ported yet (ROADMAP Queue 1, slice 12)")
 
 
 class HintContext:
@@ -69,24 +78,36 @@ def current() -> Optional[HintContext]:
     return _CTX.get()
 
 
-def hint_attn_q(q: torch.Tensor, num_heads: int):
-    """q: (B, S, H, hd). Returns (q, None), or under the hint (the rank's
-    queries q[:, a:b], (a, b)) where ``num_heads`` does not divide over
-    ``model`` and S does."""
+@contextlib.contextmanager
+def installed(ctx: Optional[HintContext]):
+    """Install ``ctx`` (a :func:`current` result, None for none) for the
+    block: a checkpointed layer's recompute runs in the backward pass, on
+    autograd's thread on the card, which does not see the forward's
+    context, so it reinstalls the hints the forward ran under."""
+    tok = _CTX.set(ctx)
+    try:
+        yield
+    finally:
+        _CTX.reset(tok)
+
+
+def hinted_rows(num_heads: int, s: int):
+    """[a, b) of the S queries this rank takes under the hint, or None: no
+    hint installed, one model rank, ``num_heads`` dividing over ``model``
+    (the heads are split instead) or S not dividing."""
     ctx = _CTX.get()
     if ctx is None:
-        return q, None
+        return None
     tp = sharding.size(ctx.mesh, "model")
-    s = q.shape[1]
     if tp == 1 or num_heads % tp == 0 or s % tp != 0:
-        return q, None
-    a, b = sharding.row_range(s, ctx.mesh)
-    return q[:, a:b], (a, b)
+        return None
+    return sharding.row_range(s, ctx.mesh)
+
 
 
 def hint_attn_out(out: torch.Tensor, rows) -> torch.Tensor:
     """out: (B, S/tp, d) of the rank's queries ``rows`` back to (B, S, d);
-    ``out`` itself where :func:`hint_attn_q` took no part."""
+    ``out`` itself where :func:`hinted_rows` gave no part."""
     if rows is None:
         return out
     return collectives.gather_seq_over_model(_CTX.get().mesh, out)

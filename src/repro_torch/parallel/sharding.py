@@ -4,41 +4,47 @@
 The port runs one process per rank and holds plain local tensors (no
 ``DTensor``: every kernel would have to unwrap one).
 
-Serving places the whole model by :func:`param_spec`, the reference's
-rules over ``model``: attention heads (``wq``, ``wk``, ``wv`` column-parallel
-where the head count divides, ``wo`` row-parallel), the MLP's ``d_ff``, the
+The model is placed by :func:`param_spec`, the reference's rules over
+``model``: attention heads (``wq``, ``wk``, ``wv`` column-parallel where
+the head count divides, ``wo`` row-parallel), the MLP's ``d_ff``, the
 MoE's experts (or each expert's ``d_ff`` where the expert count does not
 divide) and its shared experts' ``d_ff``, the SSM's ``w_out`` rows, and the
-embedding's and the head's rows. :func:`shard_params` cuts a rank's part
-from the full parameters and :func:`gather_params` puts them back together
-(a collective over ``model``). ``param_spec``'s ``data`` entries are FSDP,
-a training concern: the port keeps every tensor whole over ``data``.
+embedding's and the head's rows (a ``model`` rank owns the contiguous rows
+``[r·V/tp, (r+1)·V/tp)`` of each). Every other leaf is whole on every rank.
 :func:`cache_spec` and :func:`paged_cache_spec` place the KV cache, the
 paged arena and the SSM state. A block reads from its leaves' shapes which
 of them a rank holds a part of (a local shape below the config's).
 
-Training shards only the embedding and the head: ``P("model", None)`` in
-the reference, a ``model`` rank owns the contiguous rows
-``[r·V/tp, (r+1)·V/tp)`` of each, and so of every row-indexed piece of
-their optimizer state (the accumulators, an int8 payload and its per-row
-scales, SM3's row cover, lazy AdamW's ``last``). SM3's column cover, the
-step counters, the generator state and the trunk stay whole on every rank
-there. The batch is split over ``data``. :func:`shard_train_state` and
-:func:`gather_train_state` convert between the full state (a one-rank
-run's, a checkpoint's, or one carried across from the JAX package by
-:mod:`repro_torch.convert`) and a rank's local state.
+One set of functions places parameters (for serving and training alike)
+and the training state: :func:`train_state_spec`, the counterpart of the
+reference's ``train_state_shardings``, gives the parameters as above, the
+optimizer state mirroring them (a row-indexed piece, such as a 1-D
+accumulator, SM3's row cover, an int8 leaf's per-row scales or lazy
+AdamW's ``last``, takes its parameter's dim-0 axis; SM3's column cover is
+whole; a full-shape piece takes the parameter's spec), and the step
+counters, the generator state and the SNR pair whole.
+:func:`shard_train_state` and :func:`gather_train_state` convert between
+a full tree (parameters, or a whole state: a one-rank run's, a
+checkpoint's, or one carried across from the JAX package by
+:mod:`repro_torch.convert`) and a rank's part of it;
+:func:`iter_gathered_leaves` gathers one leaf at a time, so that a writer
+never holds the whole trunk; :func:`split_bytes` counts what a rank
+holds.
+
+``param_spec``'s ``data`` entries are FSDP, which the port has not ported:
+every tensor is whole over ``data``, and the batch is split over it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch import tree_util
 
 MESH_DIMS = ("data", "model")
-ROW_SHARDED = ("embed", "head")      # the P("model", None) leaves
 
 
 def check_mesh(mesh) -> None:
@@ -119,22 +125,7 @@ def shard_batch(batch: dict, mesh) -> dict:
     return out
 
 
-def is_row_path(path: Tuple[str, ...]) -> bool:
-    """Whether the leaf at ``path`` of a params tree, an optimizer state
-    tree or a ``TrainState`` is row-sharded: under ``embed`` or ``head``,
-    not SM3's column cover."""
-    if path[:1] == ("params",):
-        path = path[1:]
-    elif path[:1] == ("opt_state",):
-        if len(path) < 2 or path[1] not in ("mu", "nu", "last"):
-            return False
-        path = path[2:]
-    elif path[:1] in (("mu",), ("nu",), ("last",)):
-        path = path[1:]
-    return bool(path) and path[0] in ROW_SHARDED and path[-1] != "col"
-
-
-def _map_rows(tree, fn, is_row=is_row_path):
+def _map_rows(tree, fn, is_row):
     pairs, spec = tree_util.flatten_with_paths(tree)
     return tree_util.unflatten(spec, [
         fn(x) if isinstance(x, torch.Tensor) and x.dim() and is_row(p) else x
@@ -145,23 +136,9 @@ def _head_row(path: Tuple[str, ...]) -> bool:
     return path[-1:] != ("col",)
 
 
-def shard_train_state(state, mesh):
-    """A rank's local state from the full one: its rows of every
-    row-sharded leaf. Every other leaf is the same tensor, not a copy.
-    Works on a ``TrainState``, an LM's params tree or its ``OptState``."""
-    return _map_rows(state, lambda x: shard_rows(x, mesh))
-
-
-def gather_train_state(state, mesh):
-    """The full state from the ranks' local states (a collective over
-    ``model``, called on every rank): what a one-rank run holds, and what a
-    checkpoint written under the mesh stores."""
-    return _map_rows(state, lambda x: gather_rows(x, mesh))
-
-
 def shard_head(tree, mesh):
-    """:func:`shard_train_state` for a standalone head (``HeadParams`` and
-    its ``OptState``): every array leaf is row-indexed but SM3's column
+    """A rank's rows of a standalone head (``HeadParams`` and its
+    ``OptState``): every array leaf is row-indexed but SM3's column
     cover."""
     return _map_rows(tree, lambda x: shard_rows(x, mesh), _head_row)
 
@@ -172,7 +149,7 @@ def gather_head(tree, mesh):
 
 
 # ---------------------------------------------------------------------------
-# The model's placement over ``model`` (serving)
+# The model's placement over ``model``
 # ---------------------------------------------------------------------------
 
 Spec = Tuple[Optional[str], ...]
@@ -193,7 +170,7 @@ def param_spec(cfg, mesh, path, leaf) -> Spec:
     on a leading dim, so a layer leaf's spec drops that leading None.
     ``path`` names the keys down to the leaf (a layer's list index is
     skipped); ``leaf`` gives the number of dims. Only the spec: whether a
-    dim divides is :func:`shard_params`'s check."""
+    dim divides is :func:`shard_train_state`'s check."""
     names = tuple(str(p) for p in path if not str(p).isdigit())
     _, tp = mesh_shape(mesh)
     nd = len(leaf.shape)
@@ -241,72 +218,201 @@ def _path_name(path) -> str:
 
 
 def _cut(x: torch.Tensor, spec: Spec, mesh, name: str) -> torch.Tensor:
-    """This rank's part of a full leaf: each ``model`` dim narrowed to the
+    """This rank's part of a full leaf: its ``model`` dim narrowed to the
     rank's contiguous range (a copy that owns its storage), the leaf itself
     where no dim is over ``model``. A dim that does not divide raises."""
-    tp, r = size(mesh, "model"), rank(mesh, "model")
-    cut = False
-    for dim, ax in enumerate(spec):
-        if ax != "model" or tp == 1:
-            continue
-        n = x.shape[dim]
-        if n % tp:
-            raise ValueError(f"{name}: dimension {dim} of {n} does not divide over "
-                             f"{tp} model ranks")
-        x, cut = x.narrow(dim, r * (n // tp), n // tp), True
-    return x.clone() if cut else x
-
-
-def _map_params(tree, cfg, mesh, fn, prefix=()):
-    pairs, spec = tree_util.flatten_with_paths(tree)
-    return tree_util.unflatten(spec, [
-        fn(x, param_spec(cfg, mesh, prefix + p, x), _path_name(prefix + p))
-        if isinstance(x, torch.Tensor) else x for p, x in pairs])
-
-
-def shard_params(params, cfg, mesh, prefix: Tuple[str, ...] = ()):
-    """A rank's part of the full parameters (an LM's tree, or the subtree
-    at ``prefix``, e.g. ``("layers", "3")``), as :func:`param_spec`'s
-    ``model`` entries place them; ``data`` entries are ignored. Leaves
-    that stay whole are the same tensors, not copies."""
-    return _map_params(params, cfg, mesh, lambda x, sp, name: _cut(x, sp, mesh, name), prefix)
-
-
-def gather_params(params, cfg, mesh):
-    """The full parameters from every ``model`` rank's part: the inverse of
-    :func:`shard_params`, a collective over ``model`` called on every rank."""
-    g = group(mesh, "model")
-
-    def put_back(x, sp, name):
-        for dim, ax in enumerate(sp):
-            if ax == "model" and size(mesh, "model") > 1:
-                parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
-                dist.all_gather(parts, x.contiguous(), group=g)
-                x = torch.cat(parts, dim=dim)
+    dim = _model_dim(spec, mesh)
+    if dim is None:
         return x
-
-    return _map_params(params, cfg, mesh, put_back)
-
-
-def trunk_bytes(params) -> int:
-    """Bytes of the layers' leaves (the trunk: no embedding, head or final
-    norm)."""
-    return sum(x.numel() * x.element_size() for x in tree_util.leaves(params["layers"])
-               if isinstance(x, torch.Tensor))
+    tp, n = size(mesh, "model"), x.shape[dim]
+    if n % tp:
+        raise ValueError(f"{name}: dimension {dim} of {n} does not divide over "
+                         f"{tp} model ranks")
+    return x.narrow(dim, rank(mesh, "model") * (n // tp), n // tp).clone()
 
 
-def split_trunk_bytes(params, cfg, mesh) -> Tuple[int, int]:
-    """(bytes of the full trunk's leaves that :func:`param_spec` splits over
-    ``model``, bytes of those that stay whole), from the full parameters
-    (meta tensors will do). A rank of ``tp`` holds split / tp + whole."""
-    split = whole = 0
-    for p, x in tree_util.flatten_with_paths(params["layers"])[0]:
-        n = x.numel() * x.element_size()
-        if "model" in param_spec(cfg, mesh, ("layers",) + p, x) and mesh_shape(mesh)[1] > 1:
-            split += n
+# ---------------------------------------------------------------------------
+# The training state's placement
+# ---------------------------------------------------------------------------
+
+_BOX_FIELDS = (("row", "col"), ("q", "scale"))       # Sm3Cover, QuantizedRows
+_WHOLE_FIELDS = ("step", "head_state", "gen_fit_step", "snr_ewma", "snr_ref")
+_MOMENTS = ("mu", "nu", "last")
+
+
+def _is_box(x) -> bool:
+    return isinstance(x, tuple) and tuple(getattr(x, "_fields", ())) in _BOX_FIELDS
+
+
+def _role(path: Tuple[str, ...]):
+    """("param" | "state" | "whole", the parameter's path) of a leaf of a
+    ``TrainState``, a params tree or an ``OptState``."""
+    if path[:1] == ("params",):
+        return "param", path[1:]
+    if path[:1] == ("opt_state",):
+        path = path[1:]
+        if path[:1] not in [(m,) for m in _MOMENTS]:
+            return "whole", path
+    if path[:1] in [(m,) for m in _MOMENTS]:
+        return "state", path[1:]
+    if path[:1] in [(f,) for f in _WHOLE_FIELDS]:
+        return "whole", path
+    return "param", path
+
+
+def _state_leaf_spec(p_spec: Spec, ndim: int, field: Optional[str] = None) -> Spec:
+    """The reference's ``_state_leaf_sharding``: a box field, or a state
+    leaf of ``ndim`` dims, of a parameter placed by ``p_spec``."""
+    row = (p_spec[0],) if p_spec else ()
+    if field == "col":
+        return (None,)
+    if field in ("row", "scale"):
+        return row
+    if field == "q" or ndim > 1:
+        return p_spec
+    return () if ndim == 0 else row
+
+
+def train_state_spec(cfg, mesh, state, prefix: Tuple[str, ...] = ()
+                     ) -> List[Tuple[Tuple[str, ...], Spec]]:
+    """(path, spec) of every leaf of ``state``, in :func:`tree_util.flatten`
+    order, as the reference's ``train_state_shardings`` places them (module
+    docstring): a tuple of axis names (``"data"``, ``"model"`` or None) a
+    tensor dim, ``()`` for a Python number. ``state`` is a ``TrainState``,
+    its ``as_pytree()`` dict, an LM's params tree or an ``OptState``, full
+    or a rank's (only the number of dims is read). ``mesh`` is a
+    ``DeviceMesh`` or a (data, model) shape. ``cfg`` is read only for the
+    trunk's blocks; a tree of the embedding and the head alone needs none.
+    ``prefix`` names the keys above ``state`` where it is a subtree, e.g.
+    ``("layers", "3")`` for one layer's dict."""
+    out: List[Tuple[Tuple[str, ...], Spec]] = []
+    for path, x in tree_util.flatten_with_paths(state, is_leaf=_is_box)[0]:
+        path = tuple(prefix) + path
+        role, p_path = _role(path)
+        if _is_box(x):
+            p_spec = param_spec(cfg, mesh, p_path, x[0])
+            out.extend((path + (f,), _state_leaf_spec(p_spec, leaf.dim(), f))
+                       for f, leaf in zip(x._fields, x))
+            continue
+        nd = len(getattr(x, "shape", ()))
+        if role == "whole" or not isinstance(x, torch.Tensor):
+            out.append((path, (None,) * nd))
+        elif role == "param":
+            out.append((path, param_spec(cfg, mesh, p_path, x)))
         else:
+            out.append((path, _state_leaf_spec(param_spec(cfg, mesh, p_path, x), nd)))
+    return out
+
+
+def _model_dim(spec: Spec, mesh) -> Optional[int]:
+    """The dim of a leaf split over ``model``, or None (whole, or tp 1)."""
+    if mesh_shape(mesh)[1] == 1 or "model" not in spec:
+        return None
+    return spec.index("model")
+
+
+def trunk_split_dims(cfg, mesh, params) -> Dict[Tuple[str, ...], int]:
+    """The path of every layer leaf that :func:`param_spec` splits over
+    ``model``, to the dim it splits (the optimizer's ``split_dims``)."""
+    specs = train_state_spec(cfg, mesh, params["layers"], ("layers",))
+    return {path: _model_dim(sp, mesh) for path, sp in specs
+            if _model_dim(sp, mesh) is not None}
+
+
+def _gather_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The full leaf from every ``model`` rank's part (a collective), or the
+    leaf itself where it is whole."""
+    dim = _model_dim(spec, mesh)
+    if dim is None:
+        return x
+    g = group(mesh, "model")
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
+    dist.all_gather(parts, x.contiguous(), group=g)
+    return torch.cat(parts, dim=dim)
+
+
+def shard_train_state(state, mesh, cfg=None, prefix: Tuple[str, ...] = ()):
+    """A rank's local state from the full one (:func:`train_state_spec`):
+    each leaf split over ``model`` cut to the rank's part (a copy that
+    owns its storage; a dim that does not divide raises a ``ValueError``
+    naming the leaf); every other leaf is the same object, not a copy.
+    Works on a ``TrainState``, an LM's params tree (or its subtree at
+    ``prefix``, as ``transformer.init_params(mesh=)`` cuts each layer as
+    it is drawn) or its ``OptState``; ``cfg`` (the model's config) is
+    needed where the tree holds the trunk. ``data`` entries are
+    ignored."""
+    leaves, tdef = tree_util.flatten(state)
+    specs = train_state_spec(cfg, mesh, state, prefix)
+    return tree_util.unflatten(tdef, [
+        _cut(x, sp, mesh, _path_name(p)) if isinstance(x, torch.Tensor) else x
+        for x, (p, sp) in zip(leaves, specs)])
+
+
+def iter_gathered_leaves(state, mesh, cfg=None) -> Iterator[Any]:
+    """The full state's leaves, in :func:`tree_util.flatten` order, one at a
+    time: each split leaf gathered from every ``model`` rank when it is
+    reached (a collective, so every rank must walk the whole iterator in
+    step), the rest as they are. A writer holds one gathered leaf at a
+    time, never the whole trunk."""
+    leaves = tree_util.leaves(state)
+    for x, (_, sp) in zip(leaves, train_state_spec(cfg, mesh, state)):
+        yield _gather_leaf(x, sp, mesh) if isinstance(x, torch.Tensor) else x
+
+
+def gather_train_state(state, mesh, cfg=None):
+    """The full state from the ranks' local states (a collective over
+    ``model``, called on every rank): what a one-rank run holds. It holds
+    the whole trunk; writers go through :func:`iter_gathered_leaves`."""
+    return tree_util.unflatten(tree_util.flatten(state)[1],
+                               list(iter_gathered_leaves(state, mesh, cfg)))
+
+
+def full_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The full shape of a rank's leaf of ``shape`` placed by ``spec``:
+    its ``model`` dim times the model ranks (the inverse of
+    :func:`local_shape`)."""
+    _, tp = mesh_shape(mesh)
+    return tuple(n * tp if ax == "model" else n for n, ax in zip(shape, spec))
+
+
+class StateLayout:
+    """The placement of a rank's state, leaf by leaf (:func:`train_state_spec`
+    in flatten order), for a checkpoint's reader: each leaf's full shape,
+    and a full leaf cut to the rank's part."""
+
+    def __init__(self, state, mesh, cfg=None):
+        self.mesh = mesh
+        self.specs = train_state_spec(cfg, mesh, state)
+
+    def full_shape(self, i: int, like) -> Tuple[int, ...]:
+        return full_shape(tuple(np.shape(like)), self.specs[i][1], self.mesh)
+
+    def cut(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        path, spec = self.specs[i]
+        return _cut(x, spec, self.mesh, _path_name(path))
+
+
+def split_bytes(tree, cfg, mesh) -> Tuple[int, int]:
+    """(bytes of the leaves of a full ``tree`` (a params tree, an
+    ``OptState`` or a ``TrainState``; meta tensors will do) that
+    :func:`train_state_spec` splits over ``model``, bytes of those that
+    stay whole). A rank of ``tp`` holds split / tp + whole."""
+    split = whole = 0
+    for x, (_, sp) in zip(tree_util.leaves(tree), train_state_spec(cfg, mesh, tree)):
+        if not isinstance(x, torch.Tensor):
+            continue
+        n = x.numel() * x.element_size()
+        if _model_dim(sp, mesh) is None:
             whole += n
+        else:
+            split += n
     return split, whole
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensor leaves of ``tree``."""
+    return sum(x.numel() * x.element_size() for x in tree_util.leaves(tree)
+               if isinstance(x, torch.Tensor))
 
 
 def cache_spec(cfg, mesh, batch: int) -> Dict[str, Spec]:

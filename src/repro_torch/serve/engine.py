@@ -64,7 +64,7 @@ hidden state, hence identical re-scored argmax.
 
 Under a ``("data", "model")`` mesh (``ServeConfig.mesh``) every rank runs
 the same engine on the same requests with its part of the model
-(``parallel.sharding.shard_params``): the embedding's and the head's rows
+(``parallel.sharding.shard_train_state``): the embedding's and the head's rows
 are sharded over ``model`` (the token gather and the candidate scores are
 collectives, the dense path merges each rank's argmax), the trunk's heads,
 ``d_ff``, experts and SSM heads too, and the paged arena is the rank's

@@ -16,10 +16,17 @@ refreshes: the projection is kept and only node parameters are re-solved,
 optionally with drift-triggered subtree refits. Every path is a
 deterministic function of (params, state, batches, config), which the
 asynchronous refresh relies on.
+
+Under a mesh the trunk is a rank's part, so the features are collected
+with the sharded forward (:func:`collect_features` with ``mesh``, a
+collective every rank runs on the whole batches, in step, on the training
+thread), and the fit takes them ready-made (``features=``): a fit thread
+issues no collective.
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+import dataclasses
+from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +52,7 @@ def _device(params) -> torch.device:
 
 
 def collect_features(params, cfg: ModelConfig, batches: Iterable[dict],
-                     max_tokens: int = 200_000) -> Tuple[np.ndarray, np.ndarray]:
+                     max_tokens: int = 200_000, mesh=None) -> Tuple[np.ndarray, np.ndarray]:
     """Run the model; return (hiddens (N, d) float32, labels (N,)) as numpy,
     N <= ``max_tokens``.
 
@@ -53,7 +60,10 @@ def collect_features(params, cfg: ModelConfig, batches: Iterable[dict],
     batch needs no padding, and its rows are those of its own forward).
     Collection stops requesting batches once the cap is reached, and a
     batch is truncated to the remaining budget. The forward is the training
-    path's (plain attention), without gradients.
+    path's (plain attention), without gradients. Under ``mesh``, ``params``
+    are a rank's part and every rank runs every batch through the sharded
+    forward (a collective over ``model``), so every rank gets the same
+    features.
     """
     dev = _device(params)
     hs, ys = [], []
@@ -62,7 +72,7 @@ def collect_features(params, cfg: ModelConfig, batches: Iterable[dict],
         tok = torch.as_tensor(batch["tokens"], device=dev)
         lab = torch.as_tensor(batch["labels"]).cpu().numpy()
         with torch.no_grad():
-            h, _, _ = transformer.forward(params, cfg, tok, attn_impl="plain")
+            h, _, _ = transformer.forward(params, cfg, tok, attn_impl="plain", mesh=mesh)
         h = h.float().reshape(-1, cfg.d_model)
         y = lab.reshape(-1)
         take = min(len(y), remaining)
@@ -96,13 +106,15 @@ def fit_lm_generator(params, cfg: ModelConfig, batches: Iterable[dict],
                      kind: str = "adversarial_ns",
                      fit_config: Optional[FitConfig] = None,
                      max_tokens: int = 200_000,
-                     method: str = "levelwise") -> LMHeadState:
+                     method: str = "levelwise", features=None) -> LMHeadState:
     """Snapshot-fit the generator; returns a fresh LMHeadState on the params'
     device. ``method`` selects the fitter: ``levelwise`` (default; O(log C)
     sequential phases), ``sequential`` (the reference recursion) or
-    ``sharded`` (subtree fan-out)."""
+    ``sharded`` (subtree fan-out). ``features``: :func:`collect_features`'s
+    result, collected by the caller (``batches`` are then not read)."""
     dev = _device(params)
-    feats, labels = collect_features(params, cfg, batches, max_tokens)
+    feats, labels = (collect_features(params, cfg, batches, max_tokens)
+                     if features is None else features)
     if kind == "freq_ns":
         counts = np.bincount(labels, minlength=cfg.vocab_size).astype(np.float32)
         gen = heads_lib.make_freq_generator(counts, device=dev)
@@ -118,17 +130,19 @@ def refresh_lm_generator(prev: LMHeadState, params, cfg: ModelConfig,
                          fit_config: Optional[FitConfig] = None,
                          max_tokens: int = 200_000,
                          prev_counts: Optional[np.ndarray] = None,
-                         drift_threshold: Optional[float] = None
+                         drift_threshold: Optional[float] = None, features=None
                          ) -> Tuple[LMHeadState, np.ndarray]:
     """Warm-start generator refresh: keeps ``prev.proj`` (the feature space
     stays fixed, so the previous tree's split assignments stay meaningful)
     and re-solves only node parameters from a fresh snapshot, plus
     drift-triggered subtree refits when ``drift_threshold`` and
-    ``prev_counts`` are given. Returns ``(head_state, label_counts)``."""
+    ``prev_counts`` are given. Returns ``(head_state, label_counts)``.
+    ``features`` as :func:`fit_lm_generator` takes them."""
     if prev.gen.tree is None:
         raise ValueError("refresh_lm_generator: no tree to warm-start from")
     dev = _device(params)
-    feats, labels = collect_features(params, cfg, batches, max_tokens)
+    feats, labels = (collect_features(params, cfg, batches, max_tokens)
+                     if features is None else features)
     x_gen = feats @ prev.proj.cpu().numpy().astype(np.float32)
     tree, counts = refresh_tree(prev.gen.tree, x_gen, labels, cfg.vocab_size,
                                 config=fit_config or FitConfig(reg=0.1),
@@ -138,13 +152,15 @@ def refresh_lm_generator(prev: LMHeadState, params, cfg: ModelConfig,
 
 
 def fit_lm_sampler(kind: str, params, cfg: ModelConfig, batches: Iterable[dict],
-                   proj=None, max_tokens: int = 8_192, seed: int = 0, **kwargs):
+                   proj=None, max_tokens: int = 8_192, seed: int = 0, mesh=None, **kwargs):
     """Fit a :mod:`repro_torch.core.samplers` proposal from an LM snapshot:
     collect (hidden, next token) pairs, project the hiddens into the
     generator feature space (``proj``: pass ``head_state.proj`` so the
     sampler sees the x_gen the training step computes; a fresh PCA
     projection when None) and fit the sampler on per-class mean embeddings
-    (lsh, rff) or label counts (unigram). Returns ``(sampler, proj)``."""
+    (lsh, rff) or label counts (unigram). Returns ``(sampler, proj)``.
+    Under ``mesh`` the features come from the sharded forward, every rank
+    in step."""
     dev = _device(params)
 
     def zeros_proj():
@@ -154,7 +170,7 @@ def fit_lm_sampler(kind: str, params, cfg: ModelConfig, batches: Iterable[dict],
     if kind == "uniform":
         return samplers_lib.UniformSampler(num_labels=cfg.vocab_size), (
             zeros_proj() if proj is None else proj)
-    feats, labels = collect_features(params, cfg, batches, max_tokens)
+    feats, labels = collect_features(params, cfg, batches, max_tokens, mesh=mesh)
     if kind == "unigram":
         counts = np.bincount(labels, minlength=cfg.vocab_size).astype(np.float32)
         return samplers_lib.unigram_from_counts(counts, device=dev), (
@@ -170,29 +186,45 @@ def fit_lm_sampler(kind: str, params, cfg: ModelConfig, batches: Iterable[dict],
     return sampler, proj
 
 
-def make_gen_fit_fn(cfg: ModelConfig, batch_fn, kind: str,
-                    fit_config: Optional[FitConfig] = None,
-                    max_tokens: int = 16_384, n_batches: int = 8,
-                    batch_offset: int = 10_000, method: str = "levelwise",
-                    warm_refresh: bool = True):
-    """Build the ``gen_fit_fn(state) -> LMHeadState`` that ``run_loop``
-    calls. The first fit (``state.gen_fit_step < 0``) is a full fit; later
-    refreshes warm-start from the in-state tree when ``warm_refresh``. The
-    choice reads only checkpointed state, so a resumed run replays the fit
-    the uninterrupted run made."""
+@dataclasses.dataclass(frozen=True)
+class GeneratorFit:
+    """The ``gen_fit_fn`` that ``run_loop`` calls, ``fit(state, features=None)
+    -> LMHeadState``, as the reference's ``make_gen_fit_fn`` builds it. The
+    first fit (``state.gen_fit_step < 0``) is a full fit; later refreshes
+    warm-start from the in-state tree when ``warm_refresh``. The choice
+    reads only checkpointed state, so a resumed run replays the fit the
+    uninterrupted run made.
 
-    def batches():
-        return (batch_fn(batch_offset + i) for i in range(n_batches))
+    :meth:`features` collects the fit's features (:func:`collect_features`
+    on the fit's batches); ``run_loop`` calls it on the training thread
+    under a mesh and hands the result to the fit as ``features`` (module
+    docstring). Without them the fit collects its own from
+    ``state.params``."""
+    cfg: ModelConfig
+    batch_fn: Callable[[int], dict]
+    kind: str
+    fit_config: Optional[FitConfig] = None
+    max_tokens: int = 16_384
+    n_batches: int = 8
+    batch_offset: int = 10_000
+    method: str = "levelwise"
+    warm_refresh: bool = True
 
-    def gen_fit(state):
-        first = int(state.gen_fit_step) < 0
-        if (first or not warm_refresh or kind != "adversarial_ns"
-                or state.head_state.gen.tree is None):
-            return fit_lm_generator(state.params, cfg, batches(), kind=kind,
-                                    fit_config=fit_config, max_tokens=max_tokens,
-                                    method=method)
-        head, _ = refresh_lm_generator(state.head_state, state.params, cfg, batches(),
-                                       fit_config=fit_config, max_tokens=max_tokens)
+    def _batches(self):
+        return (self.batch_fn(self.batch_offset + i) for i in range(self.n_batches))
+
+    def features(self, params, mesh=None) -> Tuple[np.ndarray, np.ndarray]:
+        return collect_features(params, self.cfg, self._batches(), self.max_tokens, mesh=mesh)
+
+    def __call__(self, state, features=None) -> LMHeadState:
+        kw = dict(fit_config=self.fit_config, max_tokens=self.max_tokens, features=features)
+        if (int(state.gen_fit_step) < 0 or not self.warm_refresh
+                or self.kind != "adversarial_ns" or state.head_state.gen.tree is None):
+            return fit_lm_generator(state.params, self.cfg, self._batches(), kind=self.kind,
+                                    method=self.method, **kw)
+        head, _ = refresh_lm_generator(state.head_state, state.params, self.cfg,
+                                       self._batches(), **kw)
         return head
 
-    return gen_fit
+
+make_gen_fit_fn = GeneratorFit          # the reference's name

@@ -48,16 +48,24 @@ the global batches. Every host decision that may differ between ranks is
 agreed on, since ranks that decide differently call different
 collectives and hang: a fit's outcome (a failure, a retry exhausted, the
 watchdog) counts as a success only if it is one on every rank, and a
-preemption on any rank stops them all. The generator fit reads the full
-embedding and head (gathered on the training thread) and the global
-batches, so the fitted generator is bit-equal on every rank and to a
-one-rank run's. A checkpoint (and a ``gensnap``) holds the full arrays,
-as a one-rank run's: every rank gathers, rank 0 writes, all wait; a
-restore reads the full arrays on every rank and re-slices them.
+preemption on any rank stops them all. The trunk is a rank's part, so the
+generator fit's features are collected on the training thread with the
+sharded forward, every rank in step (``gen_fit_fn`` must then be a
+:class:`repro_torch.train.generator_fit.GeneratorFit`, whose ``features``
+does that); the fit thread gets them with the full embedding and head (gathered there
+too) and issues no collective, so the fitted generator is bit-equal on
+every rank. A checkpoint (and a ``gensnap``) holds the full arrays, as a
+one-rank run's, written leaf by leaf: every rank joins the gather of one
+leaf, rank 0 writes it and drops it, and all wait at the end; a restore
+reads one full leaf at a time on every rank and cuts its part
+(``parallel.sharding.StateLayout``). No rank holds the whole trunk.
+``model_cfg`` (the model's config) gives the placement.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import operator
 import signal
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -92,7 +100,11 @@ def _fit_with_retries(fit_fn, state, retries: int, backoff_s: float):
             time.sleep(backoff_s * (2 ** attempt))
 
 
-def _fit_snapshot(state: TrainState, mesh=None) -> TrainState:
+def _clone(t):
+    return t.clone() if isinstance(t, torch.Tensor) else t
+
+
+def _fit_snapshot(state: TrainState) -> TrainState:
     """Clone the leaves a background generator fit reads.
 
     The training step writes the parameters in place, so a background fit
@@ -102,21 +114,27 @@ def _fit_snapshot(state: TrainState, mesh=None) -> TrainState:
     those leaves are copied. The clones are launched on the calling (the
     training) thread's stream before the fit thread starts; the fit thread
     launches on the same stream, so it reads them after they are written.
-    Under ``mesh`` the embedding and the head are gathered whole (a
-    collective, here on the training thread), so the fit runs no
-    collective.
     """
-    clone = lambda t: t.clone() if isinstance(t, torch.Tensor) else t  # noqa: E731
-    return state._replace(params=tree_util.tree_map(clone, _full_params(state, mesh).params),
-                          head_state=tree_util.tree_map(clone, state.head_state))
+    return state._replace(params=tree_util.tree_map(_clone, state.params),
+                          head_state=tree_util.tree_map(_clone, state.head_state))
 
 
-def _full_params(state: TrainState, mesh) -> TrainState:
-    """``state`` with the full embedding and head (a collective under a
-    mesh; the state itself without one)."""
+def _fit_call(state: TrainState, gen_fit_fn, mesh=None, snapshot: bool = True):
+    """The fit of ``state`` as a call of no arguments, its inputs taken now,
+    on the training thread. Without a mesh the fit reads
+    :func:`_fit_snapshot` of ``state``, or ``state`` itself where nothing
+    writes it while the fit runs (``snapshot=False``: a blocking fit, or a
+    ``gensnap`` read from disk). Under ``mesh`` the trunk is a rank's part:
+    the features are collected here with the sharded forward (a
+    collective), and the fit gets them with the full embedding and head
+    (gathered) and a copy of the head state, so it reads no trunk and
+    issues no collective."""
     if mesh is None:
-        return state
-    return state._replace(params=sharding.gather_train_state(state.params, mesh))
+        return functools.partial(gen_fit_fn, _fit_snapshot(state) if snapshot else state)
+    feats = gen_fit_fn.features(state.params, mesh)
+    rows = sharding.gather_train_state({k: state.params[k] for k in ("embed", "head")}, mesh)
+    return functools.partial(gen_fit_fn, state._replace(
+        params=rows, head_state=tree_util.tree_map(_clone, state.head_state)), features=feats)
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -229,7 +247,7 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
              preemption: Optional[Preemption] = None,
              gen_fit_fn: Optional[Callable[[TrainState], Any]] = None,
              on_step: Optional[Callable[[int, Dict], None]] = None,
-             registry: Optional[Registry] = None, mesh=None):
+             registry: Optional[Registry] = None, mesh=None, model_cfg=None):
     """Run (or resume) training. Returns (state, history dict).
 
     ``batch_fn(step) -> batch`` must be deterministic in step.
@@ -249,33 +267,46 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
     ``history["compile_time_s"]`` instead.
 
     ``mesh``: ``state`` is this rank's, ``batch_fn`` gives the global
-    batches and ``train_step`` was built with the mesh (module docstring).
+    batches, ``train_step`` was built with the mesh and ``model_cfg`` is
+    the model's config (module docstring).
     """
     preemption = preemption or Preemption()
     device = state.snr_ewma.device
     if mesh is not None:
         import torch.distributed as dist
         from repro_torch.parallel import collectives
+        if model_cfg is None:
+            raise ValueError("run_loop(mesh=) needs model_cfg, the placement's config")
+        from repro_torch.train.generator_fit import GeneratorFit
+        if gen_fit_fn is not None and not isinstance(gen_fit_fn, GeneratorFit):
+            raise TypeError("under a mesh the generator fit's features are collected on "
+                            "the training thread: gen_fit_fn must be a "
+                            "train.generator_fit.GeneratorFit")
         lead = dist.get_rank() == 0
+
+    def layout(st: TrainState):
+        """How a checkpoint's full leaves are cut to this rank's ``st``."""
+        return None if mesh is None else sharding.StateLayout(st.as_pytree(), mesh, model_cfg)
 
     def agreed(ok: bool) -> bool:
         return ok if mesh is None else collectives.agree(ok, device)
 
     def save(save_fn, directory, step, st, **kw):
-        """Write the full state: rank 0 under a mesh, after every rank
-        gathered; all ranks wait for the write."""
-        tree = st if mesh is None else sharding.gather_train_state(st, mesh)
-        if mesh is None or lead:
-            save_fn(directory, step, tree.as_pytree(), **kw)
-        if mesh is not None:
-            dist.barrier()
+        """Write the full state: under a mesh leaf by leaf, each gathered
+        by every rank and written by rank 0; all ranks wait for the
+        write."""
+        tree = st.as_pytree()
+        if mesh is None:
+            save_fn(directory, step, tree, **kw)
+            return
+        leaves = sharding.iter_gathered_leaves(tree, mesh, model_cfg)
+        if lead:
+            save_fn(directory, step, tree, leaves=leaves, **kw)
+        else:
+            for _ in leaves:
+                pass
+        dist.barrier()
 
-    def template(st: TrainState):
-        return (st if mesh is None else sharding.gather_train_state(st, mesh)).as_pytree()
-
-    def local(tree) -> TrainState:
-        st = TrainState(**tree)
-        return st if mesh is None else sharding.shard_train_state(st, mesh)
     monitor = StragglerMonitor(cfg.straggler_factor, cfg.ewma_alpha)
     if registry is None:
         registry = (Registry() if (cfg.metrics_jsonl or cfg.profile_dir)
@@ -311,8 +342,9 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
     if cfg.checkpoint_dir:
         ck = latest_step(cfg.checkpoint_dir)
         if ck is not None and ck > start_step:
-            restored, _ = restore_checkpoint(cfg.checkpoint_dir, template(state), step=ck)
-            state = local(restored)
+            restored, _ = restore_checkpoint(cfg.checkpoint_dir, state.as_pytree(), step=ck,
+                                             layout=layout(state))
+            state = TrainState(**restored)
             start_step = int(state.step)
 
     # ---- re-establish an async refresh that was in flight ---------------
@@ -327,7 +359,7 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
         if not use_async:
             return None, None
         refresher = AsyncRefresher(
-            gen_fit_fn, retries=cfg.gen_fit_retries,
+            operator.call, retries=cfg.gen_fit_retries,
             backoff_s=cfg.gen_fit_backoff_s,
             timeout_s=cfg.gen_fit_timeout_s)
         if snr_mode:
@@ -353,11 +385,13 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
             # parameters at the recorded step.
             if (cfg.checkpoint_dir
                     and snapshot_path_exists(cfg.checkpoint_dir, s_sub)):
-                snap = load_snapshot(cfg.checkpoint_dir, s_sub, template(state))
-                snap_state = TrainState(**snap)   # disk copy, full: not aliased
+                snap = load_snapshot(cfg.checkpoint_dir, s_sub, state.as_pytree(),
+                                     layout(state))
+                fit = _fit_call(TrainState(**snap), gen_fit_fn, mesh,
+                                snapshot=False)   # a disk copy: not aliased
             else:
-                snap_state = _fit_snapshot(state, mesh)
-            refresher.submit(snap_state, s_sub)
+                fit = _fit_call(state, gen_fit_fn, mesh)
+            refresher.submit(fit, s_sub)
             registry.counter("genfit/submits").inc()
             emit({"event": "gen_submit", "step": s_sub, "resumed": True})
             return refresher, s_sub + cfg.gen_swap_delay
@@ -489,7 +523,7 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
                             f"while one is in flight")
                     if cfg.checkpoint_dir:
                         save(save_snapshot, cfg.checkpoint_dir, step, state)
-                    refresher.submit(_fit_snapshot(state, mesh), step)
+                    refresher.submit(_fit_call(state, gen_fit_fn, mesh), step)
                     pending_swap = step + cfg.gen_swap_delay
                     history.setdefault("gen_submit_steps", []).append(step)
                     registry.counter("genfit/submits").inc()
@@ -500,7 +534,7 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
                     err = None
                     try:
                         new_head = _fit_with_retries(
-                            gen_fit_fn, _full_params(state, mesh),
+                            operator.call, _fit_call(state, gen_fit_fn, mesh, snapshot=False),
                             cfg.gen_fit_retries, cfg.gen_fit_backoff_s)
                     except Exception as e:
                         err = e
@@ -624,8 +658,8 @@ def run_loop(state: TrainState, train_step: Callable, batch_fn: Callable,
                            f"rollback budget {cfg.max_rollbacks} "
                            f"exhausted") + ")")
                 restored, _ = restore_checkpoint(
-                    cfg.checkpoint_dir, template(state), step=ck)
-                state = local(restored)
+                    cfg.checkpoint_dir, state.as_pytree(), step=ck, layout=layout(state))
+                state = TrainState(**restored)
                 registry.counter("train/rollbacks").inc()
                 history.setdefault("rollback_steps", []).append([step, ck])
                 emit({"event": "rollback_restore", "step": step,

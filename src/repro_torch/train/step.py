@@ -12,17 +12,23 @@ plain torch (``attn_impl="plain"``): the CUDA ``flash_attention`` kernel is
 forward-only and serves the decode path alone.
 
 Every ``make_*`` function takes a ``mesh`` (a ``("data", "model")`` ``DeviceMesh``,
-:mod:`repro_torch.launch.mesh`): the embedding's and the head's rows are
-then sharded over ``model`` (:mod:`repro_torch.parallel.sharding`) and the
-trunk is whole on every rank. Serving gathers the token rows and scores
-through :mod:`repro_torch.parallel.collectives`; the dense Eq. 5 path
-scores each rank's slice of the vocabulary and merges the argmax. The
-training step takes the global batch and equals the one-rank step on it:
-each rank runs its ``data`` slice, draws the global batch's uniforms and
-keeps its rows, assembles its candidates' rows from their owners, and
-normalises by the global mask count; the trunk's gradients and the
-head's and embedding's ``SparseRows`` are summed over ``data`` before the
-update, so the clip and the non-finite guard decide alike on every rank.
+:mod:`repro_torch.launch.mesh`): the model is then placed over ``model`` by
+``param_spec`` (:mod:`repro_torch.parallel.sharding`): the embedding's and
+the head's rows, and the trunk's heads, ``d_ff``, experts and SSM heads;
+the optimizer state mirrors the parameters (``train_state_spec``). Serving
+gathers the token rows and scores through
+:mod:`repro_torch.parallel.collectives`; the dense Eq. 5 path scores each
+rank's slice of the vocabulary and merges the argmax. The training step
+takes the global batch and equals the one-rank step on it: each rank runs
+its ``data`` slice through its part of the trunk (the forward's partial
+sums and the backward's partial gradients summed over ``model``), draws
+the global batch's uniforms and keeps its rows, assembles its candidates'
+rows from their owners, and normalises by the global mask count; its part
+of the trunk's gradients and the head's and embedding's ``SparseRows``
+are summed over ``data`` before the update, and the gradient norm over
+``model`` too, so the clip and the non-finite guard decide alike on every
+rank. ``param_spec``'s ``data`` entries (FSDP) are not ported: every
+tensor is whole over ``data``.
 
 The sparse training step marks its phases as ``record_function`` ranges
 (``train/forward``, ``train/head``, ``train/backward``,
@@ -95,8 +101,9 @@ def make_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, head_update: str = "auto",
     sparse path its ``head`` (and, with sparse embedding updates, its
     ``embed``) is a ``SparseRows``. Under ``mesh`` (module docstring) the
     grads are the global batch's, the same on every rank, and the step
-    must be the sparse one with sparse embedding rows: a dense gradient of
-    a row-sharded table is not ported."""
+    must be the sparse one with sparse embedding rows: the dense head and
+    the dense embedding under a mesh are not ported (ROADMAP Queue 1, slice
+    12). The trunk's grads are then the rank's parts of the leaves."""
     mode = resolve_head_update(head_update, hcfg.kind)
     if embed_update not in ("auto", "sparse", "dense"):
         raise ValueError(f"embed_update must be auto, sparse or dense, got {embed_update!r}")
@@ -110,7 +117,8 @@ def make_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, head_update: str = "auto",
         if mode != "sparse" or emode != "sparse":
             raise ValueError("under a mesh the row-sharded head and embedding train "
                              "through sparse rows: head_update and embed_update must "
-                             "resolve to 'sparse'")
+                             "resolve to 'sparse' (the dense head and embedding under a "
+                             "mesh are not ported yet: ROADMAP Queue 1, slice 12)")
         return _sharded_grad_fn(cfg, hcfg, sampler, mesh)
 
     def dense_grads(state: TrainState, batch, generator):
@@ -171,7 +179,8 @@ def make_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, head_update: str = "auto",
 
 
 def _sharded_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, sampler, mesh):
-    """The sparse step's gradients under a mesh (module docstring)."""
+    """The sparse step's gradients under a mesh (module docstring): the
+    trunk's leaves are the rank's parts, and so are their gradients."""
     from repro_torch.parallel import collectives
 
     def grad_fn(state: TrainState, batch, generator):
@@ -187,7 +196,7 @@ def _sharded_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, sampler, mesh):
             ie = h0 if vision is None else torch.cat([vision.to(h0.dtype), h0], dim=1)
             h, _, fwd_metrics = transformer.forward(
                 trunk, cfg, tokens, positions=local.get("positions"), inputs_embeds=ie,
-                attn_impl="plain")
+                attn_impl="plain", mesh=mesh)
         n_vis = _n_vis(cfg, h, local)
         with record_function("train/head"):
             loss, head_metrics, head_rows, dh = lm_head.lm_sharded_head_loss(
@@ -211,7 +220,7 @@ def _sharded_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, sampler, mesh):
             # global means; the forward's metrics are per-rank means.
             summed = {"loss": loss, **head_metrics}
             scalars = torch.stack([v.float() for v in summed.values()]
-                                  + [v.float() for v in fwd_metrics.values()])
+                                  + [v.float() for v in fwd_metrics.values()]).detach()
             collectives.all_reduce_over_data(mesh, [scalars])
             n_sum = len(summed)
             metrics = dict(zip(summed, scalars[:n_sum]))
@@ -247,19 +256,25 @@ def make_train_step(cfg: ModelConfig, hcfg: HeadConfig, opt_cfg: OptimizerConfig
     they were, advances ``step`` by 1 (the data and sampling streams are
     step-indexed) and reports ``metrics["nonfinite"] = 1``.
 
-    ``mesh``: the state is a rank's (:func:`repro_torch.parallel.
-    shard_train_state`), the batch the global one (module docstring).
+    ``mesh``: the state is a rank's (:func:`init_train_state` with the
+    mesh, or :func:`repro_torch.parallel.shard_train_state`), the batch the
+    global one (module docstring).
     """
     grad_fn = make_grad_fn(cfg, hcfg, head_update, sampler=sampler,
                            embed_update=embed_update, mesh=mesh)
+    split_dims = None           # the trunk's split leaves, read once from the first state
 
     def train_step(state: TrainState, batch, generator):
+        nonlocal split_dims
+        if split_dims is None:
+            split_dims = ({} if mesh is None
+                          else sharding.trunk_split_dims(cfg, mesh, state.params))
         grads, metrics = grad_fn(state, batch, generator)
         with record_function("train/optimizer"):
             return _update(state, grads, metrics)
 
     def _update(state: TrainState, grads, metrics):
-        norm = global_norm(grads) if opt_cfg.clip_norm else None
+        norm = global_norm(grads, mesh, split_dims) if opt_cfg.clip_norm else None
         snr_ewma = state.snr_ewma
         if "snr_proxy" in metrics:
             # Fold the per-batch signal-mass proxy into the EWMA the SNR
@@ -278,7 +293,8 @@ def make_train_step(cfg: ModelConfig, hcfg: HeadConfig, opt_cfg: OptimizerConfig
                     metrics["grad_norm"] = norm
                 return state._replace(step=state.step + 1), metrics
         params, opt_state, opt_metrics = apply_updates(
-            opt_cfg, state.params, grads, state.opt_state, mesh=mesh, norm=norm)
+            opt_cfg, state.params, grads, state.opt_state, mesh=mesh, norm=norm,
+            split_dims=split_dims)
         metrics.update(opt_metrics)
         return state._replace(step=state.step + 1, params=params, opt_state=opt_state,
                               snr_ewma=snr_ewma), metrics
@@ -319,9 +335,11 @@ def make_eval_step(cfg: ModelConfig, hcfg: HeadConfig, mesh=None):
     """Debiased predictive log-likelihood and accuracy (the paper's Fig. 1
     axes): Eq. 5 over the whole vocabulary, whose tree term is the
     ``tree_logprob_all`` kernel on the card. Under ``mesh`` each rank
-    scores its ``data`` slice of the global batch over its slice of the
-    vocabulary; the softmax's normaliser, the label's score and the argmax
-    are reduced over ``model``, the sums over ``data``."""
+    runs its ``data`` slice of the global batch through its part of the
+    trunk (under the attention hint where the caller installed it) and
+    scores it over its slice of the vocabulary; the softmax's normaliser,
+    the label's score and the argmax are reduced over ``model``, the sums
+    over ``data``."""
     if mesh is not None:
         return _sharded_eval_step(cfg, hcfg, mesh)
 
@@ -564,14 +582,24 @@ def make_paged_decode(cfg: ModelConfig, mesh=None):
 
 def init_train_state(generator: torch.Generator, cfg: ModelConfig,
                      opt_cfg: OptimizerConfig, head_kind: str,
-                     device="cuda") -> TrainState:
+                     device="cuda", mesh=None) -> TrainState:
     """Fresh state: parameters and the default head state drawn from
     ``generator`` (on its device), put on ``device``, with zero optimizer
-    state."""
+    state. With ``mesh`` the state is this rank's part of the one-rank
+    state, bit for bit (``shard_train_state`` of it): each tensor is drawn
+    from the same generator state on every rank and cut before the next
+    layer is drawn (``transformer.init_params(mesh=)``), and the optimizer
+    state is built on the parts, so no rank holds the whole trunk."""
     dev = device_lib.resolve(device)
-    params = transformer.init_params(generator, cfg, device=dev)
+    params = transformer.init_params(generator, cfg, device=dev, mesh=mesh)
+    col_lens = {}
+    if mesh is not None:        # SM3's column cover of a column-split leaf is whole
+        leaves = dict(tree_util.flatten_with_paths(params)[0])
+        col_lens = {path: leaves[path].shape[1] * sharding.size(mesh, "model")
+                    for path, dim in sharding.trunk_split_dims(cfg, mesh, params).items()
+                    if dim == 1}
     ewma0, ref0 = snr_reset_pair(dev)
     return TrainState(
-        step=0, params=params, opt_state=init_opt_state(opt_cfg, params),
+        step=0, params=params, opt_state=init_opt_state(opt_cfg, params, col_lens),
         head_state=lm_head.default_head_state(generator, cfg, head_kind, device=dev),
         gen_fit_step=-1, snr_ewma=ewma0, snr_ref=ref0)

@@ -13,6 +13,9 @@ it runs on a machine without it:
   of its norm (dh is rounded to bfloat16 on its way into the trunk, so one
   bfloat16 ulp, 2^-8 relative, separates the two where the float32 dh
   differ in their last bits).
+- A row-parallel partial product of a bf16 pair under autograd (the
+  sharded trunk's training on the card): its gradients are a one-rank
+  bf16 GEMM's.
 """
 import contextlib
 import dataclasses
@@ -101,3 +104,26 @@ def test_cuda_full_width_sparse_step_kernel_vs_plain(cuda):
         assert bool(torch.isfinite(a).all()) and float(a.abs().sum()) > 0
         rel = float((a.float() - b.float()).norm() / b.float().norm())
         assert rel <= TRUNK_REL_TOL, rel
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_cuda_partial_matmul_gradient_is_a_bf16_gemms(cuda, batched):
+    """A row-parallel partial product of a bf16 pair (a GEMM writing
+    float32, which has no derivative of its own) under autograd: its
+    forward equals the float32 product of the widened inputs, and its
+    gradients equal a one-rank bf16 GEMM's for the same output gradient
+    rounded to bf16."""
+    from repro_torch.parallel.collectives import partial_matmul
+    g = torch.Generator(device=cuda).manual_seed(0)
+    shape_x, shape_w = ((3, 64, 96), (3, 96, 48)) if batched else ((2, 32, 96), (96, 48))
+    x = torch.randn(shape_x, generator=g, device=cuda).to(torch.bfloat16).requires_grad_()
+    w = torch.randn(shape_w, generator=g, device=cuda).to(torch.bfloat16).requires_grad_()
+    out = partial_matmul(x, w)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, x.float() @ w.float(), atol=1e-4, rtol=1e-5)
+    dout = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16).float()
+    got = torch.autograd.grad(out, (x, w), dout)
+    want = torch.autograd.grad(x @ w, (x, w), dout.to(torch.bfloat16))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a, b, atol=0, rtol=2 ** -7)

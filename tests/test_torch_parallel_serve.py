@@ -4,7 +4,7 @@
 reference's: the lock-step decode (dense Eq. 5, whose argmax is merged
 over the ranks' vocabulary slices, and beam, whose candidates are scored by
 ``sharded_candidate_scores``) and the engine, each rank serving the same
-requests with its part of the model (``parallel.shard_params``: the
+requests with its part of the model (``parallel.shard_train_state``: the
 vocabulary rows and the trunk's heads and ``d_ff``); then the serving
 launcher under ``torchrun``.
 
@@ -43,14 +43,14 @@ import numpy as np
 from repro_torch.core.heads import HeadParams
 from repro_torch.models import lm_head, transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.parallel import shard_params, sharding
+from repro_torch.parallel import shard_train_state, sharding
 from repro_torch.serve import Engine, Request, ServeConfig, lockstep_decode
 
 mesh = mesh_of(2)
 inp = torch.load(os.path.join(OUT, "inputs.pt"), weights_only=False)
 cfg = ModelConfig(**inp["cfg"])
 hcfg = lm_head.head_config(cfg, "adversarial_ns")
-params = shard_params(inp["params"], cfg, mesh)
+params = shard_train_state(inp["params"], mesh, cfg)
 out = {}
 for beam in (0, inp["beam"]):
     out["lockstep", beam] = lockstep_decode(cfg, hcfg, params, inp["state"], inp["prompts"],

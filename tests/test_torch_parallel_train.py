@@ -64,13 +64,13 @@ cfg = dataclasses.replace(configs.reduced_config("stablelm-3b"), num_layers=2,
                           dtype="float32")
 hcfg = lm_head.head_config(cfg, "adversarial_ns", n_neg=inp["n_neg"], reg=1e-4)
 opt = OptimizerConfig(**inp["opt"])
-state = shard_train_state(inp["state"], mesh)
+state = shard_train_state(inp["state"], mesh, cfg)
 step = tstep.make_train_step(cfg, hcfg, opt, sampler=UniformSampler(cfg.vocab_size), mesh=mesh)
 metrics = []
 for s, batch in enumerate(inp["batches"]):
     state, m = step(state, batch, torch.Generator().manual_seed(s))
     metrics.append({k: float(v) for k, v in m.items()})
-out = {"metrics": metrics, "params": gather_train_state(state, mesh).params,
+out = {"metrics": metrics, "params": gather_train_state(state, mesh, cfg).params,
        "eval": {k: float(v) for k, v in
                 tstep.make_eval_step(cfg, hcfg, mesh=mesh)(state, inp["eval_batch"]).items()}}
 
@@ -79,15 +79,15 @@ out = {"metrics": metrics, "params": gather_train_state(state, mesh).params,
 batch_fn = lambda s: inp["batches"][s % len(inp["batches"])]
 fit = make_gen_fit_fn(cfg, batch_fn, kind="adversarial_ns", max_tokens=64, n_batches=2)
 loop_step = tstep.make_train_step(cfg, hcfg, opt, mesh=mesh)
-loop_state = shard_train_state(inp["loop_state"], mesh)
+loop_state = shard_train_state(inp["loop_state"], mesh, cfg)
 ckpt = os.path.join(OUT, "ckpt")
 loop_state, hist = run_loop(
     loop_state, loop_step, batch_fn, LoopConfig(total_steps=4, checkpoint_every=2,
     checkpoint_dir=ckpt, gen_warmup_steps=1, gen_async=True, gen_swap_delay=1), seed=1,
-    gen_fit_fn=fit, mesh=mesh)
+    gen_fit_fn=fit, mesh=mesh, model_cfg=cfg)
 out["loop"] = {"loss": hist["loss"], "swaps": hist.get("gen_swap_steps"),
                "tree": tree_util.leaves(loop_state.head_state.gen.tree),
-               "state": gather_train_state(loop_state, mesh)}
+               "state": gather_train_state(loop_state, mesh, cfg)}
 save(out)
 """
 

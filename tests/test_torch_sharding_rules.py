@@ -2,13 +2,24 @@
 ``repro.parallel.sharding``, for all ten configs at full width on six mesh
 shapes: ``param_spec`` leaf by leaf (the JAX side's shapes from
 ``jax.eval_shape`` of ``init_params``, the port's from a meta-device
-build), and the cache specs, equal for the SSM's ``state`` and ``conv``
-and different, as documented, for ``k`` and ``v``: the port splits the KV
-heads over ``model`` where the reference splits the sequence. No process
-group: the port's rules take a (data, model) shape, the reference's an
-``AbstractMesh``."""
+build); ``train_state_spec`` against ``train_state_shardings`` for
+adagrad, adamw, sm3 and adamw with int8 head state, leaf by leaf over the
+parameters, the optimizer state and the step counters; and the cache
+specs, equal for the SSM's ``state`` and ``conv`` and different, as
+documented, for ``k`` and ``v``: the port splits the KV heads over
+``model`` where the reference splits the sequence. No process group: the
+port's rules take a (data, model) shape, the reference's an
+``AbstractMesh``.
+
+The training state differs in structure where the reference stacks the
+layers: SM3 factors a 2-D leaf into a row and a column cover and keeps a
+3-D one whole, and lazy AdamW's ``last`` indexes a leaf's dim 0, which is
+the stacked layer dim in the reference and the leaf's rows in the port.
+For those pieces the expected placement is the reference's own rule
+(``_state_leaf_sharding``) on the port's per-layer leaf."""
 import functools
 
+import numpy as np
 import pytest
 import torch
 
@@ -106,6 +117,88 @@ def test_cache_specs_match_reference_but_kv(arch, mesh):
             assert got[key][4] is None
 
 
+OPT_CASES = {"adagrad": dict(name="adagrad"), "adamw": dict(name="adamw"),
+             "sm3": dict(name="sm3"), "int8": dict(name="adamw", state_dtype="int8")}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_params(arch: str):
+    import jax
+    from repro.models import transformer as jtransformer
+    cfg, _ = _jax_leaves(arch)
+    return jax.eval_shape(lambda k: jtransformer.init_params(k, cfg), jax.random.PRNGKey(0))
+
+
+def _jax_train_state(arch: str, opt: str):
+    """The reference's ``TrainState`` of shapes, its head state left out
+    (the placement replicates it whatever it holds)."""
+    import jax
+    from repro.optim import OptimizerConfig as JOptimizerConfig
+    from repro.optim import init_opt_state as jinit_opt_state
+    from repro.train.state import TrainState as JTrainState
+    params = _jax_params(arch)
+    scalar = jax.ShapeDtypeStruct((), np.int32)
+    return JTrainState(step=scalar, params=params, opt_state=jax.eval_shape(
+        lambda p: jinit_opt_state(JOptimizerConfig(**OPT_CASES[opt]), p), params),
+        head_state=None, gen_fit_step=scalar, snr_ewma=scalar, snr_ref=scalar)
+
+
+def _names(path) -> tuple:
+    out = []
+    for p in path:
+        for attr in ("key", "name", "idx"):
+            if hasattr(p, attr):
+                out.append(str(getattr(p, attr)))
+                break
+    return tuple(out)
+
+
+@pytest.mark.parametrize("opt", list(OPT_CASES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_state_spec_matches_reference(arch, opt):
+    import jax
+    from jax.sharding import PartitionSpec as P
+    from repro.optim.optimizers import Sm3Cover as JSm3Cover
+    from repro.parallel.sharding import _state_leaf_sharding, train_state_shardings
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    jcfg, _ = _jax_leaves(arch)
+    jstate = _jax_train_state(arch, opt)
+    cfg = tconfigs.get_config(arch)
+    params = ttransformer.init_params(torch.Generator(), cfg, device="meta")
+    state = {"step": 0, "params": params,
+             "opt_state": init_opt_state(OptimizerConfig(**OPT_CASES[opt]), params)}
+    ndim = {_names(p): len(getattr(x, "shape", ()))
+            for p, x in jax.tree_util.tree_flatten_with_path(jstate)[0]}
+    sds = jax.ShapeDtypeStruct((1,), np.float32)
+    for mesh in MESHES:
+        jmesh = _abstract_mesh(mesh)
+        want = {_names(p): sh.spec for p, sh in jax.tree_util.tree_flatten_with_path(
+            train_state_shardings(jcfg, jmesh, jstate))[0]}
+        seen = set()
+        for path, got in sharding.train_state_spec(cfg, mesh, state):
+            layer = "layers" in path
+            key = tuple(n for i, n in enumerate(path) if not (layer and path[i - 1] == "layers"))
+            if key in want and ndim[key] == len(got) + layer:
+                expect = _spec(want[key], ndim[key], layer)
+                seen.add(key)
+            else:      # a per-layer piece of a leaf the reference stacks: its rule
+                assert layer and key[0] == "opt_state", path
+                box = key[-1] in ("row", "col")
+                base = key[:-1] if box else key
+                p_key = ("params",) + base[2:]
+                p_spec = P(*_spec(want[p_key], ndim[p_key], True))
+                if box:
+                    placed = getattr(_state_leaf_sharding(
+                        jmesh, p_spec, JSm3Cover(row=sds, col=sds)), key[-1])
+                else:
+                    placed = _state_leaf_sharding(
+                        jmesh, p_spec, jax.ShapeDtypeStruct((1,) * len(got), np.float32))
+                expect = _spec(placed.spec, len(got), False)
+                seen.update(k for k in (base, base + ("row",), base + ("col",)) if k in want)
+            assert got == expect, (mesh, path, got, expect)
+        assert seen == {k for k in want if k[0] in ("step", "params", "opt_state")}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_shard_params_cuts_what_the_spec_splits(arch):
     """On a (1, 2) mesh of the reduced config: every leaf's local shape is
@@ -121,7 +214,7 @@ def test_shard_params_cuts_what_the_spec_splits(arch):
         def get_local_rank(self, dim):
             return 1 if dim == "model" else 0
 
-    local = sharding.shard_params(params, cfg, Rank1Of2())
+    local = sharding.shard_train_state(params, Rank1Of2(), cfg)
     for (path, full), (_, part) in zip(tree_util.flatten_with_paths(params)[0],
                                        tree_util.flatten_with_paths(local)[0]):
         spec = sharding.param_spec(cfg, (1, 2), path, full)
@@ -132,9 +225,9 @@ def test_shard_params_cuts_what_the_spec_splits(arch):
             assert torch.equal(part, full.narrow(dim, n, n)), path
         else:
             assert part is full
-    split, whole = sharding.split_trunk_bytes(params, cfg, (1, 2))
-    assert split + whole == sharding.trunk_bytes(params)
-    assert sharding.trunk_bytes(local) == split // 2 + whole
+    split, whole = sharding.split_bytes({"layers": params["layers"]}, cfg, (1, 2))
+    assert split + whole == sharding.tree_bytes(params["layers"])
+    assert sharding.tree_bytes(local["layers"]) == split // 2 + whole
 
 
 def test_shard_params_raises_on_a_dim_that_does_not_divide():
@@ -149,7 +242,7 @@ def test_shard_params_raises_on_a_dim_that_does_not_divide():
             return 0
 
     with pytest.raises(ValueError, match="layers/0/mlp/w_down: dimension 0 of 160"):
-        sharding.shard_params({"layers": params["layers"]}, cfg, Rank0Of3())
+        sharding.shard_train_state({"layers": params["layers"]}, Rank0Of3(), cfg)
 
 
 def test_hint_context_refuses_slice_11_options():
@@ -161,5 +254,4 @@ def test_hint_context_refuses_slice_11_options():
 
     with pytest.raises(TypeError):
         hints.HintContext(Mesh())                              # not a DeviceMesh
-    q = torch.zeros(1, 4, 5, 8)
-    assert hints.hint_attn_q(q, 5) == (q, None)                # no context: no hint
+    assert hints.hinted_rows(5, 4) is None                     # no context: no hint

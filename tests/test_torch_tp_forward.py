@@ -1,7 +1,7 @@
 """The trunk sharded over the mesh's ``model`` axis, on gloo ranks on the
 CPU: every block kind's prefill and four teacher-forced decode steps
 through ``transformer.forward(mesh=)`` on a rank's part of the weights
-(``parallel.sharding.shard_params``) and of the cache
+(``parallel.sharding.shard_train_state``) and of the cache
 (``init_cache(mesh=)``), against the port's one-rank run and the JAX
 package's jitted forward on the same weights.
 
@@ -21,7 +21,7 @@ Bounds: within 1e-5 of the one-rank run relative to its largest value
 (the reference's bound for sharded against one device,
 ``tests/test_parallel.py:65``); against JAX the float32 bound of
 ``tests/test_torch_lm.py`` (2e-4); the ranks bit-equal among themselves;
-``gather_params`` after ``shard_params`` bit-equal to the start.
+``gather_train_state`` after ``shard_train_state`` bit-equal to the start.
 """
 import dataclasses
 import functools
@@ -57,7 +57,7 @@ import dataclasses
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.collectives import TRUNK
-from repro_torch.parallel import gather_params, shard_params
+from repro_torch.parallel import gather_train_state, shard_train_state
 from repro_torch.parallel.hints import HintContext, sharding_hints
 
 inp = torch.load(os.path.join(OUT, "inputs.pt"), weights_only=False)
@@ -66,8 +66,8 @@ out = {}
 with torch.no_grad():
     for name, case in inp["cases"].items():
         cfg = ModelConfig(**case["cfg"])
-        params = shard_params(case["params"], cfg, mesh)
-        back = gather_params(params, cfg, mesh)
+        params = shard_train_state(case["params"], mesh, cfg)
+        back = gather_train_state(params, mesh, cfg)
         flat = lambda t: [x for x in __import__("repro_torch").tree_util.leaves(t)]
         round_trip = all(torch.equal(a, b) for a, b in zip(flat(back), flat(case["params"])))
         cache = transformer.init_cache(cfg, case["tokens"].shape[0], case["max_len"],
@@ -222,4 +222,5 @@ def test_hint_gathers_the_prefill_queries(runs):
 def test_hint_context_refuses_slice_11_options(runs):
     refused = runs[2][0]["refused"]
     assert [kw for kw, _ in refused] == ["seq_parallel_residual", "fsdp_gather_weights"]
-    assert all("slice 11" in msg for _, msg in refused)
+    assert all("FSDP" in msg and "sequence parallelism" in msg and "slice 12" in msg
+               for _, msg in refused)

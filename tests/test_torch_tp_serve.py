@@ -46,7 +46,7 @@ import dataclasses
 import numpy as np
 from repro_torch import configs, tree_util
 from repro_torch.models import lm_head, transformer
-from repro_torch.parallel import shard_params
+from repro_torch.parallel import shard_train_state
 from repro_torch.serve import Engine, Request, ServeConfig, lockstep_decode
 
 mesh = mesh_of(2)
@@ -57,7 +57,7 @@ params = transformer.init_params(gen, cfg, device="cpu", mesh=mesh)
 state = lm_head.default_head_state(gen, cfg, "adversarial_ns", device="cpu")
 full = transformer.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
 out = {"built_as_cut": all(torch.equal(a, b) for a, b in zip(
-    tree_util.leaves(params), tree_util.leaves(shard_params(full, cfg, mesh))))}
+    tree_util.leaves(params), tree_util.leaves(shard_train_state(full, mesh, cfg))))}
 del full
 hcfg = lm_head.head_config(cfg, "adversarial_ns")
 for beam in (0, inp["beam"]):
@@ -233,4 +233,4 @@ def test_launcher_prints_each_ranks_bytes(tmp_path):
     assert ranks == [split // N_RANKS + whole] * N_RANKS
     cfg, params, _, _ = tserve.build(ARCH, reduced=True, head="adversarial_ns", seed=0,
                                      device="cpu")
-    assert sharding.trunk_bytes(params) == one
+    assert sharding.tree_bytes(params["layers"]) == one
