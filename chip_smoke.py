@@ -156,10 +156,12 @@ Phases, each fatal on failure:
      adagrad, sm3 (bf16) and adamw (int8) over 3 steps against the
      unsharded update, bit-equal; ms a rank and the ``all_reduce``'s share;
      then, in the same world on a (2, 2) mesh, stablelm-3b at full width,
-     2 layers, float32, its trunk sharded over ``model``
-     (``init_train_state(mesh=)``): each rank's parameter and
-     optimizer-state bytes the one-rank state's split bytes ÷ 2 plus its
-     whole bytes, exactly; 3 sharded steps on a global batch of 4 × 256
+     2 layers, float32, its trunk sharded over ``model`` and over ``data``
+     (FSDP, ``init_train_state(mesh=)``): each rank's parameter and
+     optimizer-state bytes the one-rank state's bytes over ``model`` ÷ 2,
+     over both ÷ 4, plus its whole bytes, exactly (``rank_bytes``); the
+     FSDP gathers' and reduce-scatters' calls, bytes and host seconds by
+     phase; 3 sharded steps on a global batch of 4 × 256
      against 3 one-rank steps from the same seed (loss within 1e-5
      relative, parameters within 1e-3 relative + 1e-4, the reference's
      bounds), ``sampled_head_loss`` and ``segment_stats`` launches a rank,
@@ -177,14 +179,17 @@ Phases, each fatal on failure:
      ``torchrun``, any rank's failure or a wait past the time limit fatal;
      the one-rank reference values come from this process before each
      world starts, through a temporary file, and are freed: (a)
-     h2o-danube-3-4b at full width and depth through the serving launcher
-     (``--device cuda:0 --model-axis M --time-collectives``) on (1, 2):
-     phase 9's lock-step shapes (4 × 4,608 + 32) dense and beam 64 and an
-     engine burst of 8 × 4,096 + 32 at beam 64, and on (1, 4) the dense
-     lock-step; (b) deepseek-moe-16b at full width and depth on (1, 4), 16
-     of its 64 experts a rank (this script with ``--tp-worker``): lock-step
-     4 × 2,048 + 32, dense; (c) hymba-1.5b at full width, 8 of its 32
-     layers (printed as ``reduced``), on (1, 2), 25
+     h2o-danube-3-4b at full width, 8 of its 24 layers (printed as
+     ``reduced``), through the serving launcher (``serve.main`` in this
+     script's ``--tp-worker``, the model built at that depth; ``--device
+     cuda:0 --model-axis M --time-collectives``) on (1, 2): phase 9's
+     lock-step shapes (4 × 4,608 + 32) dense and beam 64 and an engine
+     burst of 8 × 4,096 + 32 at beam 64, and on (1, 4) the dense
+     lock-step; (b)
+     deepseek-moe-16b at full width, 14 of its 28 layers (printed as
+     ``reduced``), on (1, 4), 16 of its 64 experts a rank (this script
+     with ``--tp-worker``): lock-step 4 × 2,048 + 32, dense; (c) hymba-1.5b at full width, 4 of its 32 layers
+     (printed as ``reduced``), on (1, 2), 25
      heads whole on each rank and its 50 SSD heads split, under
      ``sharding_hints``: the engine (8 lanes, pages of 256) on a burst of 8
      requests of 1 to 4,096 prompt tokens, 32 tokens each, dense, and a
@@ -220,8 +225,18 @@ Phases, each fatal on failure:
      full width, cut in depth (printed as ``reduced``): (a) stablelm-3b, 4
      of 32 layers, on (1, 4); (b) deepseek-moe-16b, 2 of 28 layers, on
      (1, 4), 16 experts a rank; (c) hymba-1.5b, 2 of 32 layers, on (2, 2)
-     under ``sharding_hints``. Fatal: each rank's parameter and Adagrad
-     state bytes the one-rank split ÷ tp plus whole, exactly; one step's
+     under ``sharding_hints``, FSDP over ``data``; (d) deepseek-moe-16b, 2
+     of 28 layers, on (2, 2), FSDP, and one step's gradients in bf16 (on
+     its first layer) without and with ``fsdp_gather_weights``, bit-equal,
+     the expert
+     leaves' gather bytes exactly half, the same calls; (e) stablelm-3b, 2
+     of 32 layers, on (2, 2) with the ``softmax`` head and the dense
+     embedding, FSDP. Fatal: each rank's parameter and Adagrad state bytes
+     the one-rank bytes over ``model`` ÷ tp, over ``data`` ÷ dp, over both
+     ÷ (dp·tp), plus whole, exactly; on (2, 2) the peak a rank below its
+     parameters and their gradients, two gathered layers and one rank's
+     activations (its peak less twice its parameters), and one
+     reduce-scatter a cut leaf a step; one step's
      gradient of every leaf within 1e-4 relative RMS of one rank's
      (each rank's part against its slice); 3 steps' losses within 1e-5
      relative and the parameters within the reference's bounds; the
@@ -229,10 +244,11 @@ Phases, each fatal on failure:
      (b)'s layer-0 routing bit-equal to one rank's; (c) hinted gradients
      within 1e-4 of the unhinted; ``sampled_head_loss`` once a step a rank,
      ``segment_stats`` 3 a step a rank (the head's and the embedding's row
-     sums; 6 on (2, 2), with their sums over ``data``) and no
-     ``flash_attention``. Printed (line ``tp_train``): ms a step a
-     rank, the trunk collectives' calls, bytes and host seconds for the
-     forward, the recompute and the backward, peak memory a rank, the
+     sums; 6 on (2, 2), with their sums over ``data``), none of either for
+     (e)'s dense head, and no ``flash_attention``. Printed (line
+     ``tp_train``): ms a step a rank, the trunk's ``model`` collectives'
+     and FSDP's calls, bytes and host seconds for the forward, the
+     recompute and the backward, peak memory a rank and its bound, the
      card; line ``tp_train_path``; every rank's launches join the
      ``kernels`` line;
  16. print the ``kernels`` JSON line and, last, the device line.
@@ -3277,6 +3293,15 @@ MESH_PARAM_TOL = dict(atol=1e-4, rtol=1e-3)          # tests/test_parallel.py:65
 MESH_ENGINE_BATCH, MESH_ENGINE_PROMPT = 8, 4096
 
 
+def rank_bytes(b: dict, dp: int, tp: int) -> int:
+    """What a rank of (dp, tp) holds of a state whose one-rank bytes ``b``
+    (``launch.train.state_bytes``) split over ``model`` only, over ``data``
+    only, over both, and whole: exactly model / tp + data / dp + both /
+    (dp·tp) + whole (``sharding.SplitBytes.a_rank``)."""
+    from repro_torch.parallel.sharding import SplitBytes
+    return SplitBytes(*(b[k] for k in SplitBytes._fields)).a_rank((dp, tp))
+
+
 def mesh_ms(fn, iters: int = TIMING_ITERS) -> float:
     """Host ms a call, each ending in a synchronize, after one untimed: a
     rank's collective waits for the others, so device events would time
@@ -3414,11 +3439,11 @@ def mesh_train(mesh, dev, seed, out_dir) -> dict:
     batch = lambda s: {k: torch.as_tensor(v).to(dev) for k, v in make(s).items()}  # noqa: E731
     state = fresh(mesh)
     nbytes = launch_train.state_bytes(cfg, ocfg, state, mesh)
-    tp = sharding.size(mesh, "model")
+    dp, tp = sharding.size(mesh, "data"), sharding.size(mesh, "model")
     for name, b in nbytes.items():
-        check(b["rank"] == b["split"] // tp + b["whole"],
+        check(b["rank"] == rank_bytes(b, dp, tp),
               f"{name}: rank {dist.get_rank()} holds {b['rank']} bytes, not "
-              f"{b['split']} / {tp} + {b['whole']}")
+              f"{rank_bytes(b, dp, tp)} ({b})")
     step = train_lib.make_train_step(cfg, hcfg, ocfg, mesh=mesh)
     names = ("sampled_head_loss", "segment_stats")
     torch.cuda.synchronize()
@@ -3426,6 +3451,8 @@ def mesh_train(mesh, dev, seed, out_dir) -> dict:
         getattr(ops, name).launches = 0
     losses, step_ms = [], []
     data_sum = dict(bytes=[], seconds=[])
+    collectives.FSDP.reset()
+    collectives.FSDP.timed = True
     with swapped(collectives, all_reduce_over_data=timed_data_sum(data_sum)):
         for s in range(MESH_TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -3433,6 +3460,8 @@ def mesh_train(mesh, dev, seed, out_dir) -> dict:
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
+    collectives.FSDP.timed = False
+    fsdp = {p: dict(c) for p, c in collectives.FSDP.phases.items()}
     launches = {name: getattr(ops, name).launches for name in names}
     ckpt = str(Path(out_dir) / "ckpt")
     write_sharded_checkpoint(ckpt, MESH_TRAIN_STEPS, state, mesh, cfg)
@@ -3447,6 +3476,7 @@ def mesh_train(mesh, dev, seed, out_dir) -> dict:
     out = dict(arch=LM_ARCH, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
                batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ, optimizer=MESH_TRAIN_OPT,
                loss=losses, ms_per_step=step_ms, launches=launches, bytes=nbytes,
+               fsdp_collectives=fsdp,
                # The first step builds kernels and warms the allocator.
                data_sum=dict(data_sum, share_of_steps_after_the_first=sum(
                    data_sum["seconds"][1:]) / (1e-3 * sum(step_ms[1:]))),
@@ -3582,10 +3612,15 @@ def mesh_path(dev, seed, card) -> dict:
 
 # (a): the serving launcher on h2o-danube-3-4b, (model ranks, path).
 TP_PATHS = ((2, "dense"), (2, "beam"), (2, "engine"), (4, "dense"))
+# (a) runs 8 of the 24 layers at full width (printed as ``reduced``): cut
+# for the time limit once phase 15 took FSDP's cases (phase 9 serves the
+# whole depth on one rank).
+TP_DANUBE_LAYERS = 8
 TP_MOE_ARCH, TP_MOE_RANKS = "deepseek-moe-16b", 4
+TP_MOE_LAYERS = 14               # of 28, full width: (b)'s depth, cut for the time limit
 TP_HYB_ARCH, TP_HYB_RANKS = "hymba-1.5b", 2
 TP_HYB_LENGTHS = (1, 586, 1171, 1756, 2341, 2926, 3511, 4096)   # one burst, 8 lanes
-TP_HYB_LAYERS = 8                # of 32, full width: (c)'s depth, cut for the time limit
+TP_HYB_LAYERS = 4                # of 32, full width: (c)'s depth, cut for the time limit
 TP_HYB_PREFILL = (2, 4096)       # the hinted prefill's (B, S): S even, so the hint splits it
 # Sharded against one rank, bf16: each rank's part of a sum over heads,
 # d_ff or experts is a float32 partial (a bf16 GEMM writing float32), the
@@ -3610,9 +3645,9 @@ def tp_expected_bytes(cfg, tp: int) -> dict:
     them), split over ``model`` and whole, and what a rank of ``tp`` holds."""
     from repro_torch.parallel import sharding
     full = transformer.init_params(torch.Generator(), cfg, device="meta", cast=True)
-    split, whole = sharding.split_bytes({"layers": full["layers"]}, cfg, (1, tp))
-    return dict(one_rank=sharding.tree_bytes(full["layers"]), split=split, whole=whole,
-                rank=split // tp + whole)
+    b = sharding.split_bytes({"layers": full["layers"]}, cfg, (1, tp))
+    return dict(one_rank=sharding.tree_bytes(full["layers"]), split=b.model, whole=b.whole,
+                rank=b.a_rank((1, tp)))
 
 
 def tp_scores_gate(ref: dict, parts: list, vocab: int) -> dict:
@@ -3675,11 +3710,14 @@ def tp_common_gates(name: str, reports: list, one_tokens, expected: dict) -> flo
 
 
 def tp_danube(dev, seed, card, total) -> list:
-    """(a) h2o-danube-3-4b at full width and depth through the serving
-    launcher, every rank on the card: (1, 2) dense, beam 64 and the engine
-    burst, (1, 4) dense; the one-rank runs of the same flags here first."""
+    """(a) h2o-danube-3-4b at full width, TP_DANUBE_LAYERS of its layers,
+    through the serving launcher's steps, every rank on the card: (1, 2)
+    dense, beam 64 and the engine burst, (1, 4) dense; the one-rank runs of
+    the same flags here first."""
     cfg, params, state, hcfg = serve.build(SERVE_ARCH, reduced=False, head="adversarial_ns",
-                                           seed=seed + 42, device=dev)
+                                           seed=seed + 42, device=dev,
+                                           num_layers=TP_DANUBE_LAYERS)
+    full_layers = configs.get_config(SERVE_ARCH).num_layers
     one, one_ms, ref = {}, {}, {}
     for path in ("dense", "beam", "engine"):
         args = serve.parse_args(mesh_serve_args(path, seed) + ["--device", "cuda"])
@@ -3695,7 +3733,7 @@ def tp_danube(dev, seed, card, total) -> list:
                 if path == "dense":
                     ref[path] = serve.teacher_forced(args, cfg, params, state, hcfg, dev,
                                                      run["tokens"], run=run)
-    del params, state
+    del params, state, run
     torch.cuda.empty_cache()
     rows = []
     for tp, path in TP_PATHS:
@@ -3706,10 +3744,12 @@ def tp_danube(dev, seed, card, total) -> list:
             if path == "dense":
                 np.save(Path(tmp, "teacher.npy"), np.asarray(one[path], np.int64))
                 teacher = ["--teacher-tokens", str(Path(tmp, "teacher.npy"))]
-            out = torchrun(tp, ["-m", "repro_torch.launch.serve", *mesh_serve_args(path, seed),
-                                "--device", MESH_DEVICE, "--model-axis", str(tp),
-                                "--shard-scores", "--time-collectives", "--report-dir", tmp,
-                                *teacher], timeout=600)
+            argv = [*mesh_serve_args(path, seed), "--device", MESH_DEVICE, "--model-axis",
+                    str(tp), "--shard-scores", "--time-collectives", "--report-dir", tmp,
+                    *teacher]
+            Path(tmp, "argv.json").write_text(json.dumps(argv))
+            out = torchrun(tp, [__file__, "--tp-worker", tmp, "--tp-case", "danube",
+                                "--seed", str(seed)], timeout=600)
             reports = [json.loads(Path(tmp, f"serve_rank{r}.json").read_text())
                        for r in range(tp)]
             forced = ([torch.load(Path(tmp, f"serve_rank{r}.pt"), weights_only=False)
@@ -3718,6 +3758,7 @@ def tp_danube(dev, seed, card, total) -> list:
         check(f"over {tp} ranks, backend gloo" in out, f"{name}: {out[:300]}")
         equal_share = tp_common_gates(name, reports, one[path], expected)
         row = dict(arch=SERVE_ARCH, path=path, mesh=[1, tp], card=card,
+                   reduced={"num_layers": [full_layers, TP_DANUBE_LAYERS]},
                    tokens_equal_one_rank_share=equal_share, bytes=expected,
                    one_rank_ms_per_token=one_ms.get(path))
         if path == "engine":
@@ -3803,6 +3844,15 @@ def tp_moe_f32(args, dev, seed: int, tokens=None, mesh=None) -> tuple:
     return out
 
 
+def tp_danube_worker(out_dir: str) -> int:
+    """One rank of an (a) world: the serving launcher (``serve.main``) on
+    the flags in ``argv.json``, its model built at TP_DANUBE_LAYERS
+    layers."""
+    build = serve.build
+    serve.build = lambda *a, **kw: build(*a, num_layers=TP_DANUBE_LAYERS, **kw)
+    return serve.main(json.loads(Path(out_dir, "argv.json").read_text()))
+
+
 def tp_worker(out_dir: str, case: str, seed: int) -> int:
     """One rank of a phase 14 world (started by ``torchrun``): (b) the
     MoE model on (1, 4) or (c) the hybrid one on (1, 2), under the hints;
@@ -3824,7 +3874,7 @@ def tp_worker(out_dir: str, case: str, seed: int) -> int:
         big["forced_f32"] = tp_moe_f32(args, dev, build_seed, ref["tokens_f32"], mesh)[1]
     cfg, params, state, hcfg = serve.build(
         arch, reduced=False, head="adversarial_ns", seed=build_seed, device=dev, mesh=mesh,
-        num_layers=None if case == "moe" else TP_HYB_LAYERS)
+        num_layers=TP_MOE_LAYERS if case == "moe" else TP_HYB_LAYERS)
     res = {"rank": r, "backend": dist.get_backend(),
            "bytes": serve.param_bytes(cfg, params, mesh)}
     torch.cuda.synchronize()
@@ -3907,12 +3957,14 @@ def tp_worker(out_dir: str, case: str, seed: int) -> int:
 
 
 def tp_moe(dev, seed, card, total) -> dict:
-    """(b) deepseek-moe-16b at full width and depth on (1, 4), 16 of its 64
-    experts a rank: the one-rank lock-step run here (layer 0's routing and
-    MoE output recorded on its real prefill input), then the world."""
+    """(b) deepseek-moe-16b at full width, TP_MOE_LAYERS of its layers, on
+    (1, 4), 16 of its 64 experts a rank: the one-rank lock-step run here
+    (layer 0's routing and MoE output recorded on its real prefill input),
+    then the world."""
     from repro_torch.models import moe as moe_lib
     cfg, params, state, hcfg = serve.build(TP_MOE_ARCH, reduced=False, head="adversarial_ns",
-                                           seed=seed + 43, device=dev)
+                                           seed=seed + 43, device=dev,
+                                           num_layers=TP_MOE_LAYERS)
     args = serve.parse_args(tp_moe_args(seed, "cuda"))
     routes = []
     with swapped(moe_lib, _route=route_recorder(routes)), torch.no_grad(), \
@@ -3943,6 +3995,8 @@ def tp_moe(dev, seed, card, total) -> dict:
                  for r in range(TP_MOE_RANKS)]
     equal_share = tp_common_gates(name, reports, run["tokens"].tolist(), expected)
     row = dict(arch=TP_MOE_ARCH, path="dense", mesh=[1, TP_MOE_RANKS], card=card,
+               reduced={"num_layers": [configs.get_config(TP_MOE_ARCH).num_layers,
+                                       TP_MOE_LAYERS]},
                experts_per_rank=cfg.n_experts // TP_MOE_RANKS, reference_process_gib=held_gib,
                tokens_equal_one_rank_share=equal_share, bytes=expected, one_rank_ms_per_token=one_ms,
                layer0_drops_one_rank=moe_drops(cfg, idx0),
@@ -4064,10 +4118,13 @@ def sharded_trunk_path(dev, seed, card) -> dict:
 # ---------------------------------------------------------------------------
 
 TPT_RANKS = 4                    # one world of 4 ranks on the one card, over gloo
-# (name, arch, layers kept, model ranks, hinted): full width, cut in depth.
-TPT_CASES = (("stablelm", "stablelm-3b", 4, 4, False),
-             ("deepseek_moe", "deepseek-moe-16b", 2, 4, False),
-             ("hymba", "hymba-1.5b", 2, 2, True))
+# (name, arch, layers kept, model ranks, hinted, head, FSDP hint check): full
+# width, cut in depth. (d) and (e) run FSDP on (2, 2) as (c) does.
+TPT_CASES = (("stablelm", "stablelm-3b", 4, 4, False, "adversarial_ns", False),
+             ("deepseek_moe", "deepseek-moe-16b", 2, 4, False, "adversarial_ns", False),
+             ("hymba", "hymba-1.5b", 2, 2, True, "adversarial_ns", False),
+             ("deepseek_moe_fsdp", "deepseek-moe-16b", 2, 2, False, "adversarial_ns", True),
+             ("stablelm_softmax", "stablelm-3b", 2, 2, False, "softmax", False))
 TPT_BATCH, TPT_SEQ, TPT_STEPS = 2, 256, 3
 # SGD, as phase 13: its update is linear in the gradient (Adagrad's first
 # step turns the float32 reordering of a sum at |g| near eps into
@@ -4077,14 +4134,28 @@ TPT_OPT = MESH_TRAIN_OPT
 TPT_GRAD_REL_RMS = 1e-4          # each leaf's gradient against one rank's
 TPT_TIMEOUT_S = 900
 TPT_COUNTED = ("sampled_head_loss", "segment_stats", "flash_attention")
+TPT_EXPERTS = ("moe/w_gate", "moe/w_up", "moe/w_down")
+TPT_HINT_LAYERS = 1              # (d)'s bf16 hint check: its first layer (the time limit)
+# The peak a rank may reach computing one step's gradients: what it holds
+# (its parameters and state), its gradients, two gathered layers (the one
+# being run or recomputed, and its gradient or the gather's own buffers),
+# and the activations one rank's gradient on the whole global batch needs
+# beyond what it holds and its gradients (that call's peak less those),
+# an upper bound on a rank's with half the batch and a part of each
+# layer. The optimizer's update is the same code with or without FSDP;
+# the steps' peak is printed beside.
+TPT_PEAK_GATHERED_LAYERS = 2
 
 
-def tpt_launches_a_rank(dp: int) -> dict:
-    """The launches of one rank's TPT_STEPS steps: the head's loss once a
-    step; ``segment_stats`` for the head's row sums (dw and db) and the
-    embedding's (dw), 3 a step, and on a mesh with ``data`` > 1 the 3 sums
-    of those rows over ``data`` (``collectives.sum_rows_over_data``); no
-    ``flash_attention`` (the trunk trains on the plain attention)."""
+def tpt_launches_a_rank(dp: int, head: str) -> dict:
+    """The launches of one rank's TPT_STEPS steps. The sampled head: its
+    loss once a step; ``segment_stats`` for the head's row sums (dw and db)
+    and the embedding's (dw), 3 a step, and on a mesh with ``data`` > 1
+    the 3 sums of those rows over ``data`` (``collectives.sum_rows_over_data``).
+    The dense ``softmax`` head and the dense embedding: none (plain torch
+    under autograd). No ``flash_attention`` (the plain attention)."""
+    if head == "softmax":
+        return {"sampled_head_loss": 0, "segment_stats": 0, "flash_attention": 0}
     return {"sampled_head_loss": TPT_STEPS, "segment_stats": (3 if dp == 1 else 6) * TPT_STEPS,
             "flash_attention": 0}
 # The training launcher under torchrun on (1, 2), bf16 (the reduced config's
@@ -4105,22 +4176,30 @@ def tpt_batch(cfg, seed: int, dev):
     return lambda s: {k: torch.as_tensor(v).to(dev) for k, v in make(s).items()}
 
 
-def tpt_reference(name, arch, layers, dev, seed, tmp) -> dict:
+def tpt_reference(name, arch, layers, head, dev, seed, tmp) -> dict:
     """One rank's gradients of the first step and parameters after
     TPT_STEPS steps, written to ``tmp`` for the ranks to slice (read
-    mapped, never gathered), its losses, layer 0's routing and its ms a
-    step; everything on the card freed after."""
+    mapped, never gathered), its losses, layer 0's routing, its ms a step
+    and the activations its gradient needed (the peak of that call less
+    what it held and the gradients); everything on the card freed after."""
     from repro_torch.models import moe as moe_lib
+    from repro_torch.parallel import sharding
     cfg = tpt_cfg(arch, layers)
-    hcfg = lm_head.head_config(cfg, "adversarial_ns", reg=1e-4)
+    hcfg = lm_head.head_config(cfg, head, reg=1e-4)
     ocfg = optim.OptimizerConfig(**TPT_OPT)
     state = train_lib.init_train_state(torch.Generator(device=dev).manual_seed(seed),
-                                       cfg, ocfg, "adversarial_ns", device=dev)
+                                       cfg, ocfg, head, device=dev)
     batch = tpt_batch(cfg, seed, dev)
     routes = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
     with swapped(moe_lib, _route=route_recorder(routes)):
         grads, _ = train_step_lib.make_grad_fn(cfg, hcfg)(state, batch(0),
                                                          step_generator(seed, 0, dev))
+    torch.cuda.synchronize()
+    activations = (torch.cuda.max_memory_allocated(dev) - held
+                   - sharding.tree_bytes(grads))
     torch.save(tree_util.tree_map(lambda t: t.cpu(), grads), Path(tmp, f"{name}_grads.pt"))
     del grads
     step = train_lib.make_train_step(cfg, hcfg, ocfg)
@@ -4136,13 +4215,15 @@ def tpt_reference(name, arch, layers, dev, seed, tmp) -> dict:
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(losses=losses, ms_per_step=ms, idx0=routes[0][1] if routes else None)
+    return dict(losses=losses, ms_per_step=ms, idx0=routes[0][1] if routes else None,
+                activation_bytes=activations)
 
 
 def tpt_grad_errors(cfg, mesh, grads, ref) -> tuple:
     """The largest relative RMS over the leaves of a rank's gradients
-    against its slice of one rank's (the head's and the embedding's
-    ``SparseRows``, the same on every rank, whole), and its leaf."""
+    against its slice of one rank's (a sampled head's and a sparse
+    embedding's ``SparseRows``, the same on every rank, whole; a dense
+    head's and embedding's rows the rank's slice), and its leaf."""
     from repro_torch.parallel import sharding
 
     def err(got, want) -> float:        # a leaf whose reference is all zero: exact
@@ -4151,7 +4232,8 @@ def tpt_grad_errors(cfg, mesh, grads, ref) -> tuple:
         return rel_rms(got, want)
 
     worst, at = 0.0, None
-    for key in ("head", "embed"):
+    rows = [k for k in ("head", "embed") if sparse_lib.is_sparse(grads[k])]
+    for key in rows:
         g, r = grads[key], ref[key]
         n = int(max(int(g.ids.max()), int(r.ids.max()))) + 1
         for part in ("dw", "db"):
@@ -4164,10 +4246,10 @@ def tpt_grad_errors(cfg, mesh, grads, ref) -> tuple:
             e = err(a, b)
             if e > worst:
                 worst, at = e, f"{key}/{part}"
-    trunk = {k: v for k, v in ref.items() if k not in ("head", "embed")}
-    want = sharding.shard_train_state(trunk, mesh, cfg)
+    rest = {k: v for k, v in ref.items() if k not in rows}
+    want = sharding.shard_train_state(rest, mesh, cfg)
     for (path, r), g in zip(tree_util.flatten_with_paths(want)[0],
-                            tree_util.leaves({k: grads[k] for k in trunk})):
+                            tree_util.leaves({k: grads[k] for k in rest})):
         e = err(g, r.to(g.device))
         if e > worst:
             worst, at = e, "/".join(path)
@@ -4181,56 +4263,107 @@ def whole_digest(cfg, mesh, params) -> str:
     h = hashlib.sha256()
     for (path, x), (_, sp) in zip(tree_util.flatten_with_paths(params)[0],
                                   sharding.train_state_spec(cfg, mesh, params)):
-        if "model" not in sp:
+        if not sharding.split_axes(sp, mesh):
             h.update(x.detach().cpu().numpy().tobytes())
     return h.hexdigest()
 
 
-def tpt_case(name, arch, layers, tp, hinted, dev, seed, tmp, ref) -> dict:
+def tpt_fsdp_hint(cfg, hcfg, mesh, state, batch, seed, dev) -> dict:
+    """(d)'s hints in bf16, on the case's first TPT_HINT_LAYERS layers: one
+    step's gradients without and with ``fsdp_gather_weights`` (the expert
+    leaves cast to bf16 on each rank's part before the gather)
+    bit-equal, the expert leaves' gather bytes halved and every other
+    count the same. Both under ``torch.use_deterministic_algorithms``: the
+    MoE's token gathers have a backward that adds with atomics on the
+    card, in no fixed order."""
+    from repro_torch.parallel.collectives import FSDP, TRUNK
+    from repro_torch.parallel.hints import sharding_hints
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16", num_layers=TPT_HINT_LAYERS)
+    state = state._replace(params={**state.params,
+                                   "layers": state.params["layers"][:TPT_HINT_LAYERS]})
+    runs = {}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for name, hints in (("plain", None), ("hinted", dict(fsdp_gather_weights=True))):
+        FSDP.reset()
+        TRUNK.reset()
+        with sharding_hints(mesh, **hints) if hints else contextlib.nullcontext():
+            grads, m = train_step_lib.make_grad_fn(bcfg, hcfg, mesh=mesh)(
+                state, batch(0), step_generator(seed, 0, dev))
+        runs[name] = (tree_util.leaves(grads), float(m["loss"]), dict(FSDP.leaves),
+                      {p: c["calls"] for p, c in FSDP.phases.items()},
+                      {p: c["calls"] for p, c in TRUNK.phases.items()})
+        del grads
+    torch.use_deterministic_algorithms(deterministic)
+    (ga, la, ba, fa, ta), (gb, lb, bb, fb, tb) = runs["plain"], runs["hinted"]
+    equal = la == lb and all(torch.equal(x, y) for x, y in zip(ga, gb)
+                             if isinstance(x, torch.Tensor))
+    halved = all(bb[k] == (v // 2 if k in TPT_EXPERTS else v) for k, v in ba.items()) and \
+        all(k in ba for k in TPT_EXPERTS)
+    return dict(bit_equal=equal, expert_bytes_halved=halved, same_calls=fa == fb and ta == tb,
+                gather_bytes={"plain": ba, "hinted": bb})
+
+
+def tpt_case(name, arch, layers, tp, hinted, head, fsdp_hint, dev, seed, tmp, ref) -> dict:
     """One case on one rank of the world (module docstring's phase 15)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe as moe_lib
     from repro_torch.parallel import sharding
-    from repro_torch.parallel.collectives import TRUNK
+    from repro_torch.parallel.collectives import FSDP, TRUNK
     from repro_torch.parallel.hints import sharding_hints
     mesh = make_host_mesh(tp, MESH_DEVICE, timeout_s=MESH_TIMEOUT_S)
     cfg = tpt_cfg(arch, layers)
-    hcfg = lm_head.head_config(cfg, "adversarial_ns", reg=1e-4)
+    hcfg = lm_head.head_config(cfg, head, reg=1e-4)
     ocfg = optim.OptimizerConfig(**TPT_OPT)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state = train_lib.init_train_state(torch.Generator(device=dev).manual_seed(seed), cfg,
-                                       ocfg, "adversarial_ns", device=dev, mesh=mesh)
+                                       ocfg, head, device=dev, mesh=mesh)
     adagrad = optim.OptimizerConfig(name="adagrad")
     nbytes = launch_train.state_bytes(cfg, adagrad, state._replace(
         opt_state=init_opt_state(adagrad, state.params)), mesh)
     batch = tpt_batch(cfg, seed, dev)
     hint = (lambda: sharding_hints(mesh)) if hinted else contextlib.nullcontext
     routes = []
+    t_case = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
     with swapped(moe_lib, _route=route_recorder(routes)), hint():
         grads, _ = train_step_lib.make_grad_fn(cfg, hcfg, mesh=mesh)(
             state, batch(0), step_generator(seed, 0, dev))
+    torch.cuda.synchronize()
     refs = torch.load(Path(tmp, f"{name}_grads.pt"), mmap=True, weights_only=False)
-    out = dict(rank=dist.get_rank(), bytes=nbytes)
+    out = dict(rank=dist.get_rank(), bytes=nbytes, grad_bytes=sharding.tree_bytes(grads),
+               held_bytes=held, peak_bytes=torch.cuda.max_memory_allocated(dev))
     out["grad_rel_rms"], out["grad_worst_leaf"] = tpt_grad_errors(cfg, mesh, grads, refs)
+    trunk = lambda g: tree_util.leaves({k: v for k, v in g.items()  # noqa: E731
+                                        if k not in ("head", "embed")})
     if hinted:
         plain, _ = train_step_lib.make_grad_fn(cfg, hcfg, mesh=mesh)(
             state, batch(0), step_generator(seed, 0, dev))
         out["hint_vs_plain_rel_rms"] = max(
-            rel_rms(a, b) for a, b in zip(tree_util.leaves({k: v for k, v in grads.items()
-                                                            if k not in ("head", "embed")}),
-                                          tree_util.leaves({k: v for k, v in plain.items()
-                                                            if k not in ("head", "embed")})))
+            rel_rms(a, b) for a, b in zip(trunk(grads), trunk(plain)))
         del plain
-    if ref["idx0"] is not None:
-        out["layer0_route_equal"] = bool(torch.equal(routes[0][1], ref["idx0"]))
+    if ref["idx0"] is not None:     # a data rank routes its rows of the batch
+        want = ref["idx0"][sharding.batch_slice(ref["idx0"].shape[0], mesh)]
+        out["layer0_route_equal"] = bool(torch.equal(routes[0][1], want))
     del grads, refs
+    if fsdp_hint:
+        t0 = time.perf_counter()
+        out["fsdp_hint"] = tpt_fsdp_hint(cfg, hcfg, mesh, state, batch, seed, dev)
+        out["fsdp_hint"]["seconds"] = time.perf_counter() - t0
     step = train_lib.make_train_step(cfg, hcfg, ocfg, mesh=mesh)
     for k in TPT_COUNTED:
         getattr(ops, k).launches = 0
     TRUNK.reset()
-    TRUNK.timed = True
+    FSDP.reset()
+    TRUNK.timed = FSDP.timed = True
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     losses, ms = [], []
     with hint():
         for s in range(TPT_STEPS):
@@ -4240,11 +4373,21 @@ def tpt_case(name, arch, layers, tp, hinted, dev, seed, tmp, ref) -> dict:
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
-    TRUNK.timed = False
-    out.update(losses=losses, ms_per_step=ms, trunk_collectives=dict(TRUNK.phases),
+    TRUNK.timed = FSDP.timed = False
+    dp = TPT_RANKS // tp
+    fwd = FSDP.phases["forward"]
+    layer = int(fwd["bytes"] / fwd["calls"] * dp) if fwd["calls"] else 0
+    out.update(losses=losses, ms_per_step=ms,
+               trunk_collectives={p: dict(c) for p, c in TRUNK.phases.items()},
+               fsdp_collectives={p: dict(c) for p, c in FSDP.phases.items()},
                launches={k: getattr(ops, k).launches for k in TPT_COUNTED},
-               peak_bytes=torch.cuda.max_memory_allocated(dev),
-               whole_digest=whole_digest(cfg, mesh, state.params))
+               steps_peak_bytes=torch.cuda.max_memory_allocated(dev),
+               peak_bound=(held + out["grad_bytes"] + TPT_PEAK_GATHERED_LAYERS * layer
+                           + ref["activation_bytes"]),
+               gathered_layer_bytes=layer, whole_digest=whole_digest(cfg, mesh, state.params),
+               cut_leaves=sum(p[:2] == ("layers", "0") and "data" in ax for p, ax in
+                              sharding.split_dims(cfg, mesh, state.params).items()),
+               case_seconds=time.perf_counter() - t_case)
     want = sharding.shard_train_state(torch.load(Path(tmp, f"{name}_params.pt"), mmap=True,
                                                  weights_only=False), mesh, cfg)
     worst = 0.0
@@ -4269,9 +4412,9 @@ def tp_train_worker(out_dir: str, seed: int) -> int:
     dev = torch.device(MESH_DEVICE)
     refs = torch.load(Path(out_dir, "ref.pt"), weights_only=False)
     res = {}
-    for name, arch, layers, tp, hinted in TPT_CASES:
-        res[name] = tpt_case(name, arch, layers, tp, hinted, dev, seed + 45, out_dir,
-                             refs[name])
+    for name, arch, layers, tp, hinted, head, fsdp_hint in TPT_CASES:
+        res[name] = tpt_case(name, arch, layers, tp, hinted, head, fsdp_hint, dev, seed + 45,
+                             out_dir, refs[name])
     Path(out_dir, f"rank{dist.get_rank()}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
     return 0
@@ -4286,8 +4429,8 @@ def tp_train_path(dev, seed, card) -> dict:
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
-        refs = {name: tpt_reference(name, arch, layers, dev, seed + 45, tmp)
-                for name, arch, layers, _, _ in TPT_CASES}
+        refs = {name: tpt_reference(name, arch, layers, head, dev, seed + 45, tmp)
+                for name, arch, layers, _, _, head, _ in TPT_CASES}
         torch.save(refs, Path(tmp, "ref.pt"))
         t_world = time.perf_counter()
         torchrun(TPT_RANKS, [__file__, "--tp-train-worker", tmp, "--seed", str(seed)],
@@ -4295,36 +4438,47 @@ def tp_train_path(dev, seed, card) -> dict:
         world_s = time.perf_counter() - t_world
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(TPT_RANKS)]
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    for name, arch, layers, tp, hinted in TPT_CASES:
+    for name, arch, layers, tp, hinted, head, fsdp_hint in TPT_CASES:
         reports = [r[name] for r in ranks]
         ref = refs[name]
-        what = f"{arch} at {layers} layers on ({TPT_RANKS // tp}, {tp})"
+        dp = TPT_RANKS // tp
+        what = f"{arch} at {layers} layers on ({dp}, {tp}), head {head}"
         loss_err = max(abs(a - b) / abs(b) for rep in reports
                        for a, b in zip(rep["losses"], ref["losses"]))
-        row = dict(arch=arch, mesh=[TPT_RANKS // tp, tp], hinted=hinted, card=card,
+        row = dict(arch=arch, mesh=[dp, tp], hinted=hinted, head=head, card=card,
                    reduced={"num_layers": [configs.get_config(arch).num_layers, layers]},
                    batch=TPT_BATCH, seq=TPT_SEQ, steps=TPT_STEPS, optimizer=TPT_OPT,
                    one_rank_losses=ref["losses"], one_rank_ms_per_step=ref["ms_per_step"],
+                   one_rank_activation_bytes=ref["activation_bytes"],
                    loss_rel_err=loss_err,
                    grad_rel_rms=max(rep["grad_rel_rms"] for rep in reports),
                    ranks=[dict(rank=rep["rank"], bytes=rep["bytes"],
                                ms_per_step=rep["ms_per_step"],
                                trunk_collectives=rep["trunk_collectives"],
+                               fsdp_collectives=rep["fsdp_collectives"],
+                               held_gib=rep["held_bytes"] / 2 ** 30,
+                               grad_gib=rep["grad_bytes"] / 2 ** 30,
                                peak_gib=rep["peak_bytes"] / 2 ** 30,
+                               peak_bound_gib=rep["peak_bound"] / 2 ** 30,
+                               steps_peak_gib=rep["steps_peak_bytes"] / 2 ** 30,
+                               case_seconds=rep["case_seconds"],
+                               gathered_layer_bytes=rep["gathered_layer_bytes"],
                                launches=rep["launches"],
                                grad_worst_leaf=rep["grad_worst_leaf"],
                                param_excess_over_tol=rep["param_excess_over_tol"],
                                **{k: rep[k] for k in ("layer0_route_equal",
-                                                      "hint_vs_plain_rel_rms") if k in rep})
+                                                      "hint_vs_plain_rel_rms", "fsdp_hint")
+                                  if k in rep})
                               for rep in reports])
         print(json.dumps({"tp_train": row}))
         check(loss_err <= MESH_LOSS_RTOL, f"{what}: losses {loss_err} from one rank's")
+        want_launches = tpt_launches_a_rank(dp, head)
         for rep in reports:
             r = rep["rank"]
             for part, b in rep["bytes"].items():
-                check(b["rank"] == b["split"] // tp + b["whole"],
+                check(b["rank"] == rank_bytes(b, dp, tp),
                       f"{what}: rank {r} holds {b['rank']} {part} bytes, not "
-                      f"{b['split']} / {tp} + {b['whole']}")
+                      f"{rank_bytes(b, dp, tp)} ({b})")
             check(rep["grad_rel_rms"] <= TPT_GRAD_REL_RMS,
                   f"{what}: rank {r}'s gradient of {rep['grad_worst_leaf']} "
                   f"{rep['grad_rel_rms']} relative RMS from one rank's")
@@ -4335,9 +4489,22 @@ def tp_train_path(dev, seed, card) -> dict:
             check(rep.get("hint_vs_plain_rel_rms", 0.0) <= TPT_GRAD_REL_RMS,
                   f"{what}: rank {r}'s hinted gradients {rep.get('hint_vs_plain_rel_rms')} "
                   "from the unhinted")
-            check(rep["launches"] == tpt_launches_a_rank(TPT_RANKS // tp),
-                  f"{what}: rank {r}'s launches {rep['launches']}, not "
-                  f"{tpt_launches_a_rank(TPT_RANKS // tp)}")
+            if fsdp_hint:
+                h = rep["fsdp_hint"]
+                check(h["bit_equal"] and h["expert_bytes_halved"] and h["same_calls"],
+                      f"{what}: rank {r}'s fsdp_gather_weights run {h}")
+            if dp > 1:
+                check(rep["peak_bytes"] <= rep["peak_bound"],
+                      f"{what}: rank {r}'s peak {rep['peak_bytes']} B over one step's "
+                      f"gradients above what it held, its gradients, "
+                      f"{TPT_PEAK_GATHERED_LAYERS} gathered layers and the activations "
+                      f"({rep['peak_bound']} B)")
+                check(rep["fsdp_collectives"]["backward"]["calls"]
+                      == TPT_STEPS * layers * rep["cut_leaves"],
+                      f"{what}: rank {r}'s reduce-scatters {rep['fsdp_collectives']}, not "
+                      f"{rep['cut_leaves']} a layer a step")
+            check(rep["launches"] == want_launches,
+                  f"{what}: rank {r}'s launches {rep['launches']}, not {want_launches}")
             check(rep["whole_digest"] == reports[0]["whole_digest"],
                   f"{what}: rank {r}'s whole leaves differ from rank 0's")
             for k, n in rep["launches"].items():
@@ -4373,7 +4540,7 @@ def main() -> int:
                         help="run as one rank of phase 13's world (under torchrun)")
     parser.add_argument("--tp-worker", default=None,
                         help="run as one rank of a phase 14 world (under torchrun)")
-    parser.add_argument("--tp-case", default="moe", choices=("moe", "hybrid"))
+    parser.add_argument("--tp-case", default="moe", choices=("moe", "hybrid", "danube"))
     parser.add_argument("--tp-train-worker", default=None,
                         help="run as one rank of phase 15's world (under torchrun)")
     args = parser.parse_args()
@@ -4384,6 +4551,8 @@ def main() -> int:
     if args.mesh_worker:
         return mesh_worker(args.mesh_worker, args.seed)
     if args.tp_worker:
+        if args.tp_case == "danube":
+            return tp_danube_worker(args.tp_worker)
         return tp_worker(args.tp_worker, args.tp_case, args.seed)
     if args.tp_train_worker:
         return tp_train_worker(args.tp_train_worker, args.seed)

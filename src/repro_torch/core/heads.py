@@ -178,7 +178,8 @@ def head_loss(cfg: HeadConfig, params: HeadParams, gen: Generator,
               score_fn: ScoreFn = candidate_scores,
               mask: Optional[torch.Tensor] = None,
               sampler: Optional[NegativeSampler] = None,
-              u: Optional[torch.Tensor] = None):
+              u: Optional[torch.Tensor] = None,
+              denom: Optional[torch.Tensor] = None):
     """Per-strategy training loss, mean over batch. Returns (loss, metrics).
 
     h: (..., K); x_gen: (..., k); y: (...,) int labels; mask: (...,) in
@@ -186,10 +187,13 @@ def head_loss(cfg: HeadConfig, params: HeadParams, gen: Generator,
     (and ``h``) under ``torch.autograd``: the dense path. ``sampler``
     overrides the proposal (default: the one ``cfg.kind`` implies, see
     :func:`sample_negatives`); negatives come from ``generator`` or ``u``.
+    ``denom`` replaces the mask count as the mean's normaliser (a
+    data-parallel rank passes the global batch's count).
     """
     if mask is None:
         mask = torch.ones(y.shape, dtype=torch.float32, device=h.device)
-    denom = mask.sum().clamp(min=1.0)
+    if denom is None:
+        denom = mask.sum().clamp(min=1.0)
 
     def mean(v):
         return (v * mask).sum() / denom

@@ -16,9 +16,9 @@ collective fails instead of hanging.
 
 What a rank holds is the launcher's: both launchers shard the whole model
 over ``model`` (the trunk's heads, ``d_ff``, experts and SSM heads, the
-embedding's and the head's rows), serving its cache by KV heads, training
-its optimizer state with the parameters; nothing is sharded over ``data``
-(FSDP is not ported yet). The reference's ``make_production_mesh`` and its
+embedding's and the head's rows) and each trunk matrix over ``data``
+(FSDP), serving its cache by KV heads, training its optimizer state with
+the parameters. The reference's ``make_production_mesh`` and its
 roofline constants are a TPU pod's; the port's production mesh, with the
 H100's constants, waits for its roofline analysis (ROADMAP Queue 1).
 """

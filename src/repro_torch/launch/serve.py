@@ -39,15 +39,19 @@ Each rank builds only its part of the model, as the reference's
 ``param_spec`` places it over ``model`` (``parallel.sharding``): the
 embedding's and the head's rows, the attention heads, the MLP's and the
 experts' ``d_ff`` or the experts themselves, the SSM heads; the KV cache
-and the paged arena are split by KV heads where they divide. Each block's
-partial sums are reduced over ``model``; the beam path scores through
+and the paged arena are split by KV heads where they divide. With more
+than one ``data`` rank each trunk matrix is cut over ``data`` as well
+(FSDP) and every step gathers each layer over ``data`` before it runs.
+Each block's partial sums are reduced over ``model``; the beam path scores through
 ``sharded_candidate_scores`` and the dense path merges each rank's argmax.
 The ``mesh:`` line gives every rank's parameter and trunk bytes beside the
-one-rank trunk's. ``--shard-scores`` selects the head's lowering, the only
-one the port has, and is kept so that the reference's command lines run.
+one-rank trunk's, split over ``model``, whole, over ``data`` and over
+both. ``--shard-scores`` selects the head's lowering, the only one the
+port has, and is kept so that the reference's command lines run.
 ``--model-axis`` above 1 without ``torchrun`` raises. ``--report-dir``
 makes each rank write its tokens, times, bytes, peak memory, kernel
-launches and the trunk's collectives to ``serve_rank<r>.json`` there;
+launches and the trunk's collectives (``model``'s and FSDP's) to
+``serve_rank<r>.json`` there;
 ``--time-collectives`` times those collectives (the device synchronized
 around each), and ``--teacher-tokens`` makes a lock-step run decode its
 prompts again fed the given tokens, writing the prefill's last hiddens and
@@ -388,7 +392,7 @@ def parse_args(argv=None):
                          "each step's dense scores to --report-dir/serve_rank<r>.pt")
     ap.add_argument("--time-collectives", action="store_true",
                     help="synchronize the device around each of the trunk's model "
-                         "collectives and report their host seconds")
+                         "and FSDP collectives and report their host seconds")
     ap.add_argument("--metrics-jsonl", default=None,
                     help="stream request/serve_step JSONL events "
                          "(DESIGN.md §10) to this path (engine path only)")
@@ -431,15 +435,16 @@ def parse_args(argv=None):
 
 def param_bytes(cfg, params, mesh) -> dict:
     """This process's parameter and trunk bytes, and the one-rank trunk's
-    (from a meta-device build): split over ``model`` and whole, so that a
-    rank of ``tp`` should hold split / tp + whole."""
+    (from a meta-device build) split over ``model`` only, over ``data``
+    only, over both, and whole, so that a rank of (dp, tp) should hold
+    model / tp + data / dp + both / (dp·tp) + whole."""
     full = transformer.init_params(torch.Generator(), cfg, device="meta", cast=True)
-    split, whole = sharding.split_bytes({"layers": full["layers"]}, cfg,
-                                        mesh if mesh is not None else (1, 1))
+    split = sharding.split_bytes({"layers": full["layers"]}, cfg,
+                                 mesh if mesh is not None else (1, 1))
     return {"params": sharding.tree_bytes(params),
             "trunk": sharding.tree_bytes(params["layers"]),
             "trunk_one_rank": sharding.tree_bytes(full["layers"]),
-            "trunk_split": split, "trunk_whole": whole}
+            **{f"trunk_{k}": v for k, v in split._asdict().items()}}
 
 
 def _mesh_line(mesh, nbytes: dict) -> str:
@@ -449,7 +454,8 @@ def _mesh_line(mesh, nbytes: dict) -> str:
     return (f"{mesh_lib.describe(mesh)}; parameter bytes a rank "
             f"{[b['params'] for b in every]}, trunk bytes a rank "
             f"{[b['trunk'] for b in every]} (one rank's trunk {nbytes['trunk_one_rank']}: "
-            f"{nbytes['trunk_split']} split over model, {nbytes['trunk_whole']} whole)")
+            f"{nbytes['trunk_model']} split over model, {nbytes['trunk_whole']} whole) + "
+            f"({nbytes['trunk_data']} split over data, {nbytes['trunk_both']} over both)")
 
 
 def _report(args, mesh, out: dict, tokens, launches: dict, nbytes: dict,
@@ -463,6 +469,7 @@ def _report(args, mesh, out: dict, tokens, launches: dict, nbytes: dict,
            "beam": args.topk_beam, "tokens": [[int(x) for x in row] for row in tokens],
            "launches": launches, "bytes": nbytes,
            "trunk_collectives": dataclasses.asdict(collectives.TRUNK),
+           "fsdp_collectives": dataclasses.asdict(collectives.FSDP),
            "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
            **{k: out[k] for k in ("prefill_ms", "decode_ms", "steps", "wall_ms") if k in out}}
     with open(os.path.join(args.report_dir, f"serve_rank{r}.json"), "w") as f:
@@ -485,8 +492,9 @@ def main(argv=None) -> int:
         raise ValueError("--teacher-tokens needs --lockstep and --report-dir")
     for name in KERNELS:
         getattr(ops, name).launches = 0
-    collectives.TRUNK.reset()
-    collectives.TRUNK.timed = args.time_collectives
+    for kind in (collectives.TRUNK, collectives.FSDP):
+        kind.reset()
+        kind.timed = args.time_collectives
     with torch.no_grad():
         if args.lockstep:
             out = run_lockstep(args, cfg, params, head_state, hcfg, dev, mesh=mesh)

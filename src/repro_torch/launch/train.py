@@ -12,9 +12,10 @@ through ``segment_stats``, and attention is the plain differentiable one
 ``--head-kernel`` switch has no counterpart.
 
 Under ``torchrun`` the run is data-parallel over a ("data", "model") mesh
-with ``--model-axis`` model ranks, the model placed over ``model`` by
-``param_spec`` (the embedding's and the head's rows, the trunk's heads,
-``d_ff``, experts and SSM heads) and the optimizer state with it
+with ``--model-axis`` model ranks, the model placed by ``param_spec``: over
+``model`` the embedding's and the head's rows, the trunk's heads, ``d_ff``,
+experts and SSM heads; over ``data`` (FSDP) each trunk matrix's dim that
+the spec names, gathered a layer at a time; the optimizer state with it
 (:mod:`repro_torch.launch.mesh`); rank 0 alone prints:
 
   python -m torch.distributed.run --standalone --nproc-per-node 4 \
@@ -23,11 +24,12 @@ with ``--model-axis`` model ranks, the model placed over ``model`` by
 Each rank draws the state from the seed a layer at a time and keeps its
 part (``init_train_state(mesh=)``): no rank holds the whole trunk. The
 ``mesh:`` line gives each rank's parameter and optimizer-state bytes
-beside the one-rank state's, split over ``model`` and whole. The step
-takes the global batch (``--batch``) and splits it over ``data``, so the
-run equals the one-rank run. ``--model-axis`` above 1 without
-``torchrun`` raises, and so does a mesh with a head update that resolves
-to ``dense`` (the dense head under a mesh is not ported yet).
+beside the one-rank state's, split over ``model``, whole, split over
+``data`` and split over both. The step takes the global batch
+(``--batch``) and splits it over ``data``, so the run equals the one-rank
+run; the dense head (``--head softmax``, or ``--head-update dense``)
+trains on the mesh too. ``--model-axis`` above 1 without ``torchrun``
+raises.
 """
 from __future__ import annotations
 
@@ -41,7 +43,6 @@ from repro_torch import configs as cfg_lib
 from repro_torch import device as device_lib
 from repro_torch.data import lm_batch_fn
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.core.heads import resolve_head_update
 from repro_torch.models import lm_head, transformer
 from repro_torch.optim import OptimizerConfig
 from repro_torch.train import LoopConfig, init_train_state, make_train_step, run_loop
@@ -169,30 +170,19 @@ def loop_config(args) -> LoopConfig:
                       gen_fit_timeout_s=args.gen_fit_timeout)
 
 
-def check_mesh_args(args) -> None:
-    """Refuse, before the mesh or anything else is built, a run on a mesh
-    (``--model-axis`` above 1, or any run under ``torchrun``) whose head
-    update resolves to dense."""
-    on_mesh = args.model_axis > 1 or mesh_lib.in_launch()
-    if on_mesh and resolve_head_update(args.head_update, args.head) == "dense":
-        raise ValueError(f"--model-axis with --head {args.head} --head-update "
-                         f"{args.head_update}: the head update resolves to dense, and the "
-                         "dense head under a mesh is not ported yet (ROADMAP Queue 1, "
-                         "slice 12); use a sampled head with --head-update auto|sparse")
-
-
 def state_bytes(cfg, opt, state, mesh) -> dict:
     """This rank's parameter and optimizer-state bytes, and the one-rank
-    state's (from a meta-device build), split over ``model`` and whole:
-    a rank of ``tp`` should hold split / tp + whole of each."""
+    state's (from a meta-device build) split over ``model`` only, over
+    ``data`` only, over both, and whole: a rank of (dp, tp) should hold
+    model / tp + data / dp + both / (dp·tp) + whole of each."""
     from repro_torch.optim import init_opt_state
     from repro_torch.parallel import sharding
     full = transformer.init_params(torch.Generator(), cfg, device="meta")
     out = {}
     for name, one, mine in (("params", full, state.params),
                             ("opt_state", init_opt_state(opt, full), state.opt_state)):
-        split, whole = sharding.split_bytes(one, cfg, mesh)
-        out[name] = {"rank": sharding.tree_bytes(mine), "split": split, "whole": whole}
+        out[name] = {"rank": sharding.tree_bytes(mine),
+                     **sharding.split_bytes(one, cfg, mesh)._asdict()}
     return out
 
 
@@ -204,9 +194,10 @@ def mesh_line(mesh, nbytes: dict) -> str:
     parts = []
     for name, label in (("params", "parameter"), ("opt_state", "optimizer-state")):
         b = nbytes[name]
+        total = b["model"] + b["whole"] + b["data"] + b["both"]
         parts.append(f"{label} bytes a rank {[e[name]['rank'] for e in every]} (one rank's "
-                     f"{b['split'] + b['whole']}: {b['split']} split over model, "
-                     f"{b['whole']} whole)")
+                     f"{total}: {b['model']} split over model, {b['whole']} whole) + "
+                     f"({b['data']} split over data, {b['both']} over both)")
     return f"{mesh_lib.describe(mesh)}; " + ", ".join(parts)
 
 
@@ -243,7 +234,6 @@ def setup(args, mesh=None):
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    check_mesh_args(args)
     mesh = mesh_lib.launcher_mesh(args.model_axis, args.device, "repro_torch.launch.train")
     if not mesh_lib.is_lead(mesh):
         sys.stdout = open(os.devnull, "w")

@@ -145,6 +145,106 @@ def lm_sparse_head_loss(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
         mask=mask, softcap=cfg.final_logit_softcap, sampler=sampler, u=u)
 
 
+def _rank_uniforms(hcfg: HeadConfig, sampler, generator: torch.Generator,
+                   global_shape: Tuple[int, ...], mesh, device) -> torch.Tensor:
+    """The global batch's uniforms, drawn from ``generator`` (the one draw a
+    one-rank step makes), and this data rank's rows of them."""
+    from repro_torch.parallel import sharding
+    draw = tuple(global_shape) + (hcfg.n_neg,)
+    u = torch.rand(sampler.uniform_shape(draw), generator=generator,
+                   device=generator.device)
+    return u[sharding.batch_slice(draw[0], mesh)].to(device)
+
+
+def _global_count(mask: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch's mask count (a sum over ``data``), at least 1."""
+    import torch.distributed as dist
+    from repro_torch.parallel import sharding
+    denom = mask.float().sum().reshape(1)
+    if sharding.size(mesh, "data") > 1:
+        dist.all_reduce(denom, group=sharding.group(mesh, "data"))
+    return denom[0].clamp(min=1.0)
+
+
+def sharded_label_logprob(mesh, scores: torch.Tensor, labels: torch.Tensor, lo: int):
+    """The vocab-parallel log-softmax at the labels: scores (N, V/tp) are a
+    rank's rows ``[lo, lo + V/tp)`` of the vocabulary, labels (N,) global.
+    The maximum (MAX over ``model``), the sum of exponentials and the
+    label's score from its owner (SUMs over ``model``, their gradients the
+    identity: ``collectives.sum_over_model``). Returns (log p (N,), the
+    label's score (N,)). Under autograd the scores' gradient is the local
+    softmax minus the owned one-hot, scaled by the incoming gradient; the
+    maximum carries none (it cancels)."""
+    import torch.distributed as dist
+    from repro_torch.parallel import collectives, sharding
+    top = scores.detach().amax(dim=-1)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=sharding.group(mesh, "model"))
+    total = collectives.sum_over_model(mesh, torch.exp(scores - top[:, None]).sum(dim=-1))
+    local = labels.long() - lo
+    mine = (local >= 0) & (local < scores.shape[-1])
+    pos = torch.gather(scores, -1, local.clamp(0, scores.shape[-1] - 1)[:, None])[:, 0]
+    pos = collectives.sum_over_model(mesh, torch.where(mine, pos, torch.zeros_like(pos)))
+    return pos - (top + torch.log(total)), pos
+
+
+def _sharded_score_fn(cfg: ModelConfig, mesh) -> heads_lib.ScoreFn:
+    """:func:`heads.candidate_scores` on a row-sharded head under
+    autograd: the candidates' rows gathered from their owners
+    (``collectives.sharded_gather_rows``, whose backward writes the owned
+    rows' gradient and sums nothing over ``model``), the final softcap
+    applied."""
+    from repro_torch.parallel.collectives import sharded_gather_rows
+
+    def base(p: HeadParams, hh, ids):
+        w = sharded_gather_rows(mesh, p.w, ids).float()
+        return (torch.einsum("...nk,...k->...n", w, hh.float())
+                + sharded_gather_rows(mesh, p.b, ids).float())
+    if cfg.final_logit_softcap:
+        return _softcap_score_fn(cfg.final_logit_softcap, base)
+    return base
+
+
+def lm_sharded_dense_loss(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
+                          state: LMHeadState, h: torch.Tensor, labels: torch.Tensor,
+                          generator: Optional[torch.Generator], mesh,
+                          global_shape: Tuple[int, ...],
+                          mask: Optional[torch.Tensor] = None, sampler=None):
+    """:func:`lm_head_loss` of one rank of a ``("data", "model")`` mesh,
+    under autograd: h and labels are its ``data`` slice of a global batch
+    whose labels have ``global_shape``, ``params`` its rows of the head;
+    the loss and metrics are its share of the global means (normalised by
+    the global mask count). Returns (loss, metrics).
+
+    ``softmax``: each ``model`` rank scores its rows of the vocabulary and
+    :func:`sharded_label_logprob` combines them; a rank's gradient of ``h``
+    is then a partial sum over its rows, so ``h`` enters through
+    ``collectives.copy_to_model``. The sampled kinds draw the global
+    uniforms (:func:`lm_sharded_head_loss`) and score the candidates on
+    rows gathered from their owners: every rank computes the whole loss
+    alike, so the gradients of ``h`` and of the gathered rows are whole on
+    every rank and nothing is summed over ``model``."""
+    from repro_torch.core import samplers as samplers_lib
+    from repro_torch.parallel import collectives, sharding
+    labels = labels.long()
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    denom = _global_count(mask, mesh)
+    if hcfg.kind == "softmax":
+        lo, _ = sharding.row_range(cfg.padded_vocab, mesh)
+        logits = masked_full_logits(cfg, params, collectives.copy_to_model(mesh, h), lo)
+        logp, pos = sharded_label_logprob(mesh, logits.reshape(-1, logits.shape[-1]),
+                                          labels.reshape(-1), lo)
+        m = mask.reshape(-1).float()
+        return ((-logp * m).sum() / denom,
+                {"pos_score": (pos.detach() * m).sum() / denom})
+    if sampler is None:
+        sampler = samplers_lib.sampler_from_config(hcfg, state.gen)
+    u = _rank_uniforms(hcfg, sampler, generator, global_shape, mesh, h.device)
+    return heads_lib.head_loss(hcfg, params, state.gen, h, gen_features(state, h), labels,
+                               None, score_fn=_sharded_score_fn(cfg, mesh), mask=mask,
+                               sampler=sampler, u=u, denom=denom)
+
+
 def lm_sharded_head_loss(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
                          state: LMHeadState, h: torch.Tensor, labels: torch.Tensor,
                          generator: torch.Generator, mesh, global_shape: Tuple[int, ...],
@@ -162,31 +262,24 @@ def lm_sharded_head_loss(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
     normalised by the global mask count, so each data rank returns its
     share of the global values (their sum over ``data`` is the one-rank
     step's). Returns (loss, metrics, SparseRows, dh)."""
-    import torch.distributed as dist
     from repro_torch.core import samplers as samplers_lib
     from repro_torch.optim.sparse import SparseRows
-    from repro_torch.parallel import collectives, sharding
+    from repro_torch.parallel import collectives
     x_gen = gen_features(state, h)
     labels = labels.long()
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
     if sampler is None:
         sampler = samplers_lib.sampler_from_config(hcfg, state.gen)
-    draw = tuple(global_shape) + (hcfg.n_neg,)
-    u = torch.rand(sampler.uniform_shape(draw), generator=generator,
-                   device=generator.device)
-    u = u[sharding.batch_slice(draw[0], mesh)].to(h.device)
+    u = _rank_uniforms(hcfg, sampler, generator, global_shape, mesh, h.device)
     ids, slot_logp, _ = heads_lib._sample_candidates(hcfg, state.gen, x_gen, labels, None,
                                                      sampler=sampler, u=u)
     uniq, inv = torch.unique(ids, return_inverse=True)
     table = HeadParams(w=collectives.sharded_gather_rows(mesh, params.w, uniq),
                        b=collectives.sharded_gather_rows(mesh, params.b, uniq))
-    denom = mask.float().sum().reshape(1)
-    if sharding.size(mesh, "data") > 1:
-        dist.all_reduce(denom, group=sharding.group(mesh, "data"))
     loss, metrics, rows, dh = heads_lib.sparse_candidate_loss(
         hcfg, table, h.detach(), inv.reshape(ids.shape), slot_logp, mask=mask,
-        softcap=cfg.final_logit_softcap, denom=denom[0].clamp(min=1.0))
+        softcap=cfg.final_logit_softcap, denom=_global_count(mask, mesh))
     return loss, metrics, SparseRows(ids=uniq[rows.ids], dw=rows.dw, db=rows.db), dh
 
 

@@ -17,9 +17,11 @@ Where the port differs in form from the reference, each for a reason:
 - the combine gathers instead of scatter-adding: each token sums its ≤ k
   kept assignments in choice order. A scatter-add on the card adds with
   atomics in no fixed order; the gather gives the same bits every call;
-- the reference's FSDP hints around the expert matmuls
-  (``hint_gathered_weight``, ``hint_expert_act``) belong to FSDP over
-  ``data``, which the port has not ported yet: no path takes them.
+- the reference's FSDP hints around the expert matmuls: the weights
+  arrive gathered over ``data`` (``transformer.forward``), in ``cfg.dtype``
+  under ``hint_gathered_weight``, so their casts here are then no-ops;
+  ``hint_expert_act`` is the identity on explicit ranks
+  (:mod:`repro_torch.parallel.hints`).
 
 On a rank's part (:func:`repro_torch.parallel.sharding.shard_train_state`), read
 from the weights' shapes: with the experts over ``model`` (their count
@@ -43,7 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _dtype, normal_init
-from repro_torch.parallel import collectives, sharding
+from repro_torch.parallel import collectives, hints, sharding
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig, device=None):
@@ -133,12 +135,12 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, mesh=None):
     # (B, cap) folded into one token dim: the expert matmuls are plain
     # batched GEMMs over the experts.
     xt_e = xe.transpose(0, 1).reshape(e_local, bsz * cap, d).to(cdt)
-    g = torch.bmm(xt_e, params["w_gate"].to(cdt))
-    u = torch.bmm(xt_e, params["w_up"].to(cdt))
+    g = hints.hint_expert_act(torch.bmm(xt_e, params["w_gate"].to(cdt)))
+    u = hints.hint_expert_act(torch.bmm(xt_e, params["w_up"].to(cdt)))
     # A rank's part leaves each expert's output unrounded, for one rounding
     # after the sum over model.
     down = collectives.partial_matmul if split else torch.bmm
-    yt = down(F.silu(g) * u, params["w_down"].to(cdt))        # (E_local, B*cap, d)
+    yt = hints.hint_expert_act(down(F.silu(g) * u, params["w_down"].to(cdt)))  # (E_l, B*cap, d)
     ye = yt.reshape(e_local, bsz, cap, d).transpose(0, 1)
     weighted = (ye.float() * slot_gate[..., None]).reshape(bsz, e_local * cap, d)
 

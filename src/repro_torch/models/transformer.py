@@ -40,6 +40,20 @@ differentiable (:mod:`repro_torch.parallel.collectives`), and where a rank
 does only part of a block's work the partial gradients of its input and of
 the whole leaves it reads in part are summed over ``model``. Every block
 reads from its weights' shapes whether it holds a part.
+
+With more than one ``data`` rank the trunk is FSDP as well
+(``param_spec``'s ``data`` entries): each layer's leaves cut over ``data``
+are gathered just before the layer runs (:func:`_gathered_layer`, one
+``collectives.gather_over_data`` a layer, the MoE's expert weights in
+``cfg.dtype`` under the hint ``fsdp_gather_weights``), so the block sees
+the ``model`` parts it sees without FSDP; serving gathers every layer at
+every step. Training then runs each layer under a non-reentrant
+checkpoint whatever ``cfg.remat`` says, the gather inside it: autograd
+would otherwise save each gathered weight for its matmul's backward,
+keeping the whole trunk gathered until the backward. With the checkpoint
+a layer's gathered weights die with its forward, the backward gathers
+them again in the recompute, and their gradients leave the layer
+reduce-scattered to the rank's parts.
 """
 from __future__ import annotations
 
@@ -51,6 +65,7 @@ import torch
 from torch.utils import checkpoint as checkpoint_lib
 
 from repro_torch import device as device_lib
+from repro_torch import tree_util
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -168,9 +183,11 @@ def cast_params(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
 def _cache_leaves(shapes: Dict[str, Tuple[int, ...]], dtype, dev, spec,
                   mesh) -> Dict[str, torch.Tensor]:
     """Zeros of each leaf's shape, or under ``mesh`` of a rank's part of it
-    as ``spec`` places it; k and v in ``dtype``, the SSM's float32."""
+    as ``spec`` places it over ``model``; k and v in ``dtype``, the SSM's
+    float32. The batch dim stays whole: every ``data`` rank of a serving
+    launcher serves the same requests, so a rank's batch is the whole one."""
     return {key: torch.zeros(shape if mesh is None else sharding.local_shape(
-                shape, spec[key], mesh),
+                shape, tuple(None if ax == "data" else ax for ax in spec[key]), mesh),
                 dtype=dtype if key in ("k", "v") else torch.float32, device=dev)
             for key, shape in shapes.items()}
 
@@ -304,6 +321,39 @@ def _recompute_contexts(hint_ctx):
     return lambda: (contextlib.nullcontext(), _recomputing(hint_ctx))
 
 
+_EXPERTS = (("moe", "w_gate"), ("moe", "w_up"), ("moe", "w_down"))
+
+
+def _fsdp_plan(cfg: ModelConfig, mesh, layer) -> Tuple[Tuple[int, ...], Tuple[int, ...],
+                                                       Tuple[str, ...]]:
+    """(flatten indices, data dims, names) of a layer's leaves cut over
+    ``data``: the same for every layer, read from ``layer``."""
+    idx, dims, names = [], [], []
+    for i, (path, sp) in enumerate(sharding.train_state_spec(cfg, mesh, layer,
+                                                             ("layers", "0"))):
+        axes = sharding.split_axes(sp, mesh)
+        if "data" in axes:
+            idx.append(i)
+            dims.append(axes["data"])
+            names.append("/".join(path[2:]))
+    return tuple(idx), tuple(dims), tuple(names)
+
+
+def _gathered_layer(layer, cfg: ModelConfig, mesh, plan):
+    """A layer with its ``data`` parts gathered over ``data`` (FSDP): one
+    collective, differentiable (module docstring)."""
+    idx, dims, names = plan
+    pairs, spec = tree_util.flatten_with_paths(layer)
+    leaves = [x for _, x in pairs]
+    cdt = L._dtype(cfg)
+    dtypes = [hints.hint_gathered_weight(leaves[i], cdt) if pairs[i][0] in _EXPERTS
+              else leaves[i].dtype for i in idx]
+    full = collectives.gather_over_data(mesh, [leaves[i] for i in idx], dims, dtypes, names)
+    for i, x in zip(idx, full):
+        leaves[i] = x
+    return tree_util.unflatten(spec, leaves)
+
+
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             vision_embeds: Optional[torch.Tensor] = None,
@@ -386,20 +436,27 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             auto = (base + torch.arange(s, device=h.device)).expand(bsz, s)
         positions = auto if positions is None else positions
     decode = cache is not None and s == 1
-    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    fsdp = (mesh is not None and sharding.size(mesh, "data") > 1
+            and len(params["layers"]) > 0)
+    plan = _fsdp_plan(cfg, mesh, params["layers"][0]) if fsdp else None
+
+    def layer_of(lp):
+        return _gathered_layer(lp, cfg, mesh, plan) if fsdp else lp
+
+    remat = (cfg.remat or fsdp) and cache is None and torch.is_grad_enabled()
     layer_metrics = []
     for i, layer_params in enumerate(params["layers"]):
         cache_l = None if cache is None else {k: leaf[i] for k, leaf in cache.items()}
         window = cfg.window_for_layer(i)
         if remat:
             h, metrics = checkpoint_lib.checkpoint(
-                lambda lp, x, w=window: _block(lp, cfg, x, positions, w, None, base,
-                                               attn_impl, mask_pos=mask_pos, mesh=mesh),
+                lambda lp, x, w=window: _block(layer_of(lp), cfg, x, positions, w, None,
+                                               base, attn_impl, mask_pos=mask_pos, mesh=mesh),
                 layer_params, h, use_reentrant=False,
                 context_fn=_recompute_contexts(hints.current()))
         else:
-            h, metrics = _block(layer_params, cfg, h, positions, window, cache_l, base,
-                                attn_impl, decode=decode, mask_pos=mask_pos, mesh=mesh)
+            h, metrics = _block(layer_of(layer_params), cfg, h, positions, window, cache_l,
+                                base, attn_impl, decode=decode, mask_pos=mask_pos, mesh=mesh)
         layer_metrics.append(metrics)
     h = L.rmsnorm(params["final_norm"], h)
     metrics = {k: torch.stack([m[k] for m in layer_metrics]).mean()

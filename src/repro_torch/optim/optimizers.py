@@ -50,14 +50,16 @@ and their sparse rows go through
 writes only the rows it owns, SM3's column cover is recombined by an
 ``all_reduce`` MAX, and AdamW's catch-up skips the clamped rows a rank
 does not own. The gradients arrive already summed over ``data``, the same
-on every rank. A dense leaf (the trunk) is a rank's part where the caller
-names it in ``split_dims`` (its path: the dim split over ``model``), else
-whole: :func:`global_norm` sums the split leaves' squares over ``model``
-and counts the whole ones once, so the clip decides alike on every rank;
-Adagrad, AdamW and SGD are elementwise and update a part as they update
-the whole; SM3's covers of a split 2-D leaf are whole, and the cover along
-the unsplit dim, a maximum over the split one, takes an ``all_reduce``
-MAX, as the reference recombines it with ``pmax``.
+on every rank. A dense leaf (the trunk, and under a dense head the head
+and the embedding) is a rank's part where the caller names it in
+``split_dims`` (its path: the axis, ``"model"``, ``"data"`` or None, that
+cuts each dim; ``parallel.sharding.split_dims``), else whole:
+:func:`global_norm` sums the split leaves' squares over the axes that cut
+them and counts the whole ones once, so the clip decides alike on every
+rank; Adagrad, AdamW and SGD are elementwise and update a part as they
+update the whole; SM3's column cover is whole, its row cover the rank's
+rows, and each cover's maximum over a cut dim takes an ``all_reduce`` MAX
+over that dim's axis, as the reference recombines it with ``pmax``.
 """
 from __future__ import annotations
 
@@ -233,14 +235,16 @@ def global_norm(grads, mesh=None, split_dims=None) -> torch.Tensor:
     """float32 global norm over dense, SparseRows, Sm3Cover and
     QuantizedRows leaves (quantized leaves are dequantized first, so the
     norm is of the values, not of the int8 payload). Under ``mesh`` the
-    leaves at the paths of ``split_dims`` are this rank's parts: their
-    squares are summed over ``model`` (a collective), the others' counted
-    once."""
-    sq, part = [], []
+    dense leaves at the paths of ``split_dims`` are this rank's parts:
+    their squares are summed over the axes that cut them (a collective a
+    set of axes), the others' counted once (a ``SparseRows`` is the whole
+    gradient on every rank)."""
+    sq, parts = [], {}
     split_dims = split_dims or {}
     for path, g in _named_leaves(grads):
         if g is None:
             continue
+        axes = ()
         if sparse_lib.is_sparse(g):
             x = sparse_lib.sq_norm(g)
         elif isinstance(g, QuantizedRows):
@@ -249,13 +253,15 @@ def global_norm(grads, mesh=None, split_dims=None) -> torch.Tensor:
             x = torch.square(g.row.float()).sum() + torch.square(g.col.float()).sum()
         else:
             x = torch.square(g.float()).sum()
-        (part if path in split_dims else sq).append(x)
+            axes = tuple(sorted(ax for ax in split_dims.get(path, ()) if ax))
+        (parts.setdefault(axes, []) if axes else sq).append(x)
     total = torch.stack(sq).sum() if sq else None
-    if part:
+    for axes, xs in sorted(parts.items()):
         import torch.distributed as dist
         from repro_torch.parallel.sharding import group
-        split = torch.stack(part).sum()
-        dist.all_reduce(split, group=group(mesh, "model"))
+        split = torch.stack(xs).sum()
+        for ax in axes:
+            dist.all_reduce(split, group=group(mesh, ax))
         total = split if total is None else total + split
     return torch.sqrt(total)
 
@@ -366,26 +372,28 @@ def _leaf_update(cfg: OptimizerConfig, name: str, lr: float, t: int, p, g, m, n)
 
 
 def _sm3_dense_update(cfg: OptimizerConfig, lr: float, p, g, cover: Sm3Cover, sd: str,
-                      mesh=None, split_dim: Optional[int] = None):
+                      mesh=None, split: Optional[Tuple[Optional[str], ...]] = None):
     """Dense SM3 on a (C, K) table. ν'_ij = min(row_i, col_j) + g²_ij;
     covers take the monotone max with their previous value, which keeps
     them valid upper bounds and makes the sparse path exact (untouched rows
     have ν' <= row_i everywhere, so their cover cannot move).
 
-    ``split_dim``: ``p`` is this rank's part of a table split over
-    ``mesh``'s ``model`` ranks along that dim. The column cover is whole
-    (the reference's placement); so is the row cover where the columns are
-    split, while the rows' split leaves it the rank's rows. A whole cover
-    is updated on the rank's entries and recombined by an ``all_reduce``
-    MAX, exact since every other entry holds its old value, which no
-    update lowers."""
+    ``split``: ``p`` is this rank's part of a table cut over ``mesh``, the
+    axis (or None) that cuts each dim. The column cover is whole (the
+    reference's placement) and the row cover follows the rows' axis. A
+    cover's maximum over a cut dim is partial: the row cover takes an
+    ``all_reduce`` MAX over the columns' axis, the column cover over the
+    rows' axis and, updated on the rank's columns, over the columns' axis;
+    exact since every entry a rank did not update holds its old value,
+    which no update lowers."""
     g32 = g.float()
     r = compression.load_rows(cover.row)
     c = cover.col
+    rows_ax, cols_ax = split or (None, None)
     cols = slice(0, c.numel())
-    if split_dim == 1:
+    if cols_ax:
         from repro_torch.parallel.sharding import rank
-        lo = rank(mesh, "model") * p.shape[1]
+        lo = rank(mesh, cols_ax) * p.shape[1]
         cols = slice(lo, lo + p.shape[1])
     nu = torch.minimum(r[:, None], c[None, cols]) + torch.square(g32)
     u = -lr * g32 / (torch.sqrt(nu) + cfg.eps)
@@ -393,12 +401,14 @@ def _sm3_dense_update(cfg: OptimizerConfig, lr: float, p, g, cover: Sm3Cover, sd
     r2 = torch.maximum(r, nu.amax(dim=1))
     c2 = c.clone()
     c2[cols] = torch.maximum(c[cols], nu.amax(dim=0))
-    if split_dim is not None:
+    if rows_ax or cols_ax:
         import torch.distributed as dist
         from repro_torch.parallel.sharding import group
-        whole = torch.cat([r2, c2]) if split_dim == 1 else c2
-        dist.all_reduce(whole, op=dist.ReduceOp.MAX, group=group(mesh, "model"))
-        if split_dim == 1:
+        if rows_ax:
+            dist.all_reduce(c2, op=dist.ReduceOp.MAX, group=group(mesh, rows_ax))
+        if cols_ax:
+            whole = torch.cat([r2, c2])
+            dist.all_reduce(whole, op=dist.ReduceOp.MAX, group=group(mesh, cols_ax))
             r2, c2 = whole[:r2.numel()], whole[r2.numel():]
     return p2, Sm3Cover(row=compression.store_rows(r2, _nu_sd(sd)), col=c2)
 
@@ -515,11 +525,11 @@ def _sharded_leaf_update(cfg, name, lr, t, ids, p, g, m, n, last, mesh) -> None:
         n.col.copy_(new_reps[0])
 
 
-def _dense_leaf_update(cfg, name, sd, lr, t, p, g, m, n, last, mesh=None, split_dim=None):
-    """One leaf's dense update; returns new (p, m, n, last). ``split_dim``:
-    ``p`` is a rank's part of a leaf split over ``model`` along that dim."""
+def _dense_leaf_update(cfg, name, sd, lr, t, p, g, m, n, last, mesh=None, split=None):
+    """One leaf's dense update; returns new (p, m, n, last). ``split``:
+    ``p`` is a rank's part of a leaf, the axis that cuts each dim."""
     if isinstance(n, Sm3Cover):
-        p2, n2 = _sm3_dense_update(cfg, lr, p, g, n, sd, mesh, split_dim)
+        p2, n2 = _sm3_dense_update(cfg, lr, p, g, n, sd, mesh, split)
         return p2, m, n2, last
     m32 = compression.load_rows(m) if m is not None else None
     n32 = compression.load_rows(n) if n is not None else None
@@ -624,8 +634,8 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
     head (and of the embedding in a tree), the ``SparseRows`` the summed
     global gradient, replicated (module docstring). A dense gradient of a
     standalone head under a mesh raises. ``split_dims`` maps the path of
-    each dense leaf that is a rank's part to the dim split over ``model``
-    (module docstring).
+    each dense leaf that is a rank's part to the axes that cut it (module
+    docstring).
     """
     if mesh is not None:
         from repro_torch.parallel.sharding import check_mesh

@@ -15,7 +15,12 @@ and the replicated operands whole.
 - :func:`sharded_gather_rows`: the masked local gather + ``all_reduce`` SUM
   that GSPMD lowers the reference's row gathers to (the training head's
   candidate rows, the embedding's token rows), exact since the non-owners
-  add zeros.
+  add zeros. Under autograd (the dense head and the dense embedding) its
+  backward writes the owned rows' gradient into a zero local table and
+  sums nothing over ``model``: every rank uses the gathered rows alike,
+  so their gradient is whole on every rank. :func:`sum_over_model` is the
+  vocab-parallel softmax's sums, whose gradient is the identity for the
+  same reason.
 - :func:`compressed_grad_allreduce`: int8 error-feedback all-reduce over
   ``data``.
 - :func:`sum_rows_over_data`, :func:`all_reduce_over_data`, :func:`agree`
@@ -37,6 +42,14 @@ and the replicated operands whole.
   bytes by phase (forward, the recompute under ``cfg.remat``, backward),
   and with ``TRUNK.timed`` their host seconds (each call then
   synchronizes the device before and after).
+- :func:`gather_over_data`: FSDP. A layer's ``data`` parts gathered in one
+  ``all_gather`` over ``data`` through a flat byte buffer (a gather only
+  moves bytes, so leaves of any dtype share it, and a bfloat16 copy
+  travels as its bytes over gloo), the gradients reduce-scattered back to
+  the rank's parts in float32 over ``data``, one ``reduce_scatter`` a
+  leaf.
+  :data:`FSDP` counts them as :data:`TRUNK` counts the ``model``
+  collectives, and the forward's bytes by leaf.
 
 Gloo takes CUDA tensors for every collective used here (checked on the
 card), so nothing is staged through the host.
@@ -80,17 +93,68 @@ def sharded_candidate_scores(mesh, w: torch.Tensor, b: torch.Tensor, h: torch.Te
     return scores
 
 
+def _gather_owned(mesh, table: torch.Tensor, safe, mine, shape) -> torch.Tensor:
+    rows = table.index_select(0, safe.reshape(-1)).reshape(shape + table.shape[1:])
+    rows = rows * mine.reshape(mine.shape + (1,) * (table.dim() - 1)).to(rows.dtype)
+    dist.all_reduce(rows, group=sharding.group(mesh, "model"))
+    return rows
+
+
+class _ShardedGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, mesh):
+        safe, mine = _owned(ids, table.shape[0], mesh)
+        ctx.save_for_backward(safe, mine)
+        ctx.table_shape = table.shape
+        return _gather_owned(mesh, table, safe, mine, ids.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        safe, mine = ctx.saved_tensors
+        rows = g.reshape((-1,) + tuple(ctx.table_shape[1:]))
+        rows = rows * mine.reshape((-1,) + (1,) * (rows.dim() - 1)).to(rows.dtype)
+        out = torch.zeros(ctx.table_shape, dtype=g.dtype, device=g.device)
+        return out.index_add_(0, safe.reshape(-1), rows), None, None
+
+
 def sharded_gather_rows(mesh, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Rows ``table[ids]`` of a row-sharded table, on every ``model`` rank:
     each rank gathers the ids it owns, zeros the rest, and an
     ``all_reduce`` SUM assembles them. ids (...,) any shape; returns
     ``ids.shape + table.shape[1:]`` in the table's dtype (one nonzero term
-    a row, so the sum is exact in any dtype)."""
+    a row, so the sum is exact in any dtype). Under autograd the table's
+    gradient is the rows' gradient added at the owned ids of a zero local
+    table: nothing is summed over ``model``, since every rank uses the rows
+    alike (module docstring)."""
+    if _tracked(table):
+        return _ShardedGatherRows.apply(table, ids, mesh)
     safe, mine = _owned(ids, table.shape[0], mesh)
-    rows = table.index_select(0, safe.reshape(-1)).reshape(ids.shape + table.shape[1:])
-    rows = rows * mine.reshape(mine.shape + (1,) * (table.dim() - 1)).to(rows.dtype)
-    dist.all_reduce(rows, group=sharding.group(mesh, "model"))
-    return rows
+    return _gather_owned(mesh, table, safe, mine, ids.shape)
+
+
+def _summed_over_model(mesh, x: torch.Tensor) -> torch.Tensor:
+    out = x.clone()
+    dist.all_reduce(out, group=sharding.group(mesh, "model"))
+    return out
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _summed_over_model(mesh, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over_model(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum over ``model`` of each rank's ``x`` (a new tensor). Under
+    autograd its gradient is the identity: every rank uses the sum alike,
+    so each rank's term takes the sum's gradient."""
+    if _tracked(x):
+        return _SumOverModel.apply(x, mesh)
+    return _summed_over_model(mesh, x)
 
 
 def sharded_rows_update(mesh, fn: Callable, ids: torch.Tensor, vals: Sequence[torch.Tensor],
@@ -202,8 +266,14 @@ def sum_rows_over_data(mesh, rows: SparseRows) -> SparseRows:
 
 def all_reduce_over_data(mesh, tensors: Sequence[torch.Tensor]) -> None:
     """SUM each tensor over ``data`` in place, through one flat float32
-    buffer (one collective for the whole trunk)."""
+    buffer (one collective for the whole trunk); one contiguous float32
+    tensor (a dense head's or embedding's gradient) is summed where it
+    lies, with no staging copy."""
     if sharding.size(mesh, "data") == 1 or not tensors:
+        return
+    if len(tensors) == 1 and tensors[0].dtype == torch.float32 \
+            and tensors[0].is_contiguous():
+        dist.all_reduce(tensors[0], group=sharding.group(mesh, "data"))
         return
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     dist.all_reduce(flat, group=sharding.group(mesh, "data"))
@@ -238,45 +308,50 @@ def _phase_counts() -> Dict[str, Dict[str, float]]:
 
 @dataclasses.dataclass
 class TrunkCounts:
-    """The trunk's ``model`` collectives in this process since the last
+    """The trunk's collectives of one kind in this process since the last
     :meth:`reset`: in all, and by phase (``phases``): the forward, its
-    recompute in the backward pass under ``cfg.remat`` (the checkpointed
-    layers reissue their forward collectives, :func:`recomputing`), and the
-    backward's own."""
+    recompute in the backward pass (the checkpointed layers reissue their
+    forward collectives, :func:`recomputing`), and the backward's own.
+    ``leaves``: the forward's bytes by leaf name (FSDP's gathers)."""
     calls: int = 0
     bytes: int = 0
     seconds: float = 0.0
     timed: bool = False
     phases: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=_phase_counts)
     phase: str = "forward"
+    leaves: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
         self.calls, self.bytes, self.seconds = 0, 0, 0.0
         self.phases = _phase_counts()
+        self.leaves = {}
 
 
-TRUNK = TrunkCounts()
+TRUNK = TrunkCounts()           # the model collectives
+FSDP = TrunkCounts()            # the data gathers and reduce-scatters
 
 
 @contextlib.contextmanager
 def recomputing():
     """Count the collectives issued inside as the recompute's: the context
     ``torch.utils.checkpoint`` enters around a layer's recomputed forward."""
-    before, TRUNK.phase = TRUNK.phase, "recompute"
+    before = TRUNK.phase, FSDP.phase
+    TRUNK.phase = FSDP.phase = "recompute"
     try:
         yield
     finally:
-        TRUNK.phase = before
+        TRUNK.phase, FSDP.phase = before
 
 
-def _trunk_call(x: torch.Tensor, fn: Callable[[], None], phase: Optional[str] = None) -> None:
+def _trunk_call(x: torch.Tensor, fn: Callable[[], None], phase: Optional[str] = None,
+                kind: TrunkCounts = TRUNK) -> None:
     n = x.numel() * x.element_size()
-    counts = TRUNK.phases[phase or TRUNK.phase]
-    TRUNK.calls += 1
-    TRUNK.bytes += n
+    counts = kind.phases[phase or kind.phase]
+    kind.calls += 1
+    kind.bytes += n
     counts["calls"] += 1
     counts["bytes"] += n
-    if not TRUNK.timed:
+    if not kind.timed:
         fn()
         return
     sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
@@ -285,7 +360,7 @@ def _trunk_call(x: torch.Tensor, fn: Callable[[], None], phase: Optional[str] = 
     fn()
     sync()
     dt = time.perf_counter() - t0
-    TRUNK.seconds += dt
+    kind.seconds += dt
     counts["seconds"] += dt
 
 
@@ -454,3 +529,88 @@ def norm_sum_over_model(mesh, sq_sum: torch.Tensor) -> torch.Tensor:
     total = sq_sum.float()
     _all_reduce_model(mesh, total)
     return total
+
+
+# ---------------------------------------------------------------------------
+# FSDP over ``data``
+# ---------------------------------------------------------------------------
+
+_ALIGN = 16          # bytes: every leaf's slice of the flat buffer starts aligned
+
+
+def _aligned(n: int) -> int:
+    return n + (-n % _ALIGN)
+
+
+def _gather_parts(mesh, parts: Sequence[torch.Tensor], dims: Sequence[int],
+                  names: Optional[Sequence[str]] = None) -> List[torch.Tensor]:
+    """Every ``data`` rank's part of each leaf, joined along its dim: one
+    ``all_gather`` of the parts' bytes through a flat buffer."""
+    g = sharding.group(mesh, "data")
+    flat = torch.zeros(sum(_aligned(p.numel() * p.element_size()) for p in parts),
+                       dtype=torch.uint8, device=parts[0].device)
+    off = 0
+    for i, p in enumerate(parts):
+        n = p.numel() * p.element_size()
+        flat[off:off + n].copy_(p.contiguous().reshape(-1).view(torch.uint8))
+        if names is not None and FSDP.phase == "forward":
+            FSDP.leaves[names[i]] = FSDP.leaves.get(names[i], 0) + n
+        off += _aligned(n)
+    out = flat.new_empty(dist.get_world_size(g) * flat.numel())
+    _trunk_call(flat, lambda: dist.all_gather_into_tensor(out, flat, group=g), kind=FSDP)
+    out = out.view(-1, flat.numel())
+    del flat                         # the rank's bytes are in ``out`` now
+    full, off = [], 0
+    for p, dim in zip(parts, dims):
+        n = p.numel() * p.element_size()
+        full.append(torch.cat([o[off:off + n].view(p.dtype).view(p.shape) for o in out],
+                              dim=dim))
+        off += _aligned(n)
+    return full
+
+
+class _GatherOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, dims, dtypes, names, *parts):
+        ctx.mesh, ctx.dims = mesh, dims
+        ctx.parts = [(p.shape, p.dtype) for p in parts]
+        return tuple(_gather_parts(mesh, [p.to(dt) for p, dt in zip(parts, dtypes)],
+                                   dims, names))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = sharding.group(ctx.mesh, "data")
+        dp = dist.get_world_size(g)
+        out = []
+        for gr, dim, (shape, dtype) in zip(grads, ctx.dims, ctx.parts):
+            # Rank r's chunk, read where it lies (a leaf cut on dim 0) or
+            # copied out of it; no buffer of the whole layer's gradients.
+            chunks = [c.contiguous() for c in gr.float().chunk(dp, dim)]
+            recv = chunks[0].new_empty(shape)
+            _trunk_call(recv, lambda: dist.reduce_scatter(recv, chunks, group=g), "backward",
+                        FSDP)
+            out.append(recv.to(dtype))
+        return (None, None, None, None) + tuple(out)
+
+
+def gather_over_data(mesh, parts: Sequence[torch.Tensor], dims: Sequence[int],
+                     dtypes: Optional[Sequence[torch.dtype]] = None,
+                     names: Optional[Sequence[str]] = None) -> List[torch.Tensor]:
+    """FSDP's gather of one layer: each of ``parts`` (a rank's ``data``
+    part of a leaf, cut along ``dims``) joined with every data rank's, in
+    rank order, by one ``all_gather`` over ``data`` (module docstring).
+    ``dtypes``: the dtype each part travels in, cast on the rank's part
+    before the gather (the hint ``fsdp_gather_weights``; default its own).
+    ``names`` label the forward's bytes in ``FSDP.leaves``.
+
+    Under autograd the backward reduce-scatters each full leaf's gradient
+    over ``data`` in float32 to the rank's part, returned in the part's
+    dtype: one ``reduce_scatter`` a leaf, reading each rank's chunk where
+    it lies, so that no buffer of the whole layer's gradients sits beside
+    them; every rank's part comes back already summed over the data
+    ranks."""
+    dtypes = list(dtypes) if dtypes is not None else [p.dtype for p in parts]
+    if any(_tracked(p) for p in parts):
+        return list(_GatherOverData.apply(mesh, tuple(dims), tuple(dtypes),
+                                          None if names is None else tuple(names), *parts))
+    return _gather_parts(mesh, [p.to(dt) for p, dt in zip(parts, dtypes)], dims, names)

@@ -26,11 +26,18 @@ weights is then a partial sum, summed over ``model`` in the backward pass
 (``collectives.copy_to_model``); the gather's gradient is the rank's
 slice.
 
-``seq_parallel_residual`` (the reference's ``hint_residual``) and
-``fsdp_gather_weights`` (``hint_gathered_weight``, ``hint_expert_act``)
-belong to sequence parallelism and to FSDP over ``data``, which the port
-has not ported yet: a context that asks for them raises
-``NotImplementedError``.
+``fsdp_gather_weights`` takes the two FSDP hints:
+
+- :func:`hint_gathered_weight`: the MoE's expert weights gathered over
+  ``data`` in ``cfg.dtype`` (each rank casts its part before the gather),
+  not in float32: half the FSDP bytes of those leaves. The same bf16
+  values reach the same GEMMs and the gradient's sum over ``data`` stays
+  float32, so a hinted step is bit-equal to an unhinted one.
+- :func:`hint_expert_act`: the identity (its docstring says why).
+
+``seq_parallel_residual`` (the reference's ``hint_residual``) belongs to
+sequence parallelism, which the port has not ported yet: a context that
+asks for it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -44,8 +51,8 @@ from repro_torch.parallel import collectives, sharding
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("repro_torch_sharding_hints",
                                                       default=None)
-LATER = ("{} belongs to sequence parallelism and to FSDP over the data axis, which "
-         "the port has not ported yet (ROADMAP Queue 1, slice 12)")
+LATER = ("{} belongs to sequence parallelism, which the port has not ported yet "
+         "(ROADMAP Queue 1, slice 13)")
 
 
 class HintContext:
@@ -59,9 +66,8 @@ class HintContext:
         sharding.check_mesh(mesh)
         if seq_parallel_residual:
             raise NotImplementedError(LATER.format("seq_parallel_residual"))
-        if fsdp_gather_weights:
-            raise NotImplementedError(LATER.format("fsdp_gather_weights"))
         self.mesh = mesh
+        self.fsdp_gather_weights = fsdp_gather_weights
 
 
 @contextlib.contextmanager
@@ -103,6 +109,27 @@ def hinted_rows(num_heads: int, s: int):
         return None
     return sharding.row_range(s, ctx.mesh)
 
+
+
+def hint_gathered_weight(leaf: torch.Tensor, dtype: torch.dtype) -> torch.dtype:
+    """The dtype an expert weight's ``data`` part travels in when it is
+    gathered (``collectives.gather_over_data``): ``dtype`` (the model's)
+    under ``fsdp_gather_weights``, else the leaf's own. The reference's
+    hint constrains the cast copy to be replicated over ``data`` so that
+    GSPMD gathers it in bf16; the port casts the part inside the gather,
+    so the gradient returns to the float32 part unrounded."""
+    ctx = _CTX.get()
+    return dtype if ctx is not None and ctx.fsdp_gather_weights else leaf.dtype
+
+
+def hint_expert_act(x: torch.Tensor) -> torch.Tensor:
+    """The identity. The reference pins an expert matmul's activation
+    (E, tokens, ...) token-sharded over ``data`` so that GSPMD, once the
+    hinted weights look replicated over ``data``, does not replicate the
+    expert computation on every data rank. On the port's explicit ranks
+    each data rank computes only its own tokens already: there is nothing
+    to pin and nothing is communicated."""
+    return x
 
 
 def hint_attn_out(out: torch.Tensor, rows) -> torch.Tensor:

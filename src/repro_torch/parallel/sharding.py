@@ -29,14 +29,20 @@ checkpoint's, or one carried across from the JAX package by
 :mod:`repro_torch.convert`) and a rank's part of it;
 :func:`iter_gathered_leaves` gathers one leaf at a time, so that a writer
 never holds the whole trunk; :func:`split_bytes` counts what a rank
-holds.
+holds; :func:`split_axes` and :func:`split_dims` name the axes that cut a
+leaf.
 
-``param_spec``'s ``data`` entries are FSDP, which the port has not ported:
-every tensor is whole over ``data``, and the batch is split over it.
+``param_spec``'s ``data`` entries are FSDP, as in the reference: each
+``data`` rank holds its contiguous part, ``[r·n/dp, (r+1)·n/dp)``, of the
+dim they name in every trunk matrix, cut again inside its ``model`` part,
+and the optimizer state mirrors that. The forward gathers a layer's parts
+over ``data`` just before the layer runs and the backward reduce-scatters
+its gradients (``collectives.gather_over_data``); the batch is split over
+``data`` too. Where ``data`` has one rank nothing is cut over it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -217,18 +223,30 @@ def _path_name(path) -> str:
     return "/".join(str(p) for p in path)
 
 
+def split_axes(spec: Spec, mesh) -> Dict[str, int]:
+    """The axes that cut a leaf placed by ``spec`` on ``mesh``, each to the
+    dim it cuts: ``model`` and ``data`` where they name a dim and have more
+    than one rank (``mesh``: a ``DeviceMesh`` or a (data, model) shape)."""
+    dp, tp = mesh_shape(mesh)
+    return {ax: spec.index(ax) for ax, n in (("model", tp), ("data", dp))
+            if n > 1 and ax in spec}
+
+
 def _cut(x: torch.Tensor, spec: Spec, mesh, name: str) -> torch.Tensor:
-    """This rank's part of a full leaf: its ``model`` dim narrowed to the
-    rank's contiguous range (a copy that owns its storage), the leaf itself
-    where no dim is over ``model``. A dim that does not divide raises."""
-    dim = _model_dim(spec, mesh)
-    if dim is None:
+    """This rank's part of a full leaf: its ``model`` dim and its ``data``
+    dim each narrowed to the rank's contiguous range (a copy that owns its
+    storage), the leaf itself where no dim is cut. A dim that does not
+    divide raises."""
+    axes = split_axes(spec, mesh)
+    if not axes:
         return x
-    tp, n = size(mesh, "model"), x.shape[dim]
-    if n % tp:
-        raise ValueError(f"{name}: dimension {dim} of {n} does not divide over "
-                         f"{tp} model ranks")
-    return x.narrow(dim, rank(mesh, "model") * (n // tp), n // tp).clone()
+    for ax, dim in axes.items():
+        k, n = size(mesh, ax), x.shape[dim]
+        if n % k:
+            raise ValueError(f"{name}: dimension {dim} of {n} does not divide over "
+                             f"{k} {ax} ranks")
+        x = x.narrow(dim, rank(mesh, ax) * (n // k), n // k)
+    return x.clone()
 
 
 # ---------------------------------------------------------------------------
@@ -304,31 +322,29 @@ def train_state_spec(cfg, mesh, state, prefix: Tuple[str, ...] = ()
     return out
 
 
-def _model_dim(spec: Spec, mesh) -> Optional[int]:
-    """The dim of a leaf split over ``model``, or None (whole, or tp 1)."""
-    if mesh_shape(mesh)[1] == 1 or "model" not in spec:
-        return None
-    return spec.index("model")
-
-
-def trunk_split_dims(cfg, mesh, params) -> Dict[Tuple[str, ...], int]:
-    """The path of every layer leaf that :func:`param_spec` splits over
-    ``model``, to the dim it splits (the optimizer's ``split_dims``)."""
-    specs = train_state_spec(cfg, mesh, params["layers"], ("layers",))
-    return {path: _model_dim(sp, mesh) for path, sp in specs
-            if _model_dim(sp, mesh) is not None}
+def split_dims(cfg, mesh, params) -> Dict[Tuple[str, ...], Spec]:
+    """The path of every leaf of a params tree that the mesh cuts, to its
+    axes a dim: ``"model"``, ``"data"`` or None, None also where the axis
+    has one rank (the optimizer's ``split_dims``). Leaves the mesh keeps
+    whole are left out."""
+    out = {}
+    for path, sp in train_state_spec(cfg, mesh, params):
+        axes = split_axes(sp, mesh)
+        if axes:
+            out[path] = tuple(ax if ax in axes else None for ax in sp)
+    return out
 
 
 def _gather_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
-    """The full leaf from every ``model`` rank's part (a collective), or the
-    leaf itself where it is whole."""
-    dim = _model_dim(spec, mesh)
-    if dim is None:
-        return x
-    g = group(mesh, "model")
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
-    dist.all_gather(parts, x.contiguous(), group=g)
-    return torch.cat(parts, dim=dim)
+    """The full leaf from every rank's part (a collective over each axis
+    that cuts it: ``model``, then ``data``), or the leaf itself where it is
+    whole."""
+    for ax, dim in split_axes(spec, mesh).items():
+        g = group(mesh, ax)
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
+        dist.all_gather(parts, x.contiguous(), group=g)
+        x = torch.cat(parts, dim=dim)
+    return x
 
 
 def shard_train_state(state, mesh, cfg=None, prefix: Tuple[str, ...] = ()):
@@ -339,8 +355,9 @@ def shard_train_state(state, mesh, cfg=None, prefix: Tuple[str, ...] = ()):
     Works on a ``TrainState``, an LM's params tree (or its subtree at
     ``prefix``, as ``transformer.init_params(mesh=)`` cuts each layer as
     it is drawn) or its ``OptState``; ``cfg`` (the model's config) is
-    needed where the tree holds the trunk. ``data`` entries are
-    ignored."""
+    needed where the tree holds the trunk. A leaf is cut over ``data``
+    too where its spec names ``data`` and the mesh has more than one data
+    rank (FSDP)."""
     leaves, tdef = tree_util.flatten(state)
     specs = train_state_spec(cfg, mesh, state, prefix)
     return tree_util.unflatten(tdef, [
@@ -350,9 +367,10 @@ def shard_train_state(state, mesh, cfg=None, prefix: Tuple[str, ...] = ()):
 
 def iter_gathered_leaves(state, mesh, cfg=None) -> Iterator[Any]:
     """The full state's leaves, in :func:`tree_util.flatten` order, one at a
-    time: each split leaf gathered from every ``model`` rank when it is
-    reached (a collective, so every rank must walk the whole iterator in
-    step), the rest as they are. A writer holds one gathered leaf at a
+    time: each split leaf gathered from every rank that holds a part of it
+    (over ``model``, then ``data``) when it is reached (a collective, so
+    every rank must walk the whole iterator in step), the rest as they
+    are. A writer holds one gathered leaf at a
     time, never the whole trunk."""
     leaves = tree_util.leaves(state)
     for x, (_, sp) in zip(leaves, train_state_spec(cfg, mesh, state)):
@@ -361,18 +379,22 @@ def iter_gathered_leaves(state, mesh, cfg=None) -> Iterator[Any]:
 
 def gather_train_state(state, mesh, cfg=None):
     """The full state from the ranks' local states (a collective over
-    ``model``, called on every rank): what a one-rank run holds. It holds
+    ``model`` and ``data``, called on every rank): what a one-rank run holds. It holds
     the whole trunk; writers go through :func:`iter_gathered_leaves`."""
     return tree_util.unflatten(tree_util.flatten(state)[1],
                                list(iter_gathered_leaves(state, mesh, cfg)))
 
 
+def _ranks_on(ax, mesh) -> int:
+    dp, tp = mesh_shape(mesh)
+    return {"model": tp, "data": dp}.get(ax, 1)
+
+
 def full_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
     """The full shape of a rank's leaf of ``shape`` placed by ``spec``:
-    its ``model`` dim times the model ranks (the inverse of
-    :func:`local_shape`)."""
-    _, tp = mesh_shape(mesh)
-    return tuple(n * tp if ax == "model" else n for n, ax in zip(shape, spec))
+    its ``model`` dim times the model ranks, its ``data`` dim times the
+    data ranks (the inverse of :func:`local_shape`)."""
+    return tuple(n * _ranks_on(ax, mesh) for n, ax in zip(shape, spec))
 
 
 class StateLayout:
@@ -392,21 +414,38 @@ class StateLayout:
         return _cut(x, spec, self.mesh, _path_name(path))
 
 
-def split_bytes(tree, cfg, mesh) -> Tuple[int, int]:
-    """(bytes of the leaves of a full ``tree`` (a params tree, an
-    ``OptState`` or a ``TrainState``; meta tensors will do) that
-    :func:`train_state_spec` splits over ``model``, bytes of those that
-    stay whole). A rank of ``tp`` holds split / tp + whole."""
-    split = whole = 0
+class SplitBytes(NamedTuple):
+    """The bytes of a full tree by the axes that cut each leaf: over
+    ``model`` only, over ``data`` only, over both, and whole."""
+    model: int
+    data: int
+    both: int
+    whole: int
+
+    @property
+    def total(self) -> int:
+        return self.model + self.data + self.both + self.whole
+
+    def a_rank(self, mesh) -> int:
+        """What a rank of ``mesh`` holds: model / tp + data / dp + both /
+        (dp·tp) + whole, exactly (each leaf's cut divides)."""
+        dp, tp = mesh_shape(mesh)
+        return self.model // tp + self.data // dp + self.both // (dp * tp) + self.whole
+
+
+def split_bytes(tree, cfg, mesh) -> SplitBytes:
+    """The bytes of the leaves of a full ``tree`` (a params tree, an
+    ``OptState`` or a ``TrainState``; meta tensors will do) by the axes of
+    ``mesh`` that :func:`train_state_spec` cuts them over
+    (:func:`split_axes`: an axis of one rank cuts nothing)."""
+    out = dict(model=0, data=0, both=0, whole=0)
     for x, (_, sp) in zip(tree_util.leaves(tree), train_state_spec(cfg, mesh, tree)):
         if not isinstance(x, torch.Tensor):
             continue
-        n = x.numel() * x.element_size()
-        if _model_dim(sp, mesh) is None:
-            whole += n
-        else:
-            split += n
-    return split, whole
+        axes = split_axes(sp, mesh)
+        key = "both" if len(axes) == 2 else next(iter(axes), "whole")
+        out[key] += x.numel() * x.element_size()
+    return SplitBytes(**out)
 
 
 def tree_bytes(tree) -> int:
@@ -461,7 +500,6 @@ def paged_cache_spec(cfg, mesh, n_lanes: int) -> Dict[str, Spec]:
 
 def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
     """A rank's shape of a leaf of full ``shape`` placed by ``spec``: each
-    ``model`` dim divided by the model ranks (``data`` dims untouched: the
-    caller gives the rank's batch)."""
-    _, tp = mesh_shape(mesh)
-    return tuple(n // tp if ax == "model" else n for n, ax in zip(shape, spec))
+    ``model`` dim divided by the model ranks, each ``data`` dim by the data
+    ranks."""
+    return tuple(n // _ranks_on(ax, mesh) for n, ax in zip(shape, spec))

@@ -62,8 +62,8 @@ def collect_features(params, cfg: ModelConfig, batches: Iterable[dict],
     batch is truncated to the remaining budget. The forward is the training
     path's (plain attention), without gradients. Under ``mesh``, ``params``
     are a rank's part and every rank runs every batch through the sharded
-    forward (a collective over ``model``), so every rank gets the same
-    features.
+    forward (collectives over ``model`` and ``data``), so every rank gets
+    the same features.
     """
     dev = _device(params)
     hs, ys = [], []

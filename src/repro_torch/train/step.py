@@ -12,23 +12,27 @@ plain torch (``attn_impl="plain"``): the CUDA ``flash_attention`` kernel is
 forward-only and serves the decode path alone.
 
 Every ``make_*`` function takes a ``mesh`` (a ``("data", "model")`` ``DeviceMesh``,
-:mod:`repro_torch.launch.mesh`): the model is then placed over ``model`` by
-``param_spec`` (:mod:`repro_torch.parallel.sharding`): the embedding's and
+:mod:`repro_torch.launch.mesh`): the model is then placed by ``param_spec``
+(:mod:`repro_torch.parallel.sharding`): over ``model`` the embedding's and
 the head's rows, and the trunk's heads, ``d_ff``, experts and SSM heads;
-the optimizer state mirrors the parameters (``train_state_spec``). Serving
-gathers the token rows and scores through
-:mod:`repro_torch.parallel.collectives`; the dense Eq. 5 path scores each
-rank's slice of the vocabulary and merges the argmax. The training step
-takes the global batch and equals the one-rank step on it: each rank runs
-its ``data`` slice through its part of the trunk (the forward's partial
-sums and the backward's partial gradients summed over ``model``), draws
-the global batch's uniforms and keeps its rows, assembles its candidates'
-rows from their owners, and normalises by the global mask count; its part
-of the trunk's gradients and the head's and embedding's ``SparseRows``
-are summed over ``data`` before the update, and the gradient norm over
-``model`` too, so the clip and the non-finite guard decide alike on every
-rank. ``param_spec``'s ``data`` entries (FSDP) are not ported: every
-tensor is whole over ``data``.
+over ``data`` (FSDP) the dim each trunk matrix names, gathered a layer at
+a time in the forward (``transformer.forward``); the optimizer state
+mirrors the parameters (``train_state_spec``). Serving gathers the token
+rows and scores through :mod:`repro_torch.parallel.collectives`; the dense
+Eq. 5 path scores each rank's slice of the vocabulary and merges the
+argmax. The training step takes the global batch and equals the one-rank
+step on it: each rank runs its ``data`` slice through its part of the
+trunk (the forward's partial sums and the backward's partial gradients
+summed over ``model``), draws the global batch's uniforms and keeps its
+rows, and normalises by the global mask count. The sparse head assembles
+its candidates' rows from their owners; the dense head (``softmax``
+vocab-parallel, or the sampled kinds on rows gathered under autograd) and
+the dense embedding train their row-sharded tables through autograd. The
+FSDP leaves' gradients arrive reduce-scattered over ``data``; every other
+gradient (whole leaves, the dense head and embedding, the ``SparseRows``)
+is summed over ``data`` before the update, and the gradient norm over the
+axes that cut each leaf, so the clip and the non-finite guard decide alike
+on every rank.
 
 The sparse training step marks its phases as ``record_function`` ranges
 (``train/forward``, ``train/head``, ``train/backward``,
@@ -100,10 +104,8 @@ def make_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, head_update: str = "auto",
     card's gradient checks. ``grads`` mirrors ``state.params``; on the
     sparse path its ``head`` (and, with sparse embedding updates, its
     ``embed``) is a ``SparseRows``. Under ``mesh`` (module docstring) the
-    grads are the global batch's, the same on every rank, and the step
-    must be the sparse one with sparse embedding rows: the dense head and
-    the dense embedding under a mesh are not ported (ROADMAP Queue 1, slice
-    12). The trunk's grads are then the rank's parts of the leaves."""
+    grads are the global batch's: the ``SparseRows`` the same on every
+    rank, every dense grad the rank's part of its leaf."""
     mode = resolve_head_update(head_update, hcfg.kind)
     if embed_update not in ("auto", "sparse", "dense"):
         raise ValueError(f"embed_update must be auto, sparse or dense, got {embed_update!r}")
@@ -114,12 +116,7 @@ def make_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, head_update: str = "auto",
                          "dense autograd path cannot deliver them")
     if mesh is not None:
         sharding.check_mesh(mesh)
-        if mode != "sparse" or emode != "sparse":
-            raise ValueError("under a mesh the row-sharded head and embedding train "
-                             "through sparse rows: head_update and embed_update must "
-                             "resolve to 'sparse' (the dense head and embedding under a "
-                             "mesh are not ported yet: ROADMAP Queue 1, slice 12)")
-        return _sharded_grad_fn(cfg, hcfg, sampler, mesh)
+        return _sharded_grad_fn(cfg, hcfg, sampler, mesh, mode, emode)
 
     def dense_grads(state: TrainState, batch, generator):
         params = _leaves_requiring_grad(state.params)
@@ -178,55 +175,92 @@ def make_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, head_update: str = "auto",
     return dense_grads if mode == "dense" else sparse_grads
 
 
-def _sharded_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, sampler, mesh):
-    """The sparse step's gradients under a mesh (module docstring): the
-    trunk's leaves are the rank's parts, and so are their gradients."""
+def _sharded_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, sampler, mesh, mode: str,
+                     emode: str):
+    """The step's gradients under a mesh (module docstring): the trunk's
+    leaves are the rank's parts, and so are their gradients, and so are a
+    dense head's and a dense embedding's (the rank's rows)."""
     from repro_torch.parallel import collectives
+    dense_head, dense_embed = mode == "dense", emode == "dense"
+    reduced = None        # the trunk leaves whose gradient is reduce-scattered over data
 
     def grad_fn(state: TrainState, batch, generator):
+        nonlocal reduced
         params = state.params
         local = sharding.shard_batch(batch, mesh)
         tokens = local["tokens"]
         trunk = _leaves_requiring_grad(
             {k: v for k, v in params.items() if k not in ("head", "embed")})
         leaves, spec = tree_util.flatten(trunk)
+        if reduced is None:
+            reduced = ["data" in sharding.split_axes(sp, mesh)
+                       for _, sp in sharding.train_state_spec(cfg, mesh, trunk)]
+        tables = _leaves_requiring_grad(
+            {**({"embed": params["embed"]} if dense_embed else {}),
+             **({"head": params["head"]} if dense_head else {})})
+        t_leaves, t_spec = tree_util.flatten(tables)
         vision = local.get("vision_embeds")
         with torch.enable_grad(), record_function("train/forward"):
-            h0 = transformer.embed_inputs(params, cfg, tokens, mesh=mesh).requires_grad_()
+            h0 = transformer.embed_inputs(tables if dense_embed else params, cfg, tokens,
+                                          mesh=mesh)
+            if not dense_embed:
+                h0.requires_grad_()
             ie = h0 if vision is None else torch.cat([vision.to(h0.dtype), h0], dim=1)
             h, _, fwd_metrics = transformer.forward(
                 trunk, cfg, tokens, positions=local.get("positions"), inputs_embeds=ie,
                 attn_impl="plain", mesh=mesh)
         n_vis = _n_vis(cfg, h, local)
+        shape = tuple(batch["labels"].shape)
         with record_function("train/head"):
-            loss, head_metrics, head_rows, dh = lm_head.lm_sharded_head_loss(
-                cfg, hcfg, _head(params), state.head_state, h[:, n_vis:],
-                local["labels"], generator, mesh, tuple(batch["labels"].shape),
-                mask=local.get("mask"), sampler=sampler)
-        if n_vis:
-            dh = torch.nn.functional.pad(dh, (0, 0, n_vis, 0))
+            if dense_head:
+                with torch.enable_grad():
+                    loss, head_metrics = lm_head.lm_sharded_dense_loss(
+                        cfg, hcfg, HeadParams(**tables["head"]), state.head_state,
+                        h[:, n_vis:], local["labels"], generator, mesh, shape,
+                        mask=local.get("mask"), sampler=sampler)
+            else:
+                loss, head_metrics, head_rows, dh = lm_head.lm_sharded_head_loss(
+                    cfg, hcfg, _head(params), state.head_state, h[:, n_vis:],
+                    local["labels"], generator, mesh, shape, mask=local.get("mask"),
+                    sampler=sampler)
+                if n_vis:
+                    dh = torch.nn.functional.pad(dh, (0, 0, n_vis, 0))
+        inputs = leaves + t_leaves + ([] if dense_embed else [h0])
         with record_function("train/backward"):
-            outs = torch.autograd.grad(h, leaves + [h0], dh.to(h.dtype))
+            if dense_head:
+                outs = torch.autograd.grad(loss, inputs)
+            else:
+                outs = torch.autograd.grad(h, inputs, dh.to(h.dtype))
         trunk_grads = list(outs[:len(leaves)])
-        dh0 = outs[-1]
-        with record_function("train/embed_rows"):
-            embed_rows = sparse_opt.accumulate_embed_rows(
-                tokens.reshape(-1), dh0.reshape(-1, dh0.shape[-1]), 0)
+        table_grads = list(outs[len(leaves):len(leaves) + len(t_leaves)])
+        grads = {}
+        if not dense_embed:
+            dh0 = outs[-1]
+            with record_function("train/embed_rows"):
+                grads["embed"] = sparse_opt.accumulate_embed_rows(
+                    tokens.reshape(-1), dh0.reshape(-1, dh0.shape[-1]), 0)
         with record_function("train/data_sum"):
-            collectives.all_reduce_over_data(mesh, trunk_grads)
-            head_rows = collectives.sum_rows_over_data(mesh, head_rows)
-            embed_rows = collectives.sum_rows_over_data(mesh, embed_rows)
+            # FSDP leaves come back reduce-scattered over data; a sum here
+            # would count them dp times.
+            collectives.all_reduce_over_data(
+                mesh, [g for g, r in zip(trunk_grads, reduced) if not r])
+            for g in table_grads:           # each (V/tp, d) table in place
+                collectives.all_reduce_over_data(mesh, [g])
+            if not dense_head:
+                grads["head"] = collectives.sum_rows_over_data(mesh, head_rows)
+            if not dense_embed:
+                grads["embed"] = collectives.sum_rows_over_data(mesh, grads["embed"])
             # Each data rank's loss and head metrics are its share of the
             # global means; the forward's metrics are per-rank means.
             summed = {"loss": loss, **head_metrics}
-            scalars = torch.stack([v.float() for v in summed.values()]
-                                  + [v.float() for v in fwd_metrics.values()]).detach()
+            scalars = torch.stack([v.detach().float() for v in summed.values()]
+                                  + [v.detach().float() for v in fwd_metrics.values()])
             collectives.all_reduce_over_data(mesh, [scalars])
             n_sum = len(summed)
             metrics = dict(zip(summed, scalars[:n_sum]))
             metrics.update(zip(fwd_metrics, scalars[n_sum:] / sharding.size(mesh, "data")))
-        grads = {**tree_util.unflatten(spec, trunk_grads), "head": head_rows,
-                 "embed": embed_rows}
+        grads = {**tree_util.unflatten(spec, trunk_grads),
+                 **tree_util.unflatten(t_spec, table_grads), **grads}
         return grads, metrics
 
     return grad_fn
@@ -262,13 +296,13 @@ def make_train_step(cfg: ModelConfig, hcfg: HeadConfig, opt_cfg: OptimizerConfig
     """
     grad_fn = make_grad_fn(cfg, hcfg, head_update, sampler=sampler,
                            embed_update=embed_update, mesh=mesh)
-    split_dims = None           # the trunk's split leaves, read once from the first state
+    split_dims = None           # the mesh's cut leaves, read once from the first state
 
     def train_step(state: TrainState, batch, generator):
         nonlocal split_dims
         if split_dims is None:
             split_dims = ({} if mesh is None
-                          else sharding.trunk_split_dims(cfg, mesh, state.params))
+                          else sharding.split_dims(cfg, mesh, state.params))
         grads, metrics = grad_fn(state, batch, generator)
         with record_function("train/optimizer"):
             return _update(state, grads, metrics)
@@ -367,10 +401,8 @@ def make_eval_step(cfg: ModelConfig, hcfg: HeadConfig, mesh=None):
 
 
 def _sharded_eval_step(cfg: ModelConfig, hcfg: HeadConfig, mesh):
-    import torch.distributed as dist
     from repro_torch.parallel import collectives
-    lo, hi = sharding.row_range(cfg.padded_vocab, mesh)
-    g_model = sharding.group(mesh, "model")
+    lo, _ = sharding.row_range(cfg.padded_vocab, mesh)
 
     def eval_step(state: TrainState, batch):
         local = sharding.shard_batch(batch, mesh)
@@ -386,16 +418,7 @@ def _sharded_eval_step(cfg: ModelConfig, hcfg: HeadConfig, mesh):
             mask = local.get("mask")
             mask = (torch.ones(labels.shape, dtype=torch.float32, device=h.device)
                     if mask is None else mask.reshape(-1).float())
-            top = scores.amax(dim=-1)
-            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g_model)
-            total = torch.exp(scores - top[:, None]).sum(dim=-1)
-            dist.all_reduce(total, group=g_model)
-            local_label = labels - lo
-            mine = (local_label >= 0) & (local_label < hi - lo)
-            pos = torch.gather(scores, -1, local_label.clamp(0, hi - lo - 1)[:, None])[:, 0]
-            pos = torch.where(mine, pos, torch.zeros_like(pos))
-            dist.all_reduce(pos, group=g_model)
-            logp = pos - (top + torch.log(total))
+            logp, _ = lm_head.sharded_label_logprob(mesh, scores, labels, lo)
             acc = (lm_head.sharded_argmax(mesh, scores, lo) == labels).float()
             sums = torch.stack([(logp * mask).sum(), (acc * mask).sum(), mask.sum()])
             collectives.all_reduce_over_data(mesh, [sums])
@@ -589,15 +612,16 @@ def init_train_state(generator: torch.Generator, cfg: ModelConfig,
     state, bit for bit (``shard_train_state`` of it): each tensor is drawn
     from the same generator state on every rank and cut before the next
     layer is drawn (``transformer.init_params(mesh=)``), and the optimizer
-    state is built on the parts, so no rank holds the whole trunk."""
+    state is built on the parts, so no rank holds the whole trunk (each
+    layer cut over ``model`` and, with FSDP, over ``data``)."""
     dev = device_lib.resolve(device)
     params = transformer.init_params(generator, cfg, device=dev, mesh=mesh)
     col_lens = {}
-    if mesh is not None:        # SM3's column cover of a column-split leaf is whole
+    if mesh is not None:        # SM3's column cover of a column-cut leaf is whole
         leaves = dict(tree_util.flatten_with_paths(params)[0])
-        col_lens = {path: leaves[path].shape[1] * sharding.size(mesh, "model")
-                    for path, dim in sharding.trunk_split_dims(cfg, mesh, params).items()
-                    if dim == 1}
+        col_lens = {path: leaves[path].shape[1] * sharding.size(mesh, axes[1])
+                    for path, axes in sharding.split_dims(cfg, mesh, params).items()
+                    if len(axes) > 1 and axes[1]}
     ewma0, ref0 = snr_reset_pair(dev)
     return TrainState(
         step=0, params=params, opt_state=init_opt_state(opt_cfg, params, col_lens),

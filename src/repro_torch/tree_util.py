@@ -40,22 +40,28 @@ def _names(kind, meta, n):
     return [str(i) for i in range(n)]
 
 
+def _walk(node, path, is_leaf, pairs) -> Spec:
+    kind, meta, kids = _children(node, is_leaf)
+    if kind == "leaf":
+        pairs.append((path, node))
+        return ("leaf", None, ())
+    names = _names(kind, meta, len(kids))
+    return (kind, meta, tuple(_walk(k, path + (n,), is_leaf, pairs)
+                              for k, n in zip(kids, names)))
+
+
 def flatten_with_paths(tree, is_leaf: Optional[Callable[[Any], bool]] = None
                        ) -> Tuple[List[Tuple[Tuple[str, ...], Any]], Spec]:
     """((path, leaf) pairs, spec): a path names the dict keys, the named
     tuples' fields and the list indices down to its leaf. ``is_leaf``
-    makes a node (``None``, a state box) one leaf."""
+    makes a node (``None``, a state box) one leaf.
+
+    The walks here are module functions, not nested closures: a closure
+    that calls itself is a reference cycle, which would keep the leaves it
+    saw (gathered weights, gradients) alive until the cyclic collector
+    runs."""
     pairs: List[Tuple[Tuple[str, ...], Any]] = []
-
-    def walk(node, path) -> Spec:
-        kind, meta, kids = _children(node, is_leaf)
-        if kind == "leaf":
-            pairs.append((path, node))
-            return ("leaf", None, ())
-        names = _names(kind, meta, len(kids))
-        return (kind, meta, tuple(walk(k, path + (n,)) for k, n in zip(kids, names)))
-
-    spec = walk(tree, ())
+    spec = _walk(tree, (), is_leaf, pairs)
     return pairs, spec
 
 
@@ -66,23 +72,23 @@ def flatten(tree, is_leaf: Optional[Callable[[Any], bool]] = None
     return [leaf for _, leaf in pairs], spec
 
 
+def _build(s: Spec, it) -> Any:
+    kind, meta, kids = s
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    vals = [_build(k, it) for k in kids]
+    if kind == "dict":
+        return dict(zip(meta, vals))
+    if kind == "named":
+        return meta(*vals)
+    return vals if kind == "list" else tuple(vals)
+
+
 def unflatten(spec: Spec, leaves) -> Any:
     it = iter(leaves)
-
-    def build(s: Spec):
-        kind, meta, kids = s
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        vals = [build(k) for k in kids]
-        if kind == "dict":
-            return dict(zip(meta, vals))
-        if kind == "named":
-            return meta(*vals)
-        return vals if kind == "list" else tuple(vals)
-
-    out = build(spec)
+    out = _build(spec, it)
     rest = list(it)
     if rest:
         raise ValueError(f"unflatten: {len(rest)} leaves left over")

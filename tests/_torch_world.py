@@ -16,13 +16,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH_TIMEOUT_S = 30
 
 PRELUDE = f"""
-import os, sys
+import atexit, os, sys
 import torch
+import torch.distributed
 torch.set_num_threads(1)
 sys.path.insert(0, {os.path.join(ROOT, "tests")!r})
 from repro_torch.launch.mesh import make_host_mesh
 RANK = int(os.environ["RANK"])
 OUT = os.environ["WORLD_OUT"]
+# Tear the group down before the interpreter does: a live gloo group at
+# exit can abort the process after its work is done.
+atexit.register(lambda: torch.distributed.is_initialized()
+                and torch.distributed.destroy_process_group())
 
 
 def mesh_of(model_axis):

@@ -225,9 +225,69 @@ def test_shard_params_cuts_what_the_spec_splits(arch):
             assert torch.equal(part, full.narrow(dim, n, n)), path
         else:
             assert part is full
-    split, whole = sharding.split_bytes({"layers": params["layers"]}, cfg, (1, 2))
-    assert split + whole == sharding.tree_bytes(params["layers"])
-    assert sharding.tree_bytes(local["layers"]) == split // 2 + whole
+    b = sharding.split_bytes({"layers": params["layers"]}, cfg, (1, 2))
+    assert b.data == b.both == 0              # one data rank cuts nothing
+    assert b.model + b.whole == sharding.tree_bytes(params["layers"])
+    assert sharding.tree_bytes(local["layers"]) == b.model // 2 + b.whole
+
+
+FSDP_MESHES = ((2, 1), (2, 2), (4, 1), (2, 4))
+
+
+class _Rank:
+    """Stands in for a ``DeviceMesh`` of ``shape``: the rank at ``coords``
+    (data, model), for the rules alone."""
+    mesh_dim_names = sharding.MESH_DIMS
+
+    def __init__(self, shape, coords):
+        self.shape, self.coords = shape, coords
+
+    def get_local_rank(self, dim):
+        return self.coords[sharding.MESH_DIMS.index(dim)]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fsdp_local_shapes_match_reference_shard_shape(arch):
+    """On (2, 1), (2, 2), (4, 1) and (2, 4), at full width on the meta
+    device: every leaf of the parameters and of Adagrad's, AdamW's, SM3's
+    and int8 AdamW's state, after ``shard_train_state``, has the shape the
+    reference's ``NamedSharding(mesh, spec).shard_shape`` gives its full
+    shape, and the bytes a rank holds are exactly model / tp + data / dp +
+    both / (dp·tp) + whole of the one-rank state's."""
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    cfg = tconfigs.get_config(arch)
+    params = ttransformer.init_params(torch.Generator(), cfg, device="meta")
+    trees = {"params": params}
+    trees.update({opt: init_opt_state(OptimizerConfig(**kw), params)
+                  for opt, kw in OPT_CASES.items()})
+    for mesh in FSDP_MESHES:
+        jmesh = _abstract_mesh(mesh)
+        rank = _Rank(mesh, (mesh[0] - 1, mesh[1] - 1))
+        for name, tree in trees.items():
+            local = sharding.shard_train_state(tree, rank, cfg)
+            for (path, sp), full, part in zip(sharding.train_state_spec(cfg, mesh, tree),
+                                              tree_util.leaves(tree), tree_util.leaves(local)):
+                if not isinstance(full, torch.Tensor):
+                    continue
+                want = NamedSharding(jmesh, P(*sp)).shard_shape(tuple(full.shape))
+                assert tuple(part.shape) == tuple(want), (mesh, name, path, sp)
+            b = sharding.split_bytes(tree, cfg, mesh)
+            assert b.total == sharding.tree_bytes(tree)
+            assert sharding.tree_bytes(local) == b.a_rank(mesh), (mesh, name)
+            if mesh[0] > 1:
+                assert b.data + b.both > 0
+            if mesh[1] == 1:
+                assert b.model == b.both == 0
+
+
+def test_fsdp_raises_on_a_data_dim_that_does_not_divide():
+    cfg = tconfigs.reduced_config("h2o-danube-3-4b")          # d_model 64 over 3 ranks
+    params = ttransformer.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.raises(ValueError, match="layers/0/attn/wk: dimension 0 of 64 does not "
+                                         "divide over 3 data ranks"):
+        sharding.shard_train_state({"layers": params["layers"]}, _Rank((3, 1), (0, 0)), cfg)
 
 
 def test_shard_params_raises_on_a_dim_that_does_not_divide():
@@ -245,7 +305,10 @@ def test_shard_params_raises_on_a_dim_that_does_not_divide():
         sharding.shard_train_state({"layers": params["layers"]}, Rank0Of3(), cfg)
 
 
-def test_hint_context_refuses_slice_11_options():
+def test_hint_context_refuses_slice_11_options(monkeypatch):
+    """A stand-in mesh is refused; past that check (patched here) only
+    ``seq_parallel_residual`` is refused, naming slice 13, and
+    ``fsdp_gather_weights`` is taken."""
     from repro_torch.parallel import hints
 
     class Mesh:
@@ -255,3 +318,14 @@ def test_hint_context_refuses_slice_11_options():
     with pytest.raises(TypeError):
         hints.HintContext(Mesh())                              # not a DeviceMesh
     assert hints.hinted_rows(5, 4) is None                     # no context: no hint
+    w = torch.zeros(2, 3)
+    assert hints.hint_gathered_weight(w, torch.bfloat16) == torch.float32
+    assert hints.hint_expert_act(w) is w
+    monkeypatch.setattr(hints.sharding, "check_mesh", lambda mesh: None)
+    with pytest.raises(NotImplementedError, match="sequence parallelism.*slice 13"):
+        hints.HintContext(Mesh(), seq_parallel_residual=True)
+    with hints.sharding_hints(Mesh(), fsdp_gather_weights=True):
+        assert hints.current().fsdp_gather_weights
+        assert hints.hint_gathered_weight(w, torch.bfloat16) == torch.bfloat16
+    with hints.sharding_hints(Mesh()):
+        assert hints.hint_gathered_weight(w, torch.bfloat16) == torch.float32

@@ -221,6 +221,5 @@ def test_hint_gathers_the_prefill_queries(runs):
 
 def test_hint_context_refuses_slice_11_options(runs):
     refused = runs[2][0]["refused"]
-    assert [kw for kw, _ in refused] == ["seq_parallel_residual", "fsdp_gather_weights"]
-    assert all("FSDP" in msg and "sequence parallelism" in msg and "slice 12" in msg
-               for _, msg in refused)
+    assert [kw for kw, _ in refused] == ["seq_parallel_residual"]     # FSDP's hint is taken
+    assert all("sequence parallelism" in msg and "slice 13" in msg for _, msg in refused)

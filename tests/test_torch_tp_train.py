@@ -269,7 +269,7 @@ def test_mesh_step_matches_jax(worlds, name):
 def test_whole_leaves_and_rows_bit_equal_across_ranks(worlds, tp):
     for name in CASES:
         cfg = _carried(name)[1]
-        split = sharding.trunk_split_dims(cfg, (1, tp), _state(name).params)
+        split = sharding.split_dims(cfg, (1, tp), _state(name).params)
         ranks = worlds[tp]
         for out in ranks[1:]:
             for path, g in tree_util.flatten_with_paths(out[name]["local"])[0]:

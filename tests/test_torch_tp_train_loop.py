@@ -94,7 +94,7 @@ for s, batch in enumerate(inp["batches"]):
 out["steps"] = {"metrics": metrics, "params": gather_train_state(state.params, mesh, cfg)}
 
 # The optimizer rules on a rank's part of the trunk, the same gradients.
-split = sharding.trunk_split_dims(cfg, mesh, shard_train_state(inp["opt_params"], mesh, cfg))
+split = sharding.split_dims(cfg, mesh, shard_train_state(inp["opt_params"], mesh, cfg))
 for rule, kw in inp["rules"].items():
     st = shard_train_state(inp["opt_states"][rule], mesh, cfg)
     params, opt_state = st.params, st.opt_state
@@ -355,19 +355,3 @@ def test_train_launcher_prints_each_ranks_bytes(tmp_path):
         assert m, proc.stdout[:2000]
         a, b, total, split, whole = map(int, m.groups())
         assert a == b == split // 2 + whole and total == split + whole and split > 0
-
-
-def test_train_launcher_refuses_a_dense_head_on_a_mesh(monkeypatch):
-    """The refusal comes before the mesh or anything else is built, so it
-    needs no ranks: ``main`` raises it here, in this process, both for
-    ``--model-axis 2`` and for a ``--model-axis 1`` run under ``torchrun``
-    (a data-only mesh)."""
-    from repro_torch.launch import train as tlaunch
-    flags = ["--arch", "stablelm-3b", "--reduced", "--device", "cpu", "--head", "softmax",
-             "--steps", "1"]
-    with pytest.raises(ValueError, match="dense head under a mesh is not ported yet"):
-        tlaunch.main(flags + ["--model-axis", "2"])
-    monkeypatch.setenv("RANK", "0")
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(ValueError, match="dense head under a mesh is not ported yet"):
-        tlaunch.main(flags + ["--model-axis", "1"])
