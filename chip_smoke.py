@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving (lock-step and engine), LM-training, backbone-family, process-mesh and sharded-trunk (serving and training) paths on one NVIDIA card.
+"""Drives the PyTorch port's prediction, training, head-math, generator-fitting, LM-serving (lock-step and engine), LM-training, backbone-family, process-mesh, sharded-trunk (serving and training, sequence parallelism) and dry-run paths on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
 
@@ -141,7 +141,7 @@ Phases, each fatal on failure:
      tokens with (3, B, 1), equal streams bit-equal to (B, S) positions,
      and distinct streams against the plain forward over 4 layers (2^-5
      relative RMS, and 4 times closer than plain RoPE);
-     (e) mixtral-8x22b at full width and 8 of its 56 layers (printed as
+     (e) mixtral-8x22b at full width and 4 of its 56 layers (printed as
      ``reduced``), 2 x 4,096 prompt tokens and 16, dense, and its layer 0
      ``moe_ffn`` (the ``topk_softmax`` router) checked as (c)'s. Every model
      is built by the serving launcher's ``serve.build``;
@@ -179,14 +179,14 @@ Phases, each fatal on failure:
      ``torchrun``, any rank's failure or a wait past the time limit fatal;
      the one-rank reference values come from this process before each
      world starts, through a temporary file, and are freed: (a)
-     h2o-danube-3-4b at full width, 8 of its 24 layers (printed as
+     h2o-danube-3-4b at full width, 4 of its 24 layers (printed as
      ``reduced``), through the serving launcher (``serve.main`` in this
      script's ``--tp-worker``, the model built at that depth; ``--device
      cuda:0 --model-axis M --time-collectives``) on (1, 2): phase 9's
      lock-step shapes (4 × 4,608 + 32) dense and beam 64 and an engine
      burst of 8 × 4,096 + 32 at beam 64, and on (1, 4) the dense
      lock-step; (b)
-     deepseek-moe-16b at full width, 14 of its 28 layers (printed as
+     deepseek-moe-16b at full width, 8 of its 28 layers (printed as
      ``reduced``), on (1, 4), 16 of its 64 experts a rank (this script
      with ``--tp-worker``): lock-step 4 × 2,048 + 32, dense; (c) hymba-1.5b at full width, 4 of its 32 layers
      (printed as ``reduced``), on (1, 2), 25
@@ -210,7 +210,11 @@ Phases, each fatal on failure:
      its bf16 sums, its prefill's last hiddens held in float32 (the same
      model at 4 layers, prefill and scores within 2^-5); (c) the
      hinted prefill within 2^-5 of the unhinted and of one rank's, in bf16
-     and in float32. Printed for each path
+     and in float32, and the same prefill under ``seq_parallel_residual``
+     (sequence parallelism) within 2^-5 of the unhinted and of one rank's
+     in bf16 and in float32, its trunk collectives' calls and bytes equal
+     to the count from the shapes (``sp_hybrid_prefill_trunk``). Printed
+     for each path
      (line ``tp_path``): the share of free-running tokens equal to the
      one-rank run's, each rank's ms a token, the trunk collectives' calls,
      bytes and share of the run, peak memory and launches (which join the
@@ -231,7 +235,11 @@ Phases, each fatal on failure:
      the expert
      leaves' gather bytes exactly half, the same calls; (e) stablelm-3b, 2
      of 32 layers, on (2, 2) with the ``softmax`` head and the dense
-     embedding, FSDP. Fatal: each rank's parameter and Adagrad state bytes
+     embedding, FSDP; (f) stablelm-3b, 2 of 32 layers, on (1, 4) under
+     ``seq_parallel_residual``, its trunk collectives' calls and bytes by
+     forward, recompute and backward exact against ``tpt_sp_trunk`` and
+     each checkpointed layer's saved input exactly 1/4 of the unhinted
+     run's. Fatal: each rank's parameter and Adagrad state bytes
      the one-rank bytes over ``model`` ÷ tp, over ``data`` ÷ dp, over both
      ÷ (dp·tp), plus whole, exactly; on (2, 2) the peak a rank below its
      parameters and their gradients, two gathered layers and one rank's
@@ -251,13 +259,27 @@ Phases, each fatal on failure:
      recompute and the backward, peak memory a rank and its bound, the
      card; line ``tp_train_path``; every rank's launches join the
      ``kernels`` line;
- 16. print the ``kernels`` JSON line and, last, the device line.
+ 16. the dry run (``repro_torch.launch.dryrun``) on this machine's CPU, in
+     a process of its own started when phase 13 starts (it needs no card,
+     so it runs beside phases 13-15) and read here: (a) phase 11's step (stablelm-3b
+     at full width and depth, batch 4 x 2,048, one rank) counted on fake
+     tensors against that step as measured in phase 11: each kernel's
+     launches exact (``sampled_head_loss`` 1, ``segment_stats`` 3,
+     ``flash_attention`` 0), the roofline's step time at or below the
+     measured median ms a step, the counted peak (arguments plus the
+     step's temporaries) within 20% of ``torch.cuda.max_memory_allocated``
+     over one step (line ``dryrun_step``); (b) h2o-danube-3-4b
+     ``train_4k`` on the (32, 8) production mesh of 256 fake ranks to
+     status ``ok``, its roofline terms and bytes a rank on line
+     ``dryrun_cell``;
+ 17. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import contextlib
 import ctypes
@@ -291,7 +313,10 @@ from repro_torch.core import heads, samplers, snr, tree as tree_lib, tree_fit, x
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.genfit import levels as genfit_levels  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_attention_lib  # noqa: E402
 from repro_torch.kernels import gather_scores as gather_scores_lib, tree_logprob  # noqa: E402
+from repro_torch.kernels import sampled_loss as sampled_loss_lib  # noqa: E402
+from repro_torch.kernels import segment_scores as segment_scores_lib  # noqa: E402
 from repro_torch.kernels.sampled_loss import SAMPLED_KINDS  # noqa: E402
 from repro_torch.optim import OptimizerConfig, apply_updates, init_opt_state  # noqa: E402
 from repro_torch.optim import sparse as sparse_lib  # noqa: E402
@@ -519,10 +544,8 @@ def check_gather(dev, gen, flush, cfg, floor):
             check(took == 2, f"{what}: not on the {gather_variant(plan)} variant of its plan")
             check(torch.equal(got, again), f"{what}: two calls differ")
             check(close(got, want, GATHER_TOL), f"{what} disagrees")
-            elt = w.element_size()
-            n_bytes = (rows * kdim * elt + rows * elt + ids.numel() * 8
-                       + h.numel() * 4 + ids.numel() * 4)
-            bound, by = bound_ms(n_bytes, ids.numel() * (2 * kdim + 1))
+            n_flop, n_bytes = gather_scores_lib.cost(t, n, kdim, w.element_size(), rows)
+            bound, by = bound_ms(n_bytes, n_flop)
             ms = time_ms(lambda: ops.gather_scores(w, b, h, ids), flush)
             plain = time_ms(lambda: ref.gather_scores_ref(w, b, h, ids), flush)
             device, seen = kernel_device_ms(lambda: ops.gather_scores(w, b, h, ids), flush,
@@ -607,9 +630,8 @@ def check_tree(dev, gen, flush, cfg, floor):
         check(torch.equal(got, again), f"{what}: two calls differ")
         check(close(fma_out, want, TREE_TOL), f"{what}: the FMA kernel disagrees")
         del again, fma_out, want
-        n_nodes, _ = tree.w.shape
-        n_bytes = got.numel() * 4 + tree.w.numel() * 4 + tree.b.numel() * 4 + x.numel() * 4
-        bound, by = bound_ms(n_bytes, bsz * n_nodes * (2 * kg + 3))
+        n_flop, n_bytes = tree_logprob.cost(bsz, tree.w.shape[0], kg)
+        bound, by = bound_ms(n_bytes, n_flop)
         out = torch.empty_like(got)
         fma = time_ms(lambda: tree_logprob._launch(tree.w, tree.b, x, out, tree.depth,
                                                    tree_logprob.FMA, 0, 0), flush)
@@ -685,10 +707,8 @@ def check_sampled_loss(dev, gen, flush, cfg, floor):
                     errs[(shape_name, str(dtype)[6:], kind, reg)] = (err, dh_err)
             # Time the main path's kind (adversarial_ns, reg 1e-3, no softcap).
             kw = dict(kind="adversarial_ns", num_labels=c, reg=cfg.head_reg)
-            elt = w.element_size()
-            n_bytes = (rows * (kdim + 1) * elt + t * kdim * 4 + t * m * (8 + 4)
-                       + t * 4 + 2 * t * m * 4 + t * kdim * 4)
-            bound, by = bound_ms(n_bytes, t * m * 4 * kdim)
+            n_flop, n_bytes = sampled_loss_lib.cost(t, m, kdim, w.element_size(), rows)
+            bound, by = bound_ms(n_bytes, n_flop)
             ms = time_ms(lambda: ops.sampled_head_loss(w, b, h, ids, lp, **kw), flush)
             plain = time_ms(lambda: ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw), flush)
             device, seen = kernel_device_ms(
@@ -767,8 +787,8 @@ def check_segment_stats(dev, gen, flush):
         check(torch.equal(got, fresh), f"{what}: a call with a reused plan differs from one "
                                        f"that builds its own")
         del got, again, fresh, want, exact, scale
-        n_bytes = SEG_POINTS * (d * vals.element_size() + 8) + s * d * 4
-        bound, by = bound_ms(n_bytes, SEG_POINTS * d)
+        n_flop, n_bytes = segment_scores_lib.cost(SEG_POINTS, d, s, vals.element_size())
+        bound, by = bound_ms(n_bytes, n_flop)
         plan_ms = time_ms(lambda: ops.segment_plan(seg, s), flush)
         ms = time_ms(lambda: ops.segment_stats(vals, seg, s, plan=plan), flush)
         both = time_ms(lambda: ops.segment_stats(vals, seg, s), flush)
@@ -1373,17 +1393,6 @@ def small_fits(dev, seed):
         "c4096_sharded_serial_s": serial_s, "c4096_serial_equals_threaded": True}}))
 
 
-def band_pairs(sq, skv, causal, window) -> tuple:
-    """(query, key) pairs inside the causal/window band, and the number of
-    keys that some query sees, for end-aligned query positions."""
-    pos = torch.arange(sq, dtype=torch.int64) + (skv - sq)
-    lo = (pos - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(pos)
-    hi = pos.clamp(max=skv - 1) if causal else torch.full_like(pos, skv - 1)
-    count = (hi - lo + 1).clamp(min=0)
-    seen = int(hi.max() - lo.min() + 1) if bool((count > 0).any()) else 0
-    return int(count.sum()), seen
-
-
 def attn_errors(got, want) -> dict:
     """The largest error, the largest ratio of an error to its bound (bf16:
     the per-row ulp bound; float32: ``ATTN_F32_TOL``) and the relative RMS
@@ -1450,11 +1459,9 @@ def check_flash_attention(dev, gen, flush):
                                        f"({errs})")
         check(torch.equal(got, again), f"{what}: two calls differ")
         del got, again, want
-        pairs, seen = band_pairs(sq, skv, causal, window)
-        elt = q.element_size()
-        n_bytes = 2 * q.numel() * elt + 2 * b * kv * seen * hd * k.element_size()
+        n_flop, n_bytes = flash_attention_lib.cost(b, h, kv, sq, skv, hd, causal, window,
+                                                   q.element_size(), k.element_size())
         peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-        n_flop = 4 * hd * b * h * pairs
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / peak
         bound, by = 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
         ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), flush)
@@ -1816,14 +1823,11 @@ def check_recorded(rec: PagedRecorder, flush) -> dict:
     lens = kw["kv_lens"].tolist()
     b, h, sq, hd = q.shape
     kvh = k.shape[2]
-    pairs = seen = 0
-    for n in lens:
-        p_, s_ = band_pairs(sq, n, True, kw.get("window", 0))
-        pairs, seen = pairs + p_, seen + s_
-    n_bytes = (2 * q.numel() * q.element_size() + 2 * seen * kvh * hd * k.element_size()
-               + kw["kv_lens"].numel() * 4 + kw["page_table"].numel() * 4)
+    n_flop, n_bytes = flash_attention_lib.cost(
+        b, h, kvh, sq, max(lens), hd, True, kw.get("window", 0), q.element_size(),
+        k.element_size(), kv_lens=lens,
+        index_bytes=kw["kv_lens"].numel() * 4 + kw["page_table"].numel() * 4)
     peak = (BF16_FLOP_PER_S if q.dtype == k.dtype == torch.bfloat16 else FP32_FLOP_PER_S)
-    n_flop = 4 * hd * h * pairs
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / peak
     ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), flush)
     plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), flush)
@@ -2205,9 +2209,8 @@ def lm_kernel_check(dev, state, cfg, hcfg, batch, seed):
     check(dh_close(got[3], want[3], want[1], w, ids), "LM kernel check: dh disagrees")
     t, m = ids.shape
     rows = torch.unique(ids).numel()
-    n_bytes = (rows * (cfg.d_model + 1) * 4 + t * cfg.d_model * 4 + t * m * (8 + 4)
-               + t * 4 + 2 * t * m * 4 + t * cfg.d_model * 4)
-    bound, by = bound_ms(n_bytes, t * m * 4 * cfg.d_model)
+    n_flop, n_bytes = sampled_loss_lib.cost(t, m, cfg.d_model, 4, rows)
+    bound, by = bound_ms(n_bytes, n_flop)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
     ms = time_ms(lambda: ops.sampled_head_loss(w, b, h, ids, lp, **kw), flush)
     plain = time_ms(lambda: ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw), flush)
@@ -2410,7 +2413,18 @@ def lm_train_path(dev, seed, card):
     tokens = LM_BATCH * LM_SEQ
 
     gen = lambda s: step_generator(launch_train.LOOP_SEED, s, dev)  # noqa: E731
-    train_step(state, batch_fn(LM_STEPS), gen(LM_STEPS))            # warm the profiler's step
+    # The profiler's warm step, its peak read alone for phase 16's dry run.
+    step_batch = batch_fn(LM_STEPS)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_step = time.perf_counter()
+    train_step(state, step_batch, gen(LM_STEPS))
+    torch.cuda.synchronize()
+    one_step = dict(ms=1e3 * (time.perf_counter() - t_step),
+                    peak_bytes=torch.cuda.max_memory_allocated(),
+                    held_bytes=torch.cuda.memory_allocated())
+    del step_batch
     state, profile = lm_step_layers(train_step, state, batch_fn(LM_STEPS + 1), gen,
                                     LM_STEPS + 1)
     kernel = lm_kernel_check(dev, state, cfg, hcfg, eval_batch, seed)
@@ -2435,10 +2449,11 @@ def lm_train_path(dev, seed, card):
         "eval_tree_check": eval_tree, "fit_segment_check": fit_sums,
         "fits": fits, "gen_submit_steps": hist.get("gen_submit_steps"),
         "gen_swap_steps": hist.get("gen_swap_steps"), "peak_mem_gib": peak_gib,
+        "one_step": one_step,
         "launches": launches, "profiled_step": profile, "kernel_at_step_shape": kernel,
         "grads_2_layers": grads, "resume_2_layers": resume}
     print(json.dumps({"lm_train_path": result}))
-    return launches
+    return launches, result
 
 
 # ---------------------------------------------------------------------------
@@ -2451,7 +2466,7 @@ HM_PAIRS = SEG_POINTS            # (context, label ~ p_D) pairs the proposals ar
 HM_HELD_OUT = 1024
 HM_CHI_DRAWS = 2 ** 20
 HM_RFF_CHUNK = 4096              # RFF draws gather a (draws, C) CDF block: 3.6 GB at 4,096
-HM_STATE_STEPS = 100
+HM_STATE_STEPS = 50
 HM_STATE_START = 1000            # the step a timed head-state run starts at (see below)
 HM_STATE_CS = (217_240, BIG_C)
 HM_STATE_VARIANTS = (("adagrad/fp32", "adagrad", "fp32", torch.float32),
@@ -2839,7 +2854,7 @@ VL_BATCH, VL_TEXT, VL_GRID = 2, 1024, 32           # 32 x 32 = 1,024 vision embe
 # The distinct-stream prefill against the plain forward: over the first 4
 # layers, within SERVE_REL_RMS_TOL and 4 times closer to it than plain RoPE is.
 VL_PLAIN_LAYERS, VL_PLAIN_MARGIN = 4, 4.0
-MIXTRAL_LAYERS, MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_GEN = 8, 2, 4096, 16
+MIXTRAL_LAYERS, MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_GEN = 4, 2, 4096, 16
 
 
 def family_model(dev, seed, arch, num_layers=None) -> tuple:
@@ -3222,7 +3237,7 @@ def vision_path(dev, seed, card, model) -> tuple:
 
 def backbone_path(dev, seed, card) -> dict:
     """Phase 12: (a) mamba2-370m and (b) hymba-1.5b through the engine, (c)
-    deepseek-moe-16b, (d) qwen2-vl-7b and (e) mixtral-8x22b (8 of 56 layers)
+    deepseek-moe-16b, (d) qwen2-vl-7b and (e) mixtral-8x22b (4 of 56 layers)
     through the lock-step path, at full width; the SSD scan and the MoE
     dispatch checked on the card. Returns the launches by kernel."""
     t_phase = time.perf_counter()
@@ -3612,12 +3627,12 @@ def mesh_path(dev, seed, card) -> dict:
 
 # (a): the serving launcher on h2o-danube-3-4b, (model ranks, path).
 TP_PATHS = ((2, "dense"), (2, "beam"), (2, "engine"), (4, "dense"))
-# (a) runs 8 of the 24 layers at full width (printed as ``reduced``): cut
-# for the time limit once phase 15 took FSDP's cases (phase 9 serves the
-# whole depth on one rank).
-TP_DANUBE_LAYERS = 8
+# (a) runs 4 of the 24 layers at full width (printed as ``reduced``): cut
+# for the time limit once phase 15 took FSDP's cases, and again when phases
+# 15 (f) and 16 came (phase 9 serves the whole depth on one rank).
+TP_DANUBE_LAYERS = 4
 TP_MOE_ARCH, TP_MOE_RANKS = "deepseek-moe-16b", 4
-TP_MOE_LAYERS = 14               # of 28, full width: (b)'s depth, cut for the time limit
+TP_MOE_LAYERS = 8               # of 28, full width: (b)'s depth, cut for the time limit
 TP_HYB_ARCH, TP_HYB_RANKS = "hymba-1.5b", 2
 TP_HYB_LENGTHS = (1, 586, 1171, 1756, 2341, 2926, 3511, 4096)   # one burst, 8 lanes
 TP_HYB_LAYERS = 4                # of 32, full width: (c)'s depth, cut for the time limit
@@ -3938,17 +3953,27 @@ def tp_worker(out_dir: str, case: str, seed: int) -> int:
             plain = run_prefill(cfg, params)
             with sharding_hints(mesh):
                 hinted = run_prefill(cfg, params)
+            TRUNK.reset()
+            with sharding_hints(mesh, seq_parallel_residual=True):
+                sp = run_prefill(cfg, params)
+            res["sp_trunk"] = dict(calls=TRUNK.calls, bytes=TRUNK.bytes)
             res.update(hint_vs_plain_rel_rms=rel_rms(hinted, plain),
                        bf16_vs_one_bf16_rel_rms=rel_rms(hinted[:, -1].cpu(), ref["last_bf16"]),
-                       bf16_vs_one_f32_rel_rms=rel_rms(hinted[:, -1].cpu(), ref["last_f32"]))
-            del params, plain, hinted
+                       bf16_vs_one_f32_rel_rms=rel_rms(hinted[:, -1].cpu(), ref["last_f32"]),
+                       sp_vs_plain_rel_rms=rel_rms(sp, plain),
+                       sp_bf16_vs_one_bf16_rel_rms=rel_rms(sp[:, -1].cpu(), ref["last_bf16"]))
+            del params, plain, hinted, sp
             torch.cuda.empty_cache()
             cfg32 = dataclasses.replace(cfg, dtype="float32")
             params32 = transformer.init_params(torch.Generator(device=dev).manual_seed(
                 build_seed), cfg32, device=dev, cast=True, mesh=mesh)
             with sharding_hints(mesh):
                 h32 = run_prefill(cfg32, params32)
+            with sharding_hints(mesh, seq_parallel_residual=True):
+                sp32 = run_prefill(cfg32, params32)
             res["f32_vs_one_f32_rel_rms"] = rel_rms(h32[:, -1].cpu(), ref["last_f32"])
+            res["sp_f32_vs_plain_rel_rms"] = rel_rms(sp32, h32)
+            res["sp_f32_vs_one_f32_rel_rms"] = rel_rms(sp32[:, -1].cpu(), ref["last_f32"])
     Path(out_dir, f"rank{r}.json").write_text(json.dumps(res))
     if big:
         torch.save(big, Path(out_dir, f"rank{r}.pt"))
@@ -4025,6 +4050,21 @@ def tp_moe(dev, seed, card, total) -> dict:
     return row
 
 
+def sp_hybrid_prefill_trunk(cfg, tp: int) -> dict:
+    """The trunk collectives of (c)'s prefill under ``seq_parallel_residual``
+    (B, S) = TP_HYB_PREFILL, bf16, on (1, tp): in each layer an all-gather
+    of the rank's S/tp rows (counted at the part sent) at each of three
+    entries (the whole attention under the attention hint, the split SSM,
+    the split MLP), a float32 reduce-scatter of the (B, S, d) partial at the
+    SSM's and the MLP's exits (counted at the whole input) and the gated
+    norm's float32 sum of squares (B, S, 1); after the last block one
+    gather."""
+    b, s = TP_HYB_PREFILL
+    part, whole = b * s // tp * cfg.d_model * 2, b * s * cfg.d_model * 4
+    n = cfg.num_layers
+    return dict(calls=6 * n + 1, bytes=n * (3 * part + 2 * whole + b * s * 4) + part)
+
+
 def tp_hybrid(dev, seed, card, total) -> dict:
     """(c) hymba-1.5b at full width on (1, 2), attention whole on each rank
     (25 heads), its 50 SSD heads split: the engine burst under
@@ -4084,6 +4124,11 @@ def tp_hybrid(dev, seed, card, total) -> dict:
                    rep[k] for rep in reports] for k in (
                    "hint_vs_plain_rel_rms", "bf16_vs_one_bf16_rel_rms", "bf16_vs_one_f32_rel_rms",
                    "f32_vs_one_f32_rel_rms")}),
+               seq_parallel_prefill=dict(
+                   predicted_trunk=sp_hybrid_prefill_trunk(cfg, TP_HYB_RANKS), **{k: [
+                       rep[k] for rep in reports] for k in (
+                       "sp_trunk", "sp_vs_plain_rel_rms", "sp_bf16_vs_one_bf16_rel_rms",
+                       "sp_f32_vs_plain_rel_rms", "sp_f32_vs_one_f32_rel_rms")}),
                arena_bytes=[rep["arena_bytes"] for rep in reports],
                tokens_per_s=[rep["tokens_per_s"] for rep in reports],
                ranks=tp_rank_rows(reports, lambda rep: 1e-3 * rep["wall_ms"]))
@@ -4094,6 +4139,15 @@ def tp_hybrid(dev, seed, card, total) -> dict:
               f"{name}: rank {rep['rank']}'s prefill: hinted against plain "
               f"{rep['hint_vs_plain_rel_rms']}; against one rank's, bf16 "
               f"{rep['bf16_vs_one_bf16_rel_rms']}, float32 {rep['f32_vs_one_f32_rel_rms']}")
+        sp_errs = [rep[k] for k in ("sp_vs_plain_rel_rms", "sp_bf16_vs_one_bf16_rel_rms",
+                                    "sp_f32_vs_plain_rel_rms", "sp_f32_vs_one_f32_rel_rms")]
+        check(max(sp_errs) <= TP_REL_RMS_TOL,
+              f"{name}: rank {rep['rank']}'s sequence-parallel prefill against the unhinted "
+              f"and one rank's (bf16, bf16, float32, float32): {sp_errs}")
+        want = row["seq_parallel_prefill"]["predicted_trunk"]
+        check(rep["sp_trunk"] == want,
+              f"{name}: rank {rep['rank']}'s sequence-parallel prefill issued trunk "
+              f"collectives {rep['sp_trunk']}, not {want}")
         for k, n in rep["launches"].items():
             total[k] += n
     check(max(row["engine"].values()) <= TP_REL_RMS_TOL,
@@ -4120,11 +4174,14 @@ def sharded_trunk_path(dev, seed, card) -> dict:
 TPT_RANKS = 4                    # one world of 4 ranks on the one card, over gloo
 # (name, arch, layers kept, model ranks, hinted, head, FSDP hint check): full
 # width, cut in depth. (d) and (e) run FSDP on (2, 2) as (c) does.
+# The hint column: False (none), True (``sharding_hints``: the attention
+# hint) or "sp" (with ``seq_parallel_residual``, (f)).
 TPT_CASES = (("stablelm", "stablelm-3b", 4, 4, False, "adversarial_ns", False),
              ("deepseek_moe", "deepseek-moe-16b", 2, 4, False, "adversarial_ns", False),
              ("hymba", "hymba-1.5b", 2, 2, True, "adversarial_ns", False),
              ("deepseek_moe_fsdp", "deepseek-moe-16b", 2, 2, False, "adversarial_ns", True),
-             ("stablelm_softmax", "stablelm-3b", 2, 2, False, "softmax", False))
+             ("stablelm_softmax", "stablelm-3b", 2, 2, False, "softmax", False),
+             ("stablelm_sp", "stablelm-3b", 2, 4, "sp", "adversarial_ns", False))
 TPT_BATCH, TPT_SEQ, TPT_STEPS = 2, 256, 3
 # SGD, as phase 13: its update is linear in the gradient (Adagrad's first
 # step turns the float32 reordering of a sum at |g| near eps into
@@ -4164,6 +4221,47 @@ def tpt_launches_a_rank(dp: int, head: str) -> dict:
 TPT_LAUNCH = ["--arch", "deepseek-moe-16b", "--reduced", "--device", MESH_DEVICE,
               "--model-axis", "2", "--optimizer", "sm3", "--steps", "3", "--batch", "2",
               "--seq", "64"]
+
+
+def tpt_sp_trunk(cfg, tp: int) -> dict:
+    """(f)'s trunk collectives over TPT_STEPS steps under
+    ``seq_parallel_residual`` on (1, tp), float32, heads and ``d_ff``
+    split, each layer checkpointed (``cfg.remat``), by phase. Forward: at
+    the attention's and the MLP's entries an all-gather of the rank's S/tp
+    rows (counted at the part sent), at their exits a reduce-scatter of the
+    (B, S, d) partial (counted at the whole input); after the last block
+    one gather. Recompute: each layer's forward again up to the last
+    tensor its backward saved (``torch.utils.checkpoint`` stops there), so
+    without the MLP's exit reduce-scatter. Backward: each
+    gather's transpose a reduce-scatter, each reduce-scatter's a gather, an
+    all-reduce of each of the layer's two norm scales (used on the rank's
+    rows alone), the embedding's split a gather; the last gather's
+    transpose a slice, no collective."""
+    part = TPT_BATCH * TPT_SEQ // tp * cfg.d_model * 4
+    whole = TPT_BATCH * TPT_SEQ * cfg.d_model * 4
+    n, k = cfg.num_layers, TPT_STEPS
+    layer = 2 * part + 2 * whole
+    return {"forward": dict(calls=k * (4 * n + 1), bytes=k * (n * layer + part)),
+            "recompute": dict(calls=k * 3 * n, bytes=k * n * (2 * part + whole)),
+            "backward": dict(calls=k * (6 * n + 1),
+                             bytes=k * (n * (layer + 2 * cfg.d_model * 4) + part))}
+
+
+@contextlib.contextmanager
+def saved_layer_inputs(record: list):
+    """Record the bytes of each checkpointed layer's input, what the layer
+    keeps for its recompute (``transformer.forward``'s checkpoint)."""
+    real = transformer.checkpoint_lib
+
+    def checkpoint(fn, lp, x, **kw):
+        record.append(x.untyped_storage().nbytes())
+        return real.checkpoint(fn, lp, x, **kw)
+
+    transformer.checkpoint_lib = type("Checkpoint", (), {"checkpoint": staticmethod(checkpoint)})
+    try:
+        yield record
+    finally:
+        transformer.checkpoint_lib = real
 
 
 def tpt_cfg(arch: str, layers: int):
@@ -4324,14 +4422,17 @@ def tpt_case(name, arch, layers, tp, hinted, head, fsdp_hint, dev, seed, tmp, re
     nbytes = launch_train.state_bytes(cfg, adagrad, state._replace(
         opt_state=init_opt_state(adagrad, state.params)), mesh)
     batch = tpt_batch(cfg, seed, dev)
-    hint = (lambda: sharding_hints(mesh)) if hinted else contextlib.nullcontext
+    hint = ((lambda: sharding_hints(mesh, seq_parallel_residual=hinted == "sp")) if hinted
+            else contextlib.nullcontext)
     routes = []
     t_case = time.perf_counter()
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
-    with swapped(moe_lib, _route=route_recorder(routes)), hint():
+    saved = {"hinted": [], "plain": []}
+    with swapped(moe_lib, _route=route_recorder(routes)), hint(), \
+            saved_layer_inputs(saved["hinted"]):
         grads, _ = train_step_lib.make_grad_fn(cfg, hcfg, mesh=mesh)(
             state, batch(0), step_generator(seed, 0, dev))
     torch.cuda.synchronize()
@@ -4342,10 +4443,12 @@ def tpt_case(name, arch, layers, tp, hinted, head, fsdp_hint, dev, seed, tmp, re
     trunk = lambda g: tree_util.leaves({k: v for k, v in g.items()  # noqa: E731
                                         if k not in ("head", "embed")})
     if hinted:
-        plain, _ = train_step_lib.make_grad_fn(cfg, hcfg, mesh=mesh)(
-            state, batch(0), step_generator(seed, 0, dev))
+        with saved_layer_inputs(saved["plain"]):
+            plain, _ = train_step_lib.make_grad_fn(cfg, hcfg, mesh=mesh)(
+                state, batch(0), step_generator(seed, 0, dev))
         out["hint_vs_plain_rel_rms"] = max(
             rel_rms(a, b) for a, b in zip(trunk(grads), trunk(plain)))
+        out["saved_layer_input_bytes"] = saved
         del plain
     if ref["idx0"] is not None:     # a data rank routes its rows of the batch
         want = ref["idx0"][sharding.batch_slice(ref["idx0"].shape[0], mesh)]
@@ -4467,7 +4570,8 @@ def tp_train_path(dev, seed, card) -> dict:
                                grad_worst_leaf=rep["grad_worst_leaf"],
                                param_excess_over_tol=rep["param_excess_over_tol"],
                                **{k: rep[k] for k in ("layer0_route_equal",
-                                                      "hint_vs_plain_rel_rms", "fsdp_hint")
+                                                      "hint_vs_plain_rel_rms", "fsdp_hint",
+                                                      "saved_layer_input_bytes")
                                   if k in rep})
                               for rep in reports])
         print(json.dumps({"tp_train": row}))
@@ -4489,6 +4593,18 @@ def tp_train_path(dev, seed, card) -> dict:
             check(rep.get("hint_vs_plain_rel_rms", 0.0) <= TPT_GRAD_REL_RMS,
                   f"{what}: rank {r}'s hinted gradients {rep.get('hint_vs_plain_rel_rms')} "
                   "from the unhinted")
+            if hinted == "sp":
+                want_trunk = tpt_sp_trunk(tpt_cfg(arch, layers), tp)
+                got_trunk = {p: dict(calls=c["calls"], bytes=c["bytes"])
+                             for p, c in rep["trunk_collectives"].items()}
+                check(got_trunk == want_trunk,
+                      f"{what}: rank {r}'s sequence-parallel collectives {got_trunk}, not "
+                      f"{want_trunk}")
+                sv = rep["saved_layer_input_bytes"]
+                check(len(sv["hinted"]) == len(sv["plain"]) == layers
+                      and all(p == tp * h for h, p in zip(sv["hinted"], sv["plain"])),
+                      f"{what}: rank {r}'s checkpointed layers keep {sv['hinted']} bytes under "
+                      f"sequence parallelism against {sv['plain']} without, not 1/{tp}")
             if fsdp_hint:
                 h = rep["fsdp_hint"]
                 check(h["bit_equal"] and h["expert_bytes_halved"] and h["same_calls"],
@@ -4533,6 +4649,100 @@ def tp_train_path(dev, seed, card) -> dict:
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the dry run (repro_torch.launch.dryrun) on this machine's CPU.
+# ---------------------------------------------------------------------------
+
+DRY_PEAK_RTOL = 0.2              # the counted peak against the allocator's over the step
+DRY_CELL = ("h2o-danube-3-4b", "train_4k", "single")      # (b): 256 fake ranks, (32, 8)
+DRY_LAUNCHES = {"sampled_head_loss": 1, "segment_stats": 3, "flash_attention": 0}
+
+
+def dryrun_worker(path: str) -> int:
+    """Phase 16's counts, in a process of their own (the fake world of (b)
+    is a process group): (a) phase 11's step, stablelm-3b at full width
+    and depth, batch LM_BATCH x LM_SEQ, one rank; (b) DRY_CELL on the
+    production mesh. No card is used."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    one = dryrun.run_cell(LM_ARCH, "phase11", "one", "adversarial_ns", cell={
+        "mode": "train", "seq_len": LM_SEQ, "global_batch": LM_BATCH})
+    one["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arch, shape, mesh_kind = DRY_CELL
+    prod = dryrun.run_cell(arch, shape, mesh_kind, "adversarial_ns")
+    prod["wall_s"] = time.perf_counter() - t0
+    Path(path).write_text(json.dumps({"one_rank": one, "production": prod}))
+    return 0
+
+
+def start_dryrun():
+    """Start phase 16's counts (``dryrun_worker``) in a process of their
+    own: they need the CPU alone, so they run while phases 13-15 hold the
+    card. Returns the job for :func:`dryrun_path`."""
+    tmp = tempfile.TemporaryDirectory()
+    out = Path(tmp.name, "dryrun.json")
+    proc = subprocess.Popen([sys.executable, __file__, "--dryrun-worker", str(out)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())   # a phase failed first
+    return dict(tmp=tmp, out=out, proc=proc, t0=time.perf_counter())
+
+
+def dryrun_path(card, lm_result, job) -> None:
+    """Phase 16: (a) the dry run's count of phase 11's step against that
+    step as measured here: each kernel's launches exact, the roofline's
+    step time at or below the measured ms a step, the counted peak within
+    DRY_PEAK_RTOL of the allocator's over the step; (b) DRY_CELL to status
+    ``ok`` (line ``dryrun_cell``). ``job``: :func:`start_dryrun`'s."""
+    t0 = time.perf_counter()
+    proc, out = job["proc"], job["out"]
+    try:
+        _, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0 and out.exists(),
+          f"the dry run exited {proc.returncode}: {err[-3000:]}")
+    res = json.loads(out.read_text())
+    job["tmp"].cleanup()
+    one, prod = res["one_rank"], res["production"]
+    check(one["status"] == "ok", f"the dry run of phase 11's step: {one.get('error')}")
+    step = lm_result["one_step"]
+    measured_ms = lm_result["ms_per_step_median"]
+    launches = {k: one["kernels"].get(k, 0) for k in DRY_LAUNCHES}
+    peak_err = one["bytes_per_device"] / step["peak_bytes"] - 1.0
+    line_a = dict(card=card, arch=LM_ARCH, batch=LM_BATCH, seq=LM_SEQ,
+                  launches=one["kernels"], step_time_s=one["step_time_s"],
+                  compute_s=one["compute_s"], memory_s=one["memory_s"],
+                  bottleneck=one["bottleneck"], measured_ms_per_step_median=measured_ms,
+                  measured_one_step_ms=step["ms"], predicted_peak_bytes=one["bytes_per_device"],
+                  argument_bytes=one["argument_size_in_bytes"],
+                  temp_bytes=one["temp_size_in_bytes"], measured_peak_bytes=step["peak_bytes"],
+                  measured_held_after_bytes=step["held_bytes"], peak_rel_err=peak_err,
+                  flops=one["flops_per_device"], bytes_accessed=one["bytes_accessed_per_device"],
+                  count_wall_s=one["wall_s"])
+    print(json.dumps({"dryrun_step": line_a}))
+    keys = ("arch", "shape", "mesh", "chips", "mesh_shape", "status", "bytes_per_device",
+            "argument_size_in_bytes", "temp_size_in_bytes", "flops_per_device",
+            "bytes_accessed_per_device", "collective_bytes_per_device", "collectives",
+            "collectives_by_axis", "compute_s", "memory_s", "collective_s", "bottleneck",
+            "step_time_s", "model_flops", "mfu_bound", "kernels", "wall_s", "error")
+    print(json.dumps({"dryrun_cell": dict(card=card, **{k: prod[k] for k in keys
+                                                         if k in prod})}))
+    check(launches == DRY_LAUNCHES,
+          f"the dry run counts {launches} launches in phase 11's step, not {DRY_LAUNCHES}")
+    check(one["step_time_s"] * 1e3 <= measured_ms,
+          f"the dry run's roofline step {one['step_time_s'] * 1e3:.1f} ms is above the "
+          f"measured {measured_ms:.1f} ms a step: the count is wrong")
+    check(abs(peak_err) <= DRY_PEAK_RTOL,
+          f"the dry run's peak {one['bytes_per_device']} B is {peak_err:+.1%} from the "
+          f"allocator's {step['peak_bytes']} B over the step")
+    check(prod["status"] == "ok", f"the dry run of {DRY_CELL}: {prod.get('error')}")
+    print(json.dumps({"dryrun_path": dict(card=card, wait_s=time.perf_counter() - t0,
+                                          wall_s=time.perf_counter() - job["t0"])}))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4543,6 +4753,8 @@ def main() -> int:
     parser.add_argument("--tp-case", default="moe", choices=("moe", "hybrid", "danube"))
     parser.add_argument("--tp-train-worker", default=None,
                         help="run as one rank of phase 15's world (under torchrun)")
+    parser.add_argument("--dryrun-worker", default=None,
+                        help="run phase 16's dry-run counts on the CPU into this JSON file")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -4556,6 +4768,8 @@ def main() -> int:
         return tp_worker(args.tp_worker, args.tp_case, args.seed)
     if args.tp_train_worker:
         return tp_train_worker(args.tp_train_worker, args.seed)
+    if args.dryrun_worker:
+        return dryrun_worker(args.dryrun_worker)
     dev = device_lib.resolve("cuda")
     card = card_line()
     print(card)
@@ -4599,17 +4813,20 @@ def main() -> int:
     for name, n in engine_path(dev, args.seed, card, model).items():
         launches[name] += n
     del model
-    for name, n in lm_train_path(dev, args.seed, card).items():
+    lm_launches, lm_result = lm_train_path(dev, args.seed, card)
+    for name, n in lm_launches.items():
         if name in launches:
             launches[name] += n
     for name, n in backbone_path(dev, args.seed, card).items():
         launches[name] += n
+    dryrun_job = start_dryrun()
     for name, n in mesh_path(dev, args.seed, card).items():
         launches[name] += n
     for name, n in sharded_trunk_path(dev, args.seed, card).items():
         launches[name] += n
     for name, n in tp_train_path(dev, args.seed, card).items():
         launches[name] += n
+    dryrun_path(card, lm_result, dryrun_job)
     src = "src/repro_torch/kernels/csrc"
     kernels = [
         dict(name="gather_scores", route="cuda", source=f"{src}/gather_scores.cu",

@@ -75,9 +75,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import device as device_lib
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
@@ -108,9 +111,33 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def band_pairs(sq: int, skv: int, causal: bool, window: int) -> Tuple[int, int]:
+    """(query, key) pairs inside the causal/window band, and the number of
+    keys that some query sees, for end-aligned query positions (host
+    arithmetic)."""
+    if sq == 0:
+        return 0, 0
+    pos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros_like(pos)
+    hi = np.minimum(pos, skv - 1) if causal else np.full_like(pos, skv - 1)
+    count = np.maximum(hi - lo + 1, 0)
+    seen = int(hi.max() - lo.min() + 1) if bool((count > 0).any()) else 0
+    return int(count.sum()), seen
+
+
+def cost(b, h, kv, sq, skv, hd, causal, window, q_itemsize, kv_itemsize,
+         kv_lens=None, index_bytes: int = 0) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one call: q read and the output written once, the
+    K and V rows some query of a row sees read once, QKᵀ and PV (4·hd a
+    (query, key) pair in the band). ``kv_lens``: each row's key count (a
+    host sequence; default ``skv`` for every row); ``index_bytes``: the
+    key counts and page table read."""
+    pairs = seen = 0
+    for n in (kv_lens if kv_lens is not None else [skv] * b):
+        p_, s_ = band_pairs(sq, int(n), causal, window)
+        pairs, seen = pairs + p_, seen + s_
+    n_bytes = 2 * b * h * sq * hd * q_itemsize + 2 * kv * seen * hd * kv_itemsize + index_bytes
+    return 4.0 * hd * h * pairs, float(n_bytes)
 
 
 def n_splits(b, h, kv, sq, skv, causal, window, sm_count) -> int:
@@ -243,11 +270,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     kv, skv = _check(q, k, v, kv_lens, page_table, max_kv_len)
     window, softcap = int(window), float(softcap)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not device_lib.is_fake(q):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale, kv_lens=kv_lens,
                                    page_table=page_table, max_kv_len=max_kv_len)
-    if q.device.type != "cuda":
+    if not device_lib.on_card(q):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError(
@@ -262,8 +289,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty_like(q)       # keeps q's strides: (B, S, H, hd) stays so
     if out.numel() == 0:
         return out
+    if device_lib.is_fake(q):       # the dry run: counted, not launched
+        lens = None if kv_lens is None else [max_kv_len] * b
+        device_lib.record_launch("flash_attention", *cost(
+            b, h, kv, sq, skv, hd, causal, window, q.element_size(), k.element_size(), lens))
+        return out
     lib = _lib()
-    sms = _sm_count(q.device.index)
+    sms = device_lib.sm_count(q.device.index)
     paged = page_table is not None
     if paged:   # (b, h, s) strides of the arenas: no batch, arena rows
         k_strides = (0, k.stride(2), k.stride(1))

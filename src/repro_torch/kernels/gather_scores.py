@@ -32,9 +32,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
+from repro_torch import device as device_lib
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import gather_scores_ref
 
@@ -88,9 +90,13 @@ def _check(w, b, h, ids) -> None:
             raise ValueError(f"gather_scores: {name} must be contiguous")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def cost(t: int, n: int, k: int, itemsize: int, rows: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of a (t, n) call on rows of ``k`` values of
+    ``itemsize`` bytes touching ``rows`` distinct rows of the table: each
+    distinct row and its bias read once, ids, h read and the scores
+    written; a dot product and the bias a score."""
+    n_bytes = rows * k * itemsize + rows * itemsize + t * n * 8 + t * k * 4 + t * n * 4
+    return float(t * n * (2 * k + 1)), float(n_bytes)
 
 
 def chunks(k: int, itemsize: int) -> int:
@@ -156,15 +162,19 @@ def gather_scores(w, b, h, ids):
     ids: (T,n) int64 in [0, C) -> (T,n) float32. On the card an id outside
     [0, C) scores NaN; it is never read."""
     _check(w, b, h, ids)
-    if w.device.type == "cpu":
+    if w.device.type == "cpu" and not device_lib.is_fake(w):
         return gather_scores_ref(w, b, h, ids)
-    if w.device.type != "cuda":
+    if not device_lib.on_card(w):
         raise ValueError(f"gather_scores: no kernel for device {w.device}")
     (_, k), (t, n) = w.shape, ids.shape
     out = torch.empty((t, n), dtype=torch.float32, device=w.device)
     if out.numel() == 0:
         return out
-    plan = launch_plan(t, n, k, w.element_size(), _sm_count(w.device.index or 0))
+    if device_lib.is_fake(w):       # the dry run: every id distinct, the most rows
+        device_lib.record_launch("gather_scores", *cost(t, n, k, w.element_size(),
+                                                        min(t * n, w.shape[0])))
+        return out
+    plan = launch_plan(t, n, k, w.element_size(), device_lib.sm_count(w.device.index or 0))
     return _launch(w, b, h, ids, out, *plan)
 
 

@@ -40,6 +40,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import device as device_lib
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import sampled_head_loss_ref
 
@@ -189,6 +190,16 @@ def _check(w, b, h, ids, slot_logp, kind) -> None:
             raise ValueError(f"sampled_head_loss: {name} must be contiguous")
 
 
+def cost(t: int, m: int, k: int, itemsize: int, rows: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of a (t, m) call on ``rows`` distinct rows of K
+    values of ``itemsize`` bytes: each distinct row and its bias read once,
+    h, the ids and slot log-probabilities read, the loss, coefficients, ξ
+    and dh written; a score's dot product and its dh term, 4·K a slot."""
+    n_bytes = (rows * (k + 1) * itemsize + t * k * 4 + t * m * (8 + 4) + t * 4
+               + 2 * t * m * 4 + t * k * 4)
+    return float(t * m * 4 * k), float(n_bytes)
+
+
 def sampled_head_loss(w, b, h, ids, slot_logp, *, kind: str,
                       num_labels: int, reg: float = 0.0,
                       softcap: float = 0.0, mask_accidental: bool = True):
@@ -203,9 +214,9 @@ def sampled_head_loss(w, b, h, ids, slot_logp, *, kind: str,
     _check(w, b, h, ids, slot_logp, kind)
     kw = dict(kind=kind, num_labels=num_labels, reg=reg, softcap=softcap,
               mask_accidental=mask_accidental)
-    if w.device.type == "cpu":
+    if w.device.type == "cpu" and not device_lib.is_fake(w):
         return sampled_head_loss_ref(w, b, h, ids, slot_logp, **kw)
-    if w.device.type != "cuda":
+    if not device_lib.on_card(w):
         raise ValueError(f"sampled_head_loss: no kernel for device {w.device}")
     (c, k), (t, m) = w.shape, ids.shape
     if k > MAX_K or m > MAX_M or t >= 2 ** 31:
@@ -217,6 +228,10 @@ def sampled_head_loss(w, b, h, ids, slot_logp, *, kind: str,
     xi = torch.empty((t, m), dtype=torch.float32, device=dev)
     dh = torch.empty((t, k), dtype=torch.float32, device=dev)
     if t == 0:
+        return loss, coeff, xi, dh
+    if device_lib.is_fake(w):       # the dry run: every id distinct, the most rows
+        device_lib.record_launch("sampled_head_loss", *cost(t, m, k, w.element_size(),
+                                                            min(t * m, c)))
         return loss, coeff, xi, dh
     n = m - 1
     scl = (num_labels - 1) / n                   # ove, as the plain version

@@ -38,10 +38,11 @@ import ctypes
 import dataclasses
 import functools
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import device as device_lib
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import segment_stats_ref
 
@@ -135,19 +136,36 @@ def chunk_table(off: torch.Tensor, rows: int):
             long_seg.to(torch.int32), long_first.to(torch.int32))
 
 
+def cost(n: int, d: int, s: int, itemsize: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of a call: (N, D) values of ``itemsize`` bytes and
+    the plan's int32 permutation and int32 ids (8 bytes a point) read
+    once, the (S, D) float32 sums written; an add a value."""
+    return float(n * d), float(n * (d * itemsize + 8) + s * d * 4)
+
+
+def plan_cost(n: int, s: int, seg_itemsize: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of a plan: the ids read and their int32 keys written,
+    a radix sort of (key, index) pairs (each read and written once), the
+    offsets (S + 1 int32) and the int32 permutation written."""
+    return 0.0, float(n * seg_itemsize + 4 * n + 2 * 12 * n + 4 * (s + 1) + 4 * n)
+
+
 def segment_plan(seg, num_segments: int) -> SegmentPlan:
     """Sort ``seg`` (N,) once for every :func:`segment_stats` call over the
     same ids and ``num_segments``. On the CPU nothing is computed."""
     _check_ids(seg, num_segments)
     n, s = seg.shape[0], num_segments
     plan = SegmentPlan(n, s, seg.device)
-    if seg.device.type == "cpu":
+    if seg.device.type == "cpu" and not device_lib.is_fake(seg):
         return plan
-    if seg.device.type != "cuda":
+    if not device_lib.on_card(seg):
         raise ValueError(f"segment_stats: no kernel for device {seg.device}")
     if n >= 2 ** 31:
         raise ValueError(f"segment_stats: kernel takes N < 2^31, got N={n}")
     if n == 0 or s == 0:
+        return plan
+    if device_lib.is_fake(seg):     # the dry run: counted, nothing sorted
+        device_lib.record_launch("segment_plan", *plan_cost(n, s, seg.element_size()))
         return plan
     lib = _lib()
     dev, seg = seg.device, seg.contiguous()
@@ -196,9 +214,9 @@ def segment_stats(vals, seg, num_segments: int, plan: Optional[SegmentPlan] = No
     plan.
     """
     _check(vals, seg, num_segments, plan)
-    if vals.device.type == "cpu":
+    if vals.device.type == "cpu" and not device_lib.is_fake(vals):
         return segment_stats_ref(vals, seg, num_segments)
-    if vals.device.type != "cuda":
+    if not device_lib.on_card(vals):
         raise ValueError(f"segment_stats: no kernel for device {vals.device}")
     if vals.dtype not in _VAL_DTYPES:
         raise TypeError(f"segment_stats: the kernel takes vals in {_VAL_DTYPES}, "
@@ -210,6 +228,9 @@ def segment_stats(vals, seg, num_segments: int, plan: Optional[SegmentPlan] = No
     if n == 0 or d == 0 or s == 0:
         return out.zero_()
     plan = plan if plan is not None else segment_plan(seg, s)
+    if device_lib.is_fake(vals):    # the dry run: counted, not launched
+        device_lib.record_launch("segment_stats", *cost(n, d, s, vals.element_size()))
+        return out
     vals = vals.contiguous()
     lib = _lib()
     part = torch.empty((plan.n_chunks, d), dtype=torch.float32, device=vals.device)

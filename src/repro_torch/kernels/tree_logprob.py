@@ -37,9 +37,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
+from repro_torch import device as device_lib
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import tree_logprob_all_ref
 
@@ -88,9 +90,12 @@ def _check(w, b, x) -> int:
     return depth
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def cost(bsz: int, n_nodes: int, k: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of a call: the nodes' (n_nodes, k) weights and biases
+    and x read once, the (B, n_nodes + 1) float32 leaves written; a dot
+    product, the bias and a log-sigmoid pair per (row, node)."""
+    n_bytes = 4 * (bsz * (n_nodes + 1) + n_nodes * k + n_nodes + bsz * k)
+    return float(bsz * n_nodes * (2 * k + 3)), float(n_bytes)
 
 
 def launch_plan(bsz: int, depth: int, sm_count: int):
@@ -126,9 +131,9 @@ def tree_logprob_all(w, b, x):
     """w: (n_nodes, k), b: (n_nodes,), x: (B, k), all float32 ->
     (B, C_pad) float32 over leaves in natural order (C_pad = n_nodes + 1)."""
     depth = _check(w, b, x)
-    if w.device.type == "cpu":
+    if w.device.type == "cpu" and not device_lib.is_fake(w):
         return tree_logprob_all_ref(w, b, x)
-    if w.device.type != "cuda":
+    if not device_lib.on_card(w):
         raise ValueError(f"tree_logprob_all: no kernel for device {w.device}")
     bsz, k = x.shape
     if not 1 <= k <= MAX_K:
@@ -136,7 +141,10 @@ def tree_logprob_all(w, b, x):
     out = torch.empty((bsz, 1 << depth), dtype=torch.float32, device=x.device)
     if bsz == 0:
         return out
-    plan = launch_plan(bsz, depth, _sm_count(x.device.index or 0))
+    if device_lib.is_fake(x):       # the dry run: counted, not launched
+        device_lib.record_launch("tree_logprob_all", *cost(bsz, w.shape[0], k))
+        return out
+    plan = launch_plan(bsz, depth, device_lib.sm_count(x.device.index or 0))
     return _launch(w, b, x, out, depth, *plan)
 
 

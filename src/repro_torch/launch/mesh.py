@@ -18,9 +18,18 @@ What a rank holds is the launcher's: both launchers shard the whole model
 over ``model`` (the trunk's heads, ``d_ff``, experts and SSM heads, the
 embedding's and the head's rows) and each trunk matrix over ``data``
 (FSDP), serving its cache by KV heads, training its optimizer state with
-the parameters. The reference's ``make_production_mesh`` and its
-roofline constants are a TPU pod's; the port's production mesh, with the
-H100's constants, waits for its roofline analysis (ROADMAP Queue 1).
+the parameters.
+
+The production mesh (:func:`production_mesh_shape`,
+:func:`make_production_mesh`) is the H100 cluster's: 256 GPUs as
+(data 32, model 8), or 512 as (64, 8). The ``model`` axis is the 8 GPUs of
+one HGX H100 node, joined all to all by NVLink; the ``data`` axis crosses
+nodes over InfiniBand. The reference's TPU meshes are (16, 16) and (2, 16,
+16), whose "pod" axis is the TPU's cross-pod network; the port's two mesh
+dims keep that traffic in ``data``. The dry run
+(:mod:`repro_torch.launch.dryrun`) builds it on a fake world, and the
+roofline (:mod:`repro_torch.analysis.roofline`) reads the card's and the
+links' constants below.
 """
 from __future__ import annotations
 
@@ -34,6 +43,15 @@ import torch.distributed as dist
 from repro_torch import device as device_lib
 
 TIMEOUT_S = 300.0
+
+# One NVIDIA H100 SXM as nvidia-smi reports it ("NVIDIA H100 80GB HBM3,
+# 700.00 W"), by NVIDIA's data sheet:
+PEAK_FLOPS_BF16 = 989e12       # FLOP/s, bf16 tensor cores, dense
+HBM_BW = 3.35e12               # bytes/s of HBM3
+NVLINK_BW = 450e9              # bytes/s each way a GPU (NVLink 4: 900 GB/s both ways)
+IB_BW = 50e9                   # bytes/s a GPU: one 400 Gb/s NDR InfiniBand link
+LINK_BW = {"model": NVLINK_BW, "data": IB_BW}    # by mesh axis
+MODEL_AXIS = 8                 # the GPUs of one HGX H100 node
 LAUNCH_HINT = ("start it under torchrun: python -m torch.distributed.run --standalone "
                "--nproc-per-node N -m {module} --model-axis M ...")
 
@@ -88,6 +106,26 @@ def make_host_mesh(model_axis: int = 1, device="cuda", timeout_s: float = TIMEOU
     for name in ("data", "model"):
         dist.distributed_c10d._set_pg_timeout(timeout, mesh.get_group(name))
     return mesh
+
+
+def production_mesh_shape(multi_pod: bool = False) -> tuple:
+    """(data, model) of the production mesh: (32, 8) for 256 GPUs, (64, 8)
+    for 512 (module docstring)."""
+    return (64 if multi_pod else 32), MODEL_AXIS
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production ``DeviceMesh`` over the initialized world, which must
+    hold exactly its 256 (or 512) ranks; the device type is the world's
+    (``cuda``; the dry run's fake world takes it without a card)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = production_mesh_shape(multi_pod)
+    n = shape[0] * shape[1]
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world != n:
+        raise ValueError(f"the production mesh {shape} needs a world of {n} ranks, "
+                         f"got {world}")
+    return init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
 
 
 def launcher_mesh(model_axis: int, device, module: str):

@@ -84,7 +84,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
             raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
         sec_id = torch.repeat_interleave(
             torch.arange(len(sections), device=x.device),
-            torch.tensor(sections, device=x.device))           # (half,)
+            torch.tensor(sections, device=x.device), output_size=half)   # (half,)
         pos = positions[sec_id].permute(1, 2, 0).float()      # (B, S, half)
     angles = pos * inv_freq                                   # (B, S, half)
     cos = torch.cos(angles)[:, :, None, :]                    # (B,S,1,half)
@@ -292,7 +292,8 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
               window: int,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_pos=None, impl: str = "kernel", page_table=None,
-              write_mask=None, mask_pos: Optional[torch.Tensor] = None, mesh=None):
+              write_mask=None, mask_pos: Optional[torch.Tensor] = None, mesh=None,
+              seq: bool = False):
     """GQA attention with causal + per-layer sliding-window mask + softcap.
 
     Training/prefill: ``kv_cache is None`` → self-attention over x; the
@@ -352,20 +353,32 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
     attention hint (:mod:`repro_torch.parallel.hints`) a rank with whole
     heads takes its part of the queries against the keys up to its last
     query, and the output is gathered along the sequence.
+
+    ``seq`` (sequence parallelism, :mod:`repro_torch.parallel.hints`): x is
+    the rank's rows of the sequence, gathered along S on entry
+    (``collectives.gather_seq_for_model``, in place of ``copy_to_model``);
+    split heads' output projection is reduce-scattered back to the rank's
+    rows, and a whole attention's hinted queries are those rows already,
+    so its output is not gathered.
     """
+    if seq:
+        x = collectives.gather_seq_for_model(mesh, x)
     b, s, _ = x.shape
     h, kv, hd = params["wq"].shape[1], params["wk"].shape[1], cfg.resolved_head_dim
     cdt = _dtype(cfg)
     q_part = hints.hinted_rows(cfg.num_heads, s)
     # A rank's part of the work gives it a partial gradient of the block's
     # input and of every whole weight it reads in part: those are summed
-    # over model in the backward pass (collectives.copy_to_model).
+    # over model in the backward pass (collectives.copy_to_model; under
+    # ``seq`` the entry gather's reduce-scatter sums the input's).
     if q_part is not None:
         mesh = hints.current().mesh
-        x = collectives.copy_to_model(mesh, x)
+        if not seq:
+            x = collectives.copy_to_model(mesh, x)
         params = {k_: collectives.copy_to_model(mesh, w) for k_, w in params.items()}
     elif h < cfg.num_heads:
-        x = collectives.copy_to_model(mesh, x)
+        if not seq:
+            x = collectives.copy_to_model(mesh, x)
         if kv == cfg.num_kv_heads:
             params = {**params, **{k_: collectives.copy_to_model(mesh, params[k_])
                                    for k_ in ("wk", "wv")}}
@@ -439,9 +452,11 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor
         out = out.transpose(1, 2).reshape(b, sq, h * hd)
     wo = params["wo"].to(cdt).reshape(h * hd, -1)
     if h < cfg.num_heads:
-        out = collectives.reduce_over_model(mesh, collectives.partial_matmul(out, wo), cdt)
+        out = collectives.row_parallel_sum(mesh, collectives.partial_matmul(out, wo), cdt, seq)
     else:
         out = out @ wo
+    if seq:
+        return out, new_cache
     return hints.hint_attn_out(out, q_part), new_cache
 
 
@@ -457,15 +472,20 @@ def init_mlp(generator: torch.Generator, d: int, d_ff: int, device=None):
     }
 
 
-def mlp(params, x: torch.Tensor, dtype, mesh=None) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, dtype, mesh=None, seq: bool = False) -> torch.Tensor:
     """SwiGLU. ``mesh`` is given where ``params`` hold a rank's part of
     ``d_ff`` (columns of ``w_gate`` and ``w_up``, rows of ``w_down``): the
     partial products are then summed over ``model``, and the input's
-    partial gradients in the backward pass."""
-    x = collectives.copy_to_model(mesh, x)
+    partial gradients in the backward pass. ``seq`` (sequence parallelism):
+    x is the rank's rows of the sequence, gathered on entry, and the sum is
+    reduce-scattered back to them."""
+    if seq:
+        x = collectives.gather_seq_for_model(mesh, x)
+    else:
+        x = collectives.copy_to_model(mesh, x)
     g = x @ params["w_gate"].to(dtype)
     u = x @ params["w_up"].to(dtype)
     a, w_down = F.silu(g) * u, params["w_down"].to(dtype)
     if mesh is None:
         return a @ w_down
-    return collectives.reduce_over_model(mesh, collectives.partial_matmul(a, w_down), dtype)
+    return collectives.row_parallel_sum(mesh, collectives.partial_matmul(a, w_down), dtype, seq)

@@ -263,7 +263,7 @@ def lm_sharded_head_loss(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
     share of the global values (their sum over ``data`` is the one-rank
     step's). Returns (loss, metrics, SparseRows, dh)."""
     from repro_torch.core import samplers as samplers_lib
-    from repro_torch.optim.sparse import SparseRows
+    from repro_torch.optim.sparse import SparseRows, unique_rows
     from repro_torch.parallel import collectives
     x_gen = gen_features(state, h)
     labels = labels.long()
@@ -274,7 +274,7 @@ def lm_sharded_head_loss(cfg: ModelConfig, hcfg: HeadConfig, params: HeadParams,
     u = _rank_uniforms(hcfg, sampler, generator, global_shape, mesh, h.device)
     ids, slot_logp, _ = heads_lib._sample_candidates(hcfg, state.gen, x_gen, labels, None,
                                                      sampler=sampler, u=u)
-    uniq, inv = torch.unique(ids, return_inverse=True)
+    uniq, inv = unique_rows(ids, cfg.padded_vocab)
     table = HeadParams(w=collectives.sharded_gather_rows(mesh, params.w, uniq),
                        b=collectives.sharded_gather_rows(mesh, params.b, uniq))
     loss, metrics, rows, dh = heads_lib.sparse_candidate_loss(

@@ -37,12 +37,22 @@ In training, a rank's gradients of the input and of the router are partial
 sums (its combine reads only its experts' slots, or its part of each
 expert's output), summed over ``model`` in the backward pass
 (``collectives.copy_to_model``).
+
+Under sequence parallelism (``seq``) a rank holds S/tp rows of the
+stream; the MoE, split or whole, routes the rows gathered along S
+(``collectives.gather_seq_for_model``), since the capacity is per
+sequence and a rank's rows alone would change the drops: the groups, the
+top-k ids and the drops stay those of the unhinted run. A split MoE's sum
+is reduce-scattered back to the rank's rows; a whole one keeps its rows of
+the output, its weights' gradients then partial (its rows only) and summed
+over ``model``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree_util
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _dtype, normal_init
 from repro_torch.parallel import collectives, hints, sharding
@@ -89,10 +99,14 @@ def _route(cfg: ModelConfig, params, xt: torch.Tensor):
     return gate_vals, top_idx, logits
 
 
-def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, mesh=None):
+def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, mesh=None, seq: bool = False):
     """x: (B, S, d) -> (B, S, d), plus the metrics ``moe_dropped_frac`` (the
     share of assignments past capacity) and ``moe_router_entropy``. With a
-    rank's part of the weights, ``mesh`` is the mesh they were cut on."""
+    rank's part of the weights, ``mesh`` is the mesh they were cut on.
+    ``seq``: x and the output are the rank's rows of the sequence on
+    ``mesh`` (module docstring)."""
+    if seq:
+        x = collectives.gather_seq_for_model(mesh, x)
     bsz, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cdt = _dtype(cfg)
@@ -102,8 +116,11 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, mesh=None):
     split = e_local < e or params["w_gate"].shape[2] < cfg.d_ff
     e_lo = sharding.rank(mesh, "model") * e_local if e_local < e else 0
     if split:
-        x = collectives.copy_to_model(mesh, x)
+        if not seq:
+            x = collectives.copy_to_model(mesh, x)
         params = {**params, "router": collectives.copy_to_model(mesh, params["router"])}
+    elif seq:
+        params = tree_util.tree_map(lambda t: collectives.copy_to_model(mesh, t), params)
 
     gate_vals, top_idx, logits = _route(cfg, params, x)
     sk = s * k
@@ -172,7 +189,10 @@ def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor, mesh=None):
         a, w_down = F.silu(sg) * su, sp["w_down"].to(cdt)
         out = out + (collectives.partial_matmul(a, w_down) if split else (a @ w_down).float())
     if split:
-        return collectives.reduce_over_model(mesh, out, x.dtype), metrics
+        return collectives.row_parallel_sum(mesh, out, x.dtype, seq), metrics
+    if seq:
+        lo, hi = sharding.row_range(s, mesh)
+        out = out[:, lo:hi]
     return out.to(x.dtype), metrics
 
 

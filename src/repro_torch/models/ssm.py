@@ -172,21 +172,31 @@ def _gated_norm(params, y, z, di_range, mesh):
 
 def ssm_block(params, cfg: ModelConfig, x: torch.Tensor,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              decode: bool = False, mesh=None):
+              decode: bool = False, mesh=None, seq: bool = False):
     """Returns (out (B,S,d), new_cache=(conv_state, ssm_state)), both cache
     leaves float32. Prefill (``decode=False``) starts from ``cache``'s state
     (zeros for a fresh cache) and returns the last ``ssm_conv_width - 1``
     pre-conv inputs as the conv state, left-padded with zeros for a prompt
     shorter than that; decode takes one token (S == 1). With a rank's part
     of the weights, ``mesh`` is the mesh they were cut on (module
-    docstring)."""
+    docstring). ``seq`` (sequence parallelism): x and the output are the
+    rank's rows of the sequence on ``mesh``; the scan needs the whole
+    sequence, so x is gathered along S on entry, a split ``w_out``'s sum is
+    reduce-scattered back to the rank's rows and a whole block keeps its
+    rows of the output (its leaves' gradients then partial, summed over
+    ``model``). The cache is the one the unhinted block writes."""
     di, n, h, p = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     cdt = _dtype(cfg)
+    if seq:
+        x = collectives.gather_seq_for_model(mesh, x)
     bsz, s, _ = x.shape
     if params["w_out"].shape[0] < di:
-        x = collectives.copy_to_model(mesh, x)
+        if not seq:
+            x = collectives.copy_to_model(mesh, x)
         params = {k: v if k == "w_out" else tree_util.tree_map(
             lambda t: collectives.copy_to_model(mesh, t), v) for k, v in params.items()}
+    elif seq:
+        params = tree_util.tree_map(lambda t: collectives.copy_to_model(mesh, t), params)
     proj = x @ params["w_in"].to(cdt)
     z, xbc, dt_raw = _split_in(cfg, proj)
     xbc = xbc.float()
@@ -218,8 +228,8 @@ def ssm_block(params, cfg: ModelConfig, x: torch.Tensor,
         if s != 1 or cache is None:
             raise ValueError("an SSM decode step takes one token and a cache")
         conv_prev, ssm_state = cache
-        seq = torch.cat([conv_prev, xbc], dim=1)              # (B, width, conv)
-        conv = F.silu(torch.einsum("bwc,wc->bc", seq, params["conv_w"]) + params["conv_b"])
+        taps = torch.cat([conv_prev, xbc], dim=1)             # (B, width, conv)
+        conv = F.silu(torch.einsum("bwc,wc->bc", taps, params["conv_w"]) + params["conv_b"])
         xs = conv[:, x_cols].reshape(bsz, h_l, p)
         decay = torch.exp(dt[:, 0] * a_neg)                   # (B,H)
         xbar = xs * dt[:, 0, :, None]                         # (B,H,P)
@@ -227,7 +237,7 @@ def ssm_block(params, cfg: ModelConfig, x: torch.Tensor,
                  + conv[:, None, di:di + n, None] * xbar[:, :, None, :])
         y = ((conv[:, None, None, di + n:] @ state)[:, :, 0]
              + xs * d_skip[None, :, None])[:, None]
-        conv_state = seq[:, 1:, :]
+        conv_state = taps[:, 1:, :]
 
     y = y.reshape(bsz, s, h_l * p)
     if rows is not None and heads is None:       # whole heads, split rows
@@ -236,9 +246,12 @@ def ssm_block(params, cfg: ModelConfig, x: torch.Tensor,
         y = _gated_norm(params, y, z[..., x_cols], rows, mesh)
     y, w_out = y.to(cdt), params["w_out"].to(cdt)
     if rows is not None:
-        out = collectives.reduce_over_model(mesh, collectives.partial_matmul(y, w_out), cdt)
+        out = collectives.row_parallel_sum(mesh, collectives.partial_matmul(y, w_out), cdt, seq)
     else:
         out = y @ w_out
+        if seq:
+            lo, hi = sharding.row_range(s, mesh)
+            out = out[:, lo:hi]
     return out, (conv_state, state)
 
 

@@ -54,6 +54,17 @@ keeping the whole trunk gathered until the backward. With the checkpoint
 a layer's gathered weights die with its forward, the backward gathers
 them again in the recompute, and their gradients leave the layer
 reduce-scattered to the rank's parts.
+
+Under the hint ``seq_parallel_residual`` (sequence parallelism,
+:mod:`repro_torch.parallel.hints`) with tp > 1 and S dividing over
+``model``, the stream between the blocks is the rank's S/tp rows: the
+embedding's output is cut to them at the first block's entry (outside its
+checkpoint, which then saves 1/tp of the unhinted input), each block gets
+``seq=True`` (its norms and residual adds on the rank's rows, its entries
+into split weights gathered along S, its row-parallel sums
+reduce-scattered), and after the last block the stream is gathered back
+along S for the final norm and the head. Decode and an S that tp does not
+divide run as without the hint.
 """
 from __future__ import annotations
 
@@ -236,22 +247,29 @@ def init_paged_cache(cfg: ModelConfig, n_lanes: int, n_pages: int, page_len: int
 
 def _block(layer_params, cfg: ModelConfig, h, positions, window: int,
            cache_l, cache_pos, attn_impl: str = "kernel", decode: bool = False,
-           mask_pos=None, mesh=None):
+           mask_pos=None, mesh=None, seq: bool = False):
     """One decoder block. Returns (h, metrics); a cache's leaves are
     written in place. On a rank's part of the layer every branch returns
-    the sum over ``model`` (module docstring)."""
+    the sum over ``model`` (module docstring). ``seq``: h is the rank's
+    rows of the sequence (sequence parallelism, :mod:`repro_torch.parallel.hints`);
+    the norms then run on those rows alone, so their scales' gradients are
+    partial and summed over ``model``, as are a whole MLP's."""
     metrics: Dict[str, torch.Tensor] = {}
-    mix_in = L.rmsnorm(layer_params["norm_mix"], h)
+
+    def whole(p):          # a whole leaf used on the rank's rows alone
+        return tree_util.tree_map(lambda t: collectives.copy_to_model(mesh, t), p) if seq else p
+
+    mix_in = L.rmsnorm(whole(layer_params["norm_mix"]), h)
     mix_out = None
     if _has_attn(cfg):
         kvc = (cache_l["k"], cache_l["v"]) if cache_l is not None else None
         mix_out, _ = L.attention(layer_params["attn"], cfg, mix_in, positions, window,
                                  kv_cache=kvc, cache_pos=cache_pos, impl=attn_impl,
-                                 mask_pos=mask_pos, mesh=mesh)
+                                 mask_pos=mask_pos, mesh=mesh, seq=seq)
     if _has_ssm(cfg):
         sc = (cache_l["conv"], cache_l["state"]) if cache_l is not None else None
         s_out, (conv, state) = ssm_lib.ssm_block(layer_params["ssm"], cfg, mix_in,
-                                                 cache=sc, decode=decode, mesh=mesh)
+                                                 cache=sc, decode=decode, mesh=mesh, seq=seq)
         if cache_l is not None:
             cache_l["conv"].copy_(conv)
             cache_l["state"].copy_(state)
@@ -260,14 +278,17 @@ def _block(layer_params, cfg: ModelConfig, h, positions, window: int,
     h = h + mix_out.to(h.dtype)
 
     if cfg.is_moe or cfg.d_ff > 0:
-        ffn_in = L.rmsnorm(layer_params["norm_ffn"], h)
+        ffn_in = L.rmsnorm(whole(layer_params["norm_ffn"]), h)
         if cfg.is_moe:
-            f_out, moe_metrics = moe_lib.moe_ffn(layer_params["moe"], cfg, ffn_in, mesh=mesh)
+            f_out, moe_metrics = moe_lib.moe_ffn(layer_params["moe"], cfg, ffn_in, mesh=mesh,
+                                                 seq=seq)
             metrics.update(moe_metrics)
         else:
             split = layer_params["mlp"]["w_down"].shape[0] < cfg.d_ff
-            f_out = L.mlp(layer_params["mlp"], ffn_in, L._dtype(cfg),
-                          mesh=mesh if split else None)
+            # A whole MLP is token-wise: it runs on the rank's rows.
+            f_out = L.mlp(layer_params["mlp"] if split else whole(layer_params["mlp"]),
+                          ffn_in, L._dtype(cfg), mesh=mesh if split else None,
+                          seq=seq and split)
         h = h + f_out.to(h.dtype)
     return h, metrics
 
@@ -296,7 +317,10 @@ def embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
 def _check_positions(positions: torch.Tensor, cache_pos, bsz: int, s: int) -> None:
     """The kernel masks by index: explicit positions may reach it only where
     their first stream is ``cache_pos + arange(S)`` row by row. Read on the
-    host; anything else raises."""
+    host; anything else raises. Fake tensors (the dry run) hold no values:
+    their positions are taken as that default."""
+    if device_lib.is_fake(positions):
+        return
     p0 = L.to_host(positions if positions.ndim == 2 else positions[0])
     cp = np.broadcast_to(L.to_host(0 if cache_pos is None else cache_pos)
                          .astype(np.int64).reshape(-1), (bsz,))
@@ -444,20 +468,31 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         return _gathered_layer(lp, cfg, mesh, plan) if fsdp else lp
 
     remat = (cfg.remat or fsdp) and cache is None and torch.is_grad_enabled()
+    # Sequence parallelism: the rank's rows of the stream between blocks.
+    rows = hints.residual_rows(s) if mesh is not None else None
+    seq = rows is not None
     layer_metrics = []
     for i, layer_params in enumerate(params["layers"]):
         cache_l = None if cache is None else {k: leaf[i] for k, leaf in cache.items()}
         window = cfg.window_for_layer(i)
+        # At each block's entry, outside its checkpoint: the checkpoint then
+        # keeps the rank's rows of its input alone.
+        h = hints.hint_residual(h, rows)
         if remat:
             h, metrics = checkpoint_lib.checkpoint(
                 lambda lp, x, w=window: _block(layer_of(lp), cfg, x, positions, w, None,
-                                               base, attn_impl, mask_pos=mask_pos, mesh=mesh),
+                                               base, attn_impl, mask_pos=mask_pos, mesh=mesh,
+                                               seq=seq),
                 layer_params, h, use_reentrant=False,
                 context_fn=_recompute_contexts(hints.current()))
         else:
             h, metrics = _block(layer_of(layer_params), cfg, h, positions, window, cache_l,
-                                base, attn_impl, decode=decode, mask_pos=mask_pos, mesh=mesh)
+                                base, attn_impl, decode=decode, mask_pos=mask_pos, mesh=mesh,
+                                seq=seq)
         layer_metrics.append(metrics)
+    if seq:
+        # Every rank computes the head's whole loss from the gathered stream.
+        h = collectives.gather_seq_over_model(mesh, hints.hint_residual(h, rows))
     h = L.rmsnorm(params["final_norm"], h)
     metrics = {k: torch.stack([m[k] for m in layer_metrics]).mean()
                for k in layer_metrics[0]} if layer_metrics else {}

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import device as device_lib
 from repro_torch.kernels import ops
 
 
@@ -44,6 +45,20 @@ def is_sparse(x) -> bool:
     return isinstance(x, SparseRows)
 
 
+def unique_rows(ids: torch.Tensor, num_rows: int = 0):
+    """``torch.unique(ids.reshape(-1), return_inverse=True)`` as int64. On
+    fake tensors (the dry run, :mod:`repro_torch.launch.dryrun`) the ids
+    are not known, so it gives the bound: every id distinct, up to
+    ``num_rows`` rows when that is known (> 0)."""
+    ids = ids.reshape(-1).long()
+    if device_lib.is_fake(ids):
+        n = ids.shape[0]
+        u = min(n, num_rows) if num_rows > 0 else n
+        return (torch.arange(u, device=ids.device),
+                torch.arange(n, device=ids.device) % max(u, 1))
+    return torch.unique(ids, return_inverse=True)
+
+
 def accumulate_rows(ids: torch.Tensor, coeff: torch.Tensor, h: torch.Tensor,
                     num_rows: int) -> SparseRows:
     """Dedupe occurrence-level gradients into per-unique-row sums.
@@ -55,8 +70,7 @@ def accumulate_rows(ids: torch.Tensor, coeff: torch.Tensor, h: torch.Tensor,
     has no slot for it. On the card ``torch.unique`` synchronizes the host
     once, to learn U, and the sums' plan once more.
     """
-    del num_rows      # kept for the JAX package's signature; U is dynamic
-    uniq, inv = torch.unique(ids.reshape(-1).long(), return_inverse=True)
+    uniq, inv = unique_rows(ids, num_rows)        # U is dynamic
     coeff = coeff.reshape(-1).float()
     u = uniq.shape[0]
     plan = ops.segment_plan(inv, u)
@@ -76,8 +90,7 @@ def accumulate_embed_rows(ids: torch.Tensor, dh: torch.Tensor,
     summed in float32. Returns a bias-free ``SparseRows`` (db None) that
     ``optim.apply_updates`` applies to the ``embed`` table.
     """
-    del num_rows      # kept for the JAX package's signature; U is dynamic
-    uniq, inv = torch.unique(ids.reshape(-1).long(), return_inverse=True)
+    uniq, inv = unique_rows(ids, num_rows)        # U is dynamic
     dw = ops.segment_stats(dh.reshape(-1, dh.shape[-1]), inv, uniq.shape[0])
     return SparseRows(ids=uniq, dw=dw, db=None)
 

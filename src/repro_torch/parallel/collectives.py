@@ -42,6 +42,20 @@ and the replicated operands whole.
   bytes by phase (forward, the recompute under ``cfg.remat``, backward),
   and with ``TRUNK.timed`` their host seconds (each call then
   synchronizes the device before and after).
+- :func:`gather_seq_for_model`, :func:`scatter_seq_over_model`,
+  :func:`split_seq_over_model` and :func:`gather_seq_over_model`: sequence
+  parallelism (the hint ``seq_parallel_residual``,
+  :mod:`repro_torch.parallel.hints`), each differentiable and counted in
+  :data:`TRUNK`. A block's entry into split weights all-gathers the rank's
+  S/tp rows of the stream (its bytes, in the stream's dtype; backward a
+  float32 reduce-scatter of the partial gradients, rounded once), a
+  row-parallel exit reduce-scatters the float32 partial along S (rounded
+  once; backward an all-gather), the embedding's output is cut to the
+  rank's rows (no collective; backward an all-gather, so the embedding's
+  gradient is whole on every rank) and the stream after the last block is
+  gathered for the head (backward the rank's slice: every rank computes
+  the head's loss alike). A reduce-scatter counts its whole input's bytes,
+  a gather the part the rank sends.
 - :func:`gather_over_data`: FSDP. A layer's ``data`` parts gathered in one
   ``all_gather`` over ``data`` through a flat byte buffer (a gather only
   moves bytes, so leaves of any dtype share it, and a bfloat16 copy
@@ -64,10 +78,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import device as device_lib
 from repro_torch import tree_util
 from repro_torch.core import heads as heads_lib
 from repro_torch.kernels import ops
 from repro_torch.optim import compression
+from repro_torch.optim import sparse as sparse_lib
 from repro_torch.optim.sparse import SparseRows
 from repro_torch.parallel import sharding
 
@@ -191,7 +207,9 @@ def sharded_rows_update(mesh, fn: Callable, ids: torch.Tensor, vals: Sequence[to
             dist.all_reduce(r, op=dist.ReduceOp.MAX, group=sharding.group(mesh, "model"))
     else:
         new_rows, new_reps = fn(rows, tuple(vals)), ()
-    keep = torch.nonzero(mine).reshape(-1)
+    # The rows this rank owns; on fake tensors (the dry run) the bound: all.
+    keep = (torch.arange(mine.shape[0], device=mine.device) if device_lib.is_fake(mine)
+            else torch.nonzero(mine).reshape(-1))
     dst = safe.index_select(0, keep)
     for d, r in zip(dense_arrays, new_rows):
         d.index_copy_(0, dst, r.index_select(0, keep).to(d.dtype))
@@ -236,7 +254,8 @@ def _all_gather_ragged(x: torch.Tensor, g) -> List[torch.Tensor]:
     n = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
     sizes = [torch.empty_like(n) for _ in range(dist.get_world_size(g))]
     dist.all_gather(sizes, n, group=g)
-    sizes = [int(s) for s in sizes]
+    # Fake tensors (the dry run) hold no sizes: every rank's is this one's.
+    sizes = [x.shape[0] if device_lib.is_fake(s) else int(s) for s in sizes]
     pad = max(sizes)
     buf = torch.zeros((pad,) + x.shape[1:], dtype=x.dtype, device=x.device)
     buf[:x.shape[0]] = x
@@ -254,7 +273,7 @@ def sum_rows_over_data(mesh, rows: SparseRows) -> SparseRows:
     g = sharding.group(mesh, "data")
     ids = torch.cat(_all_gather_ragged(rows.ids, g))
     dw = torch.cat(_all_gather_ragged(rows.dw, g))
-    uniq, inv = torch.unique(ids, return_inverse=True)
+    uniq, inv = sparse_lib.unique_rows(ids)
     plan = ops.segment_plan(inv, uniq.shape[0])
     out_dw = ops.segment_stats(dw, inv, uniq.shape[0], plan=plan)
     out_db = None
@@ -436,7 +455,7 @@ def partial_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     are widened to float32 first, which is exact."""
     if x.dtype == w.dtype == torch.float32:
         return x @ w
-    if not x.is_cuda:
+    if not device_lib.on_card(x):
         return x.float() @ w.float()
     gemm = _PartialMatmul.apply if _tracked(x) or _tracked(w) else _mm_f32
     if w.dim() == 3:
@@ -474,34 +493,156 @@ def reduce_over_model(mesh, partial: torch.Tensor, dtype: torch.dtype) -> torch.
     return partial.to(dtype)
 
 
-def _gather_seq(mesh, buf: torch.Tensor, seq_dim: int) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# Sequence parallelism over ``model`` (the hint ``seq_parallel_residual``)
+# ---------------------------------------------------------------------------
+
+def _gather_seq_bytes(mesh, part: torch.Tensor, phase: Optional[str] = None) -> torch.Tensor:
+    """Every ``model`` rank's (B, S/tp, ...) part along dim 1, in rank
+    order: one ``all_gather`` of the parts' bytes (a gather only moves
+    bytes, so a bfloat16 stream travels in its own width over gloo)."""
     g = sharding.group(mesh, "model")
+    buf = part.contiguous().view(torch.uint8)
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(g))]
-    _trunk_call(buf, lambda: dist.all_gather(parts, buf, group=g))
-    return torch.cat(parts, dim=seq_dim)
+    _trunk_call(buf, lambda: dist.all_gather(parts, buf, group=g), phase)
+    return torch.cat(parts, dim=1).view(part.dtype)
+
+
+def _scatter_seq_f32(mesh, full: torch.Tensor, phase: Optional[str] = None) -> torch.Tensor:
+    """The sum over ``model`` of each rank's float32 (B, S, ...), each rank
+    keeping its rows along dim 1: one ``reduce_scatter``, counted at the
+    whole input's bytes. The incoming tensor is never written."""
+    g = sharding.group(mesh, "model")
+    full = full.float()
+    chunks = [c.contiguous() for c in full.chunk(dist.get_world_size(g), dim=1)]
+    out = torch.empty_like(chunks[0])
+    _trunk_call(full, lambda: dist.reduce_scatter(out, chunks, group=g), phase)
+    return out
+
+
+class _GatherSeqForModel(torch.autograd.Function):
+    """Forward: the rank's rows of the stream gathered along S. Backward:
+    the gathered input's gradient on a rank is PARTIAL (its heads', its
+    ``d_ff``'s or its experts' share, over every row), so the true gradient
+    of the rank's rows is the sum over ``model`` of every rank's at those
+    rows: a reduce-scatter along S in float32, rounded once."""
+
+    @staticmethod
+    def forward(ctx, part, mesh):
+        ctx.mesh = mesh
+        return _gather_seq_bytes(mesh, part)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_seq_f32(ctx.mesh, g, "backward").to(g.dtype), None
+
+
+def gather_seq_for_model(mesh, part: torch.Tensor) -> torch.Tensor:
+    """Under sequence parallelism, a block's entry into split weights (or
+    into a whole branch that mixes the sequence): the rank's (B, S/tp, d)
+    rows of the stream gathered to (B, S, d). Its backward reduce-scatters
+    the partial gradients (see :class:`_GatherSeqForModel`); it takes the
+    place of :func:`copy_to_model` on the block's input."""
+    if _tracked(part):
+        return _GatherSeqForModel.apply(part, mesh)
+    return _gather_seq_bytes(mesh, part)
+
+
+class _ScatterSeqOverModel(torch.autograd.Function):
+    """Forward: each rank's float32 partial (B, S, d) summed over ``model``,
+    the rank keeping its S/tp rows. Backward: the gradient of the rank's
+    rows is WHOLE (the stream's rows are used by this rank alone), and a
+    partial's gradient is the sum's at every row, so the rows' gradients
+    are all-gathered along S."""
+
+    @staticmethod
+    def forward(ctx, partial, mesh):
+        ctx.mesh = mesh
+        return _scatter_seq_f32(mesh, partial)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq_bytes(ctx.mesh, g, "backward"), None
+
+
+def scatter_seq_over_model(mesh, partial: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Under sequence parallelism, a row-parallel projection's exit: the
+    float32 partial (B, S, d) reduce-scattered along S to the rank's
+    (B, S/tp, d) rows and rounded once to ``dtype`` (as
+    :func:`reduce_over_model` rounds the whole sum once)."""
+    if partial.dtype != torch.float32:
+        raise ValueError(f"a {partial.dtype} partial sum was rounded before its reduction")
+    if _tracked(partial):
+        return _ScatterSeqOverModel.apply(partial, mesh).to(dtype)
+    return _scatter_seq_f32(mesh, partial).to(dtype)
+
+
+def row_parallel_sum(mesh, partial: torch.Tensor, dtype: torch.dtype,
+                     seq: bool = False) -> torch.Tensor:
+    """A row-parallel projection's float32 partials summed over ``model``
+    and rounded once to ``dtype``: whole on every rank
+    (:func:`reduce_over_model`), or under sequence parallelism (``seq``)
+    reduce-scattered to the rank's rows (:func:`scatter_seq_over_model`)."""
+    if seq:
+        return scatter_seq_over_model(mesh, partial, dtype)
+    return reduce_over_model(mesh, partial, dtype)
+
+
+class _SplitSeq(torch.autograd.Function):
+    """Forward: the rank's rows of a (B, S, d) tensor every rank holds
+    alike (the embedding's output). Backward: each rank's gradient is
+    nonzero only at its rows, and the whole tensor's gradient (which the
+    sparse embedding's rows and the dense embedding's table read on every
+    rank) is those rows all-gathered along S."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        lo, hi = sharding.row_range(x.shape[1], mesh)
+        return x[:, lo:hi].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq_bytes(ctx.mesh, g, "backward"), None
+
+
+def split_seq_over_model(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The rank's rows ``sharding.row_range(S, mesh)`` of a (B, S, ...)
+    tensor held alike on every ``model`` rank: no collective forward, an
+    all-gather of the gradient backward."""
+    if _tracked(x):
+        return _SplitSeq.apply(x, mesh)
+    lo, hi = sharding.row_range(x.shape[1], mesh)
+    return x[:, lo:hi]
 
 
 class _GatherSeq(torch.autograd.Function):
+    """Forward: every ``model`` rank's part gathered along S. Backward:
+    every rank uses the gathered whole alike (a hinted attention's output;
+    under sequence parallelism the stream after the last block, from which
+    every rank computes the head's whole loss), so each rank's gradient of
+    it is WHOLE and the part's gradient is the rank's slice; a
+    reduce-scatter here would count it tp times."""
+
     @staticmethod
-    def forward(ctx, buf, mesh, seq_dim):
-        ctx.mesh, ctx.seq_dim, ctx.n = mesh, seq_dim, buf.shape[seq_dim]
-        return _gather_seq(mesh, buf, seq_dim)
+    def forward(ctx, part, mesh):
+        ctx.mesh, ctx.n = mesh, part.shape[1]
+        return _gather_seq_bytes(mesh, part)
 
     @staticmethod
     def backward(ctx, g):
         lo = sharding.rank(ctx.mesh, "model") * ctx.n
-        return g.narrow(ctx.seq_dim, lo, ctx.n), None, None
+        return g[:, lo:lo + ctx.n], None
 
 
-def gather_seq_over_model(mesh, part: torch.Tensor, seq_dim: int = 1) -> torch.Tensor:
-    """Every ``model`` rank's part of the sequence, in rank order, along
-    ``seq_dim``: rank r holds positions [r·S/tp, (r+1)·S/tp). The gradient
-    of a rank's part is its slice of the whole's (the whole is used alike
-    on every rank)."""
-    buf = part.float().contiguous()      # exact; gloo's types need no bf16
-    if _tracked(buf):
-        return _GatherSeq.apply(buf, mesh, seq_dim).to(part.dtype)
-    return _gather_seq(mesh, buf, seq_dim).to(part.dtype)
+def gather_seq_over_model(mesh, part: torch.Tensor) -> torch.Tensor:
+    """Every ``model`` rank's (B, S/tp, ...) part of the sequence, in rank
+    order, as (B, S, ...): rank r holds positions [r·S/tp, (r+1)·S/tp). The
+    gradient of a rank's part is its slice of the whole's (see
+    :class:`_GatherSeq`)."""
+    if _tracked(part):
+        return _GatherSeq.apply(part, mesh)
+    return _gather_seq_bytes(mesh, part)
 
 
 class _NormSum(torch.autograd.Function):

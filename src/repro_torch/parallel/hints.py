@@ -35,9 +35,24 @@ slice.
   float32, so a hinted step is bit-equal to an unhinted one.
 - :func:`hint_expert_act`: the identity (its docstring says why).
 
-``seq_parallel_residual`` (the reference's ``hint_residual``) belongs to
-sequence parallelism, which the port has not ported yet: a context that
-asks for it raises ``NotImplementedError``.
+``seq_parallel_residual`` takes sequence parallelism (the reference's
+``hint_residual``, Megatron's): with ``tp`` > 1 model ranks and S dividing
+over them, the residual stream (B, S, d) stays split along S between the
+blocks, rank r holding the rows :func:`residual_rows` names, so the norms,
+the residual adds and each checkpointed layer's saved input are 1/tp a
+rank. :func:`hint_residual` cuts the embedding's output to those rows (no
+collective). Inside a block (``models/layers.py``, ``moe.py``, ``ssm.py``)
+each entry into split weights gathers the rows along S
+(``collectives.gather_seq_for_model``, its backward a reduce-scatter), each
+row-parallel sum becomes a reduce-scatter along S
+(``collectives.scatter_seq_over_model``, its backward a gather), a whole
+token-wise branch (an MLP) runs on the rank's rows, and a whole branch
+that mixes the sequence runs on the gathered rows and keeps its own: a
+whole attention takes :func:`hinted_rows`, which are then the rank's
+stream rows, so :func:`hint_attn_out` gathers nothing. After the last
+block ``transformer.forward`` gathers the stream back along S
+(``collectives.gather_seq_over_model``). Decode (S = 1) and an S that ``tp``
+does not divide run as without the hint.
 """
 from __future__ import annotations
 
@@ -51,8 +66,6 @@ from repro_torch.parallel import collectives, sharding
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("repro_torch_sharding_hints",
                                                       default=None)
-LATER = ("{} belongs to sequence parallelism, which the port has not ported yet "
-         "(ROADMAP Queue 1, slice 13)")
 
 
 class HintContext:
@@ -64,9 +77,8 @@ class HintContext:
     def __init__(self, mesh, seq_parallel_residual: bool = False,
                  fsdp_gather_weights: bool = False):
         sharding.check_mesh(mesh)
-        if seq_parallel_residual:
-            raise NotImplementedError(LATER.format("seq_parallel_residual"))
         self.mesh = mesh
+        self.seq_parallel_residual = seq_parallel_residual
         self.fsdp_gather_weights = fsdp_gather_weights
 
 
@@ -109,6 +121,28 @@ def hinted_rows(num_heads: int, s: int):
         return None
     return sharding.row_range(s, ctx.mesh)
 
+
+def residual_rows(s: int):
+    """[a, b) of the S rows of the residual stream this rank holds under
+    ``seq_parallel_residual``, or None: no such hint, one model rank, or S
+    not dividing (decode's S = 1 among them)."""
+    ctx = _CTX.get()
+    if ctx is None or not ctx.seq_parallel_residual:
+        return None
+    tp = sharding.size(ctx.mesh, "model")
+    if tp == 1 or s % tp != 0:
+        return None
+    return sharding.row_range(s, ctx.mesh)
+
+
+def hint_residual(h: torch.Tensor, rows) -> torch.Tensor:
+    """h: the residual stream at a block's entry, ``rows`` the
+    :func:`residual_rows` of its full length. A whole (B, S, d) stream (the
+    embedding's output, alike on every rank) is cut to the rank's rows; a
+    stream already cut, or ``rows`` None, is returned as it is."""
+    if rows is None or h.shape[1] == rows[1] - rows[0]:
+        return h
+    return collectives.split_seq_over_model(_CTX.get().mesh, h)
 
 
 def hint_gathered_weight(leaf: torch.Tensor, dtype: torch.dtype) -> torch.dtype:

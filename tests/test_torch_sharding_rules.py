@@ -305,10 +305,11 @@ def test_shard_params_raises_on_a_dim_that_does_not_divide():
         sharding.shard_train_state({"layers": params["layers"]}, Rank0Of3(), cfg)
 
 
-def test_hint_context_refuses_slice_11_options(monkeypatch):
-    """A stand-in mesh is refused; past that check (patched here) only
-    ``seq_parallel_residual`` is refused, naming slice 13, and
-    ``fsdp_gather_weights`` is taken."""
+def test_hint_context_takes_seq_parallel_residual(monkeypatch):
+    """A stand-in mesh is refused; past that check (patched here)
+    ``seq_parallel_residual`` and ``fsdp_gather_weights`` are taken, and
+    the residual rows follow the model axis: none on one model rank or an
+    S that does not divide, none without the hint."""
     from repro_torch.parallel import hints
 
     class Mesh:
@@ -322,8 +323,17 @@ def test_hint_context_refuses_slice_11_options(monkeypatch):
     assert hints.hint_gathered_weight(w, torch.bfloat16) == torch.float32
     assert hints.hint_expert_act(w) is w
     monkeypatch.setattr(hints.sharding, "check_mesh", lambda mesh: None)
-    with pytest.raises(NotImplementedError, match="sequence parallelism.*slice 13"):
-        hints.HintContext(Mesh(), seq_parallel_residual=True)
+    monkeypatch.setattr(hints.sharding, "rank", lambda mesh, dim: 1)
+    assert hints.residual_rows(8) is None
+    with hints.sharding_hints(Mesh(), seq_parallel_residual=True):
+        assert hints.current().seq_parallel_residual
+        assert hints.residual_rows(8) == (4, 8)
+        assert hints.residual_rows(7) is None and hints.residual_rows(1) is None
+        x = torch.zeros(2, 4, 3)
+        assert hints.hint_residual(x, (4, 8)) is x          # already the rank's rows
+    with hints.sharding_hints(Mesh()):
+        assert not hints.current().seq_parallel_residual
+        assert hints.residual_rows(8) is None
     with hints.sharding_hints(Mesh(), fsdp_gather_weights=True):
         assert hints.current().fsdp_gather_weights
         assert hints.hint_gathered_weight(w, torch.bfloat16) == torch.bfloat16
