@@ -17,7 +17,16 @@ Phases, each fatal on failure:
      at the generator fit's 8 shapes over N = 524,288 points, bit-exact
      across two calls with one plan and a call that sorts its own ids; the
      plan and a call with it timed apart), time both, and check the
-     prediction path on a small input against the port's CPU run;
+     prediction path on a small input against the port's CPU run; the two
+     kernels past their old fixed widths (``check_wide_kernels``):
+     ``sampled_head_loss`` at mixtral-8x22b's and gemma2-27b's LM step (T
+     = 8,192, K = 6,144, vocab 32,768; T = 4,096, K = 4,608, vocab
+     256,000; m = 2), both table dtypes, timed, and at K = 6,144, m = 17
+     (the chunked staging) for all 7 kinds with reg and softcap on;
+     ``tree_logprob_all`` at gemma2-27b's serving shape (B = 4, depth 18,
+     k = 64), at B = 256, at k = 33 and 48, and on the FMA kernel at depth
+     7, k = 64, timed, k = 64 also under 16, 8, 4 and 2 sub-blocks; every
+     call twice, bit-equal;
   4. the prediction path at full ``xc_linear`` width (C = 217,240, K = 512,
      k = 16, depth 18): 4 request batches of 256 queries through dense Eq. 5
      prediction and tree-beam top-k, launch counters reset just before and
@@ -95,7 +104,8 @@ Phases, each fatal on failure:
      steps (ms per step, one ``sampled_head_loss`` launch a step) and a
      held-out log-likelihood above uniform's; the sparse training step
      with adagrad, sm3 (fp32, bf16) and adamw (fp32, int8) at C = 217,240
-     and 2,097,152 (ms per step, p50/p95 from an ``obs`` histogram, state
+     and 2,097,152 (ms per step over 25 steps, cut from 50 and printed as
+     ``reduced``, p50/p95 from an ``obs`` histogram, state
      bytes, peak growth, one update profiled), SM3 and lazy AdamW sparse
      against dense; closed-form gradient SNR and signal mass of every
      proposal (Theorem 2), the streamed estimator timed; each section in
@@ -116,20 +126,26 @@ Phases, each fatal on failure:
      version at the step's shape (T = 8,192, m = 2, K = 2,560); at full
      width and 2 layers, every trunk gradient against dense autograd on the
      same candidates, and 6 straight steps against 3 + preemption + resume,
-     bit for bit;
+     bit for bit; (b) gemma2-27b's sampled head at full width (d 4,608,
+     vocab 256,000) and 2 of its 46 layers (printed as ``reduced``), batch
+     2 x 2,048, 3 steps, ``adversarial_ns`` with the sparse head and
+     embedding, float32 parameters, Adagrad: losses finite, one
+     ``sampled_head_loss`` and 3 ``segment_stats`` a step, the step's own
+     kernel call against the plain version (line ``gemma2_train``);
  12. the backbone's other families at full width (run after phase 11), each
      built from the seed in bf16 layer by layer and deleted before the
      next, counters reset just before and read just after each path, each
      path's prefill ms, decode ms a token or step, one decode step profiled
      (host and device ms, idle share), peak memory and the card's line:
-     (a) mamba2-370m (48 layers, d 1,024, 32 SSD heads of 64, state 128,
-     chunk 256) through the engine, 8 lanes, 16 requests of 1 to 4,096
-     prompt tokens in three bursts, 32 tokens each, dense and beam 64, each
-     request's tokens equal to its lock-step decode alone at the engine's
-     shapes; ``ssd_chunked`` against ``ssd_sequential`` at S = 4,096
-     (relative RMS <= 1e-4, finite ``dt`` gradient); (b) hymba-1.5b (32
-     layers, d 1,600, 25 heads over 5, hd 64, window 1,024, 50 SSD heads of
-     state 16) the same, bf16 paged cache, pages of 256 (prefills on the
+     (a) mamba2-370m (12 of its 48 layers, printed as ``reduced``; d
+     1,024, 32 SSD heads of 64, state 128, chunk 256) through the engine,
+     8 lanes, 16 requests of 1 to 4,096 prompt tokens in three bursts, 32
+     tokens each, dense and beam 64, each request's tokens equal to its
+     lock-step decode alone at the engine's shapes; ``ssd_chunked``
+     against ``ssd_sequential`` at S = 4,096 (relative RMS <= 1e-4, finite
+     ``dt`` gradient); (b) hymba-1.5b (8 of its 32 layers, printed as
+     ``reduced``; d 1,600, 25 heads over 5, hd 64, window 1,024, 50 SSD
+     heads of state 16) the same, bf16 paged cache, pages of 256 (prefills on the
      tensor-core kernel or, at 1 and 2 tokens, the decode kernel; decodes
      paged on the decode kernel); (c) deepseek-moe-16b (28 layers, 64
      routed experts top-6 + 2 shared; 33.8 GB of bf16) lock-step, 4 x 2,048
@@ -143,8 +159,14 @@ Phases, each fatal on failure:
      relative RMS, and 4 times closer than plain RoPE);
      (e) mixtral-8x22b at full width and 4 of its 56 layers (printed as
      ``reduced``), 2 x 4,096 prompt tokens and 16, dense, and its layer 0
-     ``moe_ffn`` (the ``topk_softmax`` router) checked as (c)'s. Every model
-     is built by the serving launcher's ``serve.build``;
+     ``moe_ffn`` (the ``topk_softmax`` router) checked as (c)'s; (f)
+     gemma2-27b at full width and depth (46 layers, d 4,608, 32 heads over
+     16, hd 128, windows of 4,096 alternating, softcaps 50 and 30, vocab
+     256,000, generator features 64), lock-step 4 x 2,048 + 32, dense Eq. 5
+     (``tree_logprob_all`` at k = 64 on the tensor-core kernel) and beam
+     64, each request's prefill and decode hiddens and dense scores within
+     2^-5 relative RMS of the cache-free forward (line ``gemma2_serve``).
+     Every model is built by the serving launcher's ``serve.build``;
  13. the vocab-sharded head on a ("data", "model") process mesh over
      ``torch.distributed`` (run after phase 12), every rank on the one card
      over gloo, each world started by ``torchrun``, any rank's failure or a
@@ -166,9 +188,14 @@ Phases, each fatal on failure:
      relative, parameters within 1e-3 relative + 1e-4, the reference's
      bounds), ``sampled_head_loss`` and ``segment_stats`` launches a rank,
      the trunk's gradient sum over ``data`` timed (calls, bytes, seconds,
-     share of the steps); a checkpoint written under the mesh leaf by leaf,
-     every rank's part restored bit-equal and the whole restored by one
-     process bit-equal;
+     share of the steps), each step's sums of the sparse rows over ``data``
+     by owner (bytes a rank held, within their bound; ``segment_stats``
+     launches counted from them); a checkpoint written under the mesh leaf
+     by leaf, every rank's part restored bit-equal and the whole restored by
+     one process bit-equal; and, before (c), the sparse rows' sum over
+     ``data`` by owner on (2, 2) and (4, 1) at stablelm-3b's table (Zipf
+     ids, a rank with none, no ``db``) bit-equal to the gather-everything
+     sum it replaced (line ``mesh_rows_sum``);
      (b), the serving launcher on 2 ranks, is phase 14's (a) now that the
      trunk is sharded; (d) the serving launcher as a one-rank NCCL world,
      its tokens equal to this process's; lines ``mesh_collectives``,
@@ -184,8 +211,8 @@ Phases, each fatal on failure:
      script's ``--tp-worker``, the model built at that depth; ``--device
      cuda:0 --model-axis M --time-collectives``) on (1, 2): phase 9's
      lock-step shapes (4 × 4,608 + 32) dense and beam 64 and an engine
-     burst of 8 × 4,096 + 32 at beam 64, and on (1, 4) the dense
-     lock-step; (b)
+     burst of 8 × 4,096 + 32 at beam 64 (the three runs in one world, the
+     launcher called once for each), and on (1, 4) the dense lock-step; (b)
      deepseek-moe-16b at full width, 8 of its 28 layers (printed as
      ``reduced``), on (1, 4), 16 of its 64 experts a rank (this script
      with ``--tp-worker``): lock-step 4 × 2,048 + 32, dense; (c) hymba-1.5b at full width, 4 of its 32 layers
@@ -252,8 +279,11 @@ Phases, each fatal on failure:
      (b)'s layer-0 routing bit-equal to one rank's; (c) hinted gradients
      within 1e-4 of the unhinted; ``sampled_head_loss`` once a step a rank,
      ``segment_stats`` 3 a step a rank (the head's and the embedding's row
-     sums; 6 on (2, 2), with their sums over ``data``), none of either for
-     (e)'s dense head, and no ``flash_attention``. Printed (line
+     sums) and, on (2, 2), the owner's sums over ``data`` (none where an
+     owner received no row), none of either for (e)'s dense head, and no
+     ``flash_attention``; on (2, 2) the first gradient's sums over ``data``
+     by owner bit-equal to the gather-everything sum, and each step's
+     within their bound (bytes a rank printed). Printed (line
      ``tp_train``): ms a step a rank, the trunk's ``model`` collectives'
      and FSDP's calls, bytes and host seconds for the forward, the
      recompute and the backward, peak memory a rank and its bound, the
@@ -270,8 +300,11 @@ Phases, each fatal on failure:
      step's temporaries) within 20% of ``torch.cuda.max_memory_allocated``
      over one step (line ``dryrun_step``); (b) h2o-danube-3-4b
      ``train_4k`` on the (32, 8) production mesh of 256 fake ranks to
-     status ``ok``, its roofline terms and bytes a rank on line
-     ``dryrun_cell``;
+     status ``ok`` and under 20 GB a rank, its roofline terms and bytes a
+     rank on line ``dryrun_cell``; (c), after (b) in the same process: gemma2-27b's
+     ``train_4k``, ``prefill_32k`` and ``decode_32k`` and mixtral-8x22b's
+     ``train_4k`` on (32, 8), and (b)'s cell on (64, 8), each ``ok``, the
+     last at no more bytes a rank than on (32, 8);
  17. print the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero without a CUDA device, and prints no result then.
@@ -341,6 +374,15 @@ TIMING_ITERS = 20
 TRAIN_EXAMPLES = 65_536          # Gaussian features, zipf labels
 TRAIN_STEPS = 300
 WIDE_SHAPE = (2048, 17)          # (T, m) of the second timed sampled_head_loss shape
+# The families whose widths passed the kernels' old fixed limits: each LM
+# training step's sampled_head_loss (arch, T, m; K = d_model and C = vocab of
+# the arch), the chunked staging at mixtral's K (T, m, K), and
+# tree_logprob_all's calls (name, B, depth, k; the FMA kernel at depth 7).
+WIDE_LOSS_STEPS = (("mixtral-8x22b", 8192, 2), ("gemma2-27b", 4096, 2))
+WIDE_LOSS_CHUNKED = (256, 17, 6144)
+WIDE_TREE_SHAPES = (("gemma2_serving", 4, 18, 64), ("gemma2_b256", 256, 18, 64),
+                    ("k33", 4, 18, 33), ("k48", 4, 18, 48), ("fma_depth7", 256, 7, 64))
+WIDE_TREE_SUB_BLOCKS = (16, 8, 4, 2)   # the tensor-core plan's sub-blocks timed at k = 64
 BIG_C = 2_097_152                # the step-cost-independent-of-C figure
 BIG_STEPS = 100
 
@@ -606,7 +648,7 @@ def check_tree(dev, gen, flush, cfg, floor):
     for shape, c, kg, bsz, scale in shapes:
         tree = tree_lib.init_tree(gen, c, kg, scale=scale, device=dev)
         x = torch.randn((bsz, kg), generator=gen, device=dev)
-        plan = tree_logprob.launch_plan(bsz, tree.depth, sm_count)
+        plan = tree_logprob.launch_plan(bsz, tree.depth, sm_count, kg)
         before = ops.tree_logprob_all.tensor_core_launches
         got = ops.tree_logprob_all(tree.w, tree.b, x)
         again = ops.tree_logprob_all(tree.w, tree.b, x)
@@ -656,6 +698,131 @@ def check_tree(dev, gen, flush, cfg, floor):
     print(json.dumps({"tree_logprob_all": result}))
     main = result["prediction"]
     return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+
+
+def check_wide_kernels(dev, gen, flush, floor):
+    """Both kernels past their old fixed width limits, against their plain
+    versions: sampled_head_loss at mixtral-8x22b's and gemma2-27b's LM step
+    (K = 6,144 and 4,608), both table dtypes, timed, and at K = 6,144, m =
+    17 (three float32 chunks, two bf16) for all 7 kinds with reg and
+    softcap on; tree_logprob_all at gemma2-27b's serving shape (B = 4,
+    depth 18, k = 64), at B = 256, at k = 33 and 48, and on the FMA kernel
+    at depth 7, k = 64, timed, the tensor-core kernel also under 16, 8, 4
+    and 2 sub-blocks at k = 64. Every call twice, bit-equal."""
+    out = {"sampled_head_loss": {}, "tree_logprob_all": {}}
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    for arch, t, m in WIDE_LOSS_STEPS:
+        mcfg = configs.get_config(arch)
+        c, kdim = mcfg.vocab_size, mcfg.d_model
+        w32 = (0.5 / math.sqrt(kdim)) * torch.randn((c, kdim), generator=gen, device=dev)
+        b32 = 0.1 * torch.randn((c,), generator=gen, device=dev)
+        h, ids, lp = sampled_inputs(dev, gen, c, kdim, t, m)
+        rows = torch.unique(ids).numel()
+        for dtype in (torch.float32, torch.bfloat16):
+            w, b = w32.to(dtype), b32.to(dtype)
+            kw = dict(kind="adversarial_ns", num_labels=c, reg=1e-4,
+                      softcap=mcfg.final_logit_softcap)
+            got = ops.sampled_head_loss(w, b, h, ids, lp, **kw)
+            again = ops.sampled_head_loss(w, b, h, ids, lp, **kw)
+            want = ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw)
+            torch.cuda.synchronize()
+            what = f"sampled_head_loss {arch} {str(dtype)[6:]} T={t} m={m} K={kdim}"
+            check(all(torch.equal(g, a) for g, a in zip(got, again)), f"{what}: two calls differ")
+            for name, g, wn in zip(("loss", "coeff", "xi"), got, want):
+                check(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
+                check(close(g, wn, LOSS_TOL), f"{what}: {name} disagrees")
+            check(dh_close(got[3], want[3], want[1], w, ids), f"{what}: dh disagrees")
+            n_flop, n_bytes = sampled_loss_lib.cost(t, m, kdim, w.element_size(), rows)
+            bound, by = bound_ms(n_bytes, n_flop)
+            ms = time_ms(lambda: ops.sampled_head_loss(w, b, h, ids, lp, **kw), flush)
+            plain = time_ms(lambda: ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw), flush)
+            row = dict(t=t, m=m, k=kdim, c=c, distinct_rows=rows,
+                       chunk=sampled_loss_lib.staged_slots(m, kdim, w.element_size()),
+                       max_abs_err=max(float((g - wn).abs().max())
+                                       for g, wn in zip(got[:3], want[:3])),
+                       dh_max_abs_err=float((got[3] - want[3]).abs().max()), ms=ms,
+                       plain_ms=plain, bound_ms=bound, bound_by=by, launch_floor_ms=floor)
+            print(f"{what}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}), errors {row['max_abs_err']:.3e} / dh {row['dh_max_abs_err']:.3e}")
+            out["sampled_head_loss"][f"{arch}/{str(dtype)[6:]}"] = row
+            del got, again, want, w, b
+        del w32, b32, h, ids, lp
+    torch.cuda.empty_cache()
+    t, m, kdim = WIDE_LOSS_CHUNKED
+    c = configs.get_config("mixtral-8x22b").vocab_size
+    w32 = (0.5 / math.sqrt(kdim)) * torch.randn((c, kdim), generator=gen, device=dev)
+    b32 = 0.1 * torch.randn((c,), generator=gen, device=dev)
+    h, ids, lp = sampled_inputs(dev, gen, c, kdim, t, m)
+    for dtype in (torch.float32, torch.bfloat16):
+        w, b = w32.to(dtype), b32.to(dtype)
+        chunk = sampled_loss_lib.staged_slots(m, kdim, w.element_size())
+        check(chunk < m, f"sampled_head_loss K={kdim} m={m} {dtype}: not chunked ({chunk})")
+        worst = 0.0
+        for kind in SAMPLED_KINDS:
+            kw = dict(kind=kind, num_labels=c, reg=1e-2, softcap=25.0)
+            got = ops.sampled_head_loss(w, b, h, ids, lp, **kw)
+            again = ops.sampled_head_loss(w, b, h, ids, lp, **kw)
+            want = ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw)
+            torch.cuda.synchronize()
+            what = f"sampled_head_loss {kind} {str(dtype)[6:]} T={t} m={m} K={kdim} chunk={chunk}"
+            check(all(torch.equal(g, a) for g, a in zip(got, again)), f"{what}: two calls differ")
+            for name, g, wn in zip(("loss", "coeff", "xi"), got, want):
+                check(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
+                check(close(g, wn, LOSS_TOL), f"{what}: {name} disagrees")
+            check(dh_close(got[3], want[3], want[1], w, ids), f"{what}: dh disagrees")
+            worst = max([worst] + [float((g - wn).abs().max()) for g, wn in zip(got[:3], want[:3])])
+        out["sampled_head_loss"][f"chunked/{str(dtype)[6:]}"] = dict(
+            t=t, m=m, k=kdim, chunk=chunk, kinds=len(SAMPLED_KINDS), max_abs_err=worst)
+    del w32, b32, w, b, h, ids, lp
+    torch.cuda.empty_cache()
+    for shape, bsz, depth, kg in WIDE_TREE_SHAPES:
+        tree = tree_lib.init_tree(gen, 1 << depth, kg, scale=0.05, device=dev)
+        x = torch.randn((bsz, kg), generator=gen, device=dev)
+        plan = tree_logprob.launch_plan(bsz, depth, sm_count, kg)
+        before = (ops.tree_logprob_all.tensor_core_launches, ops.tree_logprob_all.fma_launches)
+        got = ops.tree_logprob_all(tree.w, tree.b, x)
+        again = ops.tree_logprob_all(tree.w, tree.b, x)
+        want = ref.tree_logprob_all_ref(tree.w, tree.b, x)
+        torch.cuda.synchronize()
+        took = (ops.tree_logprob_all.tensor_core_launches - before[0],
+                ops.tree_logprob_all.fma_launches - before[1])
+        what = f"tree_logprob_all {shape}: B={bsz} depth={depth} k={kg} plan={plan}"
+        check(took == ((2, 0) if depth >= tree_logprob.TENSOR_CORE_MIN_DEPTH else (0, 2)),
+              f"{what}: launches by kernel {took}")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+        check(close(got, want, TREE_TOL), f"{what} disagrees")
+        check(torch.equal(got, again), f"{what}: two calls differ")
+        err = float((got - want).abs().max())
+        del again, want
+        n_flop, n_bytes = tree_logprob.cost(bsz, tree.w.shape[0], kg)
+        bound, by = bound_ms(n_bytes, n_flop)
+        ms = time_ms(lambda: ops.tree_logprob_all(tree.w, tree.b, x), flush)
+        plain = time_ms(lambda: ref.tree_logprob_all_ref(tree.w, tree.b, x), flush)
+        row = dict(b=bsz, depth=depth, k=kg, plan=list(plan), max_abs_err=err, ms=ms,
+                   plain_ms=plain, bound_ms=bound, bound_by=by, launch_floor_ms=floor,
+                   smem_bytes=(tree_logprob.tc_smem_bytes(depth, kg, plan[2]) if plan[2]
+                               else tree_logprob.fma_smem_bytes(depth, kg)))
+        if kg == 64 and plan[0] == tree_logprob.TENSOR_CORES:
+            variants = {}
+            for sub in WIDE_TREE_SUB_BLOCKS:
+                var = (tree_logprob.TENSOR_CORES, plan[1], sub)
+                buf = torch.empty_like(got)
+                tree_logprob._launch(tree.w, tree.b, x, buf, depth, *var)
+                torch.cuda.synchronize()
+                check(torch.equal(buf, got), f"{what}: {sub} sub-blocks give other bits")
+                variants[sub] = dict(
+                    smem_bytes=tree_logprob.tc_smem_bytes(depth, kg, sub),
+                    ms=time_ms(lambda: tree_logprob._launch(tree.w, tree.b, x, buf, depth,
+                                                            *var), flush))
+            row["sub_blocks_ms"] = variants
+        print(f"{what}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"max_abs_err {err:.3e}" + (f", by sub-blocks {row['sub_blocks_ms']}"
+                                          if "sub_blocks_ms" in row else ""))
+        out["tree_logprob_all"][shape] = row
+        del got, tree, x
+    torch.cuda.empty_cache()
+    print(json.dumps({"wide_kernels": out}))
+    return out
 
 
 def dh_close(got, want, coeff, w, ids) -> bool:
@@ -1523,6 +1690,55 @@ def rel_rms(got, want) -> float:
     return float((g - w).pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
 
 
+def cache_free_errors(cfg, hcfg, params, state, rec, prompts, tokens) -> dict:
+    """The requests through prefill + decode (``rec``: the forwards'
+    hiddens and each step's dense Eq. 5 scores) against the plain version's
+    cache-free forward over every token the cache holds: relative RMS of
+    the prefill's and the decode steps' hiddens and of the scores, overall
+    and by request."""
+    dev = prompts.device
+    prompt_len, batch = prompts.shape[1], prompts.shape[0]
+    head = heads.HeadParams(**params["head"])
+    fed = torch.cat([prompts, prompts[:, -1:],
+                     torch.as_tensor(tokens[:, :-1], device=dev)], dim=1)
+    t0 = time.perf_counter()
+    with swapped(ops, flash_attention=blocked_attention_ref,
+                 tree_logprob_all=ref.tree_logprob_all_ref):
+        plain_h, _, _ = transformer.forward(params, cfg, fed)
+        plain_scores = lm_head.lm_predictive_scores(
+            cfg, hcfg, head, state, plain_h[:, prompt_len:].reshape(-1, cfg.d_model))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_h_prompt, plain_h_decode = plain_h[:, :prompt_len], plain_h[:, prompt_len:]
+    kernel_h_prompt = rec["h"][0]
+    kernel_h_decode = torch.stack([h[:, -1] for h in rec["h"][1:]], dim=1)
+    kernel_scores = torch.stack(rec["scores"], dim=1).reshape(-1, plain_scores.shape[-1])
+    real = slice(0, cfg.vocab_size)
+    kernel_scores, plain_scores = kernel_scores[:, real], plain_scores[:, real]
+    gen = kernel_h_decode.shape[1]
+    by_req = lambda x: x.reshape(batch, gen, -1)  # noqa: E731
+    return {
+        "prefill_hidden_rel_rms": rel_rms(kernel_h_prompt, plain_h_prompt),
+        "decode_hidden_rel_rms": rel_rms(kernel_h_decode, plain_h_decode),
+        "decode_scores_rel_rms": rel_rms(kernel_scores, plain_scores),
+        "prefill_hidden_rel_rms_by_request": [
+            rel_rms(kernel_h_prompt[i], plain_h_prompt[i]) for i in range(batch)],
+        "decode_hidden_rel_rms_by_request": [
+            rel_rms(kernel_h_decode[i], plain_h_decode[i]) for i in range(batch)],
+        "decode_scores_rel_rms_by_request": [
+            rel_rms(by_req(kernel_scores)[i], by_req(plain_scores)[i]) for i in range(batch)],
+        "prefill_hidden_max_abs_err": float((kernel_h_prompt.float()
+                                             - plain_h_prompt.float()).abs().max()),
+        "decode_hidden_max_abs_err": float((kernel_h_decode.float()
+                                            - plain_h_decode.float()).abs().max()),
+        "decode_scores_max_abs_err": float((kernel_scores - plain_scores).abs().max()),
+        "plain_scores_std": float(plain_scores.std()),
+        "argmax_agreement": float((kernel_scores.argmax(-1)
+                                   == plain_scores.argmax(-1)).float().mean()),
+        "plain_forward_s": plain_s,
+    }
+
+
 def serve_path(dev, seed):
     """The lock-step launcher at full h2o-danube-3-4b width, dense and beam;
     counters around each run; the kernel path against the plain forward."""
@@ -1646,37 +1862,8 @@ def serve_path(dev, seed):
     # Dense: the 4 requests through prefill + decode against the plain
     # version's cache-free forward over the 4,640 tokens the cache holds.
     rec, run = paths["dense"].pop("_rec"), paths["dense"].pop("_run")
-    fed = torch.cat([run["prompts"], run["prompts"][:, -1:],
-                     torch.as_tensor(run["tokens"][:, :-1], device=dev)], dim=1)
-    t0 = time.perf_counter()
-    with swapped(ops, flash_attention=blocked_attention_ref,
-                 tree_logprob_all=ref.tree_logprob_all_ref):
-        plain_h, _, _ = transformer.forward(params, cfg, fed)
-        plain_scores = lm_head.lm_predictive_scores(
-            cfg, hcfg, head, state, plain_h[:, SERVE_PROMPT:].reshape(-1, cfg.d_model))
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    plain_h_prompt, plain_h_decode = plain_h[:, :SERVE_PROMPT], plain_h[:, SERVE_PROMPT:]
-    kernel_h_prompt = rec["h"][0]
-    kernel_h_decode = torch.stack([h[:, -1] for h in rec["h"][1:]], dim=1)
-    kernel_scores = torch.stack(rec["scores"], dim=1).reshape(-1, plain_scores.shape[-1])
-    real = slice(0, cfg.vocab_size)
-    kernel_scores, plain_scores = kernel_scores[:, real], plain_scores[:, real]
-    errs = {
-        "prefill_hidden_rel_rms": rel_rms(kernel_h_prompt, plain_h_prompt),
-        "decode_hidden_rel_rms": rel_rms(kernel_h_decode, plain_h_decode),
-        "decode_scores_rel_rms": rel_rms(kernel_scores, plain_scores),
-        "prefill_hidden_rel_rms_by_request": [
-            rel_rms(kernel_h_prompt[i], plain_h_prompt[i]) for i in range(SERVE_BATCH)],
-        "prefill_hidden_max_abs_err": float((kernel_h_prompt.float()
-                                             - plain_h_prompt.float()).abs().max()),
-        "decode_hidden_max_abs_err": float((kernel_h_decode.float()
-                                            - plain_h_decode.float()).abs().max()),
-        "decode_scores_max_abs_err": float((kernel_scores - plain_scores).abs().max()),
-        "plain_scores_std": float(plain_scores.std()),
-        "argmax_agreement": float((kernel_scores.argmax(-1)
-                                   == plain_scores.argmax(-1)).float().mean()),
-    }
+    errs = cache_free_errors(cfg, hcfg, params, state, rec, run["prompts"], run["tokens"])
+    plain_s = errs.pop("plain_forward_s")
     for key in ("prefill_hidden_rel_rms", "decode_hidden_rel_rms", "decode_scores_rel_rms"):
         check(errs[key] <= SERVE_REL_RMS_TOL,
               f"serving: kernel path against the plain forward, {key} = {errs[key]:.3e} "
@@ -2456,6 +2643,92 @@ def lm_train_path(dev, seed, card):
     return launches, result
 
 
+# Phase 11 (b): the sampled head trained at gemma2-27b's width (d 4,608:
+# past the kernel's old limit of K = 4,096), 2 of its 46 layers.
+G2_ARCH = "gemma2-27b"
+G2_TRAIN_LAYERS, G2_TRAIN_BATCH, G2_TRAIN_SEQ, G2_TRAIN_STEPS = 2, 2, 2048, 3
+G2_TRAIN_OPT = dict(name="adagrad", learning_rate=1e-3, clip_norm=1.0)
+
+
+def gemma2_train_path(dev, seed, card) -> dict:
+    """gemma2-27b at full width and G2_TRAIN_LAYERS layers, float32
+    parameters, Adagrad: G2_TRAIN_STEPS sparse steps (adversarial_ns, the
+    sparse head and the sparse embedding) on batch 2 x 2,048, counters reset
+    just before and read just after; the first step's own sampled_head_loss
+    call (T = 4,096, m = 2, K = 4,608) against the plain version on its
+    inputs, within phase 3's tolerances; losses finite; one
+    sampled_head_loss and 3 segment_stats (the head's dw and db, the
+    embedding's dw) a step. Returns the launches."""
+    from repro_torch.data import lm_batch_fn
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config(G2_ARCH), num_layers=G2_TRAIN_LAYERS)
+    hcfg = lm_head.head_config(cfg, "adversarial_ns", n_neg=1, reg=1e-4)
+    ocfg = optim.OptimizerConfig(**G2_TRAIN_OPT)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = train_lib.init_train_state(torch.Generator(device=dev).manual_seed(seed + 60),
+                                       cfg, ocfg, hcfg.kind, device=dev)
+    step = train_lib.make_train_step(cfg, hcfg, ocfg)
+    make = lm_batch_fn(cfg.vocab_size, G2_TRAIN_BATCH, G2_TRAIN_SEQ, seed=seed)
+    batch = lambda s: {k: torch.as_tensor(v).to(dev) for k, v in make(s).items()}  # noqa: E731
+    setup_s = time.perf_counter() - t0
+    real, calls = ops.sampled_head_loss, []
+
+    def recorded(w, b, h, ids, lp, **kw):
+        out = real(w, b, h, ids, lp, **kw)
+        if not calls:       # the rows it read, before the optimizer writes them
+            uniq, inv = torch.unique(ids, return_inverse=True)
+            calls.append((w.index_select(0, uniq), b.index_select(0, uniq), h.clone(), inv,
+                          lp.clone(), kw, [o.clone() for o in out]))
+        return out
+
+    names = ("sampled_head_loss", "segment_stats", "tree_logprob_all", "flash_attention")
+    for name in names:
+        getattr(ops, name).launches = 0
+    losses, step_ms = [], []
+    with swapped(ops, sampled_head_loss=recorded):
+        for s_ in range(G2_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t_step = time.perf_counter()
+            state, m = step(state, batch(s_), step_generator(seed, s_, dev))
+            losses.append(float(m["loss"]))
+            step_ms.append(1e3 * (time.perf_counter() - t_step))
+    launches = {name: getattr(ops, name).launches for name in names}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(x) for x in losses), f"{G2_ARCH} training losses {losses}")
+    want_launches = {"sampled_head_loss": G2_TRAIN_STEPS, "segment_stats": 3 * G2_TRAIN_STEPS,
+                     "tree_logprob_all": 0, "flash_attention": 0}
+    check(launches == want_launches, f"{G2_ARCH} training launches {launches}, not "
+                                     f"{want_launches}")
+    del state, step
+    torch.cuda.empty_cache()
+    w, b, h, ids, lp, kw, got = calls.pop()
+    want = ref.sampled_head_loss_ref(w, b, h, ids, lp, **kw)
+    what = f"{G2_ARCH} training step's sampled_head_loss (T={h.shape[0]}, m={ids.shape[1]}, " \
+           f"K={h.shape[1]})"
+    for name, g, wn in zip(("loss", "coeff", "xi"), got, want):
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
+        check(close(g, wn, LOSS_TOL), f"{what}: {name} disagrees with the plain version")
+    check(dh_close(got[3], want[3], want[1], w, ids), f"{what}: dh disagrees")
+    result = dict(
+        card=card, arch=G2_ARCH, d_model=cfg.d_model, vocab=cfg.vocab_size,
+        reduced={"num_layers": [configs.get_config(G2_ARCH).num_layers, G2_TRAIN_LAYERS]},
+        batch=G2_TRAIN_BATCH, seq=G2_TRAIN_SEQ, steps=G2_TRAIN_STEPS, optimizer=G2_TRAIN_OPT,
+        head=hcfg.kind, loss=losses, ms_per_step=step_ms, setup_s=setup_s,
+        peak_mem_gib=peak_gib, launches=launches,
+        kernel_check=dict(t=h.shape[0], m=ids.shape[1], k=h.shape[1],
+                          distinct_rows=w.shape[0], tol=LOSS_TOL,
+                          max_abs_err=max(float((g - wn).abs().max())
+                                          for g, wn in zip(got[:3], want[:3])),
+                          dh_max_abs_err=float((got[3] - want[3]).abs().max())),
+        wall_s=time.perf_counter() - t0)
+    print(json.dumps({"gemma2_train": result}))
+    del w, b, h, ids, lp, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # Phase 10: head math (proposals, head state, gradient SNR).
 # ---------------------------------------------------------------------------
@@ -2466,7 +2739,8 @@ HM_PAIRS = SEG_POINTS            # (context, label ~ p_D) pairs the proposals ar
 HM_HELD_OUT = 1024
 HM_CHI_DRAWS = 2 ** 20
 HM_RFF_CHUNK = 4096              # RFF draws gather a (draws, C) CDF block: 3.6 GB at 4,096
-HM_STATE_STEPS = 50
+HM_STATE_STEPS = 25              # of HM_STATE_STEPS_FULL: cut for the script's time
+HM_STATE_STEPS_FULL = 50
 HM_STATE_START = 1000            # the step a timed head-state run starts at (see below)
 HM_STATE_CS = (217_240, BIG_C)
 HM_STATE_VARIANTS = (("adagrad/fp32", "adagrad", "fp32", torch.float32),
@@ -2748,6 +3022,7 @@ def head_state_section(dev, seed, cfg, card, reg):
     torch.cuda.empty_cache()
     print(json.dumps({"head_math_state": {
         "card": card, "steps": HM_STATE_STEPS, "start_step": HM_STATE_START, "batch": BATCH,
+        "reduced": {"steps": [HM_STATE_STEPS_FULL, HM_STATE_STEPS]},
         "K": kdim, "ms_per_step": {f"{r['variant']}/c{r['num_labels']}": r["ms_per_step"]
                                    for r in rows},
         "state_bytes_c16777216": meta_bytes, "sm3_sparse_vs_dense": sm3,
@@ -2855,6 +3130,16 @@ VL_BATCH, VL_TEXT, VL_GRID = 2, 1024, 32           # 32 x 32 = 1,024 vision embe
 # layers, within SERVE_REL_RMS_TOL and 4 times closer to it than plain RoPE is.
 VL_PLAIN_LAYERS, VL_PLAIN_MARGIN = 4, 4.0
 MIXTRAL_LAYERS, MIXTRAL_BATCH, MIXTRAL_PROMPT, MIXTRAL_GEN = 4, 2, 4096, 16
+# (a) and (b) at full width and a quarter of their depth (printed as
+# ``reduced``): their decode and each request's lock-step oracle are
+# host-bound, a layer's launches at a time, and took 144 s of the script
+# whole (NVIDIA H100 80GB HBM3, 700.00 W).
+MAMBA_LAYERS, HYMBA_LAYERS = 12, 8          # of 48 and 32
+# (f) gemma2-27b: all 46 layers (52 GB of bf16; the float32 head table 4.7 GB,
+# the cache 3.1 GB), lock-step, dense Eq. 5 (tree_logprob_all at k = 64 on
+# the tensor-core kernel) and beam 64, each request against the cache-free
+# forward. G2_SERVE_LAYERS = None keeps every layer.
+G2_SERVE_LAYERS, G2_SERVE_BATCH, G2_SERVE_PROMPT, G2_SERVE_GEN = None, 4, 2048, 32
 
 
 def family_model(dev, seed, arch, num_layers=None) -> tuple:
@@ -3090,11 +3375,13 @@ def moe_check(cfg, moe_params, x, flush) -> dict:
     return out
 
 
-def family_lockstep(name, dev, seed, card, model, batch, prompt_len, gen_len, beams):
+def family_lockstep(name, dev, seed, card, model, batch, prompt_len, gen_len, beams,
+                    dense_rec=None):
     """The lock-step launcher over ``batch`` prompts, dense (and beam 64),
     counters reset just before and read just after each path; the forward's
     MoE metrics and layer 0's MoE input recorded from the prefill; one
-    decode step profiled."""
+    decode step profiled. ``dense_rec``, a dict, takes the dense path's
+    hiddens, scores, prompts and tokens (for :func:`cache_free_errors`)."""
     from repro_torch.models import moe as moe_lib
     cfg, params, state, hcfg, _ = model
     total, paths, moe_in = collections.Counter(), {}, {}
@@ -3104,10 +3391,22 @@ def family_lockstep(name, dev, seed, card, model, batch, prompt_len, gen_len, be
                                  str(batch), "--prompt-len", str(prompt_len), "--gen",
                                  str(gen_len), "--topk-beam", str(beam), "--seed", str(seed)])
         metrics, forward, ffn = [], transformer.forward, moe_lib.moe_ffn
+        scores_fn = lm_head.lm_predictive_scores
+        rec = dense_rec if dense_rec is not None and beam == 0 else None
+        if rec is not None:
+            rec.update(h=[], scores=[])
 
         def rec_forward(*a, **kw):
             out = forward(*a, **kw)
             metrics.append(out[2])              # read after the run: no sync a step
+            if rec is not None:
+                rec["h"].append(out[0])
+            return out
+
+        def rec_scores(*a, **kw):
+            out = scores_fn(*a, **kw)
+            if rec is not None:
+                rec["scores"].append(out)
             return out
 
         def rec_ffn(p, c, x, **kw):
@@ -3117,9 +3416,14 @@ def family_lockstep(name, dev, seed, card, model, batch, prompt_len, gen_len, be
 
         torch.cuda.reset_peak_memory_stats()
         reset_engine_counters()
-        with swapped(transformer, forward=rec_forward), swapped(moe_lib, moe_ffn=rec_ffn):
+        tc0 = ops.tree_logprob_all.tensor_core_launches
+        with swapped(transformer, forward=rec_forward), swapped(moe_lib, moe_ffn=rec_ffn), \
+                swapped(lm_head, lm_predictive_scores=rec_scores):
             run = serve.run_lockstep(args, cfg, params, state, hcfg, dev)
         counts = engine_counts()
+        counts["tree_logprob_all_tensor_cores"] = ops.tree_logprob_all.tensor_core_launches - tc0
+        if rec is not None:
+            rec.update(prompts=run["prompts"], tokens=run["tokens"])
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
         fa = counts["flash_attention_by_kernel"]
@@ -3235,6 +3539,40 @@ def vision_path(dev, seed, card, model) -> tuple:
     return collections.Counter({k: counts[k] for k in ENGINE_KERNELS}), line
 
 
+def gemma2_serve(dev, seed, card, total, build) -> dict:
+    """(f) gemma2-27b at full width (``build``: the phase's serving-launcher
+    build): lock-step dense and beam 64, the dense path's tree_logprob_all
+    at k = 64 on the tensor-core kernel, and each request's prefill and
+    decode hiddens and dense Eq. 5 scores within SERVE_REL_RMS_TOL of the
+    cache-free forward."""
+    t0 = time.perf_counter()
+    model = build(G2_ARCH, G2_SERVE_LAYERS)
+    cfg, params, state, hcfg, _ = model
+    rec = {}
+    counts, paths, _ = family_lockstep(G2_ARCH, dev, seed, card, model, G2_SERVE_BATCH,
+                                       G2_SERVE_PROMPT, G2_SERVE_GEN, (0, FAM_BEAM),
+                                       dense_rec=rec)
+    total.update({k: v for k, v in counts.items() if k in ENGINE_KERNELS})
+    dense = paths["dense"]["launches"]
+    check(dense["tree_logprob_all_tensor_cores"] == G2_SERVE_GEN,
+          f"{G2_ARCH} dense: tree_logprob_all not on the tensor-core kernel: {dense}")
+    check(cfg.gen_feature_dim == 64 and cfg.d_model == 4608,
+          f"{G2_ARCH}: not at the widths the slice opens")
+    errs = cache_free_errors(cfg, hcfg, params, state, rec, rec["prompts"], rec["tokens"])
+    for key in ("prefill_hidden_rel_rms_by_request", "decode_hidden_rel_rms_by_request",
+                "decode_scores_rel_rms_by_request"):
+        check(max(errs[key]) <= SERVE_REL_RMS_TOL,
+              f"{G2_ARCH}: a request's {key} {errs[key]} > {SERVE_REL_RMS_TOL:.3e} from the "
+              f"cache-free forward")
+    line = dict(model=G2_ARCH, card=card, layers=cfg.num_layers, k=cfg.gen_feature_dim,
+                kernel_vs_plain=errs, rel_rms_tol=SERVE_REL_RMS_TOL,
+                wall_s=time.perf_counter() - t0)
+    print(json.dumps({"gemma2_serve": line}))
+    del model, params, state, rec
+    torch.cuda.empty_cache()
+    return dict(paths=paths, cache_free=errs)
+
+
 def backbone_path(dev, seed, card) -> dict:
     """Phase 12: (a) mamba2-370m and (b) hymba-1.5b through the engine, (c)
     deepseek-moe-16b, (d) qwen2-vl-7b and (e) mixtral-8x22b (4 of 56 layers)
@@ -3253,12 +3591,12 @@ def backbone_path(dev, seed, card) -> dict:
         lines[arch] = {"build": line}
         return model
 
-    model = build("mamba2-370m")
+    model = build("mamba2-370m", num_layers=MAMBA_LAYERS)
     lines["mamba2-370m"]["ssd"] = ssd_check(dev, seed, model[0], flush)
     counts, lines["mamba2-370m"]["paths"] = family_engine("mamba2-370m", dev, seed, card, model)
     total.update(counts)
     del model
-    model = build("hymba-1.5b")
+    model = build("hymba-1.5b", num_layers=HYMBA_LAYERS)
     counts, lines["hymba-1.5b"]["paths"] = family_engine("hymba-1.5b", dev, seed, card, model)
     total.update(counts)
     del model
@@ -3284,6 +3622,8 @@ def backbone_path(dev, seed, card) -> dict:
                                               flush)
     del model, x0, flush
     torch.cuda.empty_cache()
+    served = gemma2_serve(dev, seed, card, total, build)     # builds lines[G2_ARCH]
+    lines[G2_ARCH].update(served)
     print(json.dumps({"backbone_path": dict(card=card, wall_s=time.perf_counter() - t_phase,
                                             launches=dict(total))}))
     return dict(total)
@@ -3392,6 +3732,101 @@ def mesh_collectives(mesh, dev, seed) -> dict:
                 rows_update=rows)
 
 
+MESH_SUM_ROWS, MESH_SUM_D, MESH_SUM_IDS = 50_304, 2_560, 8_192   # stablelm-3b's table
+MESH_SUM_CASES = ("zipf", "empty_rank", "no_db")
+
+
+def gather_everything_sum(mesh, rows, n_rows):
+    """The sum over ``data`` that the by-owner sum replaced, kept here as its
+    oracle: every data rank's rows gathered in rank order and summed per
+    unique id by ``segment_stats``, then cut to the rank's ``model`` slice."""
+    import torch.distributed as dist
+    from repro_torch.parallel import sharding
+    g = sharding.group(mesh, "data")
+
+    def gather(x):
+        n = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
+        sizes = [torch.empty_like(n) for _ in range(dist.get_world_size(g))]
+        dist.all_gather(sizes, n, group=g)
+        sizes = [int(v) for v in sizes]
+        buf = torch.zeros((max(sizes),) + x.shape[1:], dtype=x.dtype, device=x.device)
+        buf[:x.shape[0]] = x
+        parts = [torch.empty_like(buf) for _ in sizes]
+        dist.all_gather(parts, buf, group=g)
+        return torch.cat([p[:k] for p, k in zip(parts, sizes)])
+
+    uniq, inv = sparse_lib.unique_rows(gather(rows.ids))
+    plan = ops.segment_plan(inv, uniq.shape[0])
+    dw = ops.segment_stats(gather(rows.dw), inv, uniq.shape[0], plan=plan)
+    db = None if rows.db is None else ops.segment_stats(
+        gather(rows.db)[:, None], inv, uniq.shape[0], plan=plan)[:, 0]
+    lo = sharding.rank(mesh, "model") * n_rows
+    keep = (uniq >= lo) & (uniq < lo + n_rows)
+    return sparse_lib.SparseRows(uniq[keep], dw[keep], None if db is None else db[keep])
+
+
+def same_rows(a, b) -> bool:
+    return (torch.equal(a.ids, b.ids) and torch.equal(a.dw, b.dw)
+            and (a.db is None) == (b.db is None) and (a.db is None or torch.equal(a.db, b.db)))
+
+
+def recorded_row_sum(record: list, checked: bool = False):
+    """A stand-in for ``collectives.sum_rows_over_data`` that appends each
+    call's record (``collectives.ROW_SUMS.last``) to ``record`` where there
+    is more than one data rank (with one the rows pass through, unsummed);
+    ``checked``: it also runs the oracle and records ``bit_equal``, the
+    oracle's own segment_stats launches not counted."""
+    from repro_torch.parallel import collectives, sharding
+    owner = collectives.sum_rows_over_data
+
+    def rec(mesh, rows, n_rows):
+        got = owner(mesh, rows, n_rows)
+        if sharding.size(mesh, "data") == 1:
+            return got
+        call = dict(collectives.ROW_SUMS.last)
+        if checked:
+            n = ops.segment_stats.launches
+            call["bit_equal"] = same_rows(got, gather_everything_sum(mesh, rows, n_rows))
+            ops.segment_stats.launches = n
+        record.append(call)
+        return got
+
+    return rec
+
+
+def mesh_rows_sum(meshes, dev, seed) -> dict:
+    """(b) the sparse rows' sum over ``data`` by owner on (2, 2) and (4, 1),
+    each data rank's rows Zipf-skewed over stablelm-3b's table (most fall to
+    one owner), a rank with none, and without ``db``: bit-equal to the
+    gather-everything sum, the bytes each call held within its bound."""
+    from repro_torch.parallel import sharding
+    out = {}
+    for name, mesh in meshes.items():
+        n_rows = MESH_SUM_ROWS // sharding.size(mesh, "model")
+        d_rank = sharding.rank(mesh, "data")
+        for case in MESH_SUM_CASES:
+            rng = np.random.default_rng((seed, d_rank, MESH_SUM_CASES.index(case)))
+            n = 0 if case == "empty_rank" and d_rank == 1 else MESH_SUM_IDS
+            ids = np.unique(np.minimum(rng.zipf(1.2, n) - 1, MESH_SUM_ROWS - 1))
+            u = len(ids)
+            rows = sparse_lib.SparseRows(
+                torch.as_tensor(ids, dtype=torch.int64, device=dev),
+                torch.as_tensor(rng.standard_normal((u, MESH_SUM_D), np.float32), device=dev),
+                None if case == "no_db" else
+                torch.as_tensor(rng.standard_normal(u, np.float32), device=dev))
+            record = []
+            got = recorded_row_sum(record, checked=True)(mesh, rows, n_rows)
+            torch.cuda.synchronize()
+            call = record[0]
+            check(call["bit_equal"], f"the sum over data by owner on {name}, {case}: not "
+                                     "bit-equal to the gather-everything sum")
+            check(call["bytes"] <= call["bound_bytes"],
+                  f"the sum over data on {name}, {case}: {call['bytes']} B held over the "
+                  f"bound {call['bound_bytes']} B")
+            out[f"{name}/{case}"] = dict(call, rows_in=u, rows_out=got.ids.shape[0])
+    return out
+
+
 def timed_data_sum(record: dict):
     """A stand-in for ``collectives.all_reduce_over_data`` that appends
     each of the trunk's sums (more than one tensor a call: the step's
@@ -3468,10 +3903,13 @@ def mesh_train(mesh, dev, seed, out_dir) -> dict:
     data_sum = dict(bytes=[], seconds=[])
     collectives.FSDP.reset()
     collectives.FSDP.timed = True
+    row_sums = []
     with swapped(collectives, all_reduce_over_data=timed_data_sum(data_sum)):
         for s in range(MESH_TRAIN_STEPS):
+            row_sums.append([])
             t0 = time.perf_counter()
-            state, m = step(state, batch(s), step_generator(seed, s, dev))
+            with swapped(collectives, sum_rows_over_data=recorded_row_sum(row_sums[-1])):
+                state, m = step(state, batch(s), step_generator(seed, s, dev))
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
@@ -3491,7 +3929,7 @@ def mesh_train(mesh, dev, seed, out_dir) -> dict:
     out = dict(arch=LM_ARCH, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
                batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ, optimizer=MESH_TRAIN_OPT,
                loss=losses, ms_per_step=step_ms, launches=launches, bytes=nbytes,
-               fsdp_collectives=fsdp,
+               fsdp_collectives=fsdp, row_sums=row_sums,
                # The first step builds kernels and warms the allocator.
                data_sum=dict(data_sum, share_of_steps_after_the_first=sum(
                    data_sum["seconds"][1:]) / (1e-3 * sum(step_ms[1:]))),
@@ -3528,7 +3966,8 @@ def mesh_train(mesh, dev, seed, out_dir) -> dict:
 
 def mesh_worker(out_dir: str, seed: int) -> int:
     """One rank of phase 13's world (started by ``torchrun``): (a) on a
-    (1, 4) mesh, (c) on a (2, 2) mesh; its results to ``rank<r>.json``."""
+    (1, 4) mesh, (b) on (2, 2) and (4, 1), (c) on (2, 2); its results to
+    ``rank<r>.json``."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     dev = torch.device(MESH_DEVICE)
@@ -3537,6 +3976,9 @@ def mesh_worker(out_dir: str, seed: int) -> int:
            "collectives": mesh_collectives(mesh, dev, seed)}
     torch.cuda.empty_cache()
     mesh22 = make_host_mesh(MESH_RANKS // 2, MESH_DEVICE, timeout_s=MESH_TIMEOUT_S)
+    mesh41 = make_host_mesh(1, MESH_DEVICE, timeout_s=MESH_TIMEOUT_S)
+    res["rows_sum"] = mesh_rows_sum({"2x2": mesh22, "4x1": mesh41}, dev, seed)
+    torch.cuda.empty_cache()
     res["train"] = mesh_train(mesh22, dev, seed, out_dir)
     Path(out_dir, f"rank{res['rank']}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
@@ -3592,14 +4034,23 @@ def mesh_path(dev, seed, card) -> dict:
         total["gather_scores"] += r["collectives"]["scores"]["gather_scores_launches"]
         check(r["train"]["launches"]["sampled_head_loss"] == MESH_TRAIN_STEPS,
               f"rank {r['rank']}: sampled_head_loss {r['train']['launches']}")
-        check(r["train"]["launches"]["segment_stats"] > 0, "no segment_stats in the mesh step")
+        want_seg = sum_launches(r["train"]["row_sums"])
+        check(r["train"]["launches"]["segment_stats"] == want_seg,
+              f"rank {r['rank']}: segment_stats {r['train']['launches']}, not {want_seg}")
+        check_row_sums(f"rank {r['rank']}'s mesh step", r["train"]["row_sums"])
         for name, n in r["train"]["launches"].items():
             total[name] += n
     print(json.dumps({"mesh_collectives": dict(card=card, ranks=[
         dict(rank=r["rank"], **r["collectives"]) for r in ranks])}))
+    print(json.dumps({"mesh_rows_sum": dict(card=card, ranks=[
+        dict(rank=r["rank"], **r["rows_sum"]) for r in ranks])}))
     print(json.dumps({"mesh_train": dict(card=card, lead=ranks[0]["train"], ranks=[
         dict(rank=r["rank"], loss=r["train"]["loss"], ms_per_step=r["train"]["ms_per_step"],
-             launches=r["train"]["launches"]) for r in ranks])}))
+             launches=r["train"]["launches"],
+             data_sum_bytes_by_step=[[c["bytes"] for c in st] for st in r["train"]["row_sums"]],
+             data_sum_bound_bytes_by_step=[[c["bound_bytes"] for c in st]
+                                           for st in r["train"]["row_sums"]])
+        for r in ranks])}))
 
     # (d) one rank of NCCL.
     with tempfile.TemporaryDirectory() as tmp:
@@ -3750,29 +4201,37 @@ def tp_danube(dev, seed, card, total) -> list:
                                                      run["tokens"], run=run)
     del params, state, run
     torch.cuda.empty_cache()
-    rows = []
+    rows, worlds = [], {}
+    for tp in sorted({tp for tp, _ in TP_PATHS}):      # one world a mesh, its paths in turn
+        paths = [path for t, path in TP_PATHS if t == tp]
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = []
+            for path in paths:
+                teacher = []
+                if path == "dense":
+                    np.save(Path(tmp, "teacher.npy"), np.asarray(one[path], np.int64))
+                    teacher = ["--teacher-tokens", str(Path(tmp, "teacher.npy"))]
+                runs.append([*mesh_serve_args(path, seed), "--device", MESH_DEVICE,
+                             "--model-axis", str(tp), "--shard-scores", "--time-collectives",
+                             "--report-dir", str(Path(tmp, path)), *teacher])
+            Path(tmp, "argv.json").write_text(json.dumps(runs))
+            t_world = time.perf_counter()
+            out = torchrun(tp, [__file__, "--tp-worker", tmp, "--tp-case", "danube",
+                                "--seed", str(seed)], timeout=600)
+            world_s = time.perf_counter() - t_world
+            for path in paths:
+                worlds[tp, path] = out, world_s, [
+                    json.loads(Path(tmp, path, f"serve_rank{r}.json").read_text())
+                    for r in range(tp)], ([
+                        torch.load(Path(tmp, path, f"serve_rank{r}.pt"), weights_only=False)
+                        for r in range(tp)] if path in ref else None)
     for tp, path in TP_PATHS:
         expected = tp_expected_bytes(cfg, tp)
         name = f"{SERVE_ARCH} {path} (1, {tp})"
-        with tempfile.TemporaryDirectory() as tmp:
-            teacher = []
-            if path == "dense":
-                np.save(Path(tmp, "teacher.npy"), np.asarray(one[path], np.int64))
-                teacher = ["--teacher-tokens", str(Path(tmp, "teacher.npy"))]
-            argv = [*mesh_serve_args(path, seed), "--device", MESH_DEVICE, "--model-axis",
-                    str(tp), "--shard-scores", "--time-collectives", "--report-dir", tmp,
-                    *teacher]
-            Path(tmp, "argv.json").write_text(json.dumps(argv))
-            out = torchrun(tp, [__file__, "--tp-worker", tmp, "--tp-case", "danube",
-                                "--seed", str(seed)], timeout=600)
-            reports = [json.loads(Path(tmp, f"serve_rank{r}.json").read_text())
-                       for r in range(tp)]
-            forced = ([torch.load(Path(tmp, f"serve_rank{r}.pt"), weights_only=False)
-                       for r in range(tp)]
-                      if path in ref else None)
+        out, world_s, reports, forced = worlds[tp, path]
         check(f"over {tp} ranks, backend gloo" in out, f"{name}: {out[:300]}")
         equal_share = tp_common_gates(name, reports, one[path], expected)
-        row = dict(arch=SERVE_ARCH, path=path, mesh=[1, tp], card=card,
+        row = dict(arch=SERVE_ARCH, path=path, mesh=[1, tp], card=card, world_s=world_s,
                    reduced={"num_layers": [full_layers, TP_DANUBE_LAYERS]},
                    tokens_equal_one_rank_share=equal_share, bytes=expected,
                    one_rank_ms_per_token=one_ms.get(path))
@@ -3861,11 +4320,21 @@ def tp_moe_f32(args, dev, seed: int, tokens=None, mesh=None) -> tuple:
 
 def tp_danube_worker(out_dir: str) -> int:
     """One rank of an (a) world: the serving launcher (``serve.main``) on
-    the flags in ``argv.json``, its model built at TP_DANUBE_LAYERS
-    layers."""
+    each flag list of ``argv.json`` in turn, its model built at
+    TP_DANUBE_LAYERS layers. The runs share the world's process group (the
+    launcher joins one that exists): each run's teardown is held back but
+    the last's, so the world starts once for its paths."""
+    import torch.distributed as dist
     build = serve.build
     serve.build = lambda *a, **kw: build(*a, num_layers=TP_DANUBE_LAYERS, **kw)
-    return serve.main(json.loads(Path(out_dir, "argv.json").read_text()))
+    runs = json.loads(Path(out_dir, "argv.json").read_text())
+    for i, argv in enumerate(runs):
+        held = {} if i == len(runs) - 1 else dict(destroy_process_group=lambda *a, **kw: None)
+        with swapped(dist, **held):
+            rc = serve.main(argv)
+        if rc:
+            return rc
+    return 0
 
 
 def tp_worker(out_dir: str, case: str, seed: int) -> int:
@@ -4158,12 +4627,16 @@ def tp_hybrid(dev, seed, card, total) -> dict:
 def sharded_trunk_path(dev, seed, card) -> dict:
     """Phase 14: (a), (b) and (c). Returns the launches of every rank."""
     t_phase = time.perf_counter()
-    total = collections.Counter()
+    total, phase_s = collections.Counter(), {}
     rows = tp_danube(dev, seed, card, total)
+    phase_s["a"] = time.perf_counter() - t_phase
     rows.append(tp_moe(dev, seed, card, total))
+    phase_s["b"] = time.perf_counter() - t_phase - phase_s["a"]
     rows.append(tp_hybrid(dev, seed, card, total))
+    phase_s["c"] = time.perf_counter() - t_phase - phase_s["a"] - phase_s["b"]
     print(json.dumps({"sharded_trunk_path": dict(card=card, wall_s=time.perf_counter() - t_phase,
-                                                 paths=len(rows), launches=dict(total))}))
+                                                 phase_s=phase_s, paths=len(rows),
+                                                 launches=dict(total))}))
     return dict(total)
 
 
@@ -4204,16 +4677,34 @@ TPT_HINT_LAYERS = 1              # (d)'s bf16 hint check: its first layer (the t
 TPT_PEAK_GATHERED_LAYERS = 2
 
 
-def tpt_launches_a_rank(dp: int, head: str) -> dict:
+def sum_launches(row_sums: list) -> int:
+    """``segment_stats`` launches of the sampled head's steps with these
+    sums over ``data`` (:func:`recorded_row_sum`'s records, by step): the
+    head's row sums (dw and db) and the embedding's (dw), 3 a step, and each
+    sum over ``data`` by owner: the owner's dw (and db) sums, none where it
+    received no row."""
+    return sum(3 + sum((c["received"] > 0) * (1 + c["db"]) for c in step)
+               for step in row_sums)
+
+
+def check_row_sums(what: str, row_sums: list) -> None:
+    for s, step in enumerate(row_sums):
+        for c in step:
+            check(c["bytes"] <= c["bound_bytes"],
+                  f"{what}: step {s}'s sum over data held {c['bytes']} B, over its bound "
+                  f"{c['bound_bytes']} B")
+
+
+def tpt_launches_a_rank(head: str, row_sums: list) -> dict:
     """The launches of one rank's TPT_STEPS steps. The sampled head: its
-    loss once a step; ``segment_stats`` for the head's row sums (dw and db)
-    and the embedding's (dw), 3 a step, and on a mesh with ``data`` > 1
-    the 3 sums of those rows over ``data`` (``collectives.sum_rows_over_data``).
-    The dense ``softmax`` head and the dense embedding: none (plain torch
-    under autograd). No ``flash_attention`` (the plain attention)."""
+    loss once a step; ``segment_stats`` as :func:`sum_launches` counts them
+    (on a mesh with ``data`` > 1 the sums over ``data`` by owner, recorded
+    a step in ``row_sums``). The dense ``softmax`` head and the dense
+    embedding: none (plain torch under autograd). No ``flash_attention``
+    (the plain attention)."""
     if head == "softmax":
         return {"sampled_head_loss": 0, "segment_stats": 0, "flash_attention": 0}
-    return {"sampled_head_loss": TPT_STEPS, "segment_stats": (3 if dp == 1 else 6) * TPT_STEPS,
+    return {"sampled_head_loss": TPT_STEPS, "segment_stats": sum_launches(row_sums),
             "flash_attention": 0}
 # The training launcher under torchrun on (1, 2), bf16 (the reduced config's
 # dtype): the row-parallel partial products' gradients on the card (mm and
@@ -4320,9 +4811,12 @@ def tpt_reference(name, arch, layers, head, dev, seed, tmp) -> dict:
 def tpt_grad_errors(cfg, mesh, grads, ref) -> tuple:
     """The largest relative RMS over the leaves of a rank's gradients
     against its slice of one rank's (a sampled head's and a sparse
-    embedding's ``SparseRows``, the same on every rank, whole; a dense
-    head's and embedding's rows the rank's slice), and its leaf."""
-    from repro_torch.parallel import sharding
+    embedding's ``SparseRows``: whole with one data rank, else the rank's
+    ``model`` slice of the rows, as the sum over ``data`` leaves them; a
+    dense head's and embedding's rows the rank's slice), and its leaf."""
+    from repro_torch.parallel import collectives, sharding
+    sliced = bool(collectives.data_sum_axes(mesh))
+    lo, hi = sharding.row_range(cfg.padded_vocab, mesh)
 
     def err(got, want) -> float:        # a leaf whose reference is all zero: exact
         if float(want.float().abs().max()) == 0.0:
@@ -4333,6 +4827,10 @@ def tpt_grad_errors(cfg, mesh, grads, ref) -> tuple:
     rows = [k for k in ("head", "embed") if sparse_lib.is_sparse(grads[k])]
     for key in rows:
         g, r = grads[key], ref[key]
+        if sliced:
+            keep = (r.ids >= lo) & (r.ids < hi)
+            r = sparse_lib.SparseRows(r.ids[keep], r.dw[keep],
+                                      None if r.db is None else r.db[keep])
         n = int(max(int(g.ids.max()), int(r.ids.max()))) + 1
         for part in ("dw", "db"):
             if getattr(r, part) is None:
@@ -4431,14 +4929,20 @@ def tpt_case(name, arch, layers, tp, hinted, head, fsdp_hint, dev, seed, tmp, re
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
     saved = {"hinted": [], "plain": []}
+    from repro_torch.parallel import collectives
+    checked = []
+    owner_sum = (recorded_row_sum(checked, checked=True) if sharding.size(mesh, "data") > 1
+                 else collectives.sum_rows_over_data)
     with swapped(moe_lib, _route=route_recorder(routes)), hint(), \
-            saved_layer_inputs(saved["hinted"]):
+            saved_layer_inputs(saved["hinted"]), \
+            swapped(collectives, sum_rows_over_data=owner_sum):
         grads, _ = train_step_lib.make_grad_fn(cfg, hcfg, mesh=mesh)(
             state, batch(0), step_generator(seed, 0, dev))
     torch.cuda.synchronize()
     refs = torch.load(Path(tmp, f"{name}_grads.pt"), mmap=True, weights_only=False)
     out = dict(rank=dist.get_rank(), bytes=nbytes, grad_bytes=sharding.tree_bytes(grads),
-               held_bytes=held, peak_bytes=torch.cuda.max_memory_allocated(dev))
+               held_bytes=held, peak_bytes=torch.cuda.max_memory_allocated(dev),
+               checked_row_sums=checked)
     out["grad_rel_rms"], out["grad_worst_leaf"] = tpt_grad_errors(cfg, mesh, grads, refs)
     trunk = lambda g: tree_util.leaves({k: v for k, v in g.items()  # noqa: E731
                                         if k not in ("head", "embed")})
@@ -4467,12 +4971,14 @@ def tpt_case(name, arch, layers, tp, hinted, head, fsdp_hint, dev, seed, tmp, re
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    losses, ms = [], []
+    losses, ms, row_sums = [], [], []
     with hint():
         for s in range(TPT_STEPS):
+            row_sums.append([])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, m = step(state, batch(s), step_generator(seed, s, dev))
+            with swapped(collectives, sum_rows_over_data=recorded_row_sum(row_sums[-1])):
+                state, m = step(state, batch(s), step_generator(seed, s, dev))
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
@@ -4480,7 +4986,7 @@ def tpt_case(name, arch, layers, tp, hinted, head, fsdp_hint, dev, seed, tmp, re
     dp = TPT_RANKS // tp
     fwd = FSDP.phases["forward"]
     layer = int(fwd["bytes"] / fwd["calls"] * dp) if fwd["calls"] else 0
-    out.update(losses=losses, ms_per_step=ms,
+    out.update(losses=losses, ms_per_step=ms, row_sums=row_sums,
                trunk_collectives={p: dict(c) for p, c in TRUNK.phases.items()},
                fsdp_collectives={p: dict(c) for p, c in FSDP.phases.items()},
                launches={k: getattr(ops, k).launches for k in TPT_COUNTED},
@@ -4568,6 +5074,12 @@ def tp_train_path(dev, seed, card) -> dict:
                                gathered_layer_bytes=rep["gathered_layer_bytes"],
                                launches=rep["launches"],
                                grad_worst_leaf=rep["grad_worst_leaf"],
+                               data_sum_bytes_by_step=[[c["bytes"] for c in st]
+                                                       for st in rep["row_sums"]],
+                               data_sum_bound_bytes_by_step=[[c["bound_bytes"] for c in st]
+                                                             for st in rep["row_sums"]],
+                               data_sum_bit_equal=[c["bit_equal"]
+                                                   for c in rep["checked_row_sums"]],
                                param_excess_over_tol=rep["param_excess_over_tol"],
                                **{k: rep[k] for k in ("layer0_route_equal",
                                                       "hint_vs_plain_rel_rms", "fsdp_hint",
@@ -4576,9 +5088,15 @@ def tp_train_path(dev, seed, card) -> dict:
                               for rep in reports])
         print(json.dumps({"tp_train": row}))
         check(loss_err <= MESH_LOSS_RTOL, f"{what}: losses {loss_err} from one rank's")
-        want_launches = tpt_launches_a_rank(dp, head)
         for rep in reports:
             r = rep["rank"]
+            want_launches = tpt_launches_a_rank(head, rep["row_sums"])
+            check(all(c["bit_equal"] for c in rep["checked_row_sums"]),
+                  f"{what}: rank {r}'s sum over data by owner is not bit-equal to the "
+                  f"gather-everything sum")
+            check(len(rep["checked_row_sums"]) == (2 if dp > 1 and head != "softmax" else 0),
+                  f"{what}: rank {r} checked {len(rep['checked_row_sums'])} sums over data")
+            check_row_sums(f"{what}: rank {r}", rep["row_sums"])
             for part, b in rep["bytes"].items():
                 check(b["rank"] == rank_bytes(b, dp, tp),
                       f"{what}: rank {r} holds {b['rank']} {part} bytes, not "
@@ -4656,13 +5174,19 @@ def tp_train_path(dev, seed, card) -> dict:
 DRY_PEAK_RTOL = 0.2              # the counted peak against the allocator's over the step
 DRY_CELL = ("h2o-danube-3-4b", "train_4k", "single")      # (b): 256 fake ranks, (32, 8)
 DRY_LAUNCHES = {"sampled_head_loss": 1, "segment_stats": 3, "flash_attention": 0}
+# (c): the production cells the kernels' widths and the sum over data by
+# owner opened, and (b)'s cell on (64, 8); each must end "ok".
+DRY_CELLS = (("gemma2-27b", "train_4k", "single"), ("gemma2-27b", "prefill_32k", "single"),
+             ("gemma2-27b", "decode_32k", "single"), ("mixtral-8x22b", "train_4k", "single"),
+             ("h2o-danube-3-4b", "train_4k", "multi"))
+DRY_TRAIN_MAX_BYTES = 20e9       # (b)'s bytes a rank, the sparse rows' sum no longer gathered
 
 
 def dryrun_worker(path: str) -> int:
     """Phase 16's counts, in a process of their own (the fake world of (b)
     is a process group): (a) phase 11's step, stablelm-3b at full width
     and depth, batch LM_BATCH x LM_SEQ, one rank; (b) DRY_CELL on the
-    production mesh. No card is used."""
+    production mesh; (c) DRY_CELLS in turn. No card is used."""
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     one = dryrun.run_cell(LM_ARCH, "phase11", "one", "adversarial_ns", cell={
@@ -4672,18 +5196,27 @@ def dryrun_worker(path: str) -> int:
     arch, shape, mesh_kind = DRY_CELL
     prod = dryrun.run_cell(arch, shape, mesh_kind, "adversarial_ns")
     prod["wall_s"] = time.perf_counter() - t0
-    Path(path).write_text(json.dumps({"one_rank": one, "production": prod}))
+    cells = {}
+    for arch, shape, mesh_kind in DRY_CELLS:
+        t0 = time.perf_counter()
+        try:
+            cell = dryrun.run_cell(arch, shape, mesh_kind, "adversarial_ns")
+        except Exception as e:          # noqa: BLE001 -- reported and gated by dryrun_path
+            cell = {"status": "error", "error": f"{type(e).__name__}: {e}"}
+        cell["wall_s"] = time.perf_counter() - t0
+        cells["/".join((arch, shape, mesh_kind))] = cell
+    Path(path).write_text(json.dumps({"one_rank": one, "production": prod, "cells": cells}))
     return 0
 
 
 def start_dryrun():
     """Start phase 16's counts (``dryrun_worker``) in a process of their
-    own: they need the CPU alone, so they run while phases 13-15 hold the
-    card. Returns the job for :func:`dryrun_path`."""
+    own, at a lower priority: they need the CPU alone, so they run while
+    phases 13-15 hold the card. Returns the job for :func:`dryrun_path`."""
     tmp = tempfile.TemporaryDirectory()
     out = Path(tmp.name, "dryrun.json")
-    proc = subprocess.Popen([sys.executable, __file__, "--dryrun-worker", str(out)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc = subprocess.Popen(["nice", "-n", "5", sys.executable, __file__, "--dryrun-worker",
+                             str(out)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     atexit.register(lambda: proc.poll() is None and proc.kill())   # a phase failed first
     return dict(tmp=tmp, out=out, proc=proc, t0=time.perf_counter())
 
@@ -4706,7 +5239,7 @@ def dryrun_path(card, lm_result, job) -> None:
           f"the dry run exited {proc.returncode}: {err[-3000:]}")
     res = json.loads(out.read_text())
     job["tmp"].cleanup()
-    one, prod = res["one_rank"], res["production"]
+    one, prod, cells = res["one_rank"], res["production"], res["cells"]
     check(one["status"] == "ok", f"the dry run of phase 11's step: {one.get('error')}")
     step = lm_result["one_step"]
     measured_ms = lm_result["ms_per_step_median"]
@@ -4739,6 +5272,17 @@ def dryrun_path(card, lm_result, job) -> None:
           f"the dry run's peak {one['bytes_per_device']} B is {peak_err:+.1%} from the "
           f"allocator's {step['peak_bytes']} B over the step")
     check(prod["status"] == "ok", f"the dry run of {DRY_CELL}: {prod.get('error')}")
+    for name, cell in cells.items():
+        print(json.dumps({"dryrun_cell": dict(card=card, cell=name, **{
+            k: cell[k] for k in keys if k in cell})}))
+        check(cell["status"] == "ok", f"the dry run of {name}: {cell.get('error')}")
+    multi = cells["/".join(DRY_CELL[:2] + ("multi",))]
+    check(prod["bytes_per_device"] <= DRY_TRAIN_MAX_BYTES,
+          f"the dry run of {DRY_CELL}: {prod['bytes_per_device']} B a rank, over "
+          f"{DRY_TRAIN_MAX_BYTES:.0f}")
+    check(multi["bytes_per_device"] <= prod["bytes_per_device"],
+          f"the dry run of {DRY_CELL[:2]} on (64, 8): {multi['bytes_per_device']} B a rank, "
+          f"more than on (32, 8) ({prod['bytes_per_device']})")
     print(json.dumps({"dryrun_path": dict(card=card, wait_s=time.perf_counter() - t0,
                                           wall_s=time.perf_counter() - job["t0"])}))
 
@@ -4796,6 +5340,7 @@ def main() -> int:
     gather = check_gather(dev, gen, flush, cfg, floor)
     tree = check_tree(dev, gen, flush, cfg, floor)
     sampled = check_sampled_loss(dev, gen, flush, cfg, floor)
+    check_wide_kernels(dev, gen, flush, floor)
     segment = check_segment_stats(dev, gen, flush)
     attention = check_flash_attention(dev, gen, flush)
     del flush
@@ -4817,6 +5362,8 @@ def main() -> int:
     for name, n in lm_launches.items():
         if name in launches:
             launches[name] += n
+    for name, n in gemma2_train_path(dev, args.seed, card).items():
+        launches[name] += n
     for name, n in backbone_path(dev, args.seed, card).items():
         launches[name] += n
     dryrun_job = start_dryrun()

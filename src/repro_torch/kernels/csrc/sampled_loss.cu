@@ -29,6 +29,9 @@
 // (upcast with the intrinsics); ids are torch's int64; T, m and K are ragged
 // and masked here, with no padding of the inputs. A token with an id outside
 // [0, C) gets NaN in all its outputs and no row of it is read.
+// K is bounded only by shared memory: h, the per-slot arrays and one row
+// must fit a block (the wrapper's max_k, about 29k for float32 tables and
+// 38k for bf16); past the rows that fit at once the chunked path takes over.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

@@ -38,6 +38,14 @@
 // the other's math. At B = 256 its instructions, more than the output's
 // bytes, bound it (PERF.md, scripts/kernel_variants.py). Padding nodes carry b = -PAD_LOGIT = -30, and
 // padding leaves come out finite. k is padded with zeros to a multiple of 8.
+// Wider x (k > 32, e.g. gemma2-27b's 64 generator features) is taken in
+// chunks of 32 features: a tile's logits add each chunk's three products
+// before any log_sigmoid, and the x fragments of one chunk are what a lane
+// holds in registers (32 of them, as at k = 32), loaded again per chunk.
+// Larger KS instantiations were the other way: x alone would take 4 * KS
+// registers a lane (128 at k = 128) of the 128 that two blocks an SM leave,
+// and spill. The staged weights grow with k (every chunk of a node is
+// staged), so the launch plan takes fewer sub-blocks where 16 do not fit.
 //
 // FMA kernel (depth < 8, or when asked for): a block owns one aligned leaf
 // block of up to 256 leaves and up to 256 query rows. It stages the weights
@@ -53,7 +61,9 @@
 // placed so that a warp's 32 reads hit distinct banks). A row's 1 KB of
 // output is written by one warp with 16-byte stores. Trees of fewer than
 // 256 leaves use fewer lanes and levels; k is padded with zeros to a
-// multiple of 4, up to 32.
+// multiple of 4: kp <= 32 is a template constant (the loop over k unrolled),
+// a wider kp a runtime one, bounded by the shared memory that the staged
+// weights and x rows take.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,7 +78,7 @@ constexpr int kSubMax = kUpperMax + kBottomMax;   // leaf block of 256
 constexpr int kRowsPerBlock = 256;
 constexpr int kRowsAtOnce = 4;      // rows sharing one read of a node's weights
 constexpr int kSlots = 2 + (1 << kBottomMax) - 1;  // prefix, upper, 7 bottom
-constexpr int kMaxK = 32;
+constexpr size_t kMaxSmemBytes = 232448;   // the most a block can have (227 KB)
 
 // Floats between two staged nodes: a multiple of 4 with an odd number of
 // 16-byte chunks, so 8 lanes reading 8 consecutive nodes hit distinct banks.
@@ -120,19 +130,28 @@ __device__ __forceinline__ int64_t staged_node(int e, int64_t ic,
   return ((int64_t)1 << (s.pre + level)) - 1 + (ic << level) + p;
 }
 
-// grid = (C_pad >> sub, ceil(B / kRowsPerBlock)), block = kThreads.
+// Shared memory of the FMA kernel for a tree of `depth` and k padded to kp.
+__host__ __device__ inline size_t fma_smem_bytes(int depth, int kp) {
+  const Shape s = make_shape(depth);
+  return sizeof(float) * ((size_t)s.n_slots * node_stride(kp) + ((s.n_slots + 3) & ~3) +
+                          (size_t)kRowsPerBlock * kp);
+}
+
+// grid = (C_pad >> sub, ceil(B / kRowsPerBlock)), block = kThreads. KP is
+// k padded to a multiple of 4; KP == 0 takes it at run time (kp_rt).
 template <int KP>
 __global__ void __launch_bounds__(kThreads, 2)
 tree_logprob_kernel(const float* __restrict__ w, const float* __restrict__ b,
                     const float* __restrict__ x, float* __restrict__ out,
-                    int64_t B, int depth, int k) {
-  constexpr int kStride = node_stride(KP);
-  constexpr int kChunks = KP / 4;
+                    int64_t B, int depth, int k, int kp_rt) {
+  const int kp = KP > 0 ? KP : kp_rt;
+  const int stride = node_stride(kp);
+  const int chunks = kp / 4;
   const Shape s = make_shape(depth);
   extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                                  // [n_slots][kStride]
-  float* bs = ws + s.n_slots * kStride;              // [n_slots]
-  float* xs = bs + ((s.n_slots + 3) & ~3);           // [kRowsPerBlock][KP]
+  float* ws = smem;                                  // [n_slots][stride]
+  float* bs = ws + s.n_slots * stride;               // [n_slots]
+  float* xs = bs + ((s.n_slots + 3) & ~3);           // [kRowsPerBlock][kp]
 
   const int tid = threadIdx.x;
   const int64_t ic = blockIdx.x;
@@ -141,19 +160,19 @@ tree_logprob_kernel(const float* __restrict__ w, const float* __restrict__ b,
   const int rows = B - row0 < kRowsPerBlock ? (int)(B - row0) : kRowsPerBlock;
   const int64_t c_pad = (int64_t)1 << depth;
 
-  for (int i = tid; i < s.n_slots * KP; i += kThreads) {
-    const int e = i / KP, kk = i % KP;
+  for (int i = tid; i < s.n_slots * kp; i += kThreads) {
+    const int e = i / kp, kk = i % kp;
     int slot;
     const int64_t node = staged_node(e, ic, s, &slot);
-    ws[slot * kStride + kk] = kk < k ? w[node * k + kk] : 0.f;
+    ws[slot * stride + kk] = kk < k ? w[node * k + kk] : 0.f;
   }
   for (int e = tid; e < s.n_slots; e += kThreads) {
     int slot;
     const int64_t node = staged_node(e, ic, s, &slot);
     bs[slot] = b[node];
   }
-  for (int i = tid; i < kRowsPerBlock * KP; i += kThreads) {
-    const int r = i / KP, kk = i % KP;
+  for (int i = tid; i < kRowsPerBlock * kp; i += kThreads) {
+    const int r = i / kp, kk = i % kp;
     xs[i] = (r < rows && kk < k) ? x[(row0 + r) * k + kk] : 0.f;
   }
   __syncthreads();
@@ -193,17 +212,17 @@ tree_logprob_kernel(const float* __restrict__ w, const float* __restrict__ b,
 #pragma unroll
       for (int r = 0; r < kRowsAtOnce; ++r) z[i][r] = bias;
     }
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
+#pragma unroll 8
+    for (int c = 0; c < chunks; ++c) {
       float4 xc[kRowsAtOnce];
 #pragma unroll
       for (int r = 0; r < kRowsAtOnce; ++r)
-        xc[r] = *reinterpret_cast<const float4*>(xs + (r0 + r) * KP + 4 * c);
+        xc[r] = *reinterpret_cast<const float4*>(xs + (r0 + r) * kp + 4 * c);
 #pragma unroll
       for (int i = 0; i < kSlots; ++i) {
         if (i >= 2 && i - 2 >= n_bottom) continue;
         const float4 wc =
-            *reinterpret_cast<const float4*>(ws + slot[i] * kStride + 4 * c);
+            *reinterpret_cast<const float4*>(ws + slot[i] * stride + 4 * c);
 #pragma unroll
         for (int r = 0; r < kRowsAtOnce; ++r)
           z[i][r] += wc.x * xc[r].x + wc.y * xc[r].y + wc.z * xc[r].z +
@@ -268,11 +287,10 @@ tree_logprob_kernel(const float* __restrict__ w, const float* __restrict__ b,
 
 template <int KP>
 int launch_fma(const void* w, const void* b, const void* x, void* out, int64_t B,
-           int depth, int k, void* stream) {
+           int depth, int k, int kp, void* stream) {
   const Shape s = make_shape(depth);
-  const size_t smem =
-      sizeof(float) * ((size_t)s.n_slots * node_stride(KP) +
-                       ((s.n_slots + 3) & ~3) + (size_t)kRowsPerBlock * KP);
+  const size_t smem = fma_smem_bytes(depth, kp);
+  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         tree_logprob_kernel<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -283,7 +301,7 @@ int launch_fma(const void* w, const void* b, const void* x, void* out, int64_t B
                   (unsigned)((B + kRowsPerBlock - 1) / kRowsPerBlock));
   tree_logprob_kernel<KP><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)w, (const float*)b, (const float*)x, (float*)out, B, depth,
-      k);
+      k, kp);
   return (int)cudaGetLastError();
 }
 
@@ -304,14 +322,19 @@ constexpr int kTermLd = 20;         // row stride of a warp's term table (no ban
 // 32 nodes), the prefix sums of its 16 rows, and the base table ([unit][row]).
 constexpr int kScratch = 2 * 32 * kTermLd + kRows + kUnits * kRows;
 
-// Floats between two staged nodes: a lane reads 2*KS floats at t * 2*KS of
-// node g, so 8 (or, for 8-byte reads, 16) lanes cover distinct banks.
-__host__ __device__ constexpr int node_ld(int ks) { return ks == 4 ? 36 : 8 * ks; }
+constexpr int kChunkK = 32;         // features of a chunk (KS = 4) when k > 32
+
+// Floats between two staged nodes of nc chunks: a lane reads 2*KS floats at
+// chunk * 8*KS + t * 2*KS of node g, so 8 (or, for 8-byte reads, 16) lanes
+// cover distinct banks (nc > 1 only with KS = 4).
+__host__ __device__ constexpr int node_ld(int ks, int nc) {
+  return ks == 4 ? kChunkK * nc + 4 : 8 * ks;
+}
 
 // Staged weights as TF32 hi and lo parts, [tile][8][node_ld] each, then the
 // biases [tile][8], then each warp's scratch.
-__host__ __device__ constexpr size_t smem_floats(int ks, int n_tiles) {
-  return (size_t)n_tiles * 8 * (2 * node_ld(ks) + 1) + (size_t)kWarps * kScratch;
+__host__ __device__ constexpr size_t smem_floats(int ks, int nc, int n_tiles) {
+  return (size_t)n_tiles * 8 * (2 * node_ld(ks, nc) + 1) + (size_t)kWarps * kScratch;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
@@ -385,14 +408,15 @@ __device__ __forceinline__ int64_t tile_node(int T, int c, const Task& s) {
   return ((int64_t)1 << (s.pre + level)) - 1 + (s.ic << level) + q;
 }
 
-// One tile's logits: c = bias + x (16 rows) . w (8 nodes), 3xTF32: the
-// hi.hi products and the two cross products in separate chains.
+// Chunk ch of one tile's logits: c = bias (ch == 0) + x (16 rows) . w (8
+// nodes) over the chunk's features, 3xTF32: the hi.hi products and the two
+// cross products in separate chains, the cross chain added at the chunk's end.
 template <int KS>
 __device__ __forceinline__ void tile_logits(float (&c)[4], const float* wh_s, const float* wl_s,
                                             const float* bs, int T, const uint32_t (&xh)[KS][4],
-                                            const uint32_t (&xl)[KS][4], int g, int t) {
-  constexpr int LD = node_ld(KS);
-  const int off = (T * 8 + g) * LD + t * 2 * KS;
+                                            const uint32_t (&xl)[KS][4], int g, int t, int ld,
+                                            int ch) {
+  const int off = (T * 8 + g) * ld + ch * 8 * KS + t * 2 * KS;
   uint32_t wh[2 * KS], wl[2 * KS];
   if constexpr (KS % 2 == 0) {
 #pragma unroll
@@ -411,9 +435,11 @@ __device__ __forceinline__ void tile_logits(float (&c)[4], const float* wh_s, co
       wl[2 * i] = l.x; wl[2 * i + 1] = l.y;
     }
   }
-  const float2 bias = *reinterpret_cast<const float2*>(bs + T * 8 + 2 * t);
+  if (ch == 0) {
+    const float2 bias = *reinterpret_cast<const float2*>(bs + T * 8 + 2 * t);
+    c[0] = bias.x; c[1] = bias.y; c[2] = bias.x; c[3] = bias.y;
+  }
   float cross[4] = {0.f, 0.f, 0.f, 0.f};
-  c[0] = bias.x; c[1] = bias.y; c[2] = bias.x; c[3] = bias.y;
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
     mma(cross, xl[s], wh[2 * s], wh[2 * s + 1]);
@@ -426,14 +452,19 @@ __device__ __forceinline__ void tile_logits(float (&c)[4], const float* wh_s, co
 
 // grid = (leaf blocks * 16 / sub_blocks, ceil(B / (16 * row_groups))),
 // block = kThreads. Shared memory: the staged tiles' weights
-// [tile][8][node_ld], their biases [tile][8], each warp's scratch.
-template <int KS>
+// [tile][8][node_ld], their biases [tile][8], each warp's scratch. With
+// kChunked (KS = 4, k > 32) nc_rt chunks of 8 * KS features; else one, and
+// the chunk loops and the row stride are compile-time constants (k <= 32
+// runs the code it ran before chunks were added).
+template <int KS, bool kChunked>
 __global__ void __launch_bounds__(kThreads, 2)
 tree_logprob_tc_kernel(const float* __restrict__ w, const float* __restrict__ b,
                        const float* __restrict__ x, float* __restrict__ out,
-                       int64_t B, int depth, int k, int row_groups, int sub_log2,
+                       int64_t B, int depth, int k, int nc_rt, int row_groups, int sub_log2,
                        int vec) {
-  constexpr int LD = node_ld(KS);
+  const int nc = kChunked ? nc_rt : 1;
+  const int LD = node_ld(KS, nc);
+  constexpr int kChunk = 8 * KS;      // features of a chunk
   const int sub_blocks = 1 << sub_log2;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
@@ -460,8 +491,8 @@ tree_logprob_tc_kernel(const float* __restrict__ w, const float* __restrict__ b,
   // Stage the tiles with cp.async, every copy in flight at once (16 bytes
   // where w's rows are 16-byte aligned); pads are zeros.
   if (vec) {
-    for (int i = tid; i < n_tiles * 8 * 2 * KS; i += kThreads) {
-      const int slot = i / (2 * KS), kk = 4 * (i % (2 * KS));
+    for (int i = tid; i < n_tiles * 8 * 2 * KS * nc; i += kThreads) {
+      const int slot = i / (2 * KS * nc), kk = 4 * (i % (2 * KS * nc));
       const int64_t node = tile_node(slot >> 3, slot & 7, s);
       float* dst = ws + slot * LD + kk;
       if (node >= 0 && kk < k)
@@ -470,8 +501,8 @@ tree_logprob_tc_kernel(const float* __restrict__ w, const float* __restrict__ b,
         *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   } else {
-    for (int i = tid; i < n_tiles * 8 * 8 * KS; i += kThreads) {
-      const int slot = i / (8 * KS), kk = i % (8 * KS);
+    for (int i = tid; i < n_tiles * 8 * kChunk * nc; i += kThreads) {
+      const int slot = i / (kChunk * nc), kk = i % (kChunk * nc);
       const int64_t node = tile_node(slot >> 3, slot & 7, s);
       float* dst = ws + slot * LD + kk;
       if (node >= 0 && kk < k)
@@ -493,16 +524,20 @@ tree_logprob_tc_kernel(const float* __restrict__ w, const float* __restrict__ b,
   const int n_groups = (int)min((int64_t)row_groups, groups - rg0);
   const int pairs = n_groups * sub_blocks;
   const int p_begin = warp * pairs / kWarps, p_end = (warp + 1) * pairs / kWarps;
-  // A row group's x, split into TF32 hi + lo: kstep s, slots t and t + 4
-  // hold k = 2*KS*t + 2s and 2*KS*t + 2s + 1.
+  // Chunk ch of a row group's x, split into TF32 hi + lo: kstep s, slots t
+  // and t + 4 hold k = ch * 8*KS + 2*KS*t + 2s and that + 1. Loaded when the
+  // (row group, chunk) changes: with one chunk once a row group, before its
+  // prefix and upper tiles; with several before each chunk's products.
   uint32_t xh[KS][4], xl[KS][4];
-  int x_rg = -1;
-  auto load_x = [&](int rg) {
+  int x_rg = -1, x_ch = -1;
+  auto load_x = [&](int rg, int ch) {
+    if (rg == x_rg && ch == x_ch) return;
     x_rg = rg;
+    x_ch = ch;
     const int64_t row_g = (rg0 + rg) * kRows + g, row_g8 = row_g + 8;
 #pragma unroll
     for (int j = 0; j < 2 * KS; ++j) {
-      const int kk = 2 * KS * t + j;
+      const int kk = ch * kChunk + 2 * KS * t + j;
       const float a = (row_g < B && kk < k) ? x[row_g * k + kk] : 0.f;
       const float a8 = (row_g8 < B && kk < k) ? x[row_g8 * k + kk] : 0.f;
       const uint32_t ah = to_tf32(a), a8h = to_tf32(a8);
@@ -513,7 +548,7 @@ tree_logprob_tc_kernel(const float* __restrict__ w, const float* __restrict__ b,
       xl[j >> 1][r + 1] = to_tf32(a8 - __uint_as_float(a8h));
     }
   };
-  if (p_begin < p_end) load_x(p_begin >> sub_log2);   // in flight with the tiles
+  if (p_begin < p_end) load_x(p_begin >> sub_log2, 0);   // in flight with the tiles
   cp_async_wait_all();
   __syncthreads();
   // Split every staged weight into TF32 hi + lo once, for all row groups.
@@ -531,12 +566,15 @@ tree_logprob_tc_kernel(const float* __restrict__ w, const float* __restrict__ b,
     const int64_t row_g = (rg0 + rg) * kRows + g, row_g8 = row_g + 8;
     if (rg != cur) {
       cur = rg;
-      if (rg != x_rg) load_x(rg);
+      if constexpr (!kChunked) load_x(rg, 0);
       // Prefix: each term with its known turn, summed over the quad.
       float pre_g = 0.f, pre_g8 = 0.f;
       for (int T = 0; T < s.n_prefix_tiles; ++T) {
         float c[4];
-        tile_logits<KS>(c, ws, wl_s, bs, T, xh, xl, g, t);
+        for (int ch = 0; ch < nc; ++ch) {
+          if constexpr (kChunked) load_x(rg, ch);
+          tile_logits<KS>(c, ws, wl_s, bs, T, xh, xl, g, t, LD, ch);
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int lvl = T * 8 + 2 * t + h;
@@ -557,7 +595,10 @@ tree_logprob_tc_kernel(const float* __restrict__ w, const float* __restrict__ b,
 #pragma unroll
       for (int T = 0; T < kUpperTiles; ++T) {
         float c[4];
-        tile_logits<KS>(c, ws, wl_s, bs, s.n_prefix_tiles + T, xh, xl, g, t);
+        for (int ch = 0; ch < nc; ++ch) {
+          if constexpr (kChunked) load_x(rg, ch);
+          tile_logits<KS>(c, ws, wl_s, bs, s.n_prefix_tiles + T, xh, xl, g, t, LD, ch);
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int j = T * 8 + 2 * t + h;
@@ -590,8 +631,13 @@ tree_logprob_tc_kernel(const float* __restrict__ w, const float* __restrict__ b,
     // Sub-block sb: lane t's leaves 4t..4t+3 for rows g and g + 8.
     const int sb = s.sb0 + sbl;
     float ca[4], cb[4];
-    tile_logits<KS>(ca, ws, wl_s, bs, s.n_prefix_tiles + kUpperTiles + 2 * sbl, xh, xl, g, t);
-    tile_logits<KS>(cb, ws, wl_s, bs, s.n_prefix_tiles + kUpperTiles + 2 * sbl + 1, xh, xl, g, t);
+    for (int ch = 0; ch < nc; ++ch) {
+      if constexpr (kChunked) load_x(rg, ch);
+      tile_logits<KS>(ca, ws, wl_s, bs, s.n_prefix_tiles + kUpperTiles + 2 * sbl, xh, xl, g, t,
+                      LD, ch);
+      tile_logits<KS>(cb, ws, wl_s, bs, s.n_prefix_tiles + kUpperTiles + 2 * sbl + 1, xh, xl,
+                      g, t, LD, ch);
+    }
     const int u = 2 * sb + (t >> 1);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -607,22 +653,31 @@ tree_logprob_tc_kernel(const float* __restrict__ w, const float* __restrict__ b,
   }
 }
 
-template <int KS>
+// Shared memory of the tensor-core kernel for k features and sub_blocks.
+inline size_t smem_bytes(int depth, int k, int sub_blocks) {
+  const int ks = k > kChunkK ? 4 : (k + 7) / 8, nc = (k + 8 * ks - 1) / (8 * ks);
+  const int n_tiles = ((depth - kLeafBits) + 7) / 8 + kUpperTiles + 2 * sub_blocks;
+  return sizeof(float) * smem_floats(ks, nc, n_tiles);
+}
+
+template <int KS, bool kChunked>
 int launch(const void* w, const void* b, const void* x, void* out, int64_t B, int depth,
            int k, int row_groups, int sub_blocks, void* stream) {
-  const int n_tiles = ((depth - kLeafBits) + 7) / 8 + kUpperTiles + 2 * sub_blocks;
-  const size_t smem = sizeof(float) * smem_floats(KS, n_tiles);
+  const int nc = (k + 8 * KS - 1) / (8 * KS);
+  const size_t smem = smem_bytes(depth, k, sub_blocks);
+  if (smem > kMaxSmemBytes || (nc > 1) != kChunked) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tree_logprob_tc_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        tree_logprob_tc_kernel<KS, kChunked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int64_t chunks = (B + kRows * row_groups - 1) / (kRows * row_groups);
   const dim3 grid((unsigned)((((int64_t)1 << depth) >> kLeafBits) * (kSubBlocks / sub_blocks)),
                   (unsigned)chunks);
   const int vec = k % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  tree_logprob_tc_kernel<KS><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)w, (const float*)b, (const float*)x, (float*)out, B, depth, k,
+  tree_logprob_tc_kernel<KS, kChunked><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)w, (const float*)b, (const float*)x, (float*)out, B, depth, k, nc,
       row_groups, 31 - __builtin_clz(sub_blocks), vec);
   return (int)cudaGetLastError();
 }
@@ -631,8 +686,9 @@ int launch(const void* w, const void* b, const void* x, void* out, int64_t B, in
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. Takes 1 <= depth <= 30 and
-// 1 <= k <= 32. kernel 1 is the tensor-core kernel (depth >= 8, 1 <=
+// Plain C entry point, loaded with ctypes. Takes 1 <= depth <= 30 and any
+// k >= 1 whose staging fits a block's shared memory (the wrapper's
+// largest_k). kernel 1 is the tensor-core kernel (depth >= 8, 1 <=
 // row_groups <= 16, sub_blocks a power of two up to 16, at most 65,535 row
 // chunks), kernel 0 the FMA kernel (row_groups and sub_blocks unused).
 // Returns cudaGetLastError() after the launch (0 when it was accepted).
@@ -640,31 +696,39 @@ extern "C" int tree_logprob_all_f32(const void* w, const void* b, const void* x,
                                     int64_t B, int depth, int k, int kernel,
                                     int row_groups, int sub_blocks, void* stream) {
   if (B == 0) return 0;
-  if (depth < 1 || depth > 30 || k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  if (depth < 1 || depth > 30 || k < 1) return (int)cudaErrorInvalidValue;
   if (kernel == 1) {
     const bool pow2 = sub_blocks >= 1 && sub_blocks <= tc::kSubBlocks &&
                       (sub_blocks & (sub_blocks - 1)) == 0;
     if (depth < tc::kLeafBits || row_groups < 1 || row_groups > tc::kMaxRowGroups || !pow2 ||
         (B + 16 * row_groups - 1) / (16 * row_groups) > 65535)
       return (int)cudaErrorInvalidValue;
+    if (k > tc::kChunkK)
+      return tc::launch<4, true>(w, b, x, out, B, depth, k, row_groups, sub_blocks, stream);
     switch ((k + 7) / 8) {
-      case 1: return tc::launch<1>(w, b, x, out, B, depth, k, row_groups, sub_blocks, stream);
-      case 2: return tc::launch<2>(w, b, x, out, B, depth, k, row_groups, sub_blocks, stream);
-      case 3: return tc::launch<3>(w, b, x, out, B, depth, k, row_groups, sub_blocks, stream);
-      default: return tc::launch<4>(w, b, x, out, B, depth, k, row_groups, sub_blocks, stream);
+      case 1: return tc::launch<1, false>(w, b, x, out, B, depth, k, row_groups, sub_blocks,
+                                          stream);
+      case 2: return tc::launch<2, false>(w, b, x, out, B, depth, k, row_groups, sub_blocks,
+                                          stream);
+      case 3: return tc::launch<3, false>(w, b, x, out, B, depth, k, row_groups, sub_blocks,
+                                          stream);
+      default: return tc::launch<4, false>(w, b, x, out, B, depth, k, row_groups, sub_blocks,
+                                           stream);
     }
   }
   if (kernel != 0 || (B + kRowsPerBlock - 1) / kRowsPerBlock > 65535)
     return (int)cudaErrorInvalidValue;
-  switch ((k + 3) / 4) {
-    case 1: return launch_fma<4>(w, b, x, out, B, depth, k, stream);
-    case 2: return launch_fma<8>(w, b, x, out, B, depth, k, stream);
-    case 3: return launch_fma<12>(w, b, x, out, B, depth, k, stream);
-    case 4: return launch_fma<16>(w, b, x, out, B, depth, k, stream);
-    case 5: return launch_fma<20>(w, b, x, out, B, depth, k, stream);
-    case 6: return launch_fma<24>(w, b, x, out, B, depth, k, stream);
-    case 7: return launch_fma<28>(w, b, x, out, B, depth, k, stream);
-    default: return launch_fma<32>(w, b, x, out, B, depth, k, stream);
+  const int kp = (k + 3) / 4 * 4;
+  switch (kp / 4) {
+    case 1: return launch_fma<4>(w, b, x, out, B, depth, k, kp, stream);
+    case 2: return launch_fma<8>(w, b, x, out, B, depth, k, kp, stream);
+    case 3: return launch_fma<12>(w, b, x, out, B, depth, k, kp, stream);
+    case 4: return launch_fma<16>(w, b, x, out, B, depth, k, kp, stream);
+    case 5: return launch_fma<20>(w, b, x, out, B, depth, k, kp, stream);
+    case 6: return launch_fma<24>(w, b, x, out, B, depth, k, kp, stream);
+    case 7: return launch_fma<28>(w, b, x, out, B, depth, k, kp, stream);
+    case 8: return launch_fma<32>(w, b, x, out, B, depth, k, kp, stream);
+    default: return launch_fma<0>(w, b, x, out, B, depth, k, kp, stream);
   }
 }
 

@@ -20,6 +20,10 @@ the token and ``b[ids]`` at once, copied into shared memory with 16-byte
 slot) and the ``dh`` pass (a column per thread, slots summed in order), up to
 the 227 KB a block can have: :func:`staged_slots` says how many slots that is,
 and past it the rows are staged a chunk at a time and read again for ``dh``.
+Nothing else depends on K: the kernel takes any K whose h, per-slot values
+and one row fit a block's 232,448 bytes (:func:`max_k`): K <= 29,044 for a
+float32 table and 38,728 for bf16 at m = 2; 28,996 and 38,664 at m = 17;
+27,520 and 36,692 at m = 512.
 The loss and coefficient math runs on one warp, a lane per slot, in accurate
 ``expf``/``log1pf``. No gathered row reaches device memory (the plain version
 materializes the (T, m, K) rows twice). torch's int64 ids are read as they
@@ -50,7 +54,6 @@ SAMPLED_KINDS = ("uniform_ns", "freq_ns", "adversarial_ns", "nce",
                  "sampled_softmax", "ove", "augment_reduce")
 _NS_FAMILY = ("uniform_ns", "freq_ns", "adversarial_ns")
 _TABLE_DTYPES = (torch.float32, torch.bfloat16)
-MAX_K = 4096
 MAX_M = 512
 _MAX_SMEM_BYTES = 232448          # the most shared memory a block can have
 
@@ -64,11 +67,29 @@ def staged_slots(m: int, k: int, itemsize: int) -> int:
     kernel stages in shared memory at once, beside h, the ids and the
     per-slot values: all m where they fit in a block's 227 KB, else as many
     as fit (the rest in later chunks). The C entry checks it again."""
-    fixed = _round16(4 * k) + _round16(8 * m) + 4 * _round16(4 * m)
+    fixed = _smem_bytes(0, m, k, itemsize)
     fit = (_MAX_SMEM_BYTES - fixed) // (k * itemsize)
-    while fit > 1 and _round16(fit * k * itemsize) + fixed > _MAX_SMEM_BYTES:
+    while fit > 1 and _smem_bytes(fit, m, k, itemsize) > _MAX_SMEM_BYTES:
         fit -= 1
     return max(1, min(m, fit))
+
+
+def _smem_bytes(chunk: int, m: int, k: int, itemsize: int) -> int:
+    """Shared memory of a block staging ``chunk`` rows: the C entry's
+    ``smem_bytes`` (rows, h, the ids and four per-slot float arrays)."""
+    return (_round16(chunk * k * itemsize) + _round16(4 * k) + _round16(8 * m)
+            + 4 * _round16(4 * m))
+
+
+@functools.lru_cache(maxsize=None)
+def max_k(m: int, itemsize: int) -> int:
+    """The widest K the kernel takes for m slots of ``itemsize``-byte rows:
+    h, the per-slot values and one row in a block's 232,448 bytes of
+    shared memory (module docstring)."""
+    k = _MAX_SMEM_BYTES // (4 + itemsize) + 16
+    while _smem_bytes(1, m, k, itemsize) > _MAX_SMEM_BYTES:
+        k -= 1
+    return k
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -219,9 +240,14 @@ def sampled_head_loss(w, b, h, ids, slot_logp, *, kind: str,
     if not device_lib.on_card(w):
         raise ValueError(f"sampled_head_loss: no kernel for device {w.device}")
     (c, k), (t, m) = w.shape, ids.shape
-    if k > MAX_K or m > MAX_M or t >= 2 ** 31:
-        raise ValueError(f"sampled_head_loss: kernel takes K <= {MAX_K}, "
-                         f"m <= {MAX_M}, T < 2^31; got K={k}, m={m}, T={t}")
+    if m > MAX_M or t >= 2 ** 31:
+        raise ValueError(f"sampled_head_loss: kernel takes m <= {MAX_M}, T < 2^31; "
+                         f"got m={m}, T={t}")
+    if k > max_k(m, w.element_size()):
+        raise ValueError(f"sampled_head_loss: kernel takes K <= "
+                         f"{max_k(m, w.element_size())} for m={m} and a {w.dtype} "
+                         f"table (h, the per-slot values and one row must fit a "
+                         f"block's {_MAX_SMEM_BYTES} bytes of shared memory); got K={k}")
     dev = w.device
     loss = torch.empty((t,), dtype=torch.float32, device=dev)
     coeff = torch.empty((t, m), dtype=torch.float32, device=dev)

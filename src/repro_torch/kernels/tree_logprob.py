@@ -24,6 +24,14 @@ from the shape alone and the C entry checks its choice again:
   leaves: float32 FMAs over 256-leaf blocks staged in shared memory, a lane
   owning 8 leaves and 4 rows sharing each read of a node.
 
+No fixed k: above 32 features the tensor-core kernel adds the products of
+32-feature chunks before any ``log_sigmoid`` (a lane's registers hold one
+chunk of x), and the FMA kernel takes its width at run time. What bounds k
+is the shared memory the staged weights take, which grows with k:
+:func:`launch_plan` takes fewer sub-blocks where 16 do not fit a block, and
+:func:`largest_k` is the widest x that fits at the fewest (at least 288 at
+any depth; 320 at depth 18, 148 on the FMA kernel at depth 7).
+
 Every output float is written once and no intermediate level reaches device
 memory (the plain version writes every level). Any B is taken; padding
 leaves come out finite. Neither kernel uses atomics: two calls give the same
@@ -46,7 +54,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import tree_logprob_all_ref
 
 MAX_DEPTH = 30
-MAX_K = 32
 FMA, TENSOR_CORES = 0, 1
 # The tensor-core kernel: leaf blocks of 2^8 leaves, each of 16 sub-blocks
 # of 16 leaves; row groups of 16 rows; at most 65,535 row chunks a launch.
@@ -54,6 +61,11 @@ TENSOR_CORE_MIN_DEPTH = 8
 _ROWS, _SUB_BLOCKS, _MAX_ROW_GROUPS, _MIN_SUB_BLOCKS = 16, 16, 16, 8
 _MAX_CHUNKS = 65535
 _BLOCKS_PER_SM = 2
+_MAX_SMEM_BYTES = 232448          # the most shared memory a block can have
+_WARPS, _ROWS_PER_FMA_BLOCK = 8, 256
+# A tensor-core warp's scratch, in floats: two (32 node, 20) term tables,
+# 16 prefix sums and the (32 unit, 16 row) base table (csrc kScratch).
+_TC_SCRATCH = 2 * 32 * 20 + 16 + 32 * 16
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,21 +110,65 @@ def cost(bsz: int, n_nodes: int, k: int) -> Tuple[float, float]:
     return float(bsz * n_nodes * (2 * k + 3)), float(n_bytes)
 
 
-def launch_plan(bsz: int, depth: int, sm_count: int):
-    """(kernel, row_groups, sub_blocks) for a (bsz, 2^depth) call.
+def tc_smem_bytes(depth: int, k: int, sub_blocks: int) -> int:
+    """Shared memory of a tensor-core block (csrc ``tc::smem_bytes``): each
+    staged tile's 8 nodes as TF32 hi and lo parts of ``node_ld`` floats and
+    their biases, and 8 warps' scratch. k <= 32 is one chunk of 8·KS
+    features (node_ld 8·KS, 36 at KS = 4); wider k is nc chunks of 32
+    (node_ld 32·nc + 4)."""
+    ks = 4 if k > 32 else -(-k // 8)
+    nc = -(-k // (8 * ks))
+    ld = 32 * nc + 4 if ks == 4 else 8 * ks
+    n_tiles = -(-(depth - TENSOR_CORE_MIN_DEPTH) // 8) + 4 + 2 * sub_blocks
+    return 4 * (n_tiles * 8 * (2 * ld + 1) + _WARPS * _TC_SCRATCH)
+
+
+def fma_smem_bytes(depth: int, k: int) -> int:
+    """Shared memory of an FMA block (csrc ``fma_smem_bytes``): the staged
+    nodes' weights (k padded to kp, a multiple of 4, and a row stride with
+    an odd number of 16-byte chunks), their biases and 256 rows of x."""
+    kp = -(-k // 4) * 4
+    stride = kp if (kp // 4) % 2 else kp + 4
+    sub = min(depth, TENSOR_CORE_MIN_DEPTH)
+    n_slots = depth - sub + (1 << sub) - 1
+    return 4 * (n_slots * stride + -(-n_slots // 4) * 4 + _ROWS_PER_FMA_BLOCK * kp)
+
+
+@functools.lru_cache(maxsize=None)
+def largest_k(depth: int, kernel: int) -> int:
+    """The widest x ``kernel`` takes for a tree of ``depth``: the most
+    features whose staging fits a block's 232,448 bytes of shared memory,
+    at one sub-block for the tensor-core kernel."""
+    def fits(k):
+        n = tc_smem_bytes(depth, k, 1) if kernel == TENSOR_CORES else fma_smem_bytes(depth, k)
+        return n <= _MAX_SMEM_BYTES
+    k = 1
+    while fits(k + 1):
+        k += 1
+    return k
+
+
+def launch_plan(bsz: int, depth: int, sm_count: int, k: int):
+    """(kernel, row_groups, sub_blocks) for a (bsz, 2^depth) call on x of
+    k features.
 
     Trees of fewer than 2^8 leaves take the FMA kernel (the other two are
     then 0). Else the tensor-core kernel, whose block takes ``sub_blocks``
     16-leaf sub-blocks of one 256-leaf block and ``row_groups`` groups of
-    16 rows: as many rows as B has, up to 256, and all 16 sub-blocks, halved
-    (rows first, then sub-blocks down to 8) while the grid has fewer than
-    two blocks an SM.
+    16 rows: as many rows as B has, up to 256, and the most sub-blocks
+    whose staging fits a block (16 to k = 64, 8 to 96, 4 to 160, 2 to 256,
+    at depth 18 or 30), halved (rows first, then sub-blocks down to 8)
+    while the grid has fewer than two blocks an SM. Two blocks share an SM
+    where one takes at most about 113 KB: at k <= 16 with 16 sub-blocks, at
+    k <= 32 with 8, not at k = 64 (224,448 bytes with 16 at depth 18).
     """
     if depth < TENSOR_CORE_MIN_DEPTH:
         return FMA, 0, 0
     groups = max(1, -(-bsz // _ROWS))
     leaf_blocks = 1 << (depth - TENSOR_CORE_MIN_DEPTH)
     row_groups, sub_blocks = min(_MAX_ROW_GROUPS, groups), _SUB_BLOCKS
+    while sub_blocks > 1 and tc_smem_bytes(depth, k, sub_blocks) > _MAX_SMEM_BYTES:
+        sub_blocks //= 2
 
     def blocks():
         return leaf_blocks * (_SUB_BLOCKS // sub_blocks) * -(-groups // row_groups)
@@ -136,15 +192,19 @@ def tree_logprob_all(w, b, x):
     if not device_lib.on_card(w):
         raise ValueError(f"tree_logprob_all: no kernel for device {w.device}")
     bsz, k = x.shape
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"tree_logprob_all: kernel takes 1 <= k <= {MAX_K}, got k={k}")
+    kernel = FMA if depth < TENSOR_CORE_MIN_DEPTH else TENSOR_CORES
+    if not 1 <= k <= largest_k(depth, kernel):
+        raise ValueError(f"tree_logprob_all: kernel takes 1 <= k <= "
+                         f"{largest_k(depth, kernel)} at depth {depth} (the staged "
+                         f"weights must fit a block's {_MAX_SMEM_BYTES} bytes of "
+                         f"shared memory), got k={k}")
     out = torch.empty((bsz, 1 << depth), dtype=torch.float32, device=x.device)
     if bsz == 0:
         return out
     if device_lib.is_fake(x):       # the dry run: counted, not launched
         device_lib.record_launch("tree_logprob_all", *cost(bsz, w.shape[0], k))
         return out
-    plan = launch_plan(bsz, depth, device_lib.sm_count(x.device.index or 0))
+    plan = launch_plan(bsz, depth, device_lib.sm_count(x.device.index or 0), k)
     return _launch(w, b, x, out, depth, *plan)
 
 

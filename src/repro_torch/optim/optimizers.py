@@ -50,8 +50,13 @@ and their sparse rows go through
 writes only the rows it owns, SM3's column cover is recombined by an
 ``all_reduce`` MAX, and AdamW's catch-up skips the clamped rows a rank
 does not own. The gradients arrive already summed over ``data``, the same
-on every rank. A dense leaf (the trunk, and under a dense head the head
-and the embedding) is a rank's part where the caller names it in
+on every data rank: with more than one data rank a ``SparseRows`` holds
+only the rank's ``model`` slice of the rows (every id touched there on any
+data rank, a zero sum included), whose squares :func:`global_norm` sums
+over ``model`` once (``sparse_axes``: ``collectives.data_sum_axes``). A ``SparseRows`` handed to
+:func:`apply_updates` by another caller is whole and replicated. A dense
+leaf (the trunk, and under a dense head the head and the embedding) is a
+rank's part where the caller names it in
 ``split_dims`` (its path: the axis, ``"model"``, ``"data"`` or None, that
 cuts each dim; ``parallel.sharding.split_dims``), else whole:
 :func:`global_norm` sums the split leaves' squares over the axes that cut
@@ -231,14 +236,15 @@ def schedule(cfg: OptimizerConfig, step):
     return lr
 
 
-def global_norm(grads, mesh=None, split_dims=None) -> torch.Tensor:
+def global_norm(grads, mesh=None, split_dims=None, sparse_axes=()) -> torch.Tensor:
     """float32 global norm over dense, SparseRows, Sm3Cover and
     QuantizedRows leaves (quantized leaves are dequantized first, so the
     norm is of the values, not of the int8 payload). Under ``mesh`` the
     dense leaves at the paths of ``split_dims`` are this rank's parts:
     their squares are summed over the axes that cut them (a collective a
-    set of axes), the others' counted once (a ``SparseRows`` is the whole
-    gradient on every rank)."""
+    set of axes), the others' counted once. A ``SparseRows`` is the whole
+    gradient on every rank unless ``sparse_axes`` names the axes that cut
+    its rows (a training step's: ``collectives.data_sum_axes``)."""
     sq, parts = [], {}
     split_dims = split_dims or {}
     for path, g in _named_leaves(grads):
@@ -247,6 +253,7 @@ def global_norm(grads, mesh=None, split_dims=None) -> torch.Tensor:
         axes = ()
         if sparse_lib.is_sparse(g):
             x = sparse_lib.sq_norm(g)
+            axes = tuple(sparse_axes)
         elif isinstance(g, QuantizedRows):
             x = torch.square(compression.dequantize_rows(g)).sum()
         elif isinstance(g, Sm3Cover):
@@ -631,8 +638,10 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState,
 
     ``mesh`` (a ``("data", "model")`` ``DeviceMesh``) makes the sparse
     updates shard-local: the params given are this rank's rows of the
-    head (and of the embedding in a tree), the ``SparseRows`` the summed
-    global gradient, replicated (module docstring). A dense gradient of a
+    head (and of the embedding in a tree), the ``SparseRows`` the gradient
+    summed over ``data``: the rank's ``model`` slice of the rows in a
+    training step with more than one data rank, else whole and replicated
+    (module docstring). A dense gradient of a
     standalone head under a mesh raises. ``split_dims`` maps the path of
     each dense leaf that is a rank's part to the axes that cut it (module
     docstring).

@@ -25,7 +25,13 @@ and the replicated operands whole.
   ``data``.
 - :func:`sum_rows_over_data`, :func:`all_reduce_over_data`, :func:`agree`
   and :func:`broadcast_value`: the data-parallel step's sums and the host
-  decisions every rank must take alike.
+  decisions every rank must take alike. The sparse rows' sum is by owner:
+  each data rank sums a contiguous part of its ``model`` slice of the
+  vocabulary (an ``all_to_all`` of the rows there), and the parts are
+  gathered back, so a rank holds at most its slice's rows a few times
+  over, whatever the number of data ranks; its result is the slice's
+  rows, not the whole gradient (:func:`repro_torch.optim.global_norm`
+  sums their squares over ``model``).
 - :func:`reduce_over_model`, :func:`norm_sum_over_model`,
   :func:`gather_seq_over_model` and :func:`copy_to_model`: the trunk's
   activations, differentiable. A row-parallel projection (attention's
@@ -249,38 +255,146 @@ def compressed_grad_allreduce(mesh, grads: Any, ef: Any) -> Tuple[Any, Any]:
             tree_util.unflatten(spec, [e for _, e in out]))
 
 
-def _all_gather_ragged(x: torch.Tensor, g) -> List[torch.Tensor]:
-    """Every rank's ``x`` of the group, whose dimension 0 may differ."""
-    n = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
+def _gather_ragged(xs: Sequence[torch.Tensor], g) -> List[torch.Tensor]:
+    """Every rank's tensors of the group, concatenated in rank order: each
+    of ``xs`` has the same dimension 0 on a rank, which may differ between
+    ranks (one ``all_gather`` of the sizes, then one a tensor, padded to the
+    largest)."""
+    n = torch.tensor([xs[0].shape[0]], dtype=torch.int64, device=xs[0].device)
     sizes = [torch.empty_like(n) for _ in range(dist.get_world_size(g))]
     dist.all_gather(sizes, n, group=g)
     # Fake tensors (the dry run) hold no sizes: every rank's is this one's.
-    sizes = [x.shape[0] if device_lib.is_fake(s) else int(s) for s in sizes]
+    sizes = [xs[0].shape[0] if device_lib.is_fake(s) else int(s) for s in sizes]
     pad = max(sizes)
-    buf = torch.zeros((pad,) + x.shape[1:], dtype=x.dtype, device=x.device)
-    buf[:x.shape[0]] = x
-    parts = [torch.empty_like(buf) for _ in sizes]
-    dist.all_gather(parts, buf, group=g)
-    return [p[:s] for p, s in zip(parts, sizes)]
+    out = []
+    for x in xs:
+        if pad == 0:
+            out.append(x)
+            continue
+        buf = torch.zeros((pad,) + x.shape[1:], dtype=x.dtype, device=x.device)
+        buf[:x.shape[0]] = x
+        parts = [torch.empty_like(buf) for _ in sizes]
+        dist.all_gather(parts, buf, group=g)
+        del buf
+        out.append(torch.cat([p[:s] for p, s in zip(parts, sizes)]))
+    return out
 
 
-def sum_rows_over_data(mesh, rows: SparseRows) -> SparseRows:
-    """The sum over ``data`` of each rank's ``SparseRows``: the ids and
-    values of every data rank, in rank order, summed per unique id by
-    ``segment_stats`` (deterministic, and the same bits on every rank)."""
-    if sharding.size(mesh, "data") == 1:
+def _exchange(x: torch.Tensor, send: List[int], recv: List[int], g) -> torch.Tensor:
+    """Rows ``x`` cut into ``send[r]`` rows for data rank r, in order; returns
+    the ``recv[r]`` rows from each rank r, in rank order."""
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, output_split_sizes=recv, input_split_sizes=send, group=g)
+    return out
+
+
+def data_sum_plan(n_ids: int, n_rows: int, dp: int) -> Tuple[int, int, int]:
+    """The dry run's bound for :func:`sum_rows_over_data` (the data decide
+    it on the card): every id of a rank's ``n_ids`` distinct and in its
+    slice, so it keeps ``own`` rows; each owner of ``sub`` rows receives at
+    most ``sub`` from each data rank, sums them to at most ``sub``, and
+    the union is dp of those. Returns (own, received, union) rows."""
+    sub = -(-n_rows // dp)
+    own = min(n_ids, n_rows)
+    received = dp * min(own, sub)
+    return own, received, dp * min(received, sub)
+
+
+def data_sum_axes(mesh) -> Tuple[str, ...]:
+    """The axes that cut :func:`sum_rows_over_data`'s result across the
+    ranks of ``mesh`` (None: no mesh): ``model`` where both axes have more
+    than one rank. With one data rank the rows come back whole; with one
+    model rank the slice is the whole table."""
+    if mesh is None or sharding.size(mesh, "data") == 1 or sharding.size(mesh, "model") == 1:
+        return ()
+    return ("model",)
+
+
+@dataclasses.dataclass
+class RowSums:
+    """The last sum over ``data`` in this process (None before the first):
+    the rows it ``kept``, ``received`` and summed into the ``union``;
+    ``db``, 1 where the rows carry one (the owner calls ``segment_stats``
+    for ``dw`` and for ``db``, and for neither when it received no row);
+    their ``bytes`` (ids, ``dw``, ``db``); and ``bound_bytes``, the same
+    for the kept rows and twice dp · ceil(n_rows / dp) rows, about twice
+    the slice whatever dp is. A caller that wants every call's record
+    reads it after each one."""
+    last: Optional[Dict[str, int]] = None
+
+
+ROW_SUMS = RowSums()
+
+
+def sum_rows_over_data(mesh, rows: SparseRows, n_rows: int) -> SparseRows:
+    """The sum over ``data`` of each rank's ``SparseRows``, cut to this
+    rank's ``model`` slice of the table (global ids in [lo, lo + n_rows),
+    ``n_rows`` the rows each ``model`` rank holds), the same ids and bits
+    on every data rank of the slice.
+
+    1. keep the rows in the slice (the only ones ``sharded_rows_update``
+       writes here), sorted by id;
+    2. owner d of ``data`` takes the slice's d-th of dp contiguous parts:
+       one ``all_to_all`` of the per-owner counts, then one of the ids, the
+       ``dw`` and the ``db`` rows, so each owner receives its part's rows
+       from every data rank, in rank order;
+    3. the owner sums them per unique id by ``segment_stats``. A segment's
+       sum depends only on its rows and their order, and every rank's rows
+       are deduped, so this is bit for bit the sum of every data rank's
+       rows concatenated in rank order (the gather-everything sum), cut to
+       the slice;
+    4. the owners' sums are gathered over ``data`` in rank order: the
+       slice's ids, sorted.
+
+    A rank sends each owner at most n_rows / dp deduped rows, so it holds
+    at most its own kept rows, about n_rows received rows and the
+    n_rows-row union, whatever dp is (:data:`ROW_SUMS` keeps the last
+    call's record beside that bound). With one data rank the rows are
+    returned as they are, whole (:func:`data_sum_axes`). On fake tensors
+    (the dry run) the sizes are the bound of :func:`data_sum_plan`.
+    """
+    dp = sharding.size(mesh, "data")
+    if dp == 1:
         return rows
     g = sharding.group(mesh, "data")
-    ids = torch.cat(_all_gather_ragged(rows.ids, g))
-    dw = torch.cat(_all_gather_ragged(rows.dw, g))
-    uniq, inv = sparse_lib.unique_rows(ids)
-    plan = ops.segment_plan(inv, uniq.shape[0])
-    out_dw = ops.segment_stats(dw, inv, uniq.shape[0], plan=plan)
-    out_db = None
-    if rows.db is not None:
-        db = torch.cat(_all_gather_ragged(rows.db, g))
-        out_db = ops.segment_stats(db[:, None], inv, uniq.shape[0], plan=plan)[:, 0]
-    return SparseRows(ids=uniq, dw=out_dw, db=out_db)
+    lo = sharding.rank(mesh, "model") * n_rows
+    sub = -(-n_rows // dp)
+    dev = rows.ids.device
+    if device_lib.is_fake(rows.ids):
+        own, n_recv, _ = data_sum_plan(rows.ids.shape[0], n_rows, dp)
+        keep = torch.arange(own, device=dev)
+        send = [min(sub, max(0, own - d * sub)) for d in range(dp)]
+        recv = [n_recv // dp] * dp
+        counts = torch.zeros((dp,), dtype=torch.int64, device=dev)
+    else:
+        local = rows.ids.long() - lo
+        keep = torch.nonzero((local >= 0) & (local < n_rows)).reshape(-1)
+        local, order = torch.sort(local.index_select(0, keep))
+        keep = keep.index_select(0, order)
+        counts = torch.bincount(torch.div(local, sub, rounding_mode="floor"), minlength=dp)
+    counts_in = torch.empty_like(counts)
+    dist.all_to_all_single(counts_in, counts, group=g)
+    if not device_lib.is_fake(rows.ids):
+        send, recv = torch.stack([counts, counts_in]).tolist()
+    ids = _exchange(rows.ids.index_select(0, keep), send, recv, g)
+    dw = _exchange(rows.dw.index_select(0, keep), send, recv, g)
+    db = None if rows.db is None else _exchange(rows.db.index_select(0, keep), send, recv, g)
+    uniq, inv = sparse_lib.unique_rows(ids, sub)
+    u = uniq.shape[0]
+    plan = ops.segment_plan(inv, u)
+    parts = [uniq, ops.segment_stats(dw, inv, u, plan=plan)]
+    del dw
+    if db is not None:
+        parts.append(ops.segment_stats(db[:, None], inv, u, plan=plan)[:, 0])
+    del ids, db, inv, plan
+    out = _gather_ragged(parts, g)
+    row_bytes = 8 + 4 * (rows.dw.shape[1] + (rows.db is not None))
+    held = (keep.shape[0], sum(recv), out[0].shape[0])
+    ROW_SUMS.last = dict(
+        kept=held[0], received=held[1], union=held[2], db=int(rows.db is not None),
+        bytes=sum(held) * row_bytes,
+        bound_bytes=(min(rows.ids.shape[0], n_rows) + 2 * dp * sub) * row_bytes)
+    return SparseRows(ids=out[0], dw=out[1], db=out[2] if rows.db is not None else None)
 
 
 def all_reduce_over_data(mesh, tensors: Sequence[torch.Tensor]) -> None:

@@ -246,10 +246,13 @@ def _sharded_grad_fn(cfg: ModelConfig, hcfg: HeadConfig, sampler, mesh, mode: st
                 mesh, [g for g, r in zip(trunk_grads, reduced) if not r])
             for g in table_grads:           # each (V/tp, d) table in place
                 collectives.all_reduce_over_data(mesh, [g])
+            # The sparse rows come back as this rank's model slice of them.
             if not dense_head:
-                grads["head"] = collectives.sum_rows_over_data(mesh, head_rows)
+                grads["head"] = collectives.sum_rows_over_data(
+                    mesh, head_rows, params["head"]["w"].shape[0])
             if not dense_embed:
-                grads["embed"] = collectives.sum_rows_over_data(mesh, grads["embed"])
+                grads["embed"] = collectives.sum_rows_over_data(
+                    mesh, grads["embed"], params["embed"].shape[0])
             # Each data rank's loss and head metrics are its share of the
             # global means; the forward's metrics are per-rank means.
             summed = {"loss": loss, **head_metrics}
@@ -294,9 +297,11 @@ def make_train_step(cfg: ModelConfig, hcfg: HeadConfig, opt_cfg: OptimizerConfig
     mesh, or :func:`repro_torch.parallel.shard_train_state`), the batch the
     global one (module docstring).
     """
+    from repro_torch.parallel import collectives
     grad_fn = make_grad_fn(cfg, hcfg, head_update, sampler=sampler,
                            embed_update=embed_update, mesh=mesh)
     split_dims = None           # the mesh's cut leaves, read once from the first state
+    sparse_axes = collectives.data_sum_axes(mesh)     # the axes that cut the SparseRows
 
     def train_step(state: TrainState, batch, generator):
         nonlocal split_dims
@@ -308,7 +313,8 @@ def make_train_step(cfg: ModelConfig, hcfg: HeadConfig, opt_cfg: OptimizerConfig
             return _update(state, grads, metrics)
 
     def _update(state: TrainState, grads, metrics):
-        norm = global_norm(grads, mesh, split_dims) if opt_cfg.clip_norm else None
+        norm = (global_norm(grads, mesh, split_dims, sparse_axes=sparse_axes)
+                if opt_cfg.clip_norm else None)
         snr_ewma = state.snr_ewma
         if "snr_proxy" in metrics:
             # Fold the per-batch signal-mass proxy into the EWMA the SNR

@@ -77,6 +77,38 @@ def load_outputs(tmp_path, n_ranks: int):
     return [torch.load(tmp_path / f"out_{r}.pt", weights_only=False) for r in range(n_ranks)]
 
 
+def gather_ragged(x, g):
+    """Every rank's ``x`` of the process group ``g``, whose dimension 0 may
+    differ, in rank order (padded to the largest for the gather)."""
+    import torch
+    import torch.distributed as dist
+    n = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
+    sizes = [torch.empty_like(n) for _ in range(dist.get_world_size(g))]
+    dist.all_gather(sizes, n, group=g)
+    sizes = [int(s) for s in sizes]
+    buf = torch.zeros((max(sizes),) + x.shape[1:], dtype=x.dtype, device=x.device)
+    buf[:x.shape[0]] = x
+    parts = [torch.empty_like(buf) for _ in sizes]
+    dist.all_gather(parts, buf, group=g)
+    return [p[:s] for p, s in zip(parts, sizes)]
+
+
+def whole_rows(mesh, rows):
+    """A training step's ``SparseRows`` gradient, whole: with more than one
+    data rank the step leaves each rank its ``model`` slice of the rows
+    (``collectives.sum_rows_over_data``), gathered here over ``model`` in
+    rank order (disjoint slices, so the ids stay sorted and unique)."""
+    import torch
+    from repro_torch.optim.sparse import SparseRows
+    from repro_torch.parallel import collectives, sharding
+    if not collectives.data_sum_axes(mesh):
+        return rows
+    g = sharding.group(mesh, "model")
+    parts = [torch.cat(gather_ragged(x, g)) for x in (rows.ids, rows.dw)]
+    db = None if rows.db is None else torch.cat(gather_ragged(rows.db, g))
+    return SparseRows(parts[0], parts[1], db)
+
+
 # ---------------------------------------------------------------------------
 # Inputs, drawn from seeds with numpy on both sides.
 # ---------------------------------------------------------------------------

@@ -54,6 +54,7 @@ JAX_GRAD_TOL = dict(atol=1e-5, rtol=1e-5)
 REF_TOL = dict(atol=1e-4, rtol=1e-3)           # tests/test_parallel.py:65-70
 
 WORLD = """
+import _torch_world as W
 from repro_torch import tree_util
 from repro_torch.core.samplers import UniformSampler
 from repro_torch.models import lm_head
@@ -84,6 +85,7 @@ def grads_of(name):
                             sampler=UniformSampler(cfg.vocab_size), mesh=mesh)
     grads, metrics = fn(state_of(kind), inp["batches"][0], torch.Generator().manual_seed(0))
     rows = grads.pop("head") if not isinstance(grads["head"], dict) else None
+    rows = None if rows is None else W.whole_rows(mesh, rows)
     return dict(full=gather_train_state(grads, mesh, cfg), rows=rows,
                 loss=float(metrics["loss"]))
 

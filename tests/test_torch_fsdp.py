@@ -82,6 +82,7 @@ from repro_torch.parallel import iter_gathered_leaves
 from repro_torch.parallel.collectives import FSDP, TRUNK
 from repro_torch.parallel.hints import sharding_hints
 from repro_torch.train import step as tstep
+import _torch_world as W
 
 inp = torch.load(os.path.join(OUT, "inputs.pt"), weights_only=False)
 mesh = mesh_of(inp["tp"])
@@ -98,8 +99,9 @@ def grads_of(case, hints=None):
     with sharding_hints(mesh, **hints) if hints is not None else contextlib.nullcontext():
         grads, metrics = fn(state, inp["batch"], torch.Generator().manual_seed(0))
     trunk = {k: v for k, v in grads.items() if k not in ("head", "embed")}
-    return dict(local=trunk, full=gather_train_state(trunk, mesh, cfg), head=grads["head"],
-                embed=grads["embed"], loss=float(metrics["loss"]),
+    return dict(local=trunk, full=gather_train_state(trunk, mesh, cfg),
+                head=W.whole_rows(mesh, grads["head"]), embed=W.whole_rows(mesh, grads["embed"]),
+                loss=float(metrics["loss"]),
                 trunk={p: dict(c) for p, c in TRUNK.phases.items()},
                 fsdp={p: dict(c) for p, c in FSDP.phases.items()},
                 fsdp_leaves=dict(FSDP.leaves),

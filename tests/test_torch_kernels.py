@@ -184,14 +184,14 @@ def test_tree_logprob_all_rejects_what_the_kernel_does_not_take(bad):
     (256, 1, (tlp.FMA, 0, 0)),
 ])
 def test_tree_logprob_launch_plan(bsz, depth, want):
-    assert tlp.launch_plan(bsz, depth, 132) == want
+    assert tlp.launch_plan(bsz, depth, 132, 16) == want
 
 
 @pytest.mark.parametrize("sm_count", [1, 132])
 def test_tree_logprob_launch_plan_fills_the_card_within_its_limits(sm_count):
     for bsz in (1, 4, 5, 16, 17, 100, 256, 300, 5000):
         for depth in range(tlp.TENSOR_CORE_MIN_DEPTH, 21):
-            kernel, groups, sub = tlp.launch_plan(bsz, depth, sm_count)
+            kernel, groups, sub = tlp.launch_plan(bsz, depth, sm_count, 16)
             assert kernel == tlp.TENSOR_CORES
             assert 1 <= groups <= 16 and sub in (8, 16)
             row_groups = -(-bsz // 16)
@@ -458,7 +458,8 @@ def test_cuda_tree_logprob_all_kernel_paths(cuda, bsz, depth, k):
     spread over warps; B = 300: a ragged second row chunk; k = 1, 31: padded
     k steps), against the plain version; two calls bit-equal."""
     w, b, x = _tree_tables(bsz * 1000 + depth * 40 + k, depth, k, bsz, cuda)
-    kernel = tlp.launch_plan(bsz, depth, torch.cuda.get_device_properties(cuda).multi_processor_count)[0]
+    kernel = tlp.launch_plan(bsz, depth, torch.cuda.get_device_properties(cuda).multi_processor_count,
+                             k)[0]
     before = (ops.tree_logprob_all.tensor_core_launches, ops.tree_logprob_all.fma_launches)
     got = ops.tree_logprob_all(w, b, x)
     again = ops.tree_logprob_all(w, b, x)

@@ -171,6 +171,7 @@ save(out)
 """
 
 WORLD_STEP = """
+import _torch_world as W
 from repro_torch.core.samplers import UniformSampler
 from repro_torch.models import lm_head
 from repro_torch.parallel import gather_train_state, shard_train_state
@@ -188,8 +189,9 @@ for name, case in inp["cases"].items():
         grads, metrics = fn(shard_train_state(case["state"], mesh, cfg), inp["batch"],
                             torch.Generator().manual_seed(0))
     trunk = {k: v for k, v in grads.items() if k not in ("head", "embed")}
-    out[name] = dict(full=gather_train_state(trunk, mesh, cfg), head=grads["head"],
-                     embed=grads["embed"], loss=float(metrics["loss"]))
+    out[name] = dict(full=gather_train_state(trunk, mesh, cfg),
+                     head=W.whole_rows(mesh, grads["head"]),
+                     embed=W.whole_rows(mesh, grads["embed"]), loss=float(metrics["loss"]))
 
 # The dense heads and the dense embedding under the hint: the softmax head's
 # own sum of h's gradient over model, and the embedding's whole gradient
@@ -204,6 +206,7 @@ for name, (kind, head_update, embed_update) in dense["cases"].items():
         grads, metrics = fn(shard_train_state(dense["states"][kind], mesh, cfg),
                             dense["batch"], torch.Generator().manual_seed(0))
     rows = grads.pop("head") if not isinstance(grads["head"], dict) else None
+    rows = None if rows is None else W.whole_rows(mesh, rows)
     out["dense", name] = dict(full=gather_train_state(grads, mesh, cfg), rows=rows,
                               loss=float(metrics["loss"]))
 save(out)
