@@ -53,12 +53,16 @@ Phases, each fatal on failure:
      (h2o-danube prefill and decode at B = 4, gemma2's softcap geometry
      and decode, stablelm-3b's, hymba-1.5b's (G = 5, hd 64, window 1,024)
      and qwen2-vl-7b's (G = 7, hd 128) prefill and decode, each laid out
-     and scaled as the model calls it; a ragged float32 case), within one bf16 ulp of
-     each output row and 2^-11 relative RMS, two calls bit-equal, the kernel
-     each shape took (the tensor-core kernel for the five bf16 prefills,
-     the decode kernel for the five decodes, the FMA kernel for float32);
-     kernel, plain and ``scaled_dot_product_attention`` times (phase 3's
-     kernel checks run before it);
+     and scaled as the model calls it; a ragged float32 case), and the
+     engine's verify step and suffix prefill at h2o-danube width (8 rows of
+     8 queries, 2,100 to 2,200 keys a row; 8 rows of 64 queries, 2,112 to
+     2,240 keys, two row tiles; pages of 256 out of order), within one bf16
+     ulp of each output row and 2^-11 relative RMS, two calls bit-equal,
+     each paged call bit-equal to its keys gathered into a contiguous cache,
+     the kernel each shape took (the tensor-core kernel for the five bf16
+     prefills and the two paged steps, the decode kernel for the five
+     decodes, the FMA kernel for float32); kernel, plain and ``scaled_dot_product_attention``
+     times (phase 3's kernel checks run before it);
   9. the LM-serving path at full h2o-danube-3-4b width (24 layers, d 3840,
      32 query heads over 8 KV heads, hd 120, window 4,096, vocab 32,000):
      the lock-step launcher serves 4 requests of 4,608 prompt tokens and 32
@@ -87,13 +91,20 @@ Phases, each fatal on failure:
      one step profiled by kernel and phase); (c) a shared-prefix burst
      (templates of 2,048 tokens, suffixes of 64) with prefix sharing and
      speculative decode (max draft 4), cold then warm, with a preempting
-     class; (d) a float32 cache. Fatal: the pool's invariants and no leaked
+     class (its multi-token paged steps on the tensor-core kernel, none on
+     the FMA kernel); (d) a float32 cache (its decode on the FMA kernel).
+     Fatal: the pool's invariants and no leaked
      lane or page after each run, and the paged kernel against its plain
      version (``check_flash_attention``'s tolerances) on calls recorded
      from the engine — a bf16 decode step from (b), a multi-token step from
      (c), a float32-cache decode step from (d) — each with pages out of
-     order, ragged key counts and a free lane on the sink page, timed
-     beside its bound and the plain version; the lock-step's token
+     order, ragged key counts and a free lane on the sink page, bit-equal
+     to the same keys gathered into a contiguous cache, timed beside its
+     bound, the plain version, the gathered call and the FMA kernel on the
+     same call; also (c)'s first cold prefill (padded to 4,096 tokens:
+     128 row tiles a (b, kv head)), on the tensor-core kernel, bit-equal to
+     its keys gathered contiguous, against the plain version on its first
+     row; the lock-step's token
      agreement on (b) and (c) is reported;
  10. the head math at full ``xc_linear`` width (run after phase 5),
      counters reset just before and read just after: on
@@ -422,15 +433,27 @@ ATTN_SHAPES = [
     ("qwen2vl_prefill", 2, 28, 4, 2048, 2048, 128, True, 0, 0.0, torch.bfloat16, 2080),
     ("qwen2vl_decode", 2, 28, 4, 1, 2080, 128, True, 0, 0.0, torch.bfloat16, 2080),
 ]
+# The engine's multi-token paged steps at h2o-danube-3-4b width, as a
+# speculative verify step (8 queries a row: 32 packed rows, one row tile)
+# and a shared-prefix suffix prefill (64 queries after a template of about
+# 2,048 keys: 256 packed rows, two row tiles) call the kernel: (name, B, H,
+# KV, Sq, (fewest, most) keys a row, hd, window, page length, dtype). Each
+# row's key count is drawn in the range, the arenas' pages are handed out in
+# a random order, q is laid out and scaled as the model passes it.
+ATTN_PAGED_SHAPES = [
+    ("danube_verify_paged", 8, 32, 8, 8, (2100, 2200), 120, 4096, 256, torch.bfloat16),
+    ("danube_suffix_paged", 8, 32, 8, 64, (2112, 2240), 120, 4096, 256, torch.bfloat16),
+]
 ATTN_MAIN = "danube_prefill"     # the shape of the kernels line
 # The kernel each shape takes: the tensor-core kernel (bf16, more than 16
-# packed rows, hd <= 128), the decode kernel (bf16, at most 16 packed rows)
-# or the FMA kernel (float32).
+# packed rows, hd <= 128; ragged, paged or split alike), the decode kernel
+# (bf16, at most 16 packed rows) or the FMA kernel (float32).
 ATTN_KERNEL = {"danube_prefill": "tensor_cores", "gemma2_softcap": "tensor_cores",
                "stablelm_prefill": "tensor_cores", "danube_decode": "decode",
                "gemma2_decode": "decode", "stablelm_decode": "decode", "ragged_fp32": "fma",
                "hymba_prefill": "tensor_cores", "hymba_decode": "decode",
-               "qwen2vl_prefill": "tensor_cores", "qwen2vl_decode": "decode"}
+               "qwen2vl_prefill": "tensor_cores", "qwen2vl_decode": "decode",
+               "danube_verify_paged": "tensor_cores", "danube_suffix_paged": "tensor_cores"}
 ATTN_F32_TOL = dict(atol=1e-5, rtol=1e-5)
 # bfloat16: kernel and plain version both keep float32 precision until the
 # output and round once to bfloat16, so an output differs by at most one
@@ -1595,18 +1618,77 @@ def attn_inputs(dev, gen, b, h, kv, sq, skv, hd, dtype, cache_len):
             cache_v[:, :skv].transpose(1, 2), 1.0)
 
 
-def check_flash_attention(dev, gen, flush):
-    """The kernel against its plain version on the five shapes, two calls
-    bit-equal; kernel, plain and library (scaled_dot_product_attention with
-    a boolean band mask, GQA; not where there is a softcap) times. Bound: q,
-    k, v of the keys some query sees and the output moved once, against
-    4*hd operations per (query, key) pair in the band at the peak of the
-    inputs' type (bf16 tensor cores, float32 outside them)."""
-    import torch.nn.functional as F
-    rows = {}
+def attn_paged_inputs(dev, gen, h, kv, sq, n, hd, page_len, dtype):
+    """q laid out and scaled as the model passes it; arenas (P, page_len,
+    KV, hd) whose pages go to the rows in a random order, a sink page last;
+    and the paged keywords: ``n``, each row's key count, the page tables
+    (sink entries past a row's pages), the largest count."""
+    b = len(n)
+    need = [-(-x // page_len) for x in n]
+    n_phys = sum(need) + 1
+    order = torch.randperm(n_phys - 1, generator=gen, device=dev).tolist()
+    table = np.full((b, max(need)), n_phys - 1, np.int32)
+    at = 0
+    for r, m in enumerate(need):
+        table[r, :m] = order[at:at + m]
+        at += m
+    q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dtype)
+    q = (q * torch.tensor(hd ** -0.5).to(dtype).item()).transpose(1, 2)
+    k, v = (torch.randn((n_phys, page_len, kv, hd), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, dict(kv_lens=torch.tensor(n, dtype=torch.int32, device=dev),
+                         page_table=torch.from_numpy(table).to(dev), max_kv_len=max(n))
+
+
+def attn_gathered(k, v, kw):
+    """A paged call's keys gathered into contiguous (B, KV, max_kv_len, hd)
+    caches, and its keywords without the page table: the same call on
+    contiguous K/V."""
+    kc, vc = (ref.gather_pages(a, kw["page_table"], kw["max_kv_len"]).contiguous()
+              for a in (k, v))
+    return kc, vc, {n: x for n, x in kw.items() if n != "page_table"}
+
+
+def attn_calls(dev, gen):
+    """Phase 8's calls, one at a time, for every shape of ATTN_SHAPES and
+    then ATTN_PAGED_SHAPES: (name, description, q, k, v, keywords, cost's
+    shape arguments, cost's keywords). scripts/attn_planted_faults.py drives
+    the same calls."""
     for name, b, h, kv, sq, skv, hd, causal, window, softcap, dtype, cache_len in ATTN_SHAPES:
         q, k, v, scale = attn_inputs(dev, gen, b, h, kv, sq, skv, hd, dtype, cache_len)
-        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        layout = f"model layout, cache {cache_len}" if cache_len else "contiguous"
+        what = (f"flash_attention {name} (B={b} H={h} KV={kv} Sq={sq} Skv={skv} hd={hd} "
+                f"causal={causal} window={window} softcap={softcap} {str(dtype)[6:]}, "
+                f"{layout}")
+        yield (name, what, q, k, v,
+               dict(causal=causal, window=window, softcap=softcap, scale=scale),
+               (b, h, kv, sq, skv, hd, causal, window), {})
+    for name, b, h, kv, sq, lens, hd, window, page_len, dtype in ATTN_PAGED_SHAPES:
+        n = torch.randint(lens[0], lens[1] + 1, (b,), generator=gen, device=dev).tolist()
+        q, k, v, paged = attn_paged_inputs(dev, gen, h, kv, sq, n, hd, page_len, dtype)
+        what = (f"flash_attention {name} (B={b} H={h} KV={kv} Sq={sq} keys {n} hd={hd} "
+                f"causal=True window={window} {str(dtype)[6:]}, pages of {page_len} "
+                f"out of order")
+        yield (name, what, q, k, v,
+               dict(causal=True, window=window, softcap=0.0, scale=1.0, **paged),
+               (b, h, kv, sq, max(n), hd, True, window),
+               dict(kv_lens=n, index_bytes=4 * (b + paged["page_table"].numel())))
+
+
+def check_flash_attention(dev, gen, flush):
+    """The kernel against its plain version on every shape of
+    ``attn_calls``, two calls bit-equal, a paged call bit-equal to the same
+    keys gathered into a contiguous cache; kernel, plain and library
+    (scaled_dot_product_attention with a boolean band mask, GQA; not where
+    there is a softcap or a page table) times. Bound: q, k, v of the keys
+    some query of a row sees and the output moved once (the key counts and
+    page tables too), against 4*hd operations per (query, key) pair in the
+    band at the peak of the inputs' type (bf16 tensor cores, float32 outside
+    them)."""
+    import torch.nn.functional as F
+    rows = {}
+    for name, what, q, k, v, kw, shape, cost_kw in attn_calls(dev, gen):
+        dtype = q.dtype
         before = attn_launches_by_kernel()
         got = ops.flash_attention(q, k, v, **kw)
         path = [name for name, n in attn_launches_by_kernel().items() if n > before[name]]
@@ -1614,10 +1696,7 @@ def check_flash_attention(dev, gen, flush):
         again = ops.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
-        layout = f"model layout, cache {cache_len}" if cache_len else "contiguous"
-        what = (f"flash_attention {name} (B={b} H={h} KV={kv} Sq={sq} Skv={skv} hd={hd} "
-                f"causal={causal} window={window} softcap={softcap} {str(dtype)[6:]}, "
-                f"{layout}; {path} kernel)")
+        what = f"{what}; {path} kernel)"
         check(path == ATTN_KERNEL[name], f"{what}: took the wrong kernel")
         errs = attn_errors(got, want)
         err = errs["max_abs_err"]
@@ -1625,16 +1704,23 @@ def check_flash_attention(dev, gen, flush):
         check(attn_close(errs, dtype), f"{what}: kernel disagrees with the plain version "
                                        f"({errs})")
         check(torch.equal(got, again), f"{what}: two calls differ")
+        paged = "page_table" in kw
+        if paged:
+            kc, vc, flat_kw = attn_gathered(k, v, kw)
+            check(torch.equal(got, ops.flash_attention(q, kc, vc, **flat_kw)),
+                  f"{what}: a row's bits depend on where its keys lie")
+            del kc, vc
         del got, again, want
-        n_flop, n_bytes = flash_attention_lib.cost(b, h, kv, sq, skv, hd, causal, window,
-                                                   q.element_size(), k.element_size())
-        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        n_flop, n_bytes = flash_attention_lib.cost(*shape, q.element_size(), k.element_size(),
+                                                   **cost_kw)
+        peak = BF16_FLOP_PER_S if q.dtype == k.dtype == torch.bfloat16 else FP32_FLOP_PER_S
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / peak
         bound, by = 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
         ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), flush)
         plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), flush)
         library = None
-        if not softcap:
+        if not kw["softcap"] and not paged:
+            _, _, _, sq, skv, _, causal, window = shape
             pos = torch.arange(sq, device=dev)[:, None] + (skv - sq)
             delta = pos - torch.arange(skv, device=dev)[None, :]
             band = torch.ones((sq, skv), dtype=torch.bool, device=dev)
@@ -1643,7 +1729,7 @@ def check_flash_attention(dev, gen, flush):
             if window > 0:
                 band &= delta < window
             library = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=band, scale=scale, enable_gqa=True), flush)
+                q, k, v, attn_mask=band, scale=kw["scale"], enable_gqa=True), flush)
         rows[name] = dict(path=path, max_abs_err=err, worst_ratio=errs["worst_ratio"],
                           rel_rms=errs["rel_rms"], ms=ms, plain_ms=plain, library_ms=library,
                           bound_ms=bound, bound_by=by, flop=n_flop, bytes=n_bytes,
@@ -1661,7 +1747,10 @@ def check_flash_attention(dev, gen, flush):
 
 
 def attn_launches_by_kernel() -> dict:
-    fa = ops.flash_attention
+    """The wrapper's launches by kernel (read from the module's wrapper, which
+    holds the counts, also while a run swaps a recorder in for
+    ``ops.flash_attention``)."""
+    fa = flash_attention_lib.flash_attention
     return dict(decode=fa.decode_launches, tensor_cores=fa.tensor_core_launches,
                 fma=fa.fma_launches)
 
@@ -1950,13 +2039,15 @@ def wants_record(token_rows, table, kv_lens, sink) -> bool:
 
 class PagedRecorder:
     """Records the first ``flash_attention`` call through a page table of a
-    step that ``wants_record`` picks (layer 0 of that step): q, one layer's
-    arenas, the key counts and the table, cloned, with the call's output."""
+    step that ``pick(tokens, table, kv_lens, sink)`` picks (default
+    ``wants_record``; layer 0 of that step): q, one layer's arenas, the key
+    counts and the table, cloned, with the call's output."""
 
-    def __init__(self, eng, attr: str, name: str, max_rows: int = 1 << 30):
+    def __init__(self, eng, attr: str, name: str, pick=None):
         self.name, self.call, self.armed = name, None, False
         step = getattr(eng, attr)
         sink = eng.pool.sink
+        pick = pick or (lambda tokens, *rest: wants_record(tokens.shape[0], *rest))
 
         def watched(*args):
             if self.call is None:
@@ -1965,8 +2056,7 @@ class PagedRecorder:
                     lens, table = np.asarray(args[3]) + 1, np.asarray(args[4])
                 else:                       # (params, tokens, start, lengths, arena, table)
                     lens, table = np.asarray(args[2]) + tokens.shape[1], np.asarray(args[5])
-                self.armed = (tokens.shape[1] <= max_rows
-                              and wants_record(tokens.shape[0], table, lens, sink))
+                self.armed = pick(tokens, table, lens, sink)
             try:
                 return step(*args)
             finally:
@@ -1984,49 +2074,81 @@ class PagedRecorder:
         return attention
 
 
-def check_recorded(rec: PagedRecorder, flush) -> dict:
+def check_recorded(rec: PagedRecorder, flush, plain_rows=None) -> dict:
     """The kernel against its plain version on a recorded engine call, with
     check_flash_attention's tolerances; the call again gives the engine's
-    bits; its time beside its bound (q, the output and the K/V of the keys
-    each row's queries see, against 4*hd operations per (query, key) pair)
-    and the plain version's."""
-    check(rec.call is not None, f"{rec.name}: no engine call had pages out of order, "
-                                "ragged lengths and a free lane")
+    bits, and so does the same call on its keys gathered into a contiguous
+    cache; its time beside its bound (q, the output and the K/V of the keys
+    each row's queries see, against 4*hd operations per (query, key) pair),
+    the plain version's, the gathered call's and the FMA kernel's on the
+    same call (the C entry with kernel 0, its own split count). With
+    ``plain_rows``, the plain version (its check and its time) and the FMA
+    kernel's check take the call's first ``plain_rows`` rows alone: the
+    plain version's logits of a whole padded prefill would not fit."""
+    check(rec.call is not None, f"{rec.name}: no engine call was recorded")
     c = rec.call
     q, k, v, kw = c["q"], c["k"], c["v"], c["kw"]
+    lens = kw["kv_lens"].tolist()
+    b, h, sq, hd = q.shape
+    kvh, skv, window = k.shape[2], kw["max_kv_len"], kw.get("window", 0)
+    rows = slice(0, b if plain_rows is None else plain_rows)
+    part_kw = dict(kw, kv_lens=kw["kv_lens"][rows], page_table=kw["page_table"][rows],
+                   max_kv_len=max(lens[rows]))
     before = attn_launches_by_kernel()
     got = ops.flash_attention(q, k, v, **kw)
     path = [n for n, m in attn_launches_by_kernel().items() if m > before[n]]
-    want = ref.flash_attention_ref(q, k, v, **kw)
+    want = ref.flash_attention_ref(q[rows], k, v, **part_kw)
+    kc, vc, flat_kw = attn_gathered(k, v, kw)
+    flat = ops.flash_attention(q, kc, vc, **flat_kw)
+    fma_split = flash_attention_lib.n_splits(
+        b, h, kvh, sq, skv, True, window, torch.cuda.get_device_properties(q.device)
+        .multi_processor_count)
+
+    def fma_call():
+        return flash_attention_lib.launch(
+            q, k, v, torch.empty_like(q), kvh, skv, flash_attention_lib.FMA, fma_split,
+            causal=True, window=window, softcap=kw.get("softcap", 0.0),
+            scale=kw.get("scale"), kv_lens=kw["kv_lens"], page_table=kw["page_table"])
+    fma_out = fma_call()
     torch.cuda.synchronize()
-    errs = attn_errors(got, want)
-    what = (f"{rec.name}: paged flash_attention on an engine call (B={q.shape[0]} "
-            f"Sq={q.shape[2]} lens={kw['kv_lens'].tolist()} page_len={k.shape[1]} "
-            f"q {str(q.dtype)[6:]}, cache {str(k.dtype)[6:]}; {path} kernel)")
+    errs = attn_errors(got[rows], want)
+    fma_errs = attn_errors(fma_out[rows], want)
+    what = (f"{rec.name}: paged flash_attention on an engine call (B={b} "
+            f"Sq={sq} lens={lens} page_len={k.shape[1]} "
+            f"q {str(q.dtype)[6:]}, cache {str(k.dtype)[6:]}; {path} kernel; plain "
+            f"version on rows {rows.start}..{rows.stop - 1})")
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     check(attn_close(errs, q.dtype), f"{what}: kernel disagrees with the plain version "
                                      f"({errs})")
     check(torch.equal(got, c["out"]), f"{what}: the call again differs from the engine's")
-    lens = kw["kv_lens"].tolist()
-    b, h, sq, hd = q.shape
-    kvh = k.shape[2]
+    check(torch.equal(got, flat), f"{what}: the gathered contiguous call gives other bits")
+    check(attn_close(fma_errs, q.dtype), f"{what}: the FMA kernel disagrees with the plain "
+                                         f"version ({fma_errs})")
+    del got, want, flat, fma_out
     n_flop, n_bytes = flash_attention_lib.cost(
-        b, h, kvh, sq, max(lens), hd, True, kw.get("window", 0), q.element_size(),
-        k.element_size(), kv_lens=lens,
-        index_bytes=kw["kv_lens"].numel() * 4 + kw["page_table"].numel() * 4)
+        b, h, kvh, sq, skv, hd, True, window, q.element_size(), k.element_size(),
+        kv_lens=lens, index_bytes=kw["kv_lens"].numel() * 4 + kw["page_table"].numel() * 4)
     peak = (BF16_FLOP_PER_S if q.dtype == k.dtype == torch.bfloat16 else FP32_FLOP_PER_S)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / peak
     ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), flush)
-    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), flush)
+    fma = time_ms(fma_call, flush)
+    contiguous = time_ms(lambda: ops.flash_attention(q, kc, vc, **flat_kw), flush)
+    fma_again = time_ms(fma_call, flush)
+    plain = time_ms(lambda: ref.flash_attention_ref(q[rows], k, v, **part_kw), flush)
     row = dict(path=path[0] if len(path) == 1 else str(path), rows=b, sq=sq, kv_lens=lens,
+               plain_rows=rows.stop,
                page_len=k.shape[1], q_dtype=str(q.dtype)[6:], cache_dtype=str(k.dtype)[6:],
                max_abs_err=errs["max_abs_err"], worst_ratio=errs["worst_ratio"],
                rel_rms=errs["rel_rms"], ms=ms, plain_ms=plain, library_ms=None,
+               contiguous_ms=contiguous, fma_ms=[fma, fma_again], fma_split=fma_split,
+               fma_max_abs_err=fma_errs["max_abs_err"],
                bound_ms=1e3 * max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=n_bytes)
     print(f"{what}: max_abs_err={errs['max_abs_err']:.3e} (worst error/bound "
-          f"{errs['worst_ratio']:.3f}), kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+          f"{errs['worst_ratio']:.3f}), kernel {ms:.4f} ms, the same keys contiguous "
+          f"{contiguous:.4f} ms, FMA kernel {fma:.4f} / {fma_again:.4f} ms (split "
+          f"{fma_split}, max_abs_err {fma_errs['max_abs_err']:.3e}), plain {plain:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
 
@@ -2130,8 +2252,9 @@ def engine_path(dev, seed, card, model) -> dict:
     prefix sharing and speculative decode. Counters reset just before and
     read just after each run. The paged kernel against its plain version on
     calls recorded from the engine: a bf16 decode step from (b), a
-    multi-token step from (c), and a decode step of a float32 cache (the
-    reference's default) from a short run (d)."""
+    multi-token step and the first cold prefill (padded to 4,096 tokens,
+    the plain version on its first row) from (c), and a decode step of a
+    float32 cache (the reference's default) from a short run (d)."""
     from repro_torch.serve import (Engine, Request, ServeConfig, TrafficConfig,
                                    make_shared_prefix_burst, make_workload)
     cfg, params, state, hcfg = model
@@ -2251,19 +2374,32 @@ def engine_path(dev, seed, card, model) -> dict:
         beam=SERVE_BEAM, prefix_sharing=True, spec_decode=True, max_draft=ENGINE_MAX_DRAFT,
         preemption=True, **dict(base, max_len=shared_len)))
     # A step of more than one token a row and at most 64 (a verify step with
-    # drafts, or a suffix prefill): the plain version's logits of a padded
-    # 4,096-token first prefill would not fit.
+    # drafts, or a suffix prefill) that wants_record picks; and the first
+    # template's cold prefill, padded to 4,096 tokens (128 row tiles a (b,
+    # kv head)), held against the plain version on its first row.
     # Last, a few requests on a mostly idle engine whose free list the
     # preemptions have permuted: one of each prompt length, so lanes are
     # free and key counts ragged while drafts replay.
     tail = [dataclasses.replace(r) for n in sorted({r.prompt.size for r in work})
             for r in [next(r for r in work if r.prompt.size == n)]] * 2
-    rec_c = PagedRecorder(eng, "_paged_prefill", "multi-token paged step (bf16 cache)",
-                          max_rows=64)
-    rec_c_wrap, ops_flash = rec_c.wrap(ops.flash_attention), ops.flash_attention
+    rec_c = PagedRecorder(
+        eng, "_paged_prefill", "multi-token paged step (bf16 cache)",
+        pick=lambda tokens, *rest: (tokens.shape[1] <= 64
+                                    and wants_record(tokens.shape[0], *rest)))
+    rec_cold = PagedRecorder(eng, "_paged_prefill", "cold paged prefill (bf16 cache)",
+                             pick=lambda tokens, *_: tokens.shape[1] > 64)
+    rec_c_wrap = rec_c.wrap(rec_cold.wrap(ops.flash_attention))
+    ops_flash = ops.flash_attention
+    multi_paged = collections.Counter()     # multi-token paged launches by kernel
 
     def multi_only(q, k, v, **kw):
-        return ops_flash(q, k, v, **kw) if q.shape[2] == 1 else rec_c_wrap(q, k, v, **kw)
+        if q.shape[2] == 1:
+            return ops_flash(q, k, v, **kw)
+        before = attn_launches_by_kernel()
+        out = rec_c_wrap(q, k, v, **kw)
+        if kw.get("page_table") is not None:
+            multi_paged.update({n: m - before[n] for n, m in attn_launches_by_kernel().items()})
+        return out
     with swapped(ops, flash_attention=multi_only):
         line, handles = run_engine_case(
             "shared_prefix", eng,
@@ -2273,14 +2409,21 @@ def engine_path(dev, seed, card, model) -> dict:
     check(line["share_hits"] >= 1 and line["verify_steps"] >= 1,
           f"shared_prefix: {line['share_hits']} share hits, "
           f"{line['verify_steps']} verify steps")
-    check(line["launches"]["flash_attention_by_kernel"]["fma"] >= 1,
-          "shared_prefix: no multi-token paged step reached the FMA kernel")
+    line["multi_token_paged_by_kernel"] = dict(multi_paged)
+    check(multi_paged["tensor_cores"] >= 1
+          and line["launches"]["flash_attention_by_kernel"]["fma"] == 0,
+          f"shared_prefix: the bf16 multi-token paged steps did not all take the "
+          f"tensor-core kernel: {dict(multi_paged)}, by kernel "
+          f"{line['launches']['flash_attention_by_kernel']}")
     line["lockstep_token_agreement"] = lockstep_agreement(cfg, hcfg, params, state, handles,
                                                          SERVE_BEAM)
     add(line["launches"])
     runs["shared_prefix"] = show("shared_prefix", line)
     recorded["multi_token_bf16"] = check_recorded(rec_c, flush)
-    del eng, rec_c
+    recorded["cold_prefill_bf16"] = check_recorded(rec_cold, flush, plain_rows=1)
+    check(recorded["cold_prefill_bf16"]["path"] == "tensor_cores",
+          f"{rec_cold.name}: took {recorded['cold_prefill_bf16']['path']}")
+    del eng, rec_c, rec_cold
 
     # (d) the reference's default float32 cache: a short run whose second
     # wave reuses the first's pages in LIFO order.

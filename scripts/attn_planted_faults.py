@@ -8,12 +8,15 @@ Run from the root of a checkout, on a machine with one NVIDIA card:
 For each fault below the script copies ``src/`` and ``chip_smoke.py`` into a
 temporary directory, edits the copy's ``flash_attention.cu`` (the checkout is
 never touched), builds it there and, in a child process, holds the copy's
-kernel against the plain version on chip_smoke.py's six bf16 shapes with
-chip_smoke.py's own inputs and error measures. Three faults are planted in
-the tensor-core kernel, which the three bf16 prefill shapes take, and three
-in the decode kernel, which the three decode shapes take; each kernel's
-shapes are the other's control. "none" is the unedited kernel: the largest
-error a sound kernel shows. Prints one JSON line per fault and
+kernel against the plain version on chip_smoke.py's bf16 shapes of phase 8
+(``chip_smoke.attn_calls``) with chip_smoke.py's own inputs and error
+measures. Six faults are planted in the tensor-core kernel, which the bf16
+prefill shapes and the paged verify and suffix steps take, and three in the
+decode kernel, which the decode shapes take; each kernel's shapes are the
+other's control, the contiguous prefills are the control of the two faults
+in the tensor-core kernel's paged path, and the verify step (one row tile)
+that of a fault in the band of a later row tile. "none" is the unedited kernel: the
+largest error a sound kernel shows. Prints one JSON line per fault and
 shape: the largest error, the largest ratio of an error to its per-row bound
 (> 1 fails), the relative RMS difference (> 2^-11 fails) and whether
 chip_smoke.py would pass it. Exits non-zero if the sound kernel fails at a
@@ -33,44 +36,64 @@ ROOT = Path(__file__).resolve().parents[1]
 KERNEL = Path("src/repro_torch/kernels/csrc/flash_attention.cu")
 
 DECODE_SHAPES = ("danube_decode", "gemma2_decode", "stablelm_decode")
+PREFILL_SHAPES = ("danube_prefill", "gemma2_softcap", "stablelm_prefill", "hymba_prefill",
+                  "qwen2vl_prefill")
+PAGED_SHAPES = ("danube_verify_paged", "danube_suffix_paged")
 
 # name: ((text in flash_attention.cu, its replacement), the shapes where the
-# check must fail); the first three in the tensor-core kernel, the others in
-# the decode kernel.
+# check must fail, the shapes where it must pass); the first six in the
+# tensor-core kernel, the others in the decode kernel.
 FAULTS = {
-    "none": (None, ()),
+    "none": (None, (), ()),
     # P_lo dropped: P rounded to bf16 once before P.V, as the reference
     # model does.
     "p_lo_dropped": (
         ("const __nv_bfloat162 residual = __floats2bfloat162_rn(x - hf.x, y - hf.y);",
          "const __nv_bfloat162 residual = __floats2bfloat162_rn(0.f, 0.f);"),
-        ("danube_prefill", "gemma2_softcap")),
+        ("danube_prefill", "gemma2_softcap"), ()),
     # The window's first visited key one KV tile (64 keys) too late.
     "window_start_one_tile_late": (
         ("if (p.window > 0) kv_lo = max((int64_t)0, first_q - p.window + 1);",
          "if (p.window > 0) kv_lo = max((int64_t)0, first_q - p.window + 1 + BK);"),
-        ("danube_prefill",)),
+        ("danube_prefill",), ()),
     # The window one key wider than asked.
     "window_one_key_wider": (
         ("(p.window <= 0 || dq < p.window)", "(p.window <= 0 || dq <= p.window)"),
-        ("danube_prefill",)),
+        ("danube_prefill",), ()),
+    # A K/V copy that skips key_slot: key j read from row j of the arenas,
+    # not through the row's page table.
+    "tc_kv_read_skips_key_slot": (
+        ("const int64_t at = ok ? key_slot<PAGED>(p, b, key) : 0;",
+         "const int64_t at = ok ? key : 0;"),
+        PAGED_SHAPES, PREFILL_SHAPES),
+    # The band, the query positions and the masks from the call's Skv (the
+    # largest row's count) in place of the row's own key count.
+    "tc_band_from_skv": (
+        ("const int64_t n_keys = row_keys(p, b);", "const int64_t n_keys = p.Skv;"),
+        PAGED_SHAPES, PREFILL_SHAPES),
+    # Every block's band ends at the first row tile's last query: a later
+    # row tile (the suffix step's second, every prefill's) misses keys.
+    "tc_band_of_the_first_row_tile": (
+        ("const int64_t last_q = (min(r0 + BQ, R) - 1) / G + off;",
+         "const int64_t last_q = (min((int64_t)BQ, R) - 1) / G + off;"),
+        ("danube_suffix_paged", "danube_prefill"), ("danube_verify_paged",)),
     # The decode kernel drops the last key of each split of the band.
     "decode_last_key_of_a_split_dropped": (
         ("const int64_t kz_end = min(k_end, kz_begin + per);",
          "const int64_t kz_end = min(k_end, kz_begin + per) - 1;"),
-        DECODE_SHAPES),
+        DECODE_SHAPES, ()),
     # The decode kernel's window one key wider than asked (the band's first
     # key, for the range it visits and the per-row mask alike).
     "decode_window_one_key_wider": (
         ("return p.window > 0 ? qa - p.window + 1 : 0;",
          "return p.window > 0 ? qa - p.window : 0;"),
-        ("danube_decode",)),
+        ("danube_decode",), ()),
     # The decode kernel rounds P to bf16 before P.V, as the reference model
     # does.
     "decode_p_rounded_to_bf16": (
         ("const float pw = s[u][r];",
          "const float pw = __bfloat162float(__float2bfloat16(s[u][r]));"),
-        DECODE_SHAPES),
+        DECODE_SHAPES, ()),
 }
 
 
@@ -81,15 +104,13 @@ def child(seed: int) -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    for name, b, h, kv, sq, skv, hd, causal, window, softcap, dtype, cache_len in cs.ATTN_SHAPES:
-        if dtype != torch.bfloat16:
+    for name, _, q, k, v, kw, _, _ in cs.attn_calls(dev, gen):
+        if q.dtype != torch.bfloat16:
             continue
-        q, k, v, scale = cs.attn_inputs(dev, gen, b, h, kv, sq, skv, hd, dtype, cache_len)
-        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
         got = ops.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         errs = cs.attn_errors(got, want)
-        print(json.dumps(dict(shape=name, passes=cs.attn_close(errs, dtype), **errs)))
+        print(json.dumps(dict(shape=name, passes=cs.attn_close(errs, q.dtype), **errs)))
         del q, k, v, got, want
         torch.cuda.empty_cache()
     return 0
@@ -103,7 +124,7 @@ def main() -> int:
     if args.child:
         return child(args.seed)
     ok = True
-    for fault, (edit, must_fail) in FAULTS.items():
+    for fault, (edit, must_fail, must_pass) in FAULTS.items():
         passes = {}
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copytree(ROOT / "src", Path(tmp) / "src",
@@ -129,9 +150,11 @@ def main() -> int:
                 print(json.dumps(dict(fault=fault, **row)))
                 passes[row["shape"]] = row["passes"]
         # A fault leaves the other kernel's shapes as they were, and a window
-        # fault a shape whose window spans all its keys.
+        # fault a shape whose window spans all its keys; a fault in the
+        # paged path leaves the contiguous prefills, its control, passing.
         ok &= (all(passes.values()) if edit is None
-               else not any(passes[shape] for shape in must_fail))
+               else not any(passes[shape] for shape in must_fail)
+               and all(passes[shape] for shape in must_pass))
     return 0 if ok else 1
 
 

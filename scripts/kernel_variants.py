@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device time of edited copies of the ``tree_logprob_all``, ``sampled_head_loss``
-and ``gather_scores`` kernels, in turns on one card: what bounds each.
+"""Device time of edited copies of the ``tree_logprob_all``, ``sampled_head_loss``,
+``gather_scores`` and ``flash_attention`` kernels, in turns on one card: what bounds each.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -15,11 +15,15 @@ before each call) at chip_smoke.py's shapes: ``tree_logprob_all`` at the
 prediction and LM-serving shapes, ``sampled_head_loss`` (adversarial_ns,
 reg 1e-3) at T = 256, m = 2 and T = 2048, m = 17 in both table dtypes,
 ``gather_scores`` at ``chip_smoke.gather_shapes``' calls (also with its
-launch, ``chip_smoke.time_ms``). The unedited kernels run first and last;
-``--only`` keeps the variants, and times the kernel, whose name starts with
-it (``tree``, ``sampled`` or ``gather``). An edited copy computes something
-else: its times say what a part of the kernel costs, never that it is
-right. Every time comes with the launches the profiler saw (of 20).
+launch, ``chip_smoke.time_ms``), ``flash_attention`` on phase 8's calls
+that take the tensor-core kernel (``chip_smoke.attn_calls``: the bf16
+prefills and the engine's paged verify and suffix steps) through its
+wrapper, with its launch and any combine (``chip_smoke.time_ms`` only).
+The unedited kernels run first and last; ``--only`` keeps the variants, and
+times the kernel, whose name starts with it (``tree``, ``sampled``,
+``gather`` or ``attn``). An edited copy computes something else: its times
+say what a part of the kernel costs, never that it is right. Every
+profiler time comes with the launches the profiler saw (of 20).
 
 When the first thing a run times is ``gather_scores`` (``--only gather``),
 it also prints each round of that first timing, the first one included,
@@ -28,12 +32,19 @@ timing of a process reads, as ``chip_smoke.py``'s first timing did before
 ``time_ms`` left its first round untimed.
 
 ``--plans`` also times, in the unedited runs, ``gather_scores`` under the
-plans next to its launch plan's (lanes and rows each doubled and halved).
+plans next to its launch plan's (lanes and rows each doubled and halved),
+and ``flash_attention``'s tensor-core kernel on the paged steps at 1 to 8
+runs a tile (``flash_attention.launch``), each split first held against the
+plain version with chip_smoke.py's bf16 check.
 ``--against DIR`` runs no edited copy: it times the kernels of another
 checkout's ``src/`` (for example the parent commit unpacked with ``git
 archive``) through their public wrappers, in the order DIR, this checkout,
-this checkout, DIR, with this checkout's shapes and timing. Prints one JSON
-line per run (and appends it to ``--out``).
+this checkout, DIR, with this checkout's shapes and timing.
+``--only engine`` times no kernel: each run is its checkout's own
+``chip_smoke.py`` phase 9b (the serving engine at full h2o-danube-3-4b
+width, on that checkout's kernels), whose run lines it prints, so that
+``--only engine --against DIR`` reads two checkouts' kernels end to end.
+Prints one JSON line per run (and appends it to ``--out``).
 """
 from __future__ import annotations
 
@@ -91,8 +102,29 @@ VARIANTS = {
     "gather_empty_body": [
         ("gather_scores.cu", "  const int tid = threadIdx.x;\n",
          "  if (K >= 0) return;\n  const int tid = threadIdx.x;\n")],
+    # flash_attention's tensor-core kernel with the dead-warp test compiled
+    # into every launch (full row tiles too), and into none.
+    "attn_dead_warp_test_everywhere": [
+        ("flash_attention.cu", "const bool dead = tail != 0 && tail <= BQ - 16;",
+         "const bool dead = tail >= 0;")],
+    "attn_no_dead_warp_test": [
+        ("flash_attention.cu", "const bool dead = tail != 0 && tail <= BQ - 16;",
+         "const bool dead = tail < 0;")],
+    # ... and the split's code compiled, with that test, only into the
+    # launches that split or have a warp without rows.
+    "attn_split_code_only_where_split": [
+        ("flash_attention.cu", "const bool dead = tail != 0 && tail <= BQ - 16;",
+         "const bool dead = p.n_split > 1 || (tail != 0 && tail <= BQ - 16);"),
+        ("flash_attention.cu", "  if (p.n_split > 1) {\n    const int per = (n_tiles",
+         "  if (DEAD && p.n_split > 1) {\n    const int per = (n_tiles"),
+        ("flash_attention.cu", "  if (p.n_split > 1) {  // leave this run's state for "
+         "combine_kernel\n#pragma unroll\n    for (int h = 0;",
+         "  if (DEAD && p.n_split > 1) {  // leave this run's state for "
+         "combine_kernel\n#pragma unroll\n    for (int h = 0;")],
     "none_again": [],
 }
+# flash_attention's runs a tile timed by --plans.
+ATTN_SPLITS = (1, 2, 3, 4, 5, 6, 8)
 
 
 def neighbour_plans(plan, n):
@@ -107,12 +139,59 @@ def neighbour_plans(plan, n):
     return out
 
 
+def attn_times(cs, dev, gen, flush, plans: bool) -> dict:
+    """flash_attention through its wrapper on phase 8's calls that take the
+    tensor-core kernel; with ``plans``, its paged calls at each of
+    ATTN_SPLITS runs a tile too, each held against the plain version."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa, ops, ref
+    out = {}
+    for name, _, q, k, v, kw, _, _ in cs.attn_calls(dev, gen):
+        if cs.ATTN_KERNEL[name] != "tensor_cores":
+            continue
+        key = f"flash_attention/{name}"
+        out[key] = dict(ms=cs.time_ms(lambda: ops.flash_attention(q, k, v, **kw), flush))
+        if plans and "page_table" in kw:
+            kvh, n = k.shape[2], kw["max_kv_len"]
+            rest = {x: y for x, y in kw.items() if x != "max_kv_len"}
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            out[key]["plan"] = list(fa.launch_plan(q, k, v, kvh, n, True, kw["window"],
+                                                   cs.device_lib.sm_count(0)))
+            out[key]["ms_by_split"] = {}
+            for runs in ATTN_SPLITS:
+                def call():
+                    return fa.launch(q, k, v, torch.empty_like(q), kvh, n, fa.TENSOR_CORES,
+                                     runs, **rest)
+                errs = cs.attn_errors(call(), want)
+                cs.check(cs.attn_close(errs, q.dtype), f"{name} in {runs} runs: {errs}")
+                out[key]["ms_by_split"][runs] = cs.time_ms(call, flush)
+        del q, k, v
+    return out
+
+
+def engine_child(seed: int) -> int:
+    """The copied chip_smoke.py's own phase 9b, on the copy's kernels."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.launch import serve
+
+    dev = torch.device("cuda")
+    model = serve.build(cs.SERVE_ARCH, reduced=False, head="adversarial_ns", seed=seed + 6,
+                        device=dev)
+    launches = cs.engine_path(dev, seed, cs.card_line(), model)
+    print(json.dumps(dict(card=cs.card_line(), engine_launches=launches)))
+    return 0
+
+
 def child(seed: int, only: str, plans: bool) -> int:
     import torch
     import chip_smoke as cs
     from repro_torch.configs import xc_linear
     from repro_torch.core import tree as tree_lib
     from repro_torch.kernels import ops
+
+    if only == "engine":
+        return engine_child(seed)
 
     def alone(fn, name):
         ms, seen = cs.kernel_device_ms(fn, flush, name)
@@ -168,6 +247,8 @@ def child(seed: int, only: str, plans: bool) -> int:
                         lambda: gsc._launch(w, b, h, ids, res, *other), "gather_scores_kernel")
         del w32, b32, h, ids, w, b
         torch.cuda.empty_cache()
+    if "attn".startswith(only):
+        out.update(attn_times(cs, dev, gen, flush, plans))
     print(json.dumps(dict(card=cs.card_line(), device_ms=out)))
     return 0
 
@@ -196,7 +277,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copytree(src_root / "src", Path(tmp) / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
-            shutil.copy2(ROOT / "chip_smoke.py", tmp)
+            # phase 9b is the checkout's own; the kernels' shapes are this one's
+            shutil.copy2((src_root if args.only == "engine" else ROOT) / "chip_smoke.py", tmp)
             shutil.copy2(__file__, tmp)
             for source, old, new in edits:
                 path = Path(tmp) / CSRC / source
@@ -213,6 +295,9 @@ def main() -> int:
             if run.returncode != 0:
                 print(run.stdout + run.stderr, file=sys.stderr)
                 return 1
+            for engine_line in run.stdout.splitlines()[:-1]:
+                if engine_line.startswith('{"engine_run"'):
+                    print(json.dumps(dict(variant=name, **json.loads(engine_line))))
             line = json.dumps(dict(variant=name, src=str(src_root),
                                    **json.loads(run.stdout.splitlines()[-1])))
             print(line, flush=True)

@@ -25,28 +25,31 @@
 //   ceiling is the cache's bytes.
 // - flash_attention_tc_kernel (namespace tc, below) when q, k and v are all
 //   bf16, a (b, kv head) has more than 16 packed rows (Sq * G > 16), hd <=
-//   128 with hd % 8 == 0, every base pointer and (b, h, s) stride is 16-byte
-//   aligned, and the KV range is not split: bf16 prefill, on tensor cores
-//   (mma.sync m16n8k16 fed by cp.async; P as bf16 hi + lo). Its own ceiling
-//   is the tensor cores' rate; the hi + lo split and hd's padding to a
-//   multiple of 16 make its MMA work ~1.6x the 4*hd operations per pair that
-//   the bound counts.
-// - flash_attention_kernel for every other call (float32, hd > 128 in
-//   prefill, a bf16 call the other two refuse, split-KV prefill): float32
-//   FMAs over tiles staged in shared memory, so its own ceiling is the 67
+//   128 with hd % 8 == 0 and every base pointer and (b, h, s) stride is
+//   16-byte aligned, whether or not the call is ragged, paged or split: bf16
+//   prefill, and the serving engine's multi-token paged steps (suffix
+//   prefills, speculative verify steps), on tensor cores (mma.sync m16n8k16
+//   fed by cp.async; P as bf16 hi + lo). Prefill is bound by the tensor
+//   cores' rate; the hi + lo split and hd's padding to a multiple of 16 make
+//   its MMA work ~1.6x the 4*hd operations per pair that the bound counts. A
+//   paged step of few queries a row is bound by the K/V bytes of the keys
+//   each row's queries see.
+// - flash_attention_kernel for every other call: float32 q or float32 K/V
+//   (the float32 cache), and the bf16 calls the other two refuse (hd > 128
+//   with more than 16 packed rows, hd % 8 != 0, unaligned). Float32 FMAs
+//   over tiles staged in shared memory, so its own ceiling is the 67
 //   TFLOP/s of float32; decode in it is bound by its bytes.
 //
 // Per-row key counts and paged K/V (the serving engine): with kv_lens, row b
 // has kv_lens[b] keys and its query i sits at kv_lens[b] - Sq + i; with a
 // page table as well, key j of row b is arena row page_table[b, j /
 // page_len] * page_len + j % page_len of the (P, page_len, KV, hd) arenas
-// that k and v point at. Every K/V load of the decode and FMA kernels goes
-// through key_slot (the identity without a table), so no page is copied;
-// the tensor-core kernel takes neither (the entry point refuses them). A
-// block's band and its split of the band depend only on its row's key
-// count and n_split, so a row gives the same bits paged and contiguous, and
-// a split past a short row's band leaves the neutral state (m = -1e30,
-// l = 0) that combine_kernel weighs 0.
+// that k and v point at. Every K/V load of the three kernels goes through
+// key_slot (the identity without a table), so no page is copied. A block's
+// band and its split of the band depend only on its row's key count and
+// n_split, so a row gives the same bits paged and contiguous, and a split
+// past a short row's band leaves the neutral state (m = -1e30, l = 0) that
+// combine_kernel weighs 0.
 //
 // Design of the FMA kernel (right and simple first):
 // - GQA without expanding K/V: a block serves one (b, kv head) and packs the
@@ -127,9 +130,12 @@ __device__ __forceinline__ int64_t row_keys(const Params& p, int b) {
 // K/V load goes through here. Contiguous: the key itself. Paged: the arena
 // row of the key's page; a logical page past the table (a padded query of
 // a multi-token step, whose output the caller drops) reads the table's last
-// entry, as the reference's gather clamps.
+// entry, as the reference's gather clamps. kMayPage false: the caller was
+// launched without a table, and the paged branch is not compiled in (the
+// tensor-core kernel's contiguous calls, whose copy loop it slows).
+template <bool kMayPage = true>
 __device__ __forceinline__ int64_t key_slot(const Params& p, int b, int64_t key) {
-  if (p.page_table == nullptr) return key;
+  if (!kMayPage || p.page_table == nullptr) return key;
   const int64_t lp = min(key / p.page_len, (int64_t)p.max_pages - 1);
   return (int64_t)__ldg(p.page_table + (int64_t)b * p.max_pages + lp) * p.page_len +
          key % p.page_len;
@@ -491,10 +497,26 @@ int dispatch(const Params& p, cudaStream_t stream) {
 
 
 // ---------------------------------------------------------------------------
-// The tensor-core path: bf16 q, k, v with more than 16 packed rows (prefill).
+// The tensor-core path: bf16 q, k, v with more than 16 packed rows (prefill,
+// and the engine's multi-token paged steps).
 //
 // A block takes BQ = 128 packed rows of one (b, kv head), 16 rows per warp
-// (8 warps), and walks the KV tiles of its band, 64 keys each. Per tile:
+// (8 warps), and walks the KV tiles of its band, 64 keys each; the band
+// follows the row's own key count (row_keys), and every K/V copy reads the
+// key's row through key_slot, so a paged call reads the arenas in place.
+// With n_split > 1 the band's tiles are cut into n_split runs of whole
+// tiles, one block each along z; each leaves its running max, sum and
+// unnormalised accumulator for combine_kernel, which merges them in a fixed
+// order (the engine's verify step, 8 queries x G = 4 = 32 packed rows of 8 x
+// 8 (b, kv head), is 64 blocks unsplit on 132 SMs). Where the last row tile
+// leaves a warp's 16 rows all past the call's packed rows (a few-query step
+// fills 2 of 8 warps), such a warp still copies its share of each tile but
+// skips the MMAs. That test is compiled only into the kernel built with
+// DEAD, which such launches take; the others (a prefill's row tiles are all
+// full) take the kernel without it, as the page-table reads are compiled
+// only into PAGED launches. (Compiling the split's code only into split
+// launches as well made hymba-1.5b's prefill 1% slower, not faster.) Per
+// tile:
 //   S = Q K^T   mma.sync m16n8k16 (bf16 in, float32 accumulate): each product
 //               of two bf16 values is exact in float32, so S differs from the
 //               plain version only in summation order;
@@ -509,13 +531,15 @@ int dispatch(const Params& p, cudaStream_t stream) {
 //               ~2^-17 of P where P rounded to bf16 once (2^-9) fails the
 //               2^-11 relative-RMS check; V's B fragments by ldmatrix.trans.
 // Q is staged once with cp.async and kept in registers as A fragments. K and
-// V tiles go through a 2-stage ring of 16-byte cp.async.cg copies; the
-// src-size operand zero-fills hd up to HDP (a multiple of 16) and every key
-// at or past Skv. Shared rows are padded by 16 bytes, so the 8 rows an
-// ldmatrix reads fall in 8 distinct bank groups. The last row tiles, which
-// see the most keys under a causal mask, are scheduled first. At hd 128 a
-// thread holds 64 (O) + 32 (S) + 32 (Q) accumulator and fragment registers;
-// ptxas gives it 255 with no spills, so one 8-warp block fits an SM.
+// V tiles go through a 2-stage ring of 16-byte cp.async.cg copies (an arena
+// row is hd contiguous elements, 16-byte aligned, so a paged copy is one
+// too); the src-size operand zero-fills hd up to HDP (a multiple of 16) and
+// every key at or past the row's count. Shared rows are padded by 16 bytes,
+// so the 8 rows an ldmatrix reads fall in 8 distinct bank groups. The last
+// row tiles, which see the most keys under a causal mask, are scheduled
+// first. At hd 128 a thread holds 64 (O) + 32 (S) + 32 (Q) accumulator and
+// fragment registers; ptxas gives it 255 with no spills, so one 8-warp
+// block fits an SM.
 // (Tried at h2o-danube's prefill and no faster: 4 warps of 16 rows, 4 warps
 // of 32 rows over 32-key tiles, Q read from shared memory every tile.) No
 // atomics: two calls give the same bits.
@@ -613,12 +637,12 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// grid = (ceil(Sq * G / BQ), B * KV), the last row tile first (it has the
-// most keys); block = kThreads; dynamic shared memory = Tile::smem_bytes:
-// Q, then the K/V ring. Warp w owns rows 16 w .. 16 w + 15 of the tile.
-// Lane l holds, of each 16 x 8 fragment, rows l / 4 and l / 4 + 8 and
-// columns 2 (l % 4) and 2 (l % 4) + 1.
-template <int HDP>
+// grid = (ceil(Sq * G / BQ), B * KV, n_split), the last row tile first (it
+// has the most keys); block = kThreads; dynamic shared memory =
+// Tile::smem_bytes: Q, then the K/V ring. Warp w owns rows 16 w .. 16 w + 15
+// of the tile. Lane l holds, of each 16 x 8 fragment, rows l / 4 and l / 4 +
+// 8 and columns 2 (l % 4) and 2 (l % 4) + 1.
+template <int HDP, bool PAGED, bool DEAD>
 __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Params p) {
   using T = Tile<HDP>;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -631,7 +655,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Para
   const int64_t r0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * BQ;
   const int b = blockIdx.y / p.KV;
   const int kvh = blockIdx.y % p.KV;
-  const int64_t off = (int64_t)p.Skv - p.Sq;  // row i sits at off + i
+  const int64_t n_keys = row_keys(p, b);
+  const int64_t off = n_keys - p.Sq;  // row i sits at off + i
 
   const bf16* __restrict__ qb = (const bf16*)p.q + b * p.q_sb;
   const bf16* __restrict__ kb = (const bf16*)p.k + b * p.k_sb + kvh * p.k_sh;
@@ -640,12 +665,21 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Para
   // The keys the block's rows can see, in whole tiles from kv_lo.
   const int64_t first_q = r0 / G + off;
   const int64_t last_q = (min(r0 + BQ, R) - 1) / G + off;
-  int64_t kv_lo = 0, kv_hi = p.Skv;
+  int64_t kv_lo = 0, kv_hi = n_keys;
   if (!(p.causal && first_q < 0)) {  // else some row sees no key: visit all
-    if (p.causal) kv_hi = min((int64_t)p.Skv, last_q + 1);
+    if (p.causal) kv_hi = min(n_keys, last_q + 1);
     if (p.window > 0) kv_lo = max((int64_t)0, first_q - p.window + 1);
   }
-  const int n_tiles = (int)((kv_hi - kv_lo + BK - 1) / BK);
+  int n_tiles = (int)((kv_hi - kv_lo + BK - 1) / BK);
+  // This block's run of the band: whole tiles, bounds from the row's own
+  // band and n_split alone. A run past the band is empty and leaves m =
+  // -1e30, l = 0.
+  if (p.n_split > 1) {
+    const int per = (n_tiles + p.n_split - 1) / p.n_split;
+    const int first = (int)blockIdx.z * per;
+    kv_lo += (int64_t)first * BK;
+    n_tiles = max(0, min(n_tiles - first, per));
+  }
 
   auto load_kv = [&](int64_t k0, int stage) {
     bf16* ks = ring + stage * T::kStage;
@@ -656,9 +690,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Para
       if (c >= BK * T::kChunks) break;
       const int row = c / T::kChunks, col = c % T::kChunks * 8;
       const int64_t key = k0 + row;
-      const bool ok = key < p.Skv && col < p.hd;
-      cp_async16(smem_addr(ks + row * T::LD + col), ok ? kb + key * p.k_ss + col : kb, ok);
-      cp_async16(smem_addr(vs + row * T::LD + col), ok ? vb + key * p.v_ss + col : vb, ok);
+      const bool ok = key < n_keys && col < p.hd;
+      const int64_t at = ok ? key_slot<PAGED>(p, b, key) : 0;  // the key's row in k and v
+      cp_async16(smem_addr(ks + row * T::LD + col), ok ? kb + at * p.k_ss + col : kb, ok);
+      cp_async16(smem_addr(vs + row * T::LD + col), ok ? vb + at * p.v_ss + col : vb, ok);
     }
   };
 
@@ -689,6 +724,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Para
   const int quad_row = lane >> 2, quad_col = 2 * (lane & 3);
   const int64_t row0 = r0 + warp * 16 + quad_row;  // this thread's rows: row0, row0 + 8
   const int64_t qpos[2] = {row0 / G + off, (row0 + 8) / G + off};
+  const bool live = !DEAD || r0 + warp * 16 < R;  // some row of this warp is a packed row
   float o[T::kNT][4];
 #pragma unroll
   for (int j = 0; j < T::kNT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -701,6 +737,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Para
     cp_async_commit();
     cp_async_wait<1>();  // this tile's copies are done
     __syncthreads();     // ... for every thread
+    if (!live) continue;  // copies only: no MMA for rows past R
     const bf16* ks = ring + (it % kStages) * T::kStage;
     const bf16* vs = ks + BK * T::LD;
 
@@ -732,7 +769,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Para
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = p.softcap * tanhf(s[j][e] / p.softcap);
     }
-    const bool inside = k0 + BK <= p.Skv && (!p.causal || k0 + BK - 1 <= first_q) &&
+    const bool inside = k0 + BK <= n_keys && (!p.causal || k0 + BK - 1 <= first_q) &&
                         (p.window <= 0 || last_q - k0 < p.window);
     if (!inside) {
 #pragma unroll
@@ -742,7 +779,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Para
           const int64_t key = k0 + 8 * j + quad_col + (e & 1);
           const int64_t dq = qpos[e >> 1] - key;
           const bool seen = (!p.causal || dq >= 0) && (p.window <= 0 || dq < p.window);
-          s[j][e] = key < p.Skv ? (seen ? s[j][e] : kMasked) : -INFINITY;
+          s[j][e] = key < n_keys ? (seen ? s[j][e] : kMasked) : -INFINITY;
         }
     }
 #pragma unroll
@@ -758,7 +795,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Para
       for (int j = 0; j < kJ; ++j)
 #pragma unroll
         for (int e = 2 * h; e < 2 * h + 2; ++e) {
-          s[j][e] = exp2_approx((s[j][e] - m_new) * kLog2e);  // a key past Skv: 0
+          s[j][e] = exp2_approx((s[j][e] - m_new) * kLog2e);  // a key past n_keys: 0
           sum += s[j][e];
         }
       l[h] = alpha * l[h] + sum;
@@ -791,6 +828,28 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Para
     }
   }
 
+  if (p.n_split > 1) {  // leave this run's state for combine_kernel
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t r = row0 + 8 * h;
+      const float sum = quad_sum(l[h]);
+      if (r >= R) continue;
+      const int64_t slot = ((int64_t)blockIdx.y * p.n_split + blockIdx.z) * R + r;
+      if ((lane & 3) == 0) {
+        p.part_ml[2 * slot] = m[h];
+        p.part_ml[2 * slot + 1] = sum;
+      }
+      float* acc = p.part_acc + slot * p.hd;
+#pragma unroll
+      for (int j = 0; j < T::kNT; ++j) {
+        const int d = 8 * j + quad_col;
+        if (d < p.hd)
+          *reinterpret_cast<float2*>(acc + d) = make_float2(o[j][2 * h], o[j][2 * h + 1]);
+      }
+    }
+    return;
+  }
+
   // Finalise as acc / max(l, 1e-30), rounded once to bf16, through out's
   // strides (q's).
   bf16* ob = (bf16*)p.out + b * p.o_sb;
@@ -810,26 +869,38 @@ __global__ void __launch_bounds__(kThreads) flash_attention_tc_kernel(const Para
   }
 }
 
-template <int HDP>
+template <int HDP, bool PAGED, bool DEAD>
 int launch(const Params& p, cudaStream_t stream) {
   using T = Tile<HDP>;
-  auto kernel = flash_attention_tc_kernel<HDP>;
+  auto kernel = flash_attention_tc_kernel<HDP, PAGED, DEAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int64_t rows = (int64_t)p.Sq * (p.H / p.KV);
-  const dim3 grid((unsigned)((rows + BQ - 1) / BQ), (unsigned)(p.B * p.KV));
+  const dim3 grid((unsigned)((rows + BQ - 1) / BQ), (unsigned)(p.B * p.KV),
+                  (unsigned)p.n_split);
   kernel<<<grid, kThreads, T::smem_bytes, stream>>>(p);
+  if (p.n_split > 1) return launch_combine<bf16>(p, stream);
   return (int)cudaGetLastError();
 }
 
-// hd padded to the next of 32, 64, 80, 96, 128.
+// hd padded to the next of 32, 64, 80, 96, 128; PAGED: a page table; DEAD:
+// the last row tile has a warp with no packed row.
+template <bool PAGED, bool DEAD>
+int dispatch_hd(const Params& p, cudaStream_t stream) {
+  if (p.hd <= 32) return launch<32, PAGED, DEAD>(p, stream);
+  if (p.hd <= 64) return launch<64, PAGED, DEAD>(p, stream);
+  if (p.hd <= 80) return launch<80, PAGED, DEAD>(p, stream);
+  if (p.hd <= 96) return launch<96, PAGED, DEAD>(p, stream);
+  return launch<128, PAGED, DEAD>(p, stream);
+}
+
 int dispatch(const Params& p, cudaStream_t stream) {
-  if (p.hd <= 32) return launch<32>(p, stream);
-  if (p.hd <= 64) return launch<64>(p, stream);
-  if (p.hd <= 80) return launch<80>(p, stream);
-  if (p.hd <= 96) return launch<96>(p, stream);
-  return launch<128>(p, stream);
+  const int64_t tail = (int64_t)p.Sq * (p.H / p.KV) % BQ;  // rows of the last row tile
+  const bool dead = tail != 0 && tail <= BQ - 16;
+  if (p.page_table != nullptr)
+    return dead ? dispatch_hd<true, true>(p, stream) : dispatch_hd<true, false>(p, stream);
+  return dead ? dispatch_hd<false, true>(p, stream) : dispatch_hd<false, false>(p, stream);
 }
 
 }  // namespace tc
@@ -1167,8 +1238,8 @@ int dispatch(const Params& p, cudaStream_t stream) {
 // every row its own key count; Skv is then the largest of them, which
 // n_split was computed from. page_table (B x max_pages int32 on the card)
 // needs kv_lens and reads K/V through the table from the arena that k and
-// v point at (k_sb = v_sb = 0, k_ss the stride of an arena row). The
-// tensor-core kernel takes neither. Returns cudaGetLastError() after the
+// v point at (k_sb = v_sb = 0, k_ss the stride of an arena row). All three
+// kernels take both, and any n_split. Returns cudaGetLastError() after the
 // launches (0 when accepted).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, int64_t q_sb,
@@ -1187,8 +1258,6 @@ extern "C" int flash_attention_fwd(
   if (page_table != nullptr &&
       (kv_lens == nullptr || max_pages < 1 || page_len < 1 || k_sb != 0 || v_sb != 0))
     return (int)cudaErrorInvalidValue;
-  if (kernel == 1 && (kv_lens != nullptr || page_table != nullptr))
-    return (int)cudaErrorInvalidValue;
   const Params p{q,    k,    v,    out,  q_sb,          q_sh,     q_ss,
                  k_sb, k_sh, k_ss, v_sb, v_sh,          v_ss,     o_sb,
                  o_sh, o_ss, (int)B, (int)H, (int)KV,   (int)Sq,  (int)Skv,
@@ -1203,7 +1272,7 @@ extern "C" int flash_attention_fwd(
               8 == 0;
   const int64_t rows = Sq * (H / KV);
   if (kernel == 1) {
-    if (!bf16_aligned || rows <= kTx || hd > 128 || n_split != 1)
+    if (!bf16_aligned || rows <= kTx || hd > 128)
       return (int)cudaErrorInvalidValue;
     return tc::dispatch(p, s);
   }

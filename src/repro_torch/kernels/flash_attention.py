@@ -26,33 +26,42 @@ alone:
   h2o-danube's decode its instructions take longer.
 
 - the tensor-core kernel takes bf16 q, k and v with more than 16 packed rows
-  (``Sq * G > 16``: prefill), ``hd <= 128`` and ``hd % 8 == 0``, 16-byte
-  aligned pointers and (b, h, s) strides, and an unsplit KV range. It runs
-  Q Kᵀ and P V on ``mma.sync`` m16n8k16 (bf16 in, float32 accumulate), fed
-  by a ``cp.async`` ring, with P split into bf16 hi + lo parts so that P V
-  keeps ~2^-17 of P's precision. It is bound by the tensor cores' rate; its
+  (``Sq * G > 16``), ``hd <= 128`` and ``hd % 8 == 0``, 16-byte aligned
+  pointers and (b, h, s) strides, whether or not the call is ragged, paged
+  or split: prefill, and the serving engine's multi-token paged steps
+  (suffix prefills, speculative verify steps). It runs Q Kᵀ and P V on
+  ``mma.sync`` m16n8k16 (bf16 in, float32 accumulate), fed by a
+  ``cp.async`` ring, with P split into bf16 hi + lo parts so that P V keeps
+  ~2^-17 of P's precision. Prefill is bound by the tensor cores' rate; its
   MMA work is ~1.6x the operations the bound counts (hd padded to a
-  multiple of 16, two MMAs for P V).
-- the FMA kernel takes every other call (float32, hd > 128 in prefill, bf16
-  operands the other two refuse) and computes in float32 FMAs over tiles
-  staged in shared memory, so prefill in it is bound by the 67 TFLOP/s of
-  float32 and decode by the cache's bytes. Where its blocks are too few to
-  fill the card, each tile's KV range is split over several blocks and a
-  second kernel merges their partial softmax states in a fixed order
-  (split-KV), as it does for the decode kernel.
+  multiple of 16, two MMAs for P V). A paged step of few queries a row is
+  bound by the K/V bytes of the keys each row's queries see (what
+  ``cost(..., kv_lens=..., index_bytes=...)`` counts); where its 128-row
+  tiles are too few to fill the card its KV range is split
+  (:func:`tensor_core_splits`).
+- the FMA kernel takes every other call: float32 q, a float32 cache, and
+  the bf16 calls the other two refuse (``hd > 128`` with more than 16
+  packed rows, ``hd % 8 != 0``, unaligned operands). It computes in
+  float32 FMAs over tiles staged in shared memory, so prefill in it is
+  bound by the 67 TFLOP/s of float32 and decode by the cache's bytes. Where
+  its blocks are too few to fill the card, each tile's KV range is split
+  over several blocks (:func:`n_splits`).
+
+All three split alike: the blocks that share a tile's KV range each leave
+their partial softmax state, and a second kernel merges them in a fixed
+order (split-KV). :func:`launch_plan` names a call's kernel and split.
 
 Per-row key counts and a page table (the serving engine's paged cache):
 ``kv_lens`` (B,) gives row b its own ``Skv_b`` (its query i sits at
 ``Skv_b - Sq + i``; keys at or past ``Skv_b`` are never read), and
 ``page_table`` (B, max_pages) with the arenas (P, page_len, KV, hd) as k
 and v reads key j of row b from arena row ``page_table[b, j // page_len] *
-page_len + j % page_len``, inside the kernel: no page is copied. The decode
-and FMA kernels take both, through one address helper every K/V load goes
-through; the tensor-core kernel takes neither, so such a call goes to the
-decode kernel when it has at most 16 packed rows and to the FMA kernel
-otherwise. Splits are computed from ``max_kv_len``, which the caller knows
-on the host, and a row's split bounds depend only on its own key count and
-the split count, so a row gives the same bits paged and contiguous.
+page_len + j % page_len``, inside the kernel: no page is copied. All three
+kernels take both, through one address helper every K/V load goes through,
+and neither changes which kernel a call takes. Splits are computed from
+``max_kv_len``, which the caller knows on the host, and a row's split
+bounds depend only on its own key count and the split count, so a row
+gives the same bits paged and contiguous.
 
 None uses atomics: two calls give the same bits. The wrapper takes any
 Sq, Skv and hd <= 256 and any strides over (b, h, s) with the last
@@ -91,11 +100,16 @@ TENSOR_CORE_MAX_HEAD_DIM = 128
 # when a (b, kv head) has at most 16, else 64; KV tiles of 64 keys.
 _FEW_ROWS, _BQ_FEW, _BQ, _BK = 16, 16, 64, 64
 _MIN_TILES_PER_SPLIT = 4
+# The tensor-core kernel's tile: 128 packed rows by 64 keys. One block
+# holds an SM (255 registers a thread), so its KV range is split only where
+# the unsplit grid leaves over half the SMs idle, into at most this many
+# blocks an SM.
+_TC_BQ, _TC_BLOCKS_PER_SM = 128, 3
 # The decode kernel: a block per (b, kv head) and split of the KV range,
 # split so that every SM gets about this many blocks in one wave, each
 # split at least this many keys long.
 _DECODE_BLOCKS_PER_SM, _DECODE_MIN_KEYS = 3, 256
-_FMA, _TENSOR_CORES, _DECODE = 0, 1, 2
+FMA, TENSOR_CORES, DECODE = 0, 1, 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,8 +155,9 @@ def cost(b, h, kv, sq, skv, hd, causal, window, q_itemsize, kv_itemsize,
 
 
 def n_splits(b, h, kv, sq, skv, causal, window, sm_count) -> int:
-    """How many blocks share each query tile's KV range: enough for two
-    blocks per SM, each with at least 4 KV tiles of the tile's band."""
+    """How many blocks of the FMA kernel share each query tile's KV range:
+    enough for two blocks per SM, each with at least 4 KV tiles of the
+    tile's band."""
     rows = sq * (h // kv)
     bq = _BQ_FEW if rows <= _FEW_ROWS else _BQ
     blocks = -(-rows // bq) * b * kv
@@ -151,6 +166,30 @@ def n_splits(b, h, kv, sq, skv, causal, window, sm_count) -> int:
         band = min(skv, window + bq // (h // kv))
     tiles = -(-band // _BK)
     return max(1, min(-(-2 * sm_count // blocks), tiles // _MIN_TILES_PER_SPLIT))
+
+
+def tensor_core_splits(b, h, kv, sq, skv, causal, window, sm_count) -> int:
+    """How many blocks of the tensor-core kernel share each 128-row tile's
+    KV range. 1 where the unsplit blocks fill over half the SMs (there the
+    partial accumulators, a packed row a run, written and merged cost more
+    than the idle SMs: the engine's suffix prefill, 128 blocks, is slower
+    split; ``scripts/kernel_variants.py --only attn --plans`` times it);
+    else ``_TC_BLOCKS_PER_SM * sm_count // blocks`` runs, so that the split
+    grid holds at most ``_TC_BLOCKS_PER_SM`` blocks an SM, and no more runs
+    than leave each at least 4 KV tiles of 64 keys of the tile's band.
+    h2o-danube-3-4b's verify step (8 rows x 8 KV heads, 8 queries x G = 4 =
+    32 packed rows, ~2,150 keys) is 64 blocks unsplit and takes 6 runs: 384
+    blocks, 2.9 blocks an SM on 132 SMs."""
+    rows = sq * (h // kv)
+    blocks = -(-rows // _TC_BQ) * b * kv
+    if 2 * blocks > sm_count:
+        return 1
+    band = skv
+    if causal and window > 0 and sq <= skv:
+        band = min(skv, window + _TC_BQ // (h // kv))
+    tiles = -(-band // _BK)
+    return max(1, min(_TC_BLOCKS_PER_SM * sm_count // blocks,
+                      tiles // _MIN_TILES_PER_SPLIT))
 
 
 def decode_splits(b, h, kv, sq, skv, causal, window, sm_count) -> int:
@@ -184,14 +223,31 @@ def decode_path(q, k, v, kv_heads=None) -> bool:
     return sq * (h // kv) <= _FEW_ROWS and _bf16_aligned(q, k, v)
 
 
-def tensor_core_path(q, k, v, split: int) -> bool:
+def tensor_core_path(q, k, v, kv_heads=None) -> bool:
     """Whether a call takes the tensor-core kernel: q, k and v all bf16,
     more than 16 packed rows (``Sq * G > 16``, so decode takes the decode
     kernel), ``hd <= 128`` with ``hd % 8 == 0``, every base pointer and
-    (b, h, s) stride 16-byte aligned, and ``split`` (:func:`n_splits`) 1."""
+    (b, h, s) stride 16-byte aligned; ragged, paged or split alike.
+    ``kv_heads`` as in :func:`decode_path`."""
     _, h, sq, hd = q.shape
-    return (sq * (h // k.shape[1]) > _FEW_ROWS and hd <= TENSOR_CORE_MAX_HEAD_DIM
-            and _bf16_aligned(q, k, v) and split == 1)
+    kv = k.shape[1] if kv_heads is None else kv_heads
+    return (sq * (h // kv) > _FEW_ROWS and hd <= TENSOR_CORE_MAX_HEAD_DIM
+            and _bf16_aligned(q, k, v))
+
+
+def launch_plan(q, k, v, kv, skv, causal, window, sm_count) -> Tuple[int, int]:
+    """(kernel, n_split) of a CUDA call: the decode kernel where
+    :func:`decode_path` holds, else the tensor-core kernel where
+    :func:`tensor_core_path` holds, else the FMA kernel, each with its own
+    split count. ``kv``: the call's KV heads; ``skv``: its keys, the largest
+    row's for a ragged call. Key counts and page tables do not enter the
+    choice."""
+    b, h, sq, _ = q.shape
+    if decode_path(q, k, v, kv_heads=kv):
+        return DECODE, decode_splits(b, h, kv, sq, skv, causal, window, sm_count)
+    if tensor_core_path(q, k, v, kv_heads=kv):
+        return TENSOR_CORES, tensor_core_splits(b, h, kv, sq, skv, causal, window, sm_count)
+    return FMA, n_splits(b, h, kv, sq, skv, causal, window, sm_count)
 
 
 def _check(q, k, v, kv_lens, page_table, max_kv_len):
@@ -294,8 +350,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         device_lib.record_launch("flash_attention", *cost(
             b, h, kv, sq, skv, hd, causal, window, q.element_size(), k.element_size(), lens))
         return out
-    lib = _lib()
-    sms = device_lib.sm_count(q.device.index)
+    kernel, split = launch_plan(q, k, v, kv, skv, causal, window,
+                                device_lib.sm_count(q.device.index))
+    return launch(q, k, v, out, kv, skv, kernel, split, causal=causal, window=window,
+                  softcap=softcap, scale=scale, kv_lens=kv_lens, page_table=page_table)
+
+
+def launch(q, k, v, out, kv, skv, kernel, split, *, causal=True, window=0, softcap=0.0,
+           scale=None, kv_lens=None, page_table=None):
+    """Launch ``kernel`` (FMA, TENSOR_CORES or DECODE) with ``split`` runs of
+    each tile's KV range into ``out`` through the C entry, which refuses a
+    kernel whose rule the operands do not meet; counts it. The operands as
+    :func:`flash_attention` checks them (CUDA tensors); ``kv``: the KV
+    heads, ``skv``: the largest row's key count; ``scale`` defaults to 1 /
+    sqrt(hd). The wrapper's own launch, and a caller's that times or
+    checks one kernel and split on the same call."""
+    b, h, sq, hd = q.shape
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(hd)
     paged = page_table is not None
     if paged:   # (b, h, s) strides of the arenas: no batch, arena rows
         k_strides = (0, k.stride(2), k.stride(1))
@@ -304,18 +375,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     else:
         k_strides, v_strides = k.stride()[:3], v.stride()[:3]
         max_pages = page_len = 0
-    if decode_path(q, k, v, kv_heads=kv):
-        kernel, split = _DECODE, decode_splits(b, h, kv, sq, skv, causal, window, sms)
-    else:
-        split = n_splits(b, h, kv, sq, skv, causal, window, sms)
-        ragged = kv_lens is not None
-        kernel = (_TENSOR_CORES if not ragged and tensor_core_path(q, k, v, split)
-                  else _FMA)
     part_ml = part_acc = None
     if split > 1:
         slots = b * kv * split * sq * (h // kv)
         part_ml = torch.empty(2 * slots, dtype=torch.float32, device=q.device)
         part_acc = torch.empty(slots * hd, dtype=torch.float32, device=q.device)
+    lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.flash_attention_fwd(
@@ -332,9 +397,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     flash_attention.launches += 1
     if paged:
         flash_attention.paged_launches += 1
-    if kernel == _DECODE:
+    if kernel == DECODE:
         flash_attention.decode_launches += 1
-    elif kernel == _TENSOR_CORES:
+    elif kernel == TENSOR_CORES:
         flash_attention.tensor_core_launches += 1
     else:
         flash_attention.fma_launches += 1

@@ -70,12 +70,12 @@ def _qkv(case, device):
 @pytest.mark.parametrize("case", GEOMETRIES, ids=IDS)
 def test_geometry_selects_its_kernel(case):
     """Decode (Sq * G <= 16) takes the decode kernel, prefill the
-    tensor-core kernel (hd <= 128, unsplit); on CPU tensors the wrapper
+    tensor-core kernel (hd <= 128); on CPU tensors the wrapper
     runs the plain version."""
     q, k, v = _qkv(case, torch.device("cpu"))
     decode = case[4] == 1
     assert decode_path(q, k, v) == decode
-    assert tensor_core_path(q, k, v, split=1) == (not decode)
+    assert tensor_core_path(q, k, v) == (not decode)
     if case[4] * case[5] <= 600 * 600:
         window = case[7]
         before = ops.flash_attention.launches

@@ -34,7 +34,9 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import decode_path, decode_splits, tensor_core_path
+from repro_torch.kernels.flash_attention import (DECODE, FMA, TENSOR_CORES, decode_path,
+                                                 decode_splits, launch_plan,
+                                                 tensor_core_path, tensor_core_splits)
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -188,41 +190,63 @@ def test_wrapper_rejects_bad_operands(bad):
         ops.flash_attention(q, k, v)
 
 
-def _layout(kind, b, h, kv, sq, skv, hd, dtype=torch.bfloat16):
+def _layout(kind, b, h, kv, sq, skv, hd, dtype=torch.bfloat16, kv_dtype=None):
     """q, k, v as a call passes them: "contiguous" (B, heads, S, hd) tensors,
-    or "model" (the model's (B, S, heads, hd) projection and a (B, S + 32,
-    KV, hd) cache sliced to Skv, permuted)."""
+    "model" (the model's (B, S, heads, hd) projection and a (B, S + 32, KV,
+    hd) cache sliced to Skv, permuted), or "arena" (the projection and the
+    engine's (P, 16, KV, hd) arenas, enough pages for Skv keys a row and a
+    sink). ``kv_dtype`` defaults to ``dtype``."""
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
     if kind == "contiguous":
         return (torch.zeros((b, h, sq, hd), dtype=dtype),
-                torch.zeros((b, kv, skv, hd), dtype=dtype),
-                torch.zeros((b, kv, skv, hd), dtype=dtype))
-    cache = torch.zeros((2, b, skv + 32, kv, hd), dtype=dtype)
+                torch.zeros((b, kv, skv, hd), dtype=kv_dtype),
+                torch.zeros((b, kv, skv, hd), dtype=kv_dtype))
     q = torch.zeros((b, sq, h, hd), dtype=dtype).transpose(1, 2)
+    if kind == "arena":
+        arena = torch.zeros((2, b * -(-skv // 16) + 1, 16, kv, hd), dtype=kv_dtype)
+        return q, arena[0], arena[1]
+    cache = torch.zeros((2, b, skv + 32, kv, hd), dtype=kv_dtype)
     return q, cache[0, :, :skv].transpose(1, 2), cache[1, :, :skv].transpose(1, 2)
 
 
-# (name, layout, B, H, KV, Sq, Skv, hd, dtype, split, tensor-core path?)
+BF16, F32 = torch.bfloat16, torch.float32
+# (name, layout, B, H, KV, Sq, Skv, hd, q dtype, kv dtype, window, kernel,
+#  split): Skv is the largest row's key count of a ragged or paged call.
 PATH_CASES = [
-    ("danube_prefill", "model", 1, 32, 8, 300, 300, 120, torch.bfloat16, 1, True),
-    ("stablelm_prefill", "model", 1, 32, 32, 70, 70, 80, torch.bfloat16, 1, True),
-    ("gemma2_chunk_after_cache", "model", 1, 32, 16, 9, 100, 128, torch.bfloat16, 1, True),
-    ("contiguous_hd_64", "contiguous", 2, 4, 4, 300, 300, 64, torch.bfloat16, 1, True),
-    ("packed_rows_17", "contiguous", 1, 1, 1, 17, 17, 64, torch.bfloat16, 1, True),
-    ("packed_rows_16", "contiguous", 1, 4, 1, 4, 40, 64, torch.bfloat16, 1, False),
-    ("danube_decode", "model", 4, 32, 8, 1, 1000, 120, torch.bfloat16, 1, False),
-    ("float32_prefill", "contiguous", 1, 4, 2, 300, 300, 64, torch.float32, 1, False),
-    ("hd_136", "contiguous", 1, 4, 2, 300, 300, 136, torch.bfloat16, 1, False),
-    ("hd_not_multiple_of_8", "contiguous", 1, 4, 2, 300, 300, 36, torch.bfloat16, 1, False),
-    ("split_kv", "contiguous", 1, 4, 2, 300, 300, 64, torch.bfloat16, 2, False),
+    ("danube_prefill", "model", 1, 32, 8, 300, 300, 120, BF16, BF16, 0, TENSOR_CORES, 1),
+    ("stablelm_prefill", "model", 1, 32, 32, 70, 70, 80, BF16, BF16, 0, TENSOR_CORES, 1),
+    ("gemma2_chunk_after_cache", "model", 1, 32, 16, 9, 100, 128, BF16, BF16, 0,
+     TENSOR_CORES, 1),
+    ("contiguous_hd_64", "contiguous", 2, 4, 4, 300, 300, 64, BF16, BF16, 0, TENSOR_CORES, 1),
+    ("packed_rows_17", "contiguous", 1, 1, 1, 17, 17, 64, BF16, BF16, 0, TENSOR_CORES, 1),
+    ("packed_rows_16", "contiguous", 1, 4, 1, 4, 40, 64, BF16, BF16, 0, DECODE, 1),
+    ("danube_decode", "model", 4, 32, 8, 1, 1000, 120, BF16, BF16, 0, DECODE, 3),
+    ("float32_prefill", "contiguous", 1, 4, 2, 300, 300, 64, F32, F32, 0, FMA, 1),
+    ("hd_136", "contiguous", 1, 4, 2, 300, 300, 136, BF16, BF16, 0, FMA, 1),
+    ("hd_not_multiple_of_8", "contiguous", 1, 4, 2, 300, 300, 36, BF16, BF16, 0, FMA, 1),
+    # 2 blocks over 47 KV tiles: split, on tensor cores all the same.
+    ("split_kv", "contiguous", 1, 4, 2, 20, 3000, 64, BF16, BF16, 0, TENSOR_CORES, 11),
+    # The engine's multi-token steps at h2o-danube's heads: a ragged call
+    # on the slotted cache and a verify step on the arenas take tensor
+    # cores; a float32 cache or float32 queries take the FMA kernel.
+    ("ragged_contiguous_multi_token", "model", 4, 32, 8, 8, 2200, 120, BF16, BF16, 4096,
+     TENSOR_CORES, 8),
+    ("paged_arena_multi_token", "arena", 8, 32, 8, 8, 2200, 120, BF16, BF16, 4096,
+     TENSOR_CORES, 6),
+    ("f32_cache_multi_token", "arena", 8, 32, 8, 8, 2200, 120, BF16, F32, 4096, FMA, 5),
+    ("f32_q_multi_token", "model", 4, 32, 8, 8, 2200, 120, F32, BF16, 4096, FMA, 8),
 ]
 
 
 @pytest.mark.parametrize("case", PATH_CASES, ids=[c[0] for c in PATH_CASES])
 def test_tensor_core_path(case):
-    """Which kernel a CUDA call takes, read from the operands alone."""
-    name, kind, b, h, kv, sq, skv, hd, dtype, split, want = case
-    q, k, v = _layout(kind, b, h, kv, sq, skv, hd, dtype)
-    assert tensor_core_path(q, k, v, split) is want
+    """Which kernel a CUDA call takes and how many runs split each tile's
+    KV range on 132 SMs, read from the operands alone: ragged, paged and
+    split calls take the tensor-core kernel by the same rule."""
+    name, kind, b, h, kv, sq, skv, hd, qdt, kvdt, window, kernel, split = case
+    q, k, v = _layout(kind, b, h, kv, sq, skv, hd, qdt, kvdt)
+    assert tensor_core_path(q, k, v, kv_heads=kv) is (kernel == TENSOR_CORES)
+    assert launch_plan(q, k, v, kv, skv, True, window, 132) == (kernel, split)
 
 
 @pytest.mark.parametrize("bad", ["q_pointer", "k_pointer", "q_stride", "v_stride",
@@ -231,7 +255,7 @@ def test_tensor_core_path_needs_aligned_bf16_operands(bad):
     """A bf16 prefill that meets the rule but for one operand's 16-byte
     alignment or dtype takes the FMA kernel."""
     q, k, v = _layout("model", 1, 8, 2, 100, 100, 64)
-    assert tensor_core_path(q, k, v, 1)
+    assert tensor_core_path(q, k, v)
     if bad == "q_pointer":      # base pointer 2 bytes past an aligned one
         q = torch.zeros(q.numel() + 1, dtype=q.dtype)[1:].view(q.shape)
     elif bad == "k_pointer":
@@ -243,7 +267,7 @@ def test_tensor_core_path_needs_aligned_bf16_operands(bad):
         v = torch.zeros((1, 100, 2, 68), dtype=v.dtype)[..., :64].transpose(1, 2)
     else:
         v = v.float()
-    assert not tensor_core_path(q, k, v, 1)
+    assert not tensor_core_path(q, k, v)
 
 
 # (name, layout, B, H, KV, Sq, Skv, hd, dtype, decode path?)
@@ -268,7 +292,7 @@ def test_decode_path(case):
     name, kind, b, h, kv, sq, skv, hd, dtype, want = case
     q, k, v = _layout(kind, b, h, kv, sq, skv, hd, dtype)
     assert decode_path(q, k, v) is want
-    assert not (decode_path(q, k, v) and tensor_core_path(q, k, v, 1))
+    assert not (decode_path(q, k, v) and tensor_core_path(q, k, v))
 
 
 @pytest.mark.parametrize("bad", ["q_pointer", "k_pointer", "q_stride", "v_stride",
@@ -303,36 +327,79 @@ def test_decode_split_counts():
     assert decode_splits(64, 32, 8, 1, 4640, True, 4096, 132) == 1      # blocks enough
 
 
-def _tc_emulation(q, k, v, *, split_p, window=0, block=64):
+def _tc_emulation(q, k, v, *, split_p, window=0, block=64, rows=128, kv_lens=None,
+                  page_table=None, n_split=1):
     """The tensor-core kernel's numerics on the CPU, causal, scale 1: bf16
-    q, k, v; S in float32 (exact bf16 products); an online softmax over KV
-    tiles of ``block`` keys in float32; P V with P rounded to bf16 (hi) and,
-    with ``split_p``, its residual rounded to bf16 (lo), each product exact,
-    summed in float32; finalised as acc / l and rounded once to bf16."""
+    q, k, v; a block holds ``rows`` packed rows (query i, head g of a KV
+    head's group: row i * G + g) of one (b, kv head) and visits its band,
+    from its first and last query and the row's key count (``kv_lens[b]``,
+    default all of k's; all keys where its first query precedes key 0), in
+    tiles of ``block`` keys cut into ``n_split`` runs of whole tiles. Keys
+    are read through ``page_table`` from arenas (P, page_len, KV, hd) when
+    one is given. Per run: S in float32 (exact bf16 products), an online
+    softmax in float32, P V with P rounded to bf16 (hi) and, with
+    ``split_p``, its residual rounded to bf16 (lo), each product exact,
+    summed in float32. The runs are merged in order as ``combine_kernel``
+    does, finalised as acc / l and rounded once to bf16."""
     b, h, sq, hd = q.shape
-    g = h // k.shape[1]
-    kf = k.float().repeat_interleave(g, dim=1)
-    vf = v.float().repeat_interleave(g, dim=1)
-    qpos = torch.arange(sq) + (k.shape[2] - sq)
-    m = torch.full((b, h, sq, 1), -1e30)
-    l = torch.zeros((b, h, sq, 1))
-    acc = torch.zeros((b, h, sq, hd))
-    for k0 in range(0, k.shape[2], block):
-        s = q.float() @ kf[:, :, k0:k0 + block].transpose(-1, -2)
-        delta = qpos[:, None] - torch.arange(k0, k0 + s.shape[-1])[None, :]
-        seen = (delta >= 0) & ((delta < window) if window else True)
-        s = torch.where(seen, s, torch.tensor(-1e30))
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
-        hi = p.bfloat16().float()
-        pv = hi @ vf[:, :, k0:k0 + block]
-        if split_p:
-            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + block]
-        l = alpha * l + p.sum(-1, keepdim=True)
-        acc = alpha * acc + pv
-        m = m_new
-    return (acc / l.clamp_min(1e-30)).bfloat16()
+    kvh = k.shape[2] if page_table is not None else k.shape[1]
+    g = h // kvh
+    packed = torch.arange(sq * g)
+    out = torch.empty(q.shape, dtype=torch.bfloat16)
+    for r in range(b):
+        n = int(kv_lens[r]) if kv_lens is not None else k.shape[2]
+        keys = torch.arange(n)
+        if page_table is not None:      # key_slot: the arena row of each key
+            page_len = k.shape[1]
+            page = page_table[r, (keys // page_len).clamp_max(page_table.shape[1] - 1)]
+            slot = page.long() * page_len + keys % page_len
+            kr, vr = (a.reshape(-1, kvh, hd)[slot].transpose(0, 1) for a in (k, v))
+        else:
+            kr, vr = k[r, :, :n], v[r, :, :n]
+        kf, vf = kr.float(), vr.float()
+        for kh in range(kvh):
+            for r0 in range(0, sq * g, rows):
+                sel = packed[r0:r0 + rows]
+                heads, qpos = kh * g + sel % g, sel // g + (n - sq)
+                lo, hi = 0, n
+                if qpos[0] >= 0:        # else some row sees no key: visit all
+                    hi = min(n, int(qpos[-1]) + 1)
+                    if window:
+                        lo = max(0, int(qpos[0]) - window + 1)
+                tiles = -(-(hi - lo) // block)
+                per = -(-tiles // n_split)
+                qr = q[r, heads, sel // g].float()
+                runs = []
+                for z in range(n_split):
+                    m = torch.full((len(sel), 1), -1e30)
+                    l = torch.zeros((len(sel), 1))
+                    acc = torch.zeros((len(sel), hd))
+                    for t in range(z * per, min(tiles, (z + 1) * per)):
+                        k0 = lo + t * block
+                        k1 = min(k0 + block, n)     # keys past the row's count weigh 0
+                        s = qr @ kf[kh, k0:k1].T
+                        delta = qpos[:, None] - torch.arange(k0, k1)[None, :]
+                        seen = (delta >= 0) & ((delta < window) if window else True)
+                        s = torch.where(seen, s, torch.tensor(-1e30))
+                        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(s - m_new)
+                        hi_p = p.bfloat16().float()
+                        pv = hi_p @ vf[kh, k0:k1]
+                        if split_p:
+                            pv = pv + (p - hi_p).bfloat16().float() @ vf[kh, k0:k1]
+                        l = alpha * l + p.sum(-1, keepdim=True)
+                        acc = alpha * acc + pv
+                        m = m_new
+                    runs.append((m, l, acc))
+                top = torch.stack([m for m, _, _ in runs]).amax(0)
+                num, den = torch.zeros((len(sel), hd)), torch.zeros((len(sel), 1))
+                for m, l, acc in runs:
+                    w = torch.exp(m - top)
+                    den = den + w * l
+                    num = num + w * acc
+                out[r, heads, sel // g] = (num / den.clamp_min(1e-30)).bfloat16()
+    return out
 
 
 @pytest.mark.parametrize("split_p", [True, False], ids=["p_hi_plus_lo", "p_rounded_once"])
@@ -351,6 +418,61 @@ def test_tensor_core_p_split_meets_bf16_bound(split_p):
     want = tref.flash_attention_ref(q, k, v, window=window, scale=1.0).float()
     rel_rms = float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
     assert (rel_rms <= 2.0 ** -11) is split_p, rel_rms
+
+
+# (name, Sq, key counts, expected runs): G = 4, so 8 queries are 32 packed
+# rows (one row tile, a verify step) and 40 queries 160 (two row tiles, a
+# suffix prefill); the last row is a free lane (an all-sink table, Sq keys).
+PAGED_SPLIT_CASES = [
+    ("verify_one_row_tile", 8, [700, 1000, 390, 0], 3),
+    ("suffix_two_row_tiles", 40, [700, 1000, 90, 0], 3),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES, ids=[c[0] for c in PAGED_SPLIT_CASES])
+def test_tensor_core_split_by_row_meets_bf16_bound_on_paged_rows(case):
+    """The engine's multi-token steps at a small width: 4 rows, G = 4,
+    ragged key counts over pages of 16 in random order, a window. Each
+    block's band, from its own rows and their row's key count, cut into
+    runs and merged in order, meets the card check's bound against the
+    plain version (one bf16 ulp of each row's scale, 2^-11 relative RMS),
+    as the unsplit kernel does, and gives the same bits on the arenas as on
+    the same keys gathered into a contiguous cache: the result does not
+    depend on where the keys lie."""
+    from test_torch_paged_attention import _contiguous, _paged
+    name, sq, lens, runs = case
+    hd, window = 64, 800
+    pc = _paged(31, 4, 8, 2, sq, lens, hd, 16)
+    q = pc["q"] * torch.tensor(hd ** -0.5).bfloat16()
+    k, v, lens, table, n = pc["k"], pc["v"], pc["kv_lens"], pc["page_table"], pc["max_kv_len"]
+    kc, vc = _contiguous(pc)
+    want = tref.flash_attention_ref(q, k, v, window=window, scale=1.0, kv_lens=lens,
+                                    page_table=table, max_kv_len=n)
+    split = tensor_core_splits(4, 8, 2, sq, n, True, window, 132)
+    assert split == runs
+    got = _tc_emulation(q, k, v, split_p=True, window=window, kv_lens=lens,
+                        page_table=table, n_split=split)
+    flat = _tc_emulation(q, kc, vc, split_p=True, window=window, kv_lens=lens, n_split=split)
+    whole = _tc_emulation(q, k, v, split_p=True, window=window, kv_lens=lens,
+                          page_table=table)
+    assert torch.equal(got, flat)
+    assert _card_close(got, want) and _card_close(whole, want)
+    assert not torch.equal(got, whole)      # the runs really were merged
+
+
+def test_tensor_core_split_counts():
+    """The tensor-core kernel splits on its own 128-row tiles, only where
+    the unsplit blocks fill at most half of 132 SMs: then into about three
+    blocks an SM in whole waves, every run at least 4 KV tiles of the band.
+    The engine's steps at h2o-danube-3-4b's heads (32 over 8, window 4,096,
+    8 rows): a verify step of 8 queries (64 blocks) splits; a suffix prefill
+    of 64 (128 blocks) and the lock-step prefill (4 x 4,608) do not."""
+    assert tensor_core_splits(8, 32, 8, 8, 2200, True, 4096, 132) == 6      # verify
+    assert tensor_core_splits(8, 32, 8, 64, 2112, True, 4096, 132) == 1     # suffix
+    assert tensor_core_splits(4, 32, 8, 8, 2200, True, 4096, 132) == 8      # 4 rows
+    assert tensor_core_splits(8, 32, 8, 8, 200, True, 4096, 132) == 1      # short band
+    assert tensor_core_splits(4, 32, 8, 4608, 4608, True, 4096, 132) == 1
+    assert tensor_core_splits(1, 4, 2, 20, 3000, True, 0, 132) == 11
 
 
 # ---------------------------------------------------------------------------
@@ -392,8 +514,9 @@ CARD_CASES = [
     # The tensor-core kernel (bf16, more than 16 packed rows, hd <= 128):
     # hd 64 / 80 / 120 / 128 / 40 and 8 (padded), G = 1 / 2 / 4 / 8, packed
     # rows not a multiple of the 64-row tile, a window edge inside a KV
-    # tile, a chunk after a cache, rows with no visible key, softcap; each
-    # with enough blocks that the KV range is not split.
+    # tile, a chunk after a cache, rows with no visible key, softcap; the
+    # last three with so few blocks that the KV range is split (11 runs, 16
+    # runs of a window's band, 2 runs over rows that see no key).
     ("tc_hd64_g1", 2, 4, 4, 300, 300, 64, True, 0, 0.0, "bfloat16", "bfloat16"),
     ("tc_hd80_g2_not_causal", 3, 8, 4, 1000, 1000, 80, False, 0, 0.0, "bfloat16", "bfloat16"),
     ("tc_hd120_g4_window_mid_tile", 1, 8, 2, 1000, 1000, 120, True, 100, 0.0,
@@ -406,6 +529,9 @@ CARD_CASES = [
     ("tc_not_causal_window", 1, 4, 1, 150, 150, 64, False, 33, 0.0, "bfloat16", "bfloat16"),
     ("tc_hd8_g8_fewer_keys_than_a_tile", 1, 8, 1, 3, 40, 8, True, 0, 0.0, "bfloat16", "bfloat16"),
     ("tc_window_1", 1, 4, 2, 100, 100, 32, True, 1, 0.0, "bfloat16", "bfloat16"),
+    ("tc_split_few_rows_long_band", 1, 4, 2, 20, 3000, 64, True, 0, 0.0, "bfloat16", "bfloat16"),
+    ("tc_split_window_chunk", 2, 32, 8, 8, 4640, 120, True, 4096, 0.0, "bfloat16", "bfloat16"),
+    ("tc_split_no_visible_key", 1, 1, 1, 600, 520, 64, True, 0, 0.0, "bfloat16", "bfloat16"),
 ]
 
 

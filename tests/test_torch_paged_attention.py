@@ -13,19 +13,18 @@ per row, the wrapper checks the new arguments, and
 masked writes to the sink page on the host.
 
 On the card (``test_cuda_*``): the decode kernel (bf16, at most 16 packed
-rows) and the FMA kernel (a float32 cache under bf16 queries, float32, and
-multi-token paged steps with more than 16 packed rows) read through page
-tables of page length 1, 3, 16 and 256 with pages out of order, ragged
-lengths down to 1, a free lane whose table is all sink, windows and a
-softcap, against the plain version: bf16 within one bf16 ulp of each
-output row's scale plus 2^-7 relative and 2^-11 relative RMS, float32
-within 1e-5 (both compute in float32 and round once). Two calls give the
-same bits; each row gives the same bits paged as from a contiguous copy of
-its keys with the same ``kv_lens``; the C entry refuses a page table or
-``kv_lens`` for the tensor-core kernel.
+rows), the tensor-core kernel (bf16 multi-token paged steps with more than
+16 packed rows) and the FMA kernel (a float32 cache under bf16 queries,
+float32) read through page tables of page length 1, 3, 16 and 256 with
+pages out of order, ragged lengths down to 1, a free lane whose table is
+all sink, windows and a softcap, against the plain version: bf16 within
+one bf16 ulp of each output row's scale plus 2^-7 relative and 2^-11
+relative RMS, float32 within 1e-5 (both compute in float32 and round
+once). Two calls give the same bits; each row gives the same bits paged as
+from a contiguous copy of its keys with the same ``kv_lens``; the C entry
+takes a page table, ``kv_lens`` and a split KV range for the tensor-core
+kernel.
 """
-import ctypes
-
 import numpy as np
 import pytest
 import torch
@@ -194,9 +193,9 @@ CARD_CASES = [
      0.0, "fma"),
     ("decode_f32_p3_softcap", 2, 8, 2, 1, [7, 100], 64, 3, "float32", "float32", 0, 30.0, "fma"),
     ("multi_bf16_p256", 4, 32, 8, 8, [2120, 8, 600, 4000], 120, 256, "bfloat16", "bfloat16",
-     4096, 0.0, "fma"),
+     4096, 0.0, "tensor_cores"),
     ("multi_bf16_p1_window", 3, 8, 2, 9, [9, 30, 12], 64, 1, "bfloat16", "bfloat16", 7, 0.0,
-     "fma"),
+     "tensor_cores"),
     ("multi_f32cache_p16", 3, 32, 8, 5, [5, 900, 64], 120, 16, "bfloat16", "float32", 0, 0.0,
      "fma"),
     ("multi_f32_p3_softcap", 2, 4, 2, 33, [40, 100], 32, 3, "float32", "float32", 0, 25.0,
@@ -211,7 +210,8 @@ def test_cuda_paged_kernel_matches_plain(cuda, case):
                 getattr(torch, kvd), device=cuda)
     kw = dict(causal=True, window=window, softcap=softcap, kv_lens=pc["kv_lens"],
               max_kv_len=pc["max_kv_len"])
-    counter = "decode_launches" if kernel == "decode" else "fma_launches"
+    counter = dict(decode="decode_launches", tensor_cores="tensor_core_launches",
+                   fma="fma_launches")[kernel]
     before = (getattr(ops.flash_attention, counter), ops.flash_attention.paged_launches)
     got = ops.flash_attention(pc["q"], pc["k"], pc["v"], page_table=pc["page_table"], **kw)
     again = ops.flash_attention(pc["q"], pc["k"], pc["v"], page_table=pc["page_table"], **kw)
@@ -228,22 +228,40 @@ def test_cuda_paged_kernel_matches_plain(cuda, case):
     assert _close(got, want), float((got.float() - want.float()).abs().max())
 
 
-def test_cuda_tensor_core_kernel_refuses_paged_calls(cuda):
-    """The C entry refuses kv_lens or a page table for the tensor-core kernel
-    (kernel 1); the wrapper never sends it one."""
-    pc = _paged(3, 2, 32, 8, 64, [64, 200], 120, 16, device=cuda)
-    q, k, v, out = pc["q"], pc["k"], pc["v"], torch.empty_like(pc["q"])
-    lib = fa._lib()
-    stream = torch.cuda.current_stream().cuda_stream
-    kc, _ = _contiguous(pc)
-    for lens_ptr, table_ptr, kk, k_strides, skv in (
-            (pc["kv_lens"].data_ptr(), pc["page_table"].data_ptr(), k,
-             (0, k.stride(2), k.stride(1)), 200),
-            (pc["kv_lens"].data_ptr(), None, kc, kc.stride()[:3], 200)):
-        code = lib.flash_attention_fwd(
-            q.data_ptr(), kk.data_ptr(), kk.data_ptr(), out.data_ptr(), *q.stride()[:3],
-            *k_strides, *k_strides, *out.stride()[:3], 2, 32, 8, 64, skv, 120, 1.0, 1, 0,
-            0.0, 1, 1, 1, 1, None, None, lens_ptr, table_ptr,
-            pc["page_table"].shape[1] if table_ptr else 0, 16 if table_ptr else 0, stream)
-        assert code == 1, code          # cudaErrorInvalidValue
-    assert isinstance(lib, ctypes.CDLL)
+# (name, B, Sq, lens, runs): h2o-danube's heads (32 over 8, hd 120), pages
+# of 256 in random order, window 4,096; the last row a free lane. A verify
+# step's 8 queries are 32 packed rows (one row tile); 100 queries are 400
+# (four row tiles, the last with 16 rows), some rows fewer keys than Sq.
+TC_PAGED_CASES = [
+    ("verify_one_row_tile", 3, 8, [2100, 2200, 0], 4),
+    ("ragged_four_row_tiles", 4, 100, [2100, 700, 60, 0], 3),
+]
+
+
+@pytest.mark.parametrize("case", TC_PAGED_CASES, ids=[c[0] for c in TC_PAGED_CASES])
+def test_cuda_tensor_core_kernel_takes_paged_calls(cuda, case):
+    """The C entry's tensor-core kernel (kernel 1) with a page table,
+    kv_lens and the KV range split in runs: within ``_close`` of the plain
+    version, the same bits as on the same keys gathered into a contiguous
+    cache, and the same bits twice."""
+    name, b, sq, lens, runs = case
+    pc = _paged(3, b, 32, 8, sq, lens, 120, 256, device=cuda)
+    q, k, v = pc["q"], pc["k"], pc["v"]
+    kw = dict(causal=True, window=4096, softcap=0.0, scale=0.1, kv_lens=pc["kv_lens"])
+    kc, vc = _contiguous(pc)
+    n = pc["max_kv_len"]
+
+    def call(kk, vv, table):
+        out = torch.empty_like(q)
+        return fa.launch(q, kk, vv, out, 8, n, fa.TENSOR_CORES, runs, page_table=table, **kw)
+    before = ops.flash_attention.tensor_core_launches
+    got = call(k, v, pc["page_table"])
+    again = call(k, v, pc["page_table"])
+    flat = call(kc, vc, None)
+    want = tref.flash_attention_ref(q, k, v, page_table=pc["page_table"], max_kv_len=n, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.tensor_core_launches == before + 3
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    assert torch.equal(got, flat), "a row's bits depend on where its keys lie"
+    assert _close(got, want), float((got.float() - want.float()).abs().max())
